@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
-against its plain PyTorch version, and drive the serving path end to end.
+against its plain PyTorch version, and drive the serving path and the joint
+SAD training step end to end.
 
-    python3 chip_smoke.py [--seed 0] [--batch 8] [--iters 10] [--warmup 3]
+    python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
 Run from the root of the repository, on a machine with one NVIDIA Hopper
 card, nvcc and PyTorch built for CUDA. Inputs and weights are made from
@@ -21,6 +22,25 @@ line each (name, what was checked, time):
                  outputs with the plain NMS on the card; imgs/s
   teacher_infer  the same for the R-101-FPN teacher config (the forward and
                  decode of pseudo-labelling)
+  cls_loss_kernels
+                 csrc/cls_losses.cu (forward and backward) against the plain
+                 twin of ops/fused_losses.py on the card: the 5 flagship
+                 levels at bs 8 with G=4, a row count that is no multiple of a
+                 block, G=1, an ignored label that is a class, |x| > 90 (the
+                 FLT_MIN clamp), beta=0.5, non-integer gammas, PowSum off;
+                 per-group sums within 1e-5 relative (summation order: the
+                 kernel sums in double, the twin in float) and dx within
+                 1e-5 * max|dx| (ulp-level differences of exp/log/pow);
+                 median times of both kernels and the twin at the P3 shape
+  joint_step     the R-50 student and the frozen R-101 teacher at full width,
+                 --groups x 2 images on the 640x1024 canvas, bf16 compute,
+                 LR 1e-6: one step with the kernels and one with the plain
+                 twin from the same state (metrics within 1e-5 relative, the
+                 gradients of the 5 levels' cls logits within 1e-5 * max),
+                 then warm-up + timed steps: finite losses, every trainable
+                 tensor updated (non-zero momentum) and at least 90 % of them
+                 changed, frozen tensors and the teacher bit-identical,
+                 5 + 5 kernel launches a step; imgs/s
 
 Then a JSON line with every kernel of the path, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failure
@@ -123,6 +143,197 @@ def phase_nms(torch, rng, iters, warmup):
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
+# H100 SXM (on-chip-measurement guide): HBM rate and float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations an element of the cls-loss kernels, counted from the
+# source: two expf and one logf (~20 each with their range reduction), one
+# IEEE division (~10), ~30 multiplies/adds for the terms and the masks, and
+# for PowSum one powf (~40); the backward adds ~20 multiplies/adds
+CLS_FWD_OPS, CLS_FWD_POW_OPS, CLS_BWD_OPS = 100, 40, 120
+# flagship per-level grids (640x1024 canvas, strides 8..128), A = 9, C = 80
+LEVEL_HW = {3: (80, 128), 4: (40, 64), 5: (20, 32), 6: (10, 16), 7: (5, 8)}
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    """The least time of a piece of work on the H100: bytes over the memory
+    rate or operations over the float32 rate, whichever is larger."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _cls_case(torch, gen, rows, groups, x_scale=3.0, clamp_rows=0):
+    c = 80
+    x = torch.randn((rows, c), generator=gen, device="cuda") * x_scale
+    if clamp_rows:
+        x[:clamp_rows] = x[:clamp_rows].sign() * (90.0 + 10.0 * x[:clamp_rows].abs())
+    pt = torch.rand((rows, c), generator=gen, device="cuda") * 0.998 + 0.001
+    labels = torch.randint(-1, c + 1, (rows,), generator=gen, device="cuda", dtype=torch.int32)
+    gf = torch.rand((groups,), generator=gen, device="cuda") + 0.5
+    gd = torch.rand((groups,), generator=gen, device="cuda") + 0.5
+    return x, pt, labels, gf, gd
+
+
+def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
+    from sad_tpu_torch.ops import cls_loss_kernel as K
+    from sad_tpu_torch.ops.fused_losses import cls_losses_bwd_plain, cls_losses_fwd_plain
+
+    t0 = time.perf_counter()
+    flag = K.ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)  # the flagship config
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 9
+    cases = {f"P{l} bs{batch} G={groups}": (batch * h * w * a, groups, flag, {})
+             for l, (h, w) in LEVEL_HW.items()}
+    cases.update({
+        "rows not a multiple of a block, G=3": (3 * 1013, 3, flag, {}),
+        "G=1": (4099, 1, flag, {}),
+        "IGNORED_LABEL=5 (a class)": (2 * 3001, 2, flag._replace(ignored_label=5), {}),
+        "|x| > 90 (FLT_MIN clamp)": (4 * 2000, 4, flag, {"x_scale": 30.0, "clamp_rows": 4000}),
+        "beta=0.5": (2 * 5000, 2, flag._replace(beta_d=0.5), {}),
+        "gamma_f=1.5 gamma_d=2.5": (2 * 5000, 2, flag._replace(gamma_f=1.5, gamma_d=2.5), {}),
+        "PowSum off": (2 * 5000, 2, flag._replace(want_powsum=False), {}),
+    })
+    fwd_err = bwd_err = 0.0
+    for name, (rows, g, p, kw) in cases.items():
+        x, pt, labels, gf, gd = _cls_case(torch, gen, rows, g, **kw)
+        sums = K.cls_losses_fwd(x, pt, labels, g, p)
+        ref = cls_losses_fwd_plain(x, pt, labels, g, p)
+        dx = K.cls_losses_bwd(x, pt, labels, gf, gd, p)
+        dref = cls_losses_bwd_plain(x, pt, labels, gf, gd, p)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(ref).all()) and bool(torch.isfinite(dref).all())):
+            raise AssertionError(f"cls losses {name!r}: the plain twin is not finite")
+        rel = float(((sums - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+        if not p.want_powsum and bool(sums[:, 2].any()):
+            raise AssertionError(f"cls losses {name!r}: PowSum off but the kernel wrote one")
+        drel = float((dx - dref).abs().max() / dref.abs().max())
+        if not rel <= 1e-5 or not drel <= 1e-5:
+            raise AssertionError(f"cls losses {name!r}: sums rel err {rel:.3e}, dx err "
+                                 f"{drel:.3e} of max|dx| (limits 1e-5)")
+        fwd_err = max(fwd_err, float((sums - ref).abs().max()))
+        bwd_err = max(bwd_err, float((dx - dref).abs().max()))
+        del x, pt, labels, sums, ref, dx, dref
+
+    rows = batch * LEVEL_HW[3][0] * LEVEL_HW[3][1] * a
+    x, pt, labels, gf, gd = _cls_case(torch, gen, rows, groups)
+    ms_fwd = _median_ms(torch, lambda: K.cls_losses_fwd(x, pt, labels, groups, flag), iters * 5, warmup)
+    ms_bwd = _median_ms(torch, lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, flag), iters * 5, warmup)
+    plain_fwd = _median_ms(torch, lambda: cls_losses_fwd_plain(x, pt, labels, groups, flag), iters, warmup)
+    plain_bwd = _median_ms(torch, lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, flag), iters, warmup)
+    n = rows * 80
+    b_fwd = bound(8 * n + 4 * rows + 12 * groups, (CLS_FWD_OPS + CLS_FWD_POW_OPS) * n)
+    b_bwd = bound(12 * n + 4 * rows + 8 * groups, CLS_BWD_OPS * n)
+    _phase("cls_loss_kernels", f"{len(cases)} cases, sums within 1e-5 relative and dx within "
+           f"1e-5 * max|dx| of the plain twin; P3 bs{batch} ({rows} rows x 80, G={groups}): "
+           f"fwd kernel {ms_fwd:.4f} ms (plain {plain_fwd:.4f}, bound {b_fwd['bound_ms']:.4f}), "
+           f"bwd kernel {ms_bwd:.4f} ms (plain {plain_bwd:.4f}, bound {b_bwd['bound_ms']:.4f}) "
+           f"(median)", time.perf_counter() - t0)
+    return ({"max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": plain_fwd, **b_fwd},
+            {"max_abs_err": bwd_err, "ms": ms_bwd, "plain_ms": plain_bwd, **b_bwd})
+
+
+def _level_grads(torch, step, s_data, probs, batch):
+    """Loss and the gradients of the total loss w.r.t. the 5 levels' cls
+    logits, which isolates the loss kernels from cuDNN's backward."""
+    out = step.forward(s_data)
+    total, metrics = step.losses(out, probs, batch)
+    logits = list(out["cls_logits"].values())
+    return {k: v.detach() for k, v in metrics.items()}, torch.autograd.grad(total, logits)
+
+
+def phase_joint_step(torch, seed, groups, iters, warmup):
+    from sad_tpu_torch.ops import cls_loss_kernel
+    from sad_tpu_torch.ops.fused_losses import fused_cls_losses_raw_plain
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_train_step
+    from sad_tpu_torch.train import make_train_step
+    from sad_tpu_torch.tools.profile_infer import wall_seconds
+
+    t0 = time.perf_counter()
+    run = seeded_train_step(seed=seed, n_groups=groups, device="cuda")
+    if tuple(run.batch["data_u8"].shape) != (run.n_images, 640, 1024, 3):
+        raise AssertionError(f"joint step canvas {tuple(run.batch['data_u8'].shape)}")
+    step = run.step
+    plain = make_train_step(run.student_cfg, run.student, run.teacher, n_groups=groups,
+                            teacher_cfg=run.teacher_cfg, cls_losses=fused_cls_losses_raw_plain)
+
+    # kernels vs plain twin from the same state: a whole step each, then the
+    # gradients w.r.t. the cls logits of one forward each
+    params = dict(run.student.named_parameters())
+    snap = {n: p.detach().clone() for n, p in params.items()}
+    vsnap = {n: v.clone() for n, v in run.state.velocity.items()}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(snap[n])
+            for n, v in run.state.velocity.items():
+                v.copy_(vsnap[n])
+
+    m_kernel = step(run.state, run.batch, BENCH_LR)
+    restore()
+    m_plain = plain(run.state, run.batch, BENCH_LR)
+    restore()
+    worst = max(float((m_kernel[k] - m_plain[k]).abs() / m_plain[k].abs().clamp_min(1e-30))
+                for k in m_plain)
+    if sorted(m_kernel) != sorted(m_plain) or not worst <= 1e-5:
+        raise AssertionError(f"joint step metrics, kernels vs plain twin: worst rel err {worst:.3e}")
+    s_data, t_data = step.inputs(run.batch)
+    probs = step.teacher_probs(t_data)
+    _, g_kernel = _level_grads(torch, step, s_data, probs, run.batch)
+    _, g_plain = _level_grads(torch, plain, s_data, probs, run.batch)
+    gworst = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_kernel, g_plain))
+    if not gworst <= 1e-5:
+        raise AssertionError(f"cls-logit gradients, kernels vs plain twin: {gworst:.3e} of max")
+    del s_data, t_data, probs, g_kernel, g_plain
+
+    # the main path: warm-up and timed steps
+    t_mask = step.names
+    frozen = {n: snap[n] for n in params if n not in set(t_mask)}
+    teacher_snap = [p.detach().clone() for p in run.teacher.parameters()]
+    losses = []
+    cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = wall_seconds(lambda: losses.append(step(run.state, run.batch, BENCH_LR)["loss"]),
+                         iters, warmup)
+    torch.cuda.synchronize()
+    launches = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+    n_steps = iters + warmup
+    if launches != (5 * n_steps, 5 * n_steps):
+        raise AssertionError(f"cls-loss kernels launched {launches} times in {n_steps} "
+                             f"steps, want 5 + 5 a step")
+    vals = [float(v) for v in losses]
+    if not all(np.isfinite(vals)):
+        raise AssertionError(f"non-finite joint-step loss: {vals}")
+    # every trainable tensor got a gradient (its momentum is not zero), and
+    # the weights moved; at LR 1e-6 an update below half an ulp of its weight
+    # rounds away in float32 (e.g. the cls bias at -4.6), so a few may not
+    still = [n for n in t_mask if not bool(run.state.velocity[n].any())]
+    if still:
+        raise AssertionError(f"{len(still)} trainable tensors got no update, e.g. {still[:3]}")
+    unchanged = [n for n in t_mask if torch.equal(params[n], snap[n])]
+    if len(unchanged) > len(t_mask) // 10:
+        raise AssertionError(f"{len(unchanged)} of {len(t_mask)} trainable tensors did not "
+                             f"change, e.g. {unchanged[:3]}")
+    moved = [n for n in frozen if not torch.equal(params[n], frozen[n])]
+    if moved:
+        raise AssertionError(f"frozen student tensors changed: {moved[:3]}")
+    if not all(torch.equal(p, q) for p, q in zip(run.teacher.parameters(), teacher_snap)):
+        raise AssertionError("the teacher's parameters changed")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _phase("joint_step", f"R-50 student + R-101 teacher, {run.n_images}x640x1024 uint8, "
+           f"G={groups}, bf16, LR {BENCH_LR}: metrics of a kernel step and a plain-twin step "
+           f"within {worst:.2e} rel, cls-logit grads within {gworst:.2e} of max; {n_steps} "
+           f"steps, loss {vals[0]:.4f} -> {vals[-1]:.4f}, all {len(t_mask)} trainable tensors "
+           f"updated and {len(t_mask) - len(unchanged)} changed (unchanged: {unchanged}), "
+           f"{len(frozen)} frozen and the teacher bit-identical, kernels launched "
+           f"{launches[0]} fwd + {launches[1]} bwd; {run.n_images / med:.2f} imgs/s, "
+           f"{1000 * med:.3f} ms/step (median of {iters} after {warmup} warm-up), peak "
+           f"{peak:.2f} GiB", time.perf_counter() - t0)
+    return launches
+
+
 def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
     from sad_tpu_torch.eval.inference import decode_candidates, device_normalize, gather_detections
     from sad_tpu_torch.ops import nms_kernel
@@ -177,6 +388,7 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--groups", type=int, default=4, help="loss groups of 2 images, joint step")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
     args = p.parse_args(argv)
@@ -194,7 +406,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: sad_tpu_torch is not importable from {REPO}: {e}", file=sys.stderr)
         return 3
     from sad_tpu_torch.device import nvidia_smi_line, set_tf32
-    from sad_tpu_torch.ops import _build, nms_kernel
+    from sad_tpu_torch.ops import _build, cls_loss_kernel, nms_kernel
 
     t0 = time.perf_counter()
     gpu = nvidia_smi_line()
@@ -208,21 +420,45 @@ def main(argv=None) -> int:
 
     rng = np.random.RandomState(args.seed)
     nms_stats = phase_nms(torch, rng, args.iters, args.warmup)
+    fwd_stats, bwd_stats = phase_cls_losses(torch, args.seed, args.batch, args.groups,
+                                            args.iters, args.warmup)
 
-    nms_kernel.launches = 0  # count only the main path's launches from here
+    # the serving path: every count set to 0 just before it, read just after
+    nms_kernel.launches = cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
     phase_infer(torch, "student_infer", STUDENT_CFG, args.seed, args.batch,
                 args.iters, args.warmup)
     phase_infer(torch, "teacher_infer", TEACHER_CFG, args.seed + 1, args.batch,
                 args.iters, args.warmup)
-    main_path_launches = nms_kernel.launches
+    nms_launches = nms_kernel.launches
+    # the training path: the counts are set to 0 inside, after its comparisons
+    cls_launches = phase_joint_step(torch, args.seed, args.groups, args.iters, args.warmup)
 
+    # NMS at the decode shape: 100 dependent steps over N*K candidates, each
+    # an IoU (~15 operations) per live candidate; bytes: boxes and scores
+    # read once, idx and valid written once
+    n, k, max_out, _ = DECODE_SHAPE
+    nms_bound = bound(n * k * 20 + n * max_out * 5, 15 * n * k * max_out)
     print(json.dumps({"kernels": [{
         "name": "greedy_nms",
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/nms.cu",
         "replaces": "sad_tpu/ops/pallas_nms.py:45 (_nms_kernel) and :103 (_nms_kernel_batched)",
-        "launches": main_path_launches,
-        **nms_stats,
+        "launches": nms_launches,
+        **nms_stats, **nms_bound, "library_ms": None,
+    }, {
+        "name": "cls_losses_fwd",
+        "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:152 (_fwd_kernel) and :284 (_fwd_kernel_aligned)",
+        "launches": cls_launches[0],
+        **fwd_stats, "library_ms": None,
+    }, {
+        "name": "cls_losses_bwd",
+        "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
+        "launches": cls_launches[1],
+        **bwd_stats, "library_ms": None,
     }]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

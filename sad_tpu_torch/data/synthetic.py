@@ -1,8 +1,9 @@
-"""Seeded synthetic test-time batches for runs on the card (no files)."""
+"""Seeded synthetic batches for runs on the card (no files): test-time
+canvases and training entries with their images."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -25,3 +26,30 @@ def random_canvases(rng: np.random.RandomState, batch: int, canvas: Tuple[int, i
     im_hw = np.round(content / scale[:, None]).astype(np.float32)
     return {key: torch.from_numpy(v).to(device) for key, v in
             (("data", data), ("im_hw", im_hw), ("im_scale", scale), ("content_hw", content))}
+
+
+def random_train_entries(rng: np.random.RandomState, n: int, max_side: int = 1000,
+                         num_classes: int = 81, max_boxes: int = 8
+                         ) -> Tuple[List[dict], List[np.ndarray]]:
+    """``n`` landscape roidb entries with 1..max_boxes gt boxes each, and
+    their uint8 BGR images of random pixels: the inputs of
+    RetinaNetMinibatchBuilder.build. Sizes are drawn so that some images are
+    upscaled to the training scale and some downscaled (short sides of
+    360..800 px, long sides up to ``max_side``)."""
+    entries, images = [], []
+    for _ in range(n):
+        h = int(rng.randint(360, 801))
+        w = int(rng.randint(h, max(h, max_side) + 1))
+        k = int(rng.randint(1, max_boxes + 1))
+        x1 = rng.uniform(0, w - 33, k)
+        y1 = rng.uniform(0, h - 33, k)
+        x2 = np.minimum(x1 + rng.uniform(16, 400, k), w - 1)
+        y2 = np.minimum(y1 + rng.uniform(16, 400, k), h - 1)
+        entries.append({
+            "height": h, "width": w, "flipped": False,
+            "boxes": np.stack([x1, y1, x2, y2], axis=1).astype(np.float32),
+            "gt_classes": rng.randint(1, num_classes, k).astype(np.int32),
+            "is_crowd": np.zeros(k, bool),
+        })
+        images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+    return entries, images

@@ -25,8 +25,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from sad_tpu.data.anchors import retinanet_cell_anchors
-
+from ..data.anchors import retinanet_cell_anchors
 from ..ops.box_transforms import bbox_transform
 from ..ops.image_norm import normalize_u8_on_device
 from ..ops.nms import NEG_INF, batched_nms_multi

@@ -9,7 +9,7 @@ box voting (sad_tpu's RetinaNet branch ignores TEST.BBOX_AUG, TEST.SOFT_NMS
 and TEST.BBOX_VOTE too, sad_tpu/eval/test_engine.py:160), visualisation
 dumps and COCO evaluation.
 
-Dataset I/O reuses sad_tpu's host modules, which import no jax.
+Dataset I/O is the port's copy of sad_tpu's host modules (sad_tpu_torch.data).
 """
 
 from __future__ import annotations
@@ -23,9 +23,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from sad_tpu.data.dataset import CocoDataset
-from sad_tpu.data.minibatch import compute_im_scale, load_image_bgr, resize_bgr_u8
-
+from ..data.dataset import CocoDataset
+from ..data.minibatch import compute_im_scale, load_image_bgr, resize_bgr_u8
 from .inference import make_inference_fn
 
 logger = logging.getLogger(__name__)

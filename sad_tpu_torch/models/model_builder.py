@@ -1,5 +1,6 @@
-"""Model creation (ref: sad_tpu/models/model_builder.py:25-54) and seeded
-random initialisation.
+"""Model creation (ref: sad_tpu/models/model_builder.py:25-54), seeded
+random initialisation, and the parameter-role masks of training (ref:
+sad_tpu/models/model_builder.py:139-182).
 
 'retinanet' and 'distillation' both build a RetinaNet: for distillation,
 call create_model once with the teacher config and once with the student
@@ -9,27 +10,30 @@ config. The R-CNN families are not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ..device import get_device
 from .arch import arch_from_config
 from .retinanet import RetinaNet, cls_bias_init
 
 
-def create_model(cfg, device="cpu", generator: Optional[torch.Generator] = None
+def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
                  ) -> RetinaNet:
-    """RetinaNet for cfg.MODEL.TYPE, float32 parameters on ``device``,
-    initialised from ``generator`` (a torch.Generator on that device) with
-    the JAX model's initialiser distributions. Cast to the compute dtype
-    with ``model.to(compute_dtype(cfg))`` after loading weights."""
+    """RetinaNet for cfg.MODEL.TYPE, float32 parameters on ``device`` (the
+    card unless the caller asks for the CPU; no fallback), initialised from
+    ``generator`` (a torch.Generator on that device) with the JAX model's
+    initialiser distributions. Layers run in cfg.COMPUTE_DTYPE with the
+    float32 parameters cast per layer; for inference the model may be cast
+    once with ``model.to(compute_dtype(cfg))`` after loading weights."""
     if cfg.MODEL.TYPE not in ("retinanet", "distillation"):
         raise NotImplementedError(
             f"MODEL.TYPE={cfg.MODEL.TYPE!r} is not ported to sad_tpu_torch "
             "yet (ROADMAP.md Queue 1)"
         )
-    with torch.device(device):
+    with torch.device(get_device(device)):
         model = RetinaNet(arch_from_config(cfg))
     init_weights(model, generator)
     return model.eval()
@@ -79,3 +83,35 @@ def init_weights(model: RetinaNet, generator: Optional[torch.Generator] = None):
             m.bias.zero_()
     cls_pred = getattr(model.head, model.head.cls_pred)
     cls_pred.bias.copy_(cls_bias_init(a))
+
+
+def _is_affine_channel(path) -> bool:
+    return len(path) >= 2 and path[-2].endswith("_bn") and path[-1] in ("s", "b")
+
+
+def _is_frozen_stage(path, freeze_at: int) -> bool:
+    """conv1 + res2..res<freeze_at> are frozen when freeze_at >= 2."""
+    if freeze_at < 2:
+        return False
+    prefixes = ["conv1", "res_conv1_bn"] + [f"res{s}_" for s in range(2, freeze_at + 1)]
+    return any(name.startswith(pfx) for name in path for pfx in prefixes)
+
+
+def trainable_mask(model: nn.Module, freeze_at: int = 2,
+                   freeze_conv_body: bool = False) -> Dict[str, bool]:
+    """Parameter name -> trainable. Frozen: AffineChannel s/b everywhere
+    (affine_channel_op.cc:70-80), conv1..res{freeze_at}, and with
+    freeze_conv_body (TRAIN.FREEZE_CONV_BODY) the whole body and FPN
+    (model_builder.py:200-207)."""
+    out = {}
+    for name, _ in model.named_parameters():
+        path = name.split(".")
+        out[name] = not (_is_affine_channel(path) or _is_frozen_stage(path, freeze_at)
+                         or (freeze_conv_body and path[0] == "fpn"))
+    return out
+
+
+def bias_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> is a conv bias (2x LR, no weight decay;
+    optimizer.py:115-124)."""
+    return {name: name.endswith(".bias") for name, _ in model.named_parameters()}

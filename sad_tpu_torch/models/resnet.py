@@ -6,14 +6,21 @@ NCHW inside, as cuDNN prefers. Module names follow the Flax parameter tree
 sad_tpu_torch/convert.py is a renaming plus a kernel transpose, and the
 Detectron blob names stay one renaming away.
 
-The compute dtype is the dtype of the module's parameters: cast the model
-(``model.to(torch.bfloat16)``) and every conv and AffineChannel runs in it,
-as the JAX model casts its float32 params inside each layer.
+Parameters stay float32 and every layer runs in the dtype of its input,
+casting its weights to it, as the JAX model (param_dtype float32, dtype
+COMPUTE_DTYPE) does; the body casts the images to ``arch.compute_dtype``.
+So the optimizer updates float32 weights while convolutions run in bf16.
+For inference a model may also be cast once (``model.to(torch.bfloat16)``):
+the per-layer casts are then no-ops.
+
+FREEZE_AT: the output of stage res{FREEZE_AT} is detached, so no gradient
+reaches conv1..res{FREEZE_AT} (sad_tpu's stop_gradient, resnet.py:357-358;
+the reference's StopGradient, ResNet.py:103-122).
 
 Not ported, loadable and ignored: FOLD_AFFINE (the same outputs in f32),
 S2D_STEM (the same outputs; a TPU phrasing of conv1), REMAT_BACKBONE
-(training only), and the grouped-conv phrasings of sad_tpu/ops/grouped_conv.py
-(native ``groups=`` here). FREEZE_AT matters only for training.
+(activation rematerialisation), and the grouped-conv phrasings of
+sad_tpu/ops/grouped_conv.py (native ``groups=`` here).
 """
 
 from __future__ import annotations
@@ -42,10 +49,19 @@ class AffineChannel(nn.Module):
         return x * s + b
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in the dtype of its input: weight and bias are cast to it,
+    as a Flax conv with float32 params and a bf16 dtype casts its kernel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
-         groups: int = 1, bias: bool = False) -> nn.Conv2d:
+         groups: int = 1, bias: bool = False) -> Conv2d:
     """Conv with sad_tpu's symmetric ``(k-1)*d//2`` padding (resnet.py:51-68)."""
-    return nn.Conv2d(
+    return Conv2d(
         cin, cout, kernel, stride=stride, padding=((kernel - 1) * dilation) // 2,
         dilation=dilation, groups=groups, bias=bias,
     )
@@ -120,13 +136,15 @@ class ResNetBody(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = x.to(self.conv1.weight.dtype)
+        x = x.to(getattr(torch, self.arch.compute_dtype))
         p = F.relu(self.res_conv1_bn(self.conv1(x)))
         p = F.max_pool2d(p, 3, stride=2, padding=1)
         outputs = {}
         for stage_idx, names in enumerate(self.stages, start=2):
             for name in names:
                 p = getattr(self, name)(p)
+            if self.arch.freeze_at == stage_idx:
+                p = p.detach()
             outputs[f"res{stage_idx}_{len(names) - 1}_sum"] = p
         return outputs
 

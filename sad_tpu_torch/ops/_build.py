@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into one shared library, at first use.
 
-``nvcc`` compiles every ``sad_tpu_torch/csrc/*.cu`` for Hopper (sm_90a) into
-a shared library with a plain C interface, loaded with ctypes. The library
+``nvcc`` compiles every ``sad_tpu_torch/csrc/*.cu`` for Hopper (sm_90a), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, loaded with ctypes. The library
 lands in ``sad_tpu_torch/_build/`` (listed in .gitignore) under a name that
 carries the hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the library. A missing ``nvcc`` or a failed build
@@ -23,10 +24,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -85,12 +85,30 @@ def load_library() -> _Library:
     else:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        objs, procs = [], []
+        for src in _sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        logs = []
+        for cmd, proc in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise BuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{logs[-1]}")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        _LIB.log = proc.stdout + proc.stderr
+        _LIB.log = "".join(logs) + proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink()
         if proc.returncode != 0:
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{_LIB.log}")
+            raise BuildError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{_LIB.log}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     _LIB.lib = ctypes.CDLL(str(out))
     _LIB.path = out

@@ -19,8 +19,7 @@ import os
 import numpy as np
 import torch
 
-from sad_tpu.config import load_cfg
-
+from sad_tpu_torch.config import load_cfg
 from sad_tpu_torch.convert import load_checkpoint_params, load_params
 from sad_tpu_torch.device import get_device
 from sad_tpu_torch.eval.inference import make_inference_fn
@@ -53,8 +52,8 @@ def main(argv=None):
 
     from PIL import Image
 
-    from sad_tpu.data.minibatch import compute_im_scale, resize_bgr_u8
-    from sad_tpu.utils.vis import vis_one_image
+    from sad_tpu_torch.data.minibatch import compute_im_scale, resize_bgr_u8
+    from sad_tpu_torch.utils.vis import vis_one_image
 
     cfg = load_cfg(args.cfg_file)
     dev = get_device(args.device)

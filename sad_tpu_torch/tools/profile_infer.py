@@ -28,8 +28,7 @@ import time
 import numpy as np
 import torch
 
-from sad_tpu.config import load_cfg
-
+from sad_tpu_torch.config import load_cfg
 from sad_tpu_torch.data.synthetic import random_canvases
 from sad_tpu_torch.device import get_device, nvidia_smi_line, set_tf32
 from sad_tpu_torch.eval.inference import (

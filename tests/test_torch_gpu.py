@@ -7,12 +7,16 @@ import numpy as np
 import pytest
 import torch
 
-from sad_tpu.config.config import Config, merge_cfg_from_dict
+from sad_tpu_torch.config.config import Config, merge_cfg_from_dict
 from sad_tpu_torch.eval.inference import (
     decode_candidates, device_normalize, gather_detections, make_inference_fn,
 )
 from sad_tpu_torch.models import create_model
-from sad_tpu_torch.ops import nms, nms_kernel
+from sad_tpu_torch.ops import cls_loss_kernel, nms, nms_kernel
+from sad_tpu_torch.ops.cls_loss_kernel import ClsLossParams
+from sad_tpu_torch.ops.fused_losses import (
+    cls_losses_bwd_plain, cls_losses_fwd_plain, fused_cls_losses_raw,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -20,7 +24,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the NMS kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -85,3 +89,58 @@ def test_small_model_on_the_card_equals_plain_nms_decode(cuda):
     for key in ("boxes", "scores", "classes", "valid"):
         assert torch.equal(dets[key], ref[key]), key
     assert bool(dets["valid"].any())
+
+
+FLAGSHIP = ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
+
+
+def _cls_inputs(dev, rows, groups, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, 80), generator=gen, device=dev) * 3
+    x[: rows // 20] *= 40  # |x| > 90: the FLT_MIN clamp of log p
+    pt = torch.rand((rows, 80), generator=gen, device=dev) * 0.998 + 0.001
+    labels = torch.randint(-1, 81, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.rand((2, groups), generator=gen, device=dev) + 0.5
+    return x, pt, labels, g[0].contiguous(), g[1].contiguous()
+
+
+@pytest.mark.parametrize("rows,groups,params", [
+    (8 * 40 * 64 * 9, 4, FLAGSHIP),  # P4 at bs 8
+    (3 * 1013, 3, FLAGSHIP._replace(want_powsum=False)),
+    (4099, 1, FLAGSHIP._replace(gamma_f=1.5, gamma_d=2.5, beta_d=0.5, ignored_label=5)),
+])
+def test_cls_loss_kernels_equal_plain_twin(cuda, rows, groups, params):
+    """Sums within 1e-5 relative (the kernel sums in double, the twin in
+    float); dx within 1e-5 * max|dx|."""
+    x, pt, labels, gf, gd = _cls_inputs(cuda, rows, groups, rows)
+    before = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+    sums = cls_loss_kernel.cls_losses_fwd(x, pt, labels, groups, params)
+    dx = cls_loss_kernel.cls_losses_bwd(x, pt, labels, gf, gd, params)
+    assert (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = cls_losses_fwd_plain(x, pt, labels, groups, params)
+    dref = cls_losses_bwd_plain(x, pt, labels, gf, gd, params)
+    assert torch.all((sums - ref).abs() <= 1e-5 * ref.abs())
+    assert float((dx - dref).abs().max()) <= 1e-5 * float(dref.abs().max())
+
+
+def test_fused_losses_on_cuda_launch_both_kernels(cuda):
+    x, pt, labels, _, _ = _cls_inputs(cuda, 2 * 720, 2, 1)
+    x.requires_grad_(True)
+    before = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+    focal, distill, powsum = fused_cls_losses_raw(x, pt, labels, 2, FLAGSHIP)
+    (focal.sum() + distill.sum()).backward()
+    torch.cuda.synchronize()
+    assert (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+def test_cls_loss_kernels_refuse_cpu_tensors(cuda):
+    x, pt, labels, gf, gd = _cls_inputs(cuda, 64, 2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cls_loss_kernel.cls_losses_fwd(x.cpu(), pt, labels, 2, FLAGSHIP)
+    with pytest.raises(ValueError, match="CUDA"):
+        cls_loss_kernel.cls_losses_bwd(x, pt.cpu(), labels, gf, gd, FLAGSHIP)
+    with pytest.raises(TypeError, match="float32"):
+        cls_loss_kernel.cls_losses_fwd(x.double(), pt, labels, 2, FLAGSHIP)

@@ -1,6 +1,7 @@
 """sad_tpu_torch imports no jax, and asks for the card or raises: no silent
 fallback from CUDA to the CPU."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -35,23 +36,51 @@ def test_package_imports_no_jax():
 
 
 def test_chip_smoke_main_path_imports_no_sad_tpu():
-    """The modules chip_smoke.py drives import no jax, and of sad_tpu only its
-    jax-free host modules (config and anchors), none of its JAX code."""
+    """The modules chip_smoke.py drives, serving and training, import no jax
+    and no module of sad_tpu at all, not even its jax-free host modules:
+    the port keeps its own copies (the allow-list is empty)."""
     code = textwrap.dedent("""
         import sys
         import sad_tpu_torch.eval.inference, sad_tpu_torch.models
         import sad_tpu_torch.ops.nms_kernel, sad_tpu_torch.device
-        import sad_tpu_torch.tools.profile_infer
-        host = {"sad_tpu", "sad_tpu.config", "sad_tpu.config.config",
-                "sad_tpu.config.catalog", "sad_tpu.data", "sad_tpu.data.anchors",
-                "sad_tpu.data.dataset", "sad_tpu.data.minibatch"}
+        import sad_tpu_torch.ops.cls_loss_kernel, sad_tpu_torch.ops.fused_losses
+        import sad_tpu_torch.ops.losses, sad_tpu_torch.train, sad_tpu_torch.config
+        import sad_tpu_torch.data.minibatch, sad_tpu_torch.data.dataset
+        import sad_tpu_torch.tools.profile_infer, sad_tpu_torch.tools.profile_train
+        allowed = set()
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
-                  or (m.split(".")[0] == "sad_tpu" and m not in host)]
+                  or (m.split(".")[0] == "sad_tpu" and m not in allowed)]
         assert not leaked, leaked
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
+
+
+def _sad_tpu_imports(path: Path):
+    """(line, module) of every import of sad_tpu or a module under it."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names if n.split(".")[0] == "sad_tpu"]
+    return found
+
+
+def test_no_source_of_the_port_imports_sad_tpu():
+    """Static check: no file of sad_tpu_torch/ and not chip_smoke.py has an
+    `import sad_tpu...` or `from sad_tpu... import`, wherever it stands
+    (inside functions too). The gitignored build directory holds no source."""
+    pkg = REPO / "sad_tpu_torch"
+    files = sorted(f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts)
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) >= 30
+    bad = {str(f.relative_to(REPO)): hits for f in files if (hits := _sad_tpu_imports(f))}
+    assert not bad, bad
 
 
 def test_device_helper_raises_without_cuda():

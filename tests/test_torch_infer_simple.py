@@ -10,7 +10,7 @@ import torch
 import yaml
 from PIL import Image
 
-from sad_tpu.config import load_cfg
+from sad_tpu_torch.config import load_cfg
 from sad_tpu_torch.convert import state_dict_to_params
 from sad_tpu_torch.models import create_model
 from sad_tpu_torch.tools.infer_simple import main

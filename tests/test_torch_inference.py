@@ -7,7 +7,7 @@ Kept detections must be the same (class, score) multiset, scores within
 continuous, and these seeds put no IoU near the threshold. The pieces are
 checked element-wise too: image normalisation, content mask, box decode,
 the device copies of the cell anchors, and the decode alone on identical
-per-level outputs. Both packages read one sad_tpu Config."""
+per-level outputs. Each package reads the same settings with its own config module."""
 
 import dataclasses
 
@@ -26,6 +26,8 @@ from sad_tpu.models import RetinaNet as JaxRetinaNet
 from sad_tpu.ops.box_transforms import bbox_transform as j_bbox_transform
 from sad_tpu.ops.image_norm import content_mask as j_content_mask
 from sad_tpu.ops.image_norm import normalize_u8_on_device as j_normalize
+import sad_tpu_torch.config as tcfg
+from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.convert import load_params
 from test_torch_models import random_params
 from sad_tpu_torch.eval.inference import cell_anchors_on, decode_detections, make_inference_fn
@@ -63,7 +65,7 @@ def canvases(seed, n=2, canvas=(128, 256)):
 
 @pytest.fixture(scope="module")
 def slice_pair():
-    jc = tc = j_merge(jcfg.Config(), CFG)
+    jc, tc = j_merge(jcfg.Config(), CFG), t_merge(tcfg.Config(), CFG)
     arch = graft._tiny_arch()
     jmodel = JaxRetinaNet(arch)
     data, im_hw, scale, content = canvases(0)
@@ -104,7 +106,7 @@ def test_make_inference_fn_matches_sad_tpu(slice_pair):
 
 def test_save_res_returns_raw_maps(slice_pair):
     _, tc, _, _, port, (data, im_hw, scale, content) = slice_pair
-    tc = j_merge(tc, {"TEST": {"SAVE_RES": True}})
+    tc = t_merge(tc, {"TEST": {"SAVE_RES": True}})
     out = make_inference_fn(tc, port)(*(torch.from_numpy(a) for a in (data, im_hw, scale, content)))
     assert sorted(out["raw_cls_prob"]) == [3, 4, 5, 6, 7]
     assert out["raw_bbox_pred"][3].shape == (2, 16, 32, 36)
@@ -177,7 +179,7 @@ def test_rcnn_only_test_options_leave_retinanet_detections_alone(slice_pair, sec
     _, tc, _, _, port, (data, im_hw, scale, content) = slice_pair
     args = [torch.from_numpy(a) for a in (data, im_hw, scale, content)]
     base = make_inference_fn(tc, port)(*args)
-    on = make_inference_fn(j_merge(tc, {"TEST": {section: {"ENABLED": True}}}), port)(*args)
+    on = make_inference_fn(t_merge(tc, {"TEST": {section: {"ENABLED": True}}}), port)(*args)
     for key in ("boxes", "scores", "classes", "valid"):
         assert torch.equal(on[key], base[key]), key
 

@@ -17,6 +17,8 @@ from sad_tpu.config import register_dataset
 from sad_tpu.config.config import merge_cfg_from_dict as j_merge
 from sad_tpu.data.synth_coco import generate_synthetic_coco
 from sad_tpu.eval.test_engine import generate_pseudo_labels as j_generate
+import sad_tpu_torch.config as tcfg
+from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu.models import RetinaNet as JaxRetinaNet
 from sad_tpu_torch.convert import load_params
 from test_torch_models import random_params
@@ -45,15 +47,17 @@ def both_jsons(tmp_path_factory):
         objects_per_image=(1, 3), labeled=False,
     )
     register_dataset(DATASET, img_dir, info_json, allow_override=True)
+    tcfg.register_dataset(DATASET, img_dir, info_json, allow_override=True)
     arch = graft._tiny_arch(num_classes=9)
     jmodel = JaxRetinaNet(arch)
     params = random_params(jmodel, np.zeros((1, 128, 256, 3), np.float32), seed=4)
     port = load_params(RetinaNet(ModelArch(**dataclasses.asdict(arch))).eval(), params)
 
     ref_path, got_path = str(root / "jax.json"), str(root / "torch.json")
-    cfg = j_merge(jcfg.Config(), CFG)
-    j_generate(cfg, jmodel, params, DATASET, ref_path, score_thresh=0.3, batch_size=2)
-    generate_pseudo_labels(cfg, port, DATASET, got_path, score_thresh=0.3, batch_size=2)
+    j_generate(j_merge(jcfg.Config(), CFG), jmodel, params, DATASET, ref_path,
+               score_thresh=0.3, batch_size=2)
+    generate_pseudo_labels(t_merge(tcfg.Config(), CFG), port, DATASET, got_path,
+                           score_thresh=0.3, batch_size=2)
     with open(ref_path) as f:
         ref = json.load(f)
     with open(got_path) as f:
