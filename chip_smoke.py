@@ -143,7 +143,7 @@ def phase_nms(torch, rng, iters, warmup):
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
-# H100 SXM (on-chip-measurement guide): HBM rate and float32 rate outside the tensor cores
+# H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 operations an element of the cls-loss kernels, counted from the
