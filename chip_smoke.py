@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
-against its plain PyTorch version, and drive the serving path and the joint
-SAD training step end to end.
+against its plain PyTorch version, and drive the RetinaNet serving path, the
+joint SAD training step and Faster / Mask R-CNN serving end to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -14,7 +14,20 @@ line each (name, what was checked, time):
                  versions, TF32 switches, kernel build time
   nms_kernel     csrc/nms.cu against ops.nms.nms_multi_plain on the card:
                  idx and valid exactly equal on every case; median times of
-                 both at the decode shape (N=8, K=5000, max_out=100)
+                 both at the RetinaNet decode shape (N=8, K=5000, max_out=100),
+                 the RPN shape (N=40, K=1000, max_out=1000, thr 0.7) and the
+                 R-CNN decode shape (N=8, K=80000, max_out=100)
+  roi_align_kernel
+                 csrc/roi_align.cu against the plain twin of ops/roi_align.py
+                 on the card, float32 (within 1e-5 * max|ref| + 1e-6) and
+                 bfloat16 (every element within one bf16 ulp, 2^-7 of the
+                 larger magnitude): the box shape (R=8000, res 7) and the
+                 mask shape (R=800, res 14) on the four levels of a batch of 8
+                 800x1344 canvases at C=256, rois of every level; rois wholly
+                 outside the map, zero-area rois, extreme aspect ratios, rois
+                 on the last row and column, invalid slots, an odd R, C=64,
+                 C=3 (no vector loads), a 1x2 top level, sr 1 and 3; median
+                 times, bytes moved and the bound at both shapes
   student_infer  R-50-FPN student config, random bf16 weights, a batch of
                  uint8 640x1024 canvases through make_inference_fn; output
                  shapes, finite boxes, classes in 1..80, NMS kernel launched,
@@ -42,7 +55,19 @@ line each (name, what was checked, time):
                  changed, frozen tensors and the teacher bit-identical,
                  5 + 5 kernel launches a step; imgs/s
 
-Then a JSON line with every kernel of the path, the card's name and power
+  faster_rcnn_infer, mask_rcnn_infer
+                 the two R-50-FPN R-CNN configs, random bf16 weights with the
+                 output layers rescaled (tools/profile_infer.spread_rcnn_
+                 outputs), a batch of uint8 800x1344 canvases through
+                 make_rcnn_inference_fn: shapes, finite boxes, classes in
+                 1..80, the RPN fills its 1000 slots, at least 50 of an
+                 image's 100 slots valid, mask probabilities in [0, 1];
+                 detections (and masks) equal to a run of the same model with
+                 the plain NMS and plain RoIAlign in place of the kernels;
+                 2 NMS launches and 1 (Faster) or 2 (Mask) RoIAlign launches
+                 a batch; imgs/s
+
+Then a JSON line with every kernel of the paths, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failure
 raises and the exit code is not 0; without a CUDA card the script exits 2
 and prints no result.
@@ -51,6 +76,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -62,7 +88,13 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 STUDENT_CFG = "sad_tpu_torch/configs/retinanet_R-50-FPN_student.yaml"
 TEACHER_CFG = "sad_tpu_torch/configs/retinanet_R-101-FPN_teacher.yaml"
-DECODE_SHAPE = (8, 5000, 100, 0.5)  # N images, K = 5 levels x 1000, max_out, TEST.NMS
+FASTER_CFG = "sad_tpu_torch/configs/e2e_faster_rcnn_R-50-FPN.yaml"
+MASK_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml"
+# N problems, K candidates, max_out, threshold
+DECODE_SHAPE = (8, 5000, 100, 0.5)  # RetinaNet decode: 8 images, 5 levels x 1000
+RPN_SHAPE = (40, 1000, 1000, 0.7)  # R-CNN proposals: 5 levels x 8 images
+RCNN_DECODE_SHAPE = (8, 80000, 100, 0.5)  # R-CNN decode: 1000 rois x 80 classes
+RCNN_CANVAS = (800, 1344)
 
 
 def _phase(name: str, checked: str, seconds: float) -> None:
@@ -86,7 +118,7 @@ def _median_ms(torch, fn, iters: int, warmup: int) -> float:
 
 
 def _nms_case(torch, rng, n, k, clusters=60, invalid_from=None, tie_step=None,
-              all_invalid_rows=()):
+              all_invalid_rows=(), invalid_tail_rows=None, valid_share=None):
     """Clustered boxes on a 1024x640 canvas so real suppression happens."""
     centers = rng.uniform(0, [1024, 640], (n, clusters, 2))
     which = rng.randint(0, clusters, (n, k))
@@ -100,8 +132,22 @@ def _nms_case(torch, rng, n, k, clusters=60, invalid_from=None, tie_step=None,
         scores[:, invalid_from:] = np.float32(-1e30)
     for r in all_invalid_rows:
         scores[r] = np.float32(-1e30)
+    if invalid_tail_rows is not None:
+        rows, start = invalid_tail_rows
+        scores[list(rows), start:] = np.float32(-1e30)
+    if valid_share is not None:
+        scores[rng.uniform(size=(n, k)) > valid_share] = np.float32(-1e30)
     dev = "cuda"
     return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+
+
+def _nms_bound(n, k, max_out, valid):
+    """NMS on this run's data: each problem takes one step per kept box (and
+    one more that finds nothing live, unless max_out came first), each step
+    an IoU (~15 operations) per candidate; bytes: boxes and scores read once,
+    idx and valid written once."""
+    steps = int(valid.sum()) + int((~valid.all(dim=1)).sum())
+    return bound(n * k * 20 + n * max_out * 5, 15 * k * steps)
 
 
 def phase_nms(torch, rng, iters, warmup):
@@ -109,8 +155,18 @@ def phase_nms(torch, rng, iters, warmup):
 
     t0 = time.perf_counter()
     n, k, max_out, thr = DECODE_SHAPE
+    rn, rk, rmax, rthr = RPN_SHAPE
+    dn, dk, dmax, dthr = RCNN_DECODE_SHAPE
     cases = {
         "decode N=8 K=5000 thr=0.5": (_nms_case(torch, rng, n, k, invalid_from=4600), thr, max_out),
+        # a level's 1000 candidates of one image; the last 8 problems are the
+        # coarsest level's, 819 anchors padded to K with NEG_INF
+        "rpn N=40 K=1000 max_out=1000 thr=0.7": (
+            _nms_case(torch, rng, rn, rk, clusters=200,
+                      invalid_tail_rows=(range(32, 40), 819)), rthr, rmax),
+        # 1000 rois x 80 classes, class-offset boxes, ~3 % over SCORE_THRESH
+        "rcnn decode N=8 K=80000 thr=0.5": (
+            _nms_case(torch, rng, dn, dk, clusters=400, valid_share=0.03), dthr, dmax),
         "N=1 (nms_fixed)": (_nms_case(torch, rng, 1, 3000), 0.5, max_out),
         "K=1500 not a multiple of 1024, thr=0.3": (_nms_case(torch, rng, 3, 1500), 0.3, max_out),
         "invalid tail from 2000, thr=0.7": (_nms_case(torch, rng, 4, 5000, invalid_from=2000), 0.7, max_out),
@@ -134,13 +190,22 @@ def phase_nms(torch, rng, iters, warmup):
         if name == "all-invalid problem" and (bool(vk[1].any()) or bool(ik[1].any())):
             raise AssertionError("all-invalid problem emitted a detection")
         max_err = max(max_err, float((ik - ip).abs().max()))
-    (boxes, scores), _, _ = cases["decode N=8 K=5000 thr=0.5"]
-    ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, thr, max_out), iters * 5, warmup)
-    plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr, max_out), iters, warmup)
+    stats, said = {}, []
+    for key, name, plain_iters in (("decode", "decode N=8 K=5000 thr=0.5", iters),
+                                   ("rpn", "rpn N=40 K=1000 max_out=1000 thr=0.7", 3),
+                                   ("rcnn_decode", "rcnn decode N=8 K=80000 thr=0.5", iters)):
+        (boxes, scores), t, m = cases[name]
+        ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, t, m), iters * 5, warmup)
+        plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, t, m),
+                              plain_iters, 1)
+        _, valid = nms_kernel.nms_cuda(boxes, scores, t, m)
+        b = _nms_bound(*scores.shape, m, valid)
+        stats[key] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
+        said.append(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{b['bound_ms']:.4f} ms by {b['bound_by']}, {int(valid.sum())} kept")
     _phase("nms_kernel", f"{len(cases)} cases, idx and valid exactly equal to the plain "
-           f"version; decode shape N={n} K={k} max_out={max_out}: kernel {ms:.4f} ms, "
-           f"plain {plain_ms:.4f} ms (median)", time.perf_counter() - t0)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+           f"version; medians: " + "; ".join(said), time.perf_counter() - t0)
+    return stats
 
 
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
@@ -383,6 +448,289 @@ def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
     return batch / med
 
 
+def _rpn_like_rois(torch, rng, batch, per_im, canvas):
+    """Image-major rois as an RPN at work makes them: log-uniform sizes from
+    16 px to the canvas height, aspect ratios 1:3..3:1, anywhere on the
+    canvas and clipped to it, 2 % of the slots invalid."""
+    ch, cw = canvas
+    r = batch * per_im
+    size = np.exp(rng.uniform(np.log(16.0), np.log(float(ch)), r))
+    ar = np.exp(rng.uniform(-np.log(3.0), np.log(3.0), r))
+    w, h = size * np.sqrt(ar), size / np.sqrt(ar)
+    cx, cy = rng.uniform(0, cw, r), rng.uniform(0, ch, r)
+    boxes = np.stack([np.clip(cx - w / 2, 0, cw - 1), np.clip(cy - h / 2, 0, ch - 1),
+                      np.clip(cx + w / 2, 0, cw - 1), np.clip(cy + h / 2, 0, ch - 1)], axis=1)
+    rois = np.concatenate([np.repeat(np.arange(batch), per_im)[:, None], boxes], axis=1)
+    valid = rng.uniform(size=r) > 0.02
+    return (torch.from_numpy(rois.astype(np.float32)).cuda(), torch.from_numpy(valid).cuda())
+
+
+def _edge_rois(torch, rng, batch, canvas, r):
+    """rois that exercise the edge rules: wholly outside the map, zero area,
+    1:60 and 60:1 aspect ratios, on the last row and column, negative
+    extents, and random ones; a fifth of the slots invalid."""
+    ch, cw = canvas
+    xy = rng.uniform(0, [cw * 0.9, ch * 0.9], (r, 2))
+    wh = np.exp(rng.uniform(np.log(2.0), np.log(ch * 0.9), (r, 2)))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [cw - 1, ch - 1])], axis=1)
+    special = [
+        [-3.0 * cw, -2.0 * ch, -2.5 * cw, -1.5 * ch], [2.0 * cw, 2.0 * ch, 2.5 * cw, 2.2 * ch],
+        [10.0, 10.0, 10.0, 10.0], [cw / 2, ch / 2, cw / 2, ch / 2 + 30],
+        [5.0, 1.0, 9.0, ch - 2.0], [1.0, 5.0, cw - 2.0, 9.0],
+        [cw - 20.0, ch - 12.0, cw - 1.0, ch - 1.0], [cw - 1.0, ch - 1.0, cw - 1.0, ch - 1.0],
+        [0.0, 0.0, cw - 1.0, ch - 1.0], [30.0, 40.0, 20.0, 10.0],
+        [-8.0, -8.0, 12.0, 12.0], [cw - 6.0, ch - 6.0, cw + 40.0, ch + 40.0],
+    ]
+    boxes[:len(special)] = special
+    rois = np.concatenate([np.sort(rng.randint(0, batch, r))[:, None], boxes], axis=1)
+    valid = rng.uniform(size=r) > 0.2
+    valid[:len(special)] = True
+    return (torch.from_numpy(rois.astype(np.float32)).cuda(), torch.from_numpy(valid).cuda())
+
+
+def _roi_feats(torch, gen, batch, canvas, c, dtype, lvl_min=2, lvl_max=5):
+    return {l: torch.randn((batch, max(canvas[0] >> l, 1), max(canvas[1] >> l, 1), c),
+                           generator=gen, device="cuda").to(dtype)
+            for l in range(lvl_min, lvl_max + 1)}
+
+
+def _roi_align_bound(torch, feats, rois, levels, valid, res, sr):
+    """RoIAlign on this run's data. Bytes: the output written once, every
+    feature cell that a valid roi's samples touch read once, the rois, levels
+    and valid flags read once. Operations: a multiply and an add per tap, 4
+    taps a sample, sr x sr samples an output element."""
+    from sad_tpu_torch.ops.roi_align import roi_geometry
+
+    lvls = sorted(feats)
+    b, c = feats[lvls[0]].shape[0], feats[lvls[0]].shape[-1]
+    dims = [(feats[l].shape[1], feats[l].shape[2]) for l in lvls]
+    li, bi, _, _, (ylo, yhi, wylo, wyhi), (xlo, xhi, wxlo, wxhi) = roi_geometry(
+        dims, lvls[0], b, rois, levels, res, sr)
+    r = rois.shape[0]
+    # a sample outside [-1, n] has weight 0 on both taps and needs no cell
+    y_in = ((wylo + wyhi) > 0).float().reshape(r, -1)
+    x_in = ((wxlo + wxhi) > 0).float().reshape(r, -1)
+    ylo, yhi, xlo, xhi = (t.reshape(r, -1) for t in (ylo, yhi, xlo, xhi))
+    touched = 0
+    for k, (h, w) in enumerate(dims):
+        for img in range(b):
+            sel = valid & (li == k) & (bi == img)
+            n_sel = int(sel.sum())
+            if n_sel == 0:
+                continue
+            rows = torch.zeros((n_sel, h), device="cuda")
+            cols = torch.zeros((n_sel, w), device="cuda")
+            rows.scatter_add_(1, ylo[sel], y_in[sel]).scatter_add_(1, yhi[sel], y_in[sel])
+            cols.scatter_add_(1, xlo[sel], x_in[sel]).scatter_add_(1, xhi[sel], x_in[sel])
+            touched += int((((rows > 0).float().T @ (cols > 0).float()) > 0).sum())
+    esize = feats[lvls[0]].element_size()
+    out_elems = r * res * res * c
+    bytes_moved = out_elems * esize + touched * c * esize + r * (20 + 4 + 1)
+    return bound(bytes_moved, 2 * 4 * sr * sr * out_elems), bytes_moved, touched
+
+
+def _roi_align_check(torch, name, feats, rois, levels, valid, res, sr):
+    """Kernel against plain twin on one case; returns max abs err."""
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+
+    got = multilevel_roi_align(feats, rois, levels, valid, res, sr)
+    ref = multilevel_roi_align_plain(feats, rois, levels, valid, res, sr)
+    torch.cuda.synchronize()
+    dtype = feats[min(feats)].dtype
+    if got.dtype != dtype or got.shape != ref.shape or not bool(torch.isfinite(ref.float()).all()):
+        raise AssertionError(f"roi_align {name!r}: dtype/shape/finite check failed")
+    if bool(got[~valid].any()):
+        raise AssertionError(f"roi_align {name!r}: an invalid roi is not all zeros")
+    g, f = got.float(), ref.float()
+    err = (g - f).abs()
+    if dtype == torch.float32:
+        limit = 1e-5 * float(f.abs().max()) + 1e-6
+        bad = int((err > limit).sum())
+    else:  # one bf16 ulp: 2^-7 of the larger magnitude
+        bad = int((err > 2.0 ** -7 * torch.maximum(g.abs(), f.abs())).sum())
+    if bad:
+        raise AssertionError(f"roi_align {name!r} ({dtype}): {bad} of {err.numel()} elements "
+                             f"beyond the tolerance, max abs err {float(err.max()):.3e}")
+    return float(err.max()), float((g == f).float().mean())
+
+
+def phase_roi_align(torch, seed, batch, iters, warmup):
+    from sad_tpu_torch.ops import roi_align_kernel
+    from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 7)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    n_cases, worst, stats, said = 0, 0.0, {}, []
+    before = roi_align_kernel.launches
+
+    # the two shapes of the main path, both dtypes; times at bf16, the path's dtype
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = _roi_feats(torch, gen, batch, RCNN_CANVAS, 256, dtype)
+        for key, per_im, res in (("box", 1000, 7), ("mask", 100, 14)):
+            rois, valid = _rpn_like_rois(torch, rng, batch, per_im, RCNN_CANVAS)
+            levels = map_rois_to_fpn_levels(rois[:, 1:], 2, 5)
+            err, same = _roi_align_check(torch, f"{key} shape", feats, rois, levels, valid, res, 2)
+            worst, n_cases = max(worst, err), n_cases + 1
+            if dtype != torch.bfloat16:
+                continue
+            ms = _median_ms(torch, lambda: multilevel_roi_align(feats, rois, levels, valid, res, 2),
+                            iters * 5, warmup)
+            plain_ms = _median_ms(torch, lambda: multilevel_roi_align_plain(
+                feats, rois, levels, valid, res, 2), iters, warmup)
+            b, nbytes, touched = _roi_align_bound(torch, feats, rois, levels, valid, res, 2)
+            counts = torch.bincount(levels[valid], minlength=6)[2:].tolist()
+            if min(counts) == 0:
+                raise AssertionError(f"roi_align {key} shape: a level got no roi: {counts}")
+            stats[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            said.append(f"{key} shape R={rois.shape[0]} res={res} bf16, rois per level P2..P5 "
+                        f"{counts}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"{nbytes / 1e6:.1f} MB ({touched} cells touched), bound "
+                        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, max abs err {err:.3e}, "
+                        f"{100 * same:.3f} % of elements bit-equal")
+        del feats
+
+    # edge rules, odd sizes and the scalar-load path, both dtypes
+    small = (256, 384)
+    edge = [  # name, batch, canvas, C, R, res, sr, levels
+        ("edge rois, C=64, R=37", 2, small, 64, 37, 7, 2, (2, 5)),
+        ("edge rois, res 14", 2, small, 64, 53, 14, 2, (2, 5)),
+        ("C=3: no vector loads", 3, small, 3, 29, 7, 2, (2, 5)),
+        ("C=20 float32 vectors, bf16 scalars", 1, small, 20, 31, 7, 2, (2, 5)),
+        ("1x2 top level", 1, (32, 64), 256, 16, 7, 2, (2, 5)),
+        ("one level only", 2, small, 64, 23, 7, 2, (3, 3)),
+        ("sr=1", 2, small, 64, 37, 7, 1, (2, 5)),
+        ("sr=3", 2, small, 64, 37, 7, 3, (2, 5)),
+    ]
+    for name, b, canvas, c, r, res, sr, (lo, hi) in edge:
+        rois, valid = _edge_rois(torch, rng, b, canvas, r)
+        levels = map_rois_to_fpn_levels(rois[:, 1:], lo, hi)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = _roi_feats(torch, gen, b, canvas, c, dtype, lo, hi)
+            if name == "1x2 top level" and tuple(feats[5].shape[1:3]) != (1, 2):
+                raise AssertionError(f"top level is {tuple(feats[5].shape)}")
+            err, _ = _roi_align_check(torch, name, feats, rois, levels, valid, res, sr)
+            worst, n_cases = max(worst, err), n_cases + 1
+    # all rois invalid: zeros, and the kernel still counts as launched
+    feats = _roi_feats(torch, gen, 1, small, 64, torch.bfloat16)
+    rois, valid = _edge_rois(torch, rng, 1, small, 19)
+    out = multilevel_roi_align(feats, rois, map_rois_to_fpn_levels(rois[:, 1:], 2, 5),
+                               torch.zeros_like(valid), 7, 2)
+    if bool(out.any()):
+        raise AssertionError("roi_align: all-invalid rois gave non-zero output")
+    n_cases += 1
+    # the card path is forward-only
+    feats = {l: f.float().requires_grad_(True) for l, f in feats.items()}
+    out = multilevel_roi_align(feats, rois, map_rois_to_fpn_levels(rois[:, 1:], 2, 5), valid, 7, 2)
+    try:
+        out.sum().backward()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("roi_align backward on the card did not raise")
+    launched = roi_align_kernel.launches - before
+    _phase("roi_align_kernel", f"{n_cases} cases within tolerance of the plain twin (float32 "
+           f"1e-5 * max|ref| + 1e-6; bfloat16 one ulp), worst abs err {worst:.3e}, "
+           f"{launched} launches; medians: " + "; ".join(said), time.perf_counter() - t0)
+    return stats
+
+
+@contextlib.contextmanager
+def _plain_twins():
+    """For a check only: the plain NMS and the plain RoIAlign in place of the
+    two CUDA wrappers, so that the same entry points run without a kernel."""
+    from sad_tpu_torch.ops import nms, nms_kernel, roi_align, roi_align_kernel
+
+    def plain_roi_align(feats, lvl_min, rois, levels, valid, res, sr):
+        return roi_align.multilevel_roi_align_plain(
+            {lvl_min + i: f for i, f in enumerate(feats)}, rois, levels, valid, res, sr)
+
+    saved = nms_kernel.nms_cuda, roi_align_kernel.roi_align_fwd_cuda
+    nms_kernel.nms_cuda, roi_align_kernel.roi_align_fwd_cuda = nms.nms_multi_plain, plain_roi_align
+    try:
+        yield
+    finally:
+        nms_kernel.nms_cuda, roi_align_kernel.roi_align_fwd_cuda = saved
+
+
+def phase_rcnn_infer(torch, name, cfg_path, seed, batch, iters, warmup):
+    from sad_tpu_torch.eval.inference import device_normalize
+    from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
+    from sad_tpu_torch.tools.profile_infer import seeded_inference, wall_seconds
+
+    t0 = time.perf_counter()
+    cfg, model, infer, args = seeded_inference(os.path.join(REPO, cfg_path), seed, batch, "cuda")
+    if tuple(args[0].shape) != (batch, *RCNN_CANVAS, 3):
+        raise AssertionError(f"{name}: canvas {tuple(args[0].shape)}")
+    dets = infer(*args)
+    torch.cuda.synchronize()
+    max_out, n_fg = cfg.TEST.DETECTIONS_PER_IM, cfg.MODEL.NUM_CLASSES - 1
+    keys = ("boxes", "scores", "classes", "valid")
+    for key in keys:
+        want = (batch, max_out, 4) if key == "boxes" else (batch, max_out)
+        if tuple(dets[key].shape) != want:
+            raise AssertionError(f"{name}: {key} shape {tuple(dets[key].shape)} != {want}")
+    valid = dets["valid"]
+    if not bool(torch.isfinite(dets["boxes"]).all()) or not bool(torch.isfinite(dets["scores"]).all()):
+        raise AssertionError(f"{name}: non-finite boxes or scores")
+    cls = dets["classes"][valid]
+    per_im = valid.sum(dim=1).tolist()
+    if min(per_im) < max_out // 2 or int(cls.min()) < 1 or int(cls.max()) > n_fg:
+        raise AssertionError(f"{name}: detections per image {per_im} (want >= {max_out // 2} "
+                             f"each), classes outside 1..{n_fg}")
+    with torch.inference_mode():
+        out = model(device_normalize(cfg, args[0], args[3]), args[1])
+    if not bool(out["roi_valid"].all()) or tuple(out["rois"].shape) != (
+            batch, cfg.TEST.RPN_POST_NMS_TOP_N, 4):
+        raise AssertionError(f"{name}: the RPN filled {out['roi_valid'].sum(dim=1).tolist()} of "
+                             f"{cfg.TEST.RPN_POST_NMS_TOP_N} slots an image")
+    roi_levels = torch.bincount(out["roi_levels"].reshape(-1), minlength=6)[2:].tolist()
+    del out
+    if cfg.MODEL.MASK_ON:
+        keys += ("mask_prob",)
+        m = cfg.MRCNN.RESOLUTION
+        mp = dets["mask_prob"]
+        if tuple(mp.shape) != (batch, max_out, m, m, cfg.MODEL.NUM_CLASSES) or not bool(
+                ((mp >= 0) & (mp <= 1)).all()):
+            raise AssertionError(f"{name}: mask_prob shape {tuple(mp.shape)} or values outside [0, 1]")
+
+    # the same model and batch with the plain NMS and plain RoIAlign
+    counts = nms_kernel.launches, roi_align_kernel.launches
+    with _plain_twins():
+        ref = infer(*args)
+    torch.cuda.synchronize()
+    if (nms_kernel.launches, roi_align_kernel.launches) != counts:
+        raise AssertionError(f"{name}: the plain-twin run launched a kernel")
+    for key in keys:
+        if not torch.equal(dets[key], ref[key]):
+            diff = (dets[key].float() - ref[key].float()).abs()
+            raise AssertionError(f"{name}: {key} differs from the plain-twin run: "
+                                 f"{int((diff > 0).sum())} entries, max {float(diff.max()):.3e}")
+    del ref
+
+    # the main path: counts set to 0 just before, read just after
+    nms_kernel.launches = roi_align_kernel.launches = 0
+    times = wall_seconds(lambda: infer(*args), iters, warmup)
+    launches = nms_kernel.launches, roi_align_kernel.launches
+    n_batches = iters + warmup
+    want = (2 * n_batches, (2 if cfg.MODEL.MASK_ON else 1) * n_batches)
+    if launches != want:
+        raise AssertionError(f"{name}: {launches} NMS / RoIAlign launches in {n_batches} "
+                             f"batches, want {want}")
+    med = statistics.median(times)
+    _phase(name, f"{cfg_path}: {batch}x{RCNN_CANVAS[0]}x{RCNN_CANVAS[1]} uint8, bf16; RPN filled "
+           f"all {cfg.TEST.RPN_POST_NMS_TOP_N} slots (rois per level P2..P5 {roi_levels}), "
+           f"detections per image {per_im}, classes in 1..{n_fg}, finite"
+           + (", mask_prob in [0, 1]" if cfg.MODEL.MASK_ON else "")
+           + f"; {', '.join(keys)} equal to the plain-twin run; {launches[0]} NMS and "
+           f"{launches[1]} RoIAlign launches in {n_batches} batches; {batch / med:.2f} imgs/s, "
+           f"{1000 * med / batch:.3f} ms/img (median of {iters} after {warmup} warm-up)",
+           time.perf_counter() - t0)
+    return {"imgs_per_s": batch / med, "nms_launches": launches[0],
+            "roi_align_launches": launches[1], "mask": bool(cfg.MODEL.MASK_ON)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -406,7 +754,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: sad_tpu_torch is not importable from {REPO}: {e}", file=sys.stderr)
         return 3
     from sad_tpu_torch.device import nvidia_smi_line, set_tf32
-    from sad_tpu_torch.ops import _build, cls_loss_kernel, nms_kernel
+    from sad_tpu_torch.ops import _build, cls_loss_kernel, nms_kernel, roi_align_kernel
 
     t0 = time.perf_counter()
     gpu = nvidia_smi_line()
@@ -420,11 +768,13 @@ def main(argv=None) -> int:
 
     rng = np.random.RandomState(args.seed)
     nms_stats = phase_nms(torch, rng, args.iters, args.warmup)
+    roi_stats = phase_roi_align(torch, args.seed, args.batch, args.iters, args.warmup)
     fwd_stats, bwd_stats = phase_cls_losses(torch, args.seed, args.batch, args.groups,
                                             args.iters, args.warmup)
 
-    # the serving path: every count set to 0 just before it, read just after
-    nms_kernel.launches = cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
+    # the RetinaNet serving path: every count set to 0 just before it, read just after
+    nms_kernel.launches = roi_align_kernel.launches = 0
+    cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
     phase_infer(torch, "student_infer", STUDENT_CFG, args.seed, args.batch,
                 args.iters, args.warmup)
     phase_infer(torch, "teacher_infer", TEACHER_CFG, args.seed + 1, args.batch,
@@ -432,19 +782,44 @@ def main(argv=None) -> int:
     nms_launches = nms_kernel.launches
     # the training path: the counts are set to 0 inside, after its comparisons
     cls_launches = phase_joint_step(torch, args.seed, args.groups, args.iters, args.warmup)
+    # the R-CNN serving paths: the counts are set to 0 inside, after the comparisons
+    faster = phase_rcnn_infer(torch, "faster_rcnn_infer", FASTER_CFG, args.seed + 2, args.batch,
+                              args.iters, args.warmup)
+    mask = phase_rcnn_infer(torch, "mask_rcnn_infer", MASK_CFG, args.seed + 3, args.batch,
+                            args.iters, args.warmup)
+    if nms_kernel.launches != mask["nms_launches"] or (
+            roi_align_kernel.launches != mask["roi_align_launches"]):
+        raise AssertionError("a kernel was launched after the last main-path run")
+    rcnn_batches = (faster["nms_launches"] + mask["nms_launches"]) // 2
 
-    # NMS at the decode shape: 100 dependent steps over N*K candidates, each
-    # an IoU (~15 operations) per live candidate; bytes: boxes and scores
-    # read once, idx and valid written once
-    n, k, max_out, _ = DECODE_SHAPE
-    nms_bound = bound(n * k * 20 + n * max_out * 5, 15 * n * k * max_out)
-    print(json.dumps({"kernels": [{
-        "name": "greedy_nms",
+    nms_entry = {
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/nms.cu",
         "replaces": "sad_tpu/ops/pallas_nms.py:45 (_nms_kernel) and :103 (_nms_kernel_batched)",
-        "launches": nms_launches,
-        **nms_stats, **nms_bound, "library_ms": None,
+        "library_ms": None,
+    }
+    roi_entry = {
+        "route": "cuda",
+        "source": "sad_tpu_torch/csrc/roi_align.cu",
+        "replaces": "sad_tpu/ops/pallas_roi_align.py:234 (_mlra_kernel)",
+        "library_ms": None,
+    }
+    print(json.dumps({"kernels": [{
+        # RetinaNet decode shape; launches of the two RetinaNet serving runs
+        "name": "greedy_nms", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
+    }, {
+        # one launch a batch of each R-CNN serving run, at each of the two shapes
+        "name": "greedy_nms@rpn", "launches": rcnn_batches, **nms_stats["rpn"], **nms_entry,
+    }, {
+        "name": "greedy_nms@rcnn_decode", "launches": rcnn_batches,
+        **nms_stats["rcnn_decode"], **nms_entry,
+    }, {
+        # box RoIAlign: one launch a batch of both R-CNN runs; mask: of the Mask R-CNN run
+        "name": "roi_align_fwd@box", **roi_stats["box"], **roi_entry,
+        "launches": faster["roi_align_launches"] + mask["roi_align_launches"] // 2,
+    }, {
+        "name": "roi_align_fwd@mask", **roi_stats["mask"], **roi_entry,
+        "launches": mask["roi_align_launches"] // 2,
     }, {
         "name": "cls_losses_fwd",
         "route": "cuda",

@@ -5,8 +5,16 @@ A sad_tpu param tree is nested dicts of numpy arrays, e.g.
 port's modules carry the same names, so a path maps to a state_dict key by
 joining with '.', and only the leaves change:
 
-- ``kernel`` (HWIO, grouped ``(k, k, cin/g, cout)``) <-> ``weight`` (OIHW,
-  ``(cout, cin/g, k, k)``);
+- a 4-D ``kernel`` (HWIO, grouped ``(k, k, cin/g, cout)``) <-> ``weight``
+  (OIHW, ``(cout, cin/g, k, k)``);
+- a 2-D ``kernel`` of a Flax Dense ``(in, out)`` <-> ``nn.Linear.weight``
+  ``(out, in)``;
+- the ``kernel`` of a Flax ConvTranspose ``(kh, kw, in, out)`` <->
+  ``nn.ConvTranspose2d.weight`` ``(in, out, kh, kw)``, flipped on both
+  spatial axes: Flax's ConvTranspose (transpose_kernel=False) correlates the
+  dilated input with the kernel as stored, PyTorch's is the gradient of a
+  convolution. Which modules are transposed convolutions is known by name
+  (``CONV_TRANSPOSE_MODULES``, the reference's blob names);
 - ``bias`` and the AffineChannel ``s``/``b`` copy as they are.
 
 The Detectron blob name of a leaf is its last module name plus ``_w``,
@@ -24,6 +32,11 @@ import torch
 from torch import nn
 
 
+# modules that are nn.ConvTranspose in sad_tpu (models/rcnn.py: the mask
+# head's 2x deconv and the keypoint head's deconv output)
+CONV_TRANSPOSE_MODULES = ("conv5_mask", "kps_score_lowres")
+
+
 def _walk(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -39,12 +52,18 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         *mods, name = path
         arr = np.asarray(leaf)
         if name == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 4-D HWIO kernel")
-            name, arr = "weight", arr.transpose(3, 2, 0, 1)
+            name = "weight"
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim != 4:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense or a 4-D conv kernel")
+            elif mods and mods[-1] in CONV_TRANSPOSE_MODULES:
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(3, 2, 0, 1)
         elif name not in ("bias", "s", "b"):
             raise KeyError(f"unknown parameter leaf {'/'.join(path)}")
-        sd[".".join(mods + [name])] = torch.tensor(arr)  # a contiguous copy
+        sd[".".join(mods + [name])] = torch.tensor(np.ascontiguousarray(arr))  # a copy
     return sd
 
 
@@ -55,7 +74,15 @@ def state_dict_to_params(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         *mods, name = key.split(".")
         arr = t.detach().to("cpu", torch.float32).numpy()
         if name == "weight":
-            name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            name = "kernel"
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim != 4:
+                raise ValueError(f"{key}: expected a 2-D linear or a 4-D conv weight")
+            elif mods and mods[-1] in CONV_TRANSPOSE_MODULES:
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                arr = arr.transpose(2, 3, 1, 0)
         elif name not in ("bias", "s", "b"):
             raise KeyError(f"unknown state_dict entry {key}")
         node = tree

@@ -96,6 +96,22 @@ def retinanet_cell_anchors(
     return np.stack(rows, axis=0)
 
 
+def rpn_cell_anchors(
+    level: int,
+    min_level: int,
+    start_size: float,
+    aspect_ratios: Sequence[float],
+) -> np.ndarray:
+    """(A, 4) cell anchors of one FPN RPN level: one size, FPN.RPN_ANCHOR_
+    START_SIZE doubled per level above ``min_level``, in every aspect ratio
+    (rpn_heads.py FPN path; sad_tpu/models/rcnn.py:293-304)."""
+    stride = 2.0 ** level
+    size = start_size * (2 ** (level - min_level))
+    return np.concatenate(
+        [generate_cell_anchors(stride, (size,), (ar,)) for ar in aspect_ratios]
+    )
+
+
 # --------------------------------------------------------------------------- #
 # Field of anchors
 # --------------------------------------------------------------------------- #

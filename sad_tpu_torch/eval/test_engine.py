@@ -1,13 +1,16 @@
-"""Dataset inference and pseudo-label generation, RetinaNet branch (ref:
+"""Dataset inference and pseudo-label generation (ref:
 sad_tpu/eval/test_engine.py:56-127,631-677; detectron/lib/core/test_engine.py).
 
 Images are batched onto the static test canvases as uint8 with their
 content extents, normalised and decoded on the device, and the (N, 100)
-results come back as COCO-format detection dicts. Not ported yet (ROADMAP.md
-Queue 1): the R-CNN branches with their test-time augmentation, soft-NMS and
-box voting (sad_tpu's RetinaNet branch ignores TEST.BBOX_AUG, TEST.SOFT_NMS
-and TEST.BBOX_VOTE too, sad_tpu/eval/test_engine.py:160), visualisation
-dumps and COCO evaluation.
+results come back as COCO-format detection dicts: for RetinaNet, and the box
+results of Faster R-CNN (generalized_rcnn with FPN). Not ported yet
+(ROADMAP.md Queue 1), and raising for generalized_rcnn when a config asks
+for them: test-time augmentation, soft-NMS and box voting (sad_tpu's
+RetinaNet branch ignores TEST.BBOX_AUG, TEST.SOFT_NMS and TEST.BBOX_VOTE,
+sad_tpu/eval/test_engine.py:160, and so does the port's), mask results as
+RLE, keypoints, proposals from files; also visualisation dumps and COCO
+evaluation.
 
 Dataset I/O is the port's copy of sad_tpu's host modules (sad_tpu_torch.data).
 """
@@ -26,6 +29,7 @@ import torch
 from ..data.dataset import CocoDataset
 from ..data.minibatch import compute_im_scale, load_image_bgr, resize_bgr_u8
 from .inference import make_inference_fn
+from .rcnn_inference import make_rcnn_inference_fn
 
 logger = logging.getLogger(__name__)
 
@@ -63,13 +67,34 @@ def prepare_test_batch(cfg, entries: List[dict], canvas) -> Dict[str, np.ndarray
     return {"data": data, "im_hw": im_hw, "im_scale": scales, "content_hw": content_hw}
 
 
+def _make_infer_fn(cfg, model):
+    """Dispatch by model type (sad_tpu/eval/test_engine.py:109-124; ref:
+    im_detect_all branching, test.py:52-58)."""
+    if cfg.MODEL.TYPE in ("retinanet", "distillation"):
+        return make_inference_fn(cfg, model)
+    if cfg.MODEL.TYPE != "generalized_rcnn":
+        raise NotImplementedError(f"MODEL.TYPE={cfg.MODEL.TYPE!r} inference is not ported")
+    unported = [name for name, on in (
+        ("TEST.BBOX_AUG", cfg.TEST.BBOX_AUG.ENABLED),
+        ("TEST.MASK_AUG", cfg.MODEL.MASK_ON and cfg.TEST.MASK_AUG.ENABLED),
+        ("TEST.SOFT_NMS", cfg.TEST.SOFT_NMS.ENABLED),
+        ("TEST.BBOX_VOTE", cfg.TEST.BBOX_VOTE.ENABLED),
+        ("TEST.PROPOSAL_FILES", bool(cfg.TEST.PROPOSAL_FILES)),
+        ("MODEL.MASK_ON (mask results as RLE; make_rcnn_inference_fn gives 'mask_prob')",
+         cfg.MODEL.MASK_ON),
+    ) if on]
+    if unported:
+        raise NotImplementedError(
+            f"run_inference_on_roidb for generalized_rcnn: {', '.join(unported)} not "
+            "ported to sad_tpu_torch yet (ROADMAP.md Queue 1)")
+    return make_rcnn_inference_fn(cfg, model)
+
+
 def run_inference_on_roidb(cfg, model, roidb: List[dict],
                            contiguous_to_json: Dict[int, int],
                            batch_size: int = 8) -> List[Dict]:
     """COCO-format detection dicts for every image of roidb."""
-    if cfg.MODEL.TYPE not in ("retinanet", "distillation"):
-        raise NotImplementedError(f"MODEL.TYPE={cfg.MODEL.TYPE!r} inference is not ported")
-    infer = make_inference_fn(cfg, model)
+    infer = _make_infer_fn(cfg, model)
     dev = next(model.parameters()).device
     land, port = _test_canvas_shapes(cfg)
     groups = {"l": [], "p": []}

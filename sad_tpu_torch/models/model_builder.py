@@ -4,7 +4,9 @@ sad_tpu/models/model_builder.py:139-182).
 
 'retinanet' and 'distillation' both build a RetinaNet: for distillation,
 call create_model once with the teacher config and once with the student
-config. The R-CNN families are not ported yet.
+config. 'generalized_rcnn' with FPN builds a GeneralizedRCNN (Faster / Mask
+R-CNN). RPN-only models, the single-scale (C4) and VGG bodies, R-FCN and the
+keypoint head are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,26 +19,51 @@ from torch import nn
 
 from ..device import get_device
 from .arch import arch_from_config
+from .rcnn import GeneralizedRCNN
 from .retinanet import RetinaNet, cls_bias_init
 
 
 def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
-                 ) -> RetinaNet:
-    """RetinaNet for cfg.MODEL.TYPE, float32 parameters on ``device`` (the
-    card unless the caller asks for the CPU; no fallback), initialised from
-    ``generator`` (a torch.Generator on that device) with the JAX model's
-    initialiser distributions. Layers run in cfg.COMPUTE_DTYPE with the
-    float32 parameters cast per layer; for inference the model may be cast
-    once with ``model.to(compute_dtype(cfg))`` after loading weights."""
-    if cfg.MODEL.TYPE not in ("retinanet", "distillation"):
-        raise NotImplementedError(
-            f"MODEL.TYPE={cfg.MODEL.TYPE!r} is not ported to sad_tpu_torch "
-            "yet (ROADMAP.md Queue 1)"
-        )
+                 ) -> nn.Module:
+    """The model for cfg.MODEL.TYPE (a RetinaNet or a GeneralizedRCNN),
+    float32 parameters on ``device`` (the card unless the caller asks for the
+    CPU; no fallback), initialised from ``generator`` (a torch.Generator on
+    that device) with the JAX model's initialiser distributions. Layers run
+    in cfg.COMPUTE_DTYPE with the float32 parameters cast per layer; for
+    inference the model may be cast once with ``model.to(compute_dtype(cfg))``
+    after loading weights."""
+    mtype = cfg.MODEL.TYPE
     with torch.device(get_device(device)):
-        model = RetinaNet(arch_from_config(cfg))
+        if mtype in ("retinanet", "distillation"):
+            model = RetinaNet(arch_from_config(cfg))
+        elif mtype == "generalized_rcnn" and cfg.FPN.FPN_ON and not cfg.MODEL.RPN_ONLY:
+            _check_head_strings_fpn(cfg)
+            model = GeneralizedRCNN(cfg)
+        else:
+            raise NotImplementedError(
+                f"MODEL.TYPE={mtype!r} (FPN_ON={cfg.FPN.FPN_ON}, RPN_ONLY="
+                f"{cfg.MODEL.RPN_ONLY}) is not ported to sad_tpu_torch yet: RPN-only "
+                "models, single-scale (C4) and VGG bodies and R-FCN wait (ROADMAP.md "
+                "Queue 1)"
+            )
     init_weights(model, generator)
     return model.eval()
+
+
+def _check_head_strings_fpn(cfg) -> None:
+    """Strict head-string dispatch (sad_tpu/models/model_builder.py:57-78):
+    an unknown head must fail, not build the default one silently."""
+    if cfg.FAST_RCNN.ROI_BOX_HEAD not in (
+        "fast_rcnn_heads.add_roi_2mlp_head",
+        "head_builder.add_roi_2mlp_head",
+    ):
+        raise NotImplementedError(f"FPN box head {cfg.FAST_RCNN.ROI_BOX_HEAD!r}")
+    if cfg.FAST_RCNN.ROI_XFORM_METHOD != "RoIAlign" or (
+            cfg.MODEL.MASK_ON and cfg.MRCNN.ROI_XFORM_METHOD != "RoIAlign"):
+        raise NotImplementedError("only ROI_XFORM_METHOD RoIAlign is ported")
+    if cfg.MODEL.MASK_ON and "v1up" not in cfg.MRCNN.ROI_MASK_HEAD:
+        raise NotImplementedError(
+            f"FPN mask head {cfg.MRCNN.ROI_MASK_HEAD!r} (v0up/v0upshare are C4 heads)")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -44,32 +71,62 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def _variance_scaling(w: torch.Tensor, scale: float, mode: str,
-                      distribution: str, generator) -> None:
-    """flax.linen.initializers.variance_scaling on an OIHW kernel."""
+                      distribution: str, generator, transposed: bool = False) -> None:
+    """flax.linen.initializers.variance_scaling on an OIHW conv kernel, an
+    (out, in) linear weight or, with ``transposed``, an IOHW deconv kernel."""
     receptive = w[0, 0].numel()
-    fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
-    fan = fan_in if mode == "fan_in" else (fan_in + fan_out) / 2.0
+    n_out, n_in = (w.shape[1], w.shape[0]) if transposed else (w.shape[0], w.shape[1])
+    fan_in, fan_out = n_in * receptive, n_out * receptive
+    fan = {"fan_in": fan_in, "fan_out": fan_out, "fan_avg": (fan_in + fan_out) / 2.0}[mode]
     var = scale / fan
     if distribution == "truncated_normal":
         std = math.sqrt(var) / 0.87962566103423978  # std of N(0,1) cut at +-2
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    elif distribution == "normal":
+        w.normal_(0.0, math.sqrt(var), generator=generator)
     else:  # uniform
         lim = math.sqrt(3.0 * var)
         nn.init.uniform_(w, -lim, lim, generator=generator)
 
 
+def _init_mask_weight(cfg, w: torch.Tensor, leaf: str, generator) -> None:
+    """MRCNN.CONV_INIT (sad_tpu/models/rcnn.py:115-155): N(0, 0.001), or
+    MSRAFill = normal with std sqrt(2 / fan_out); the dense output and the
+    class-agnostic logits always take N(0, 0.001)."""
+    if cfg.MRCNN.CONV_INIT not in ("GaussianFill", "MSRAFill"):
+        raise ValueError(f"Unknown MRCNN.CONV_INIT: {cfg.MRCNN.CONV_INIT!r}")
+    gauss = cfg.MRCNN.CONV_INIT == "GaussianFill" or (
+        leaf == "mask_fcn_logits" and (cfg.MRCNN.USE_FC_OUTPUT or not cfg.MRCNN.CLS_SPECIFIC_MASK))
+    if gauss:
+        w.normal_(0.0, 0.001, generator=generator)
+    else:
+        _variance_scaling(w, 2.0, "fan_out", "normal", generator,
+                          transposed=leaf == "conv5_mask")
+
+
 @torch.no_grad()
-def init_weights(model: RetinaNet, generator: Optional[torch.Generator] = None):
-    """Per-module initialisers of sad_tpu's RetinaNet: he-normal backbone
+def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
+    """Per-module initialisers of sad_tpu's models: he-normal backbone
     convs with a 0.01-scaled branch2c, xavier-uniform FPN convs (zero
-    laterals under FPN.ZERO_INIT_LATERAL), N(0, 0.01) head convs, zero
-    biases, the prior-prob cls bias, AffineChannel s=1/b=0."""
+    laterals under FPN.ZERO_INIT_LATERAL), N(0, 0.01) RetinaNet-head and RPN
+    convs, zero biases, the prior-prob cls bias, AffineChannel s=1/b=0; for
+    the R-CNN heads Flax's Dense default (lecun normal) on fc6/fc7, N(0,
+    0.01) on cls_score, N(0, 0.001) on bbox_pred, MRCNN.CONV_INIT on the
+    mask head."""
     a = model.arch
     for name, m in model.named_modules():
-        if not isinstance(m, nn.Conv2d):
+        if not isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             continue
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("fpn.body."):
+        if name.startswith("mask_head."):
+            _init_mask_weight(model.cfg, m.weight, leaf, generator)
+        elif name.startswith("box_head."):
+            if leaf in ("fc6", "fc7"):
+                _variance_scaling(m.weight, 1.0, "fan_in", "truncated_normal", generator)
+            else:
+                m.weight.normal_(0.0, 0.01 if leaf == "cls_score" else 0.001,
+                                 generator=generator)
+        elif name.startswith("fpn.body."):
             scale = 0.01 if leaf.endswith("_branch2c") else 2.0
             _variance_scaling(m.weight, scale, "fan_in", "truncated_normal", generator)
         elif name.startswith("fpn."):
@@ -81,8 +138,9 @@ def init_weights(model: RetinaNet, generator: Optional[torch.Generator] = None):
             m.weight.normal_(0.0, 0.01, generator=generator)
         if m.bias is not None:
             m.bias.zero_()
-    cls_pred = getattr(model.head, model.head.cls_pred)
-    cls_pred.bias.copy_(cls_bias_init(a))
+    if isinstance(model, RetinaNet):
+        cls_pred = getattr(model.head, model.head.cls_pred)
+        cls_pred.bias.copy_(cls_bias_init(a))
 
 
 def _is_affine_channel(path) -> bool:

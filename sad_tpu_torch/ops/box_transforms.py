@@ -46,3 +46,12 @@ def bbox_transform(
         ],
         dim=-1,
     )
+
+
+def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:
+    """Clip (..., 4) boxes to [0, size-1] (ref: sad_tpu/ops/box_transforms.py
+    clip_boxes; boxes.py clip_tiled_boxes). ``height`` and ``width`` are
+    tensors on the boxes' device that broadcast against ``boxes[..., 0]``
+    (no host value is copied to the device here)."""
+    hi = torch.stack([width, height, width, height], dim=-1).to(boxes.dtype) - 1.0
+    return torch.minimum(torch.clamp(boxes, min=0.0), hi)

@@ -1,0 +1,100 @@
+"""ctypes wrapper of the multilevel RoIAlign forward CUDA kernel
+(sad_tpu_torch/csrc/roi_align.cu).
+
+Replaces the Pallas kernel ``_mlra_kernel`` of
+sad_tpu/ops/pallas_roi_align.py (launched by ``_windowed_forward``). Callers
+go through sad_tpu_torch/ops/roi_align.py, which sends CUDA tensors here and
+CPU tensors to the plain twin.
+
+``launches`` counts the kernel launches made by this process, so that a run
+can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from . import _build
+
+launches = 0
+
+MAX_LEVELS = 8  # kMaxLevels in the source
+_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # code, 16-byte vector width
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _I, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]
+
+
+def _fn():
+    fn = _build.load_library().lib.sad_roi_align_fwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def roi_align_fwd_cuda(
+    features: Sequence[torch.Tensor],  # consecutive levels, each (B, H_l, W_l, C) contiguous
+    lvl_min: int,  # the FPN level of features[0]
+    rois: torch.Tensor,  # (R, 5) float32 [batch, x1, y1, x2, y2]
+    roi_levels: torch.Tensor,  # (R,) int32
+    valid: torch.Tensor,  # (R,) bool
+    resolution: int,
+    sampling_ratio: int,
+) -> torch.Tensor:
+    """(R, res, res, C) in the features' dtype, one launch; raises on
+    anything the kernel does not take."""
+    global launches
+    feats = list(features)
+    if not 1 <= len(feats) <= MAX_LEVELS:
+        raise ValueError(f"roi_align_fwd_cuda takes 1..{MAX_LEVELS} levels, got {len(feats)}")
+    dev, dtype = feats[0].device, feats[0].dtype
+    tensors = feats + [rois, roi_levels, valid]
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("roi_align_fwd_cuda needs features, rois, levels and valid on one "
+                         "CUDA device")
+    if dtype not in _DTYPES or any(f.dtype != dtype for f in feats):
+        raise TypeError(f"roi_align_fwd_cuda takes float32 or bfloat16 features of one type, "
+                        f"got {[f.dtype for f in feats]}")
+    if (rois.dtype, roi_levels.dtype, valid.dtype) != (torch.float32, torch.int32, torch.bool):
+        raise TypeError(f"roi_align_fwd_cuda takes float32 rois, int32 levels and bool valid, "
+                        f"got {rois.dtype}/{roi_levels.dtype}/{valid.dtype}")
+    b, c = feats[0].shape[0], feats[0].shape[-1]
+    if any(f.dim() != 4 or f.shape[0] != b or f.shape[3] != c or 0 in f.shape for f in feats):
+        raise ValueError(f"roi_align_fwd_cuda features: {[tuple(f.shape) for f in feats]}; "
+                         "want non-empty (B, H_l, W_l, C) with one B and one C")
+    r = rois.shape[0]
+    if rois.dim() != 2 or rois.shape[1] != 5 or roi_levels.shape != (r,) or valid.shape != (r,):
+        raise ValueError(f"roi_align_fwd_cuda shapes: rois {tuple(rois.shape)}, levels "
+                         f"{tuple(roi_levels.shape)}, valid {tuple(valid.shape)}; want (R,5), "
+                         "(R,), (R,)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("roi_align_fwd_cuda takes contiguous tensors")
+    res, sr = int(resolution), int(sampling_ratio)
+    if res < 1 or sr < 1 or lvl_min < 0 or r * res >= 2**31 or any(
+            f.numel() >= 2**31 * c for f in feats):
+        raise ValueError(f"roi_align_fwd_cuda: unsupported sizes R={r} res={res} sr={sr} "
+                         f"lvl_min={lvl_min}")
+    out = torch.empty((r, res, res, c), dtype=dtype, device=dev)
+    if r == 0:  # nothing to launch, and nothing to count
+        return out
+    code, width = _DTYPES[dtype]
+    vec = int(c % width == 0 and all(t.data_ptr() % 16 == 0 for t in feats + [out]))
+    n = len(feats)
+    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
+    hs = (ctypes.c_int * n)(*[f.shape[1] for f in feats])
+    ws = (ctypes.c_int * n)(*[f.shape[2] for f in feats])
+    fn = _fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.cast(ptrs, _P), ctypes.cast(hs, _P), ctypes.cast(ws, _P), n, int(lvl_min),
+                 rois.data_ptr(), roi_levels.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                 r, b, c, res, sr, code, vec, stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align kernel launch failed: cudaError_t {err}")
+    launches += 1
+    return out

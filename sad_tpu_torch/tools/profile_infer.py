@@ -3,18 +3,30 @@
     python -m sad_tpu_torch.tools.profile_infer --cfg sad_tpu_torch/configs/retinanet_R-50-FPN_student.yaml \
         [--batch 8] [--iters 20] [--seed 0] [--out profile_student.json]
 
-Seeded random weights in the config's compute dtype and seeded uint8 canvases
-of the config's landscape test canvas. Prints, and writes as JSON:
+``--cfg`` takes the RetinaNet configs and the two R-CNN ones
+(``e2e_faster_rcnn_R-50-FPN.yaml``, ``e2e_mask_rcnn_R-50-FPN.yaml``). Seeded
+random weights in the config's compute dtype and seeded uint8 canvases of the
+config's landscape test canvas. Prints, and writes as JSON:
 - imgs/s: median and quartiles of --iters timed batches (host clock around
   torch.cuda.synchronize(), profiler off);
-- per-stage device ms (CUDA events, medians): normalise, forward, decode
-  before NMS, NMS, gather;
+- per-stage device ms (CUDA events, medians). RetinaNet: normalise, forward,
+  decode before NMS, NMS, gather. R-CNN: normalise, backbone+FPN, RPN head,
+  candidates, RPN NMS, collect, RoIAlign, box head, decode, detection NMS,
+  gather, and with MODEL.MASK_ON mask RoIAlign and mask head;
+- peak device memory of the timed batches (torch.cuda.max_memory_allocated);
 - from a torch.profiler run of 5 batches: kernel time by category (conv,
-  elementwise, top-k/sort, NMS kernel, other), the top kernels by name, and
-  the device idle share = 1 - kernel time / wall time, against the wall time
-  of the profiled run and of the unprofiled timed batches.
+  matmul, elementwise, top-k/sort, NMS kernel, RoIAlign kernel, other), the
+  top kernels by name, and the device idle share = 1 - kernel time / wall
+  time, against the wall time of the profiled run and of the unprofiled
+  timed batches.
 Needs a CUDA card; raises without one. chip_smoke.py builds its inference
 runs with ``seeded_inference`` and times them with ``wall_seconds``.
+
+Random R-CNN weights give an empty decode: N(0, 0.01) output layers put every
+class near 1/81, under TEST.SCORE_THRESH, and every objectness near 0.5. So
+``seeded_inference`` rescales the four output layers of an R-CNN model once
+(``spread_rcnn_outputs``): the detection NMS and the mask branch then work
+on thousands of candidates an image, as they do with trained weights.
 """
 
 from __future__ import annotations
@@ -34,13 +46,21 @@ from sad_tpu_torch.device import get_device, nvidia_smi_line, set_tf32
 from sad_tpu_torch.eval.inference import (
     decode_candidates, device_normalize, gather_detections, make_inference_fn,
 )
+from sad_tpu_torch.eval.rcnn_inference import (
+    decode_rcnn_candidates, make_rcnn_inference_fn, mask_roi_features, rcnn_gather_detections,
+)
 from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
 from sad_tpu_torch.models import compute_dtype, create_model
 from sad_tpu_torch.ops.nms import batched_nms_multi
+from sad_tpu_torch.ops.proposals import nms_levels_batched
 
 _CATEGORIES = (
     ("nms_kernel", ("nms_kernel",)),
-    ("conv", ("conv", "xmma", "cutlass", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw")),
+    ("roi_align_kernel", ("roi_align_fwd_kernel",)),
+    # cuDNN's convolutions are implicit GEMMs: name them before the dense layers' GEMMs
+    ("conv", ("conv", "fprop", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw")),
+    ("matmul", ("gemm", "cublas", "gemv", "nvjet")),
+    ("conv", ("xmma", "cutlass")),
     ("topk_sort", ("topk", "sort", "radix", "mbtopk")),
     ("elementwise", ("elementwise", "reduce_kernel", "index")),
 )
@@ -59,17 +79,150 @@ def _quartiles(xs):
     return {"median": statistics.median(xs), "q1": q[0], "q3": q[2], "n": len(xs)}
 
 
+# std of the four R-CNN output layers after spread_rcnn_outputs: objectness
+# logits (sigmoid spreads over 0.1..0.9), RPN deltas (boxes move by a good
+# part of an anchor, so the proposal NMS keeps many), class logits (a few of
+# the 81 classes of a roi pass SCORE_THRESH 0.05), box deltas (divided by
+# BBOX_REG_WEIGHTS 10/5 in the decode)
+_SPREAD_STD = {"rpn_cls": 2.0, "rpn_bbox": 0.5, "cls_score": 3.0, "bbox_pred": 1.0}
+
+
+@torch.no_grad()
+def spread_rcnn_outputs(cfg, model, images, im_hw, content_hw) -> dict:
+    """Rescale the weights and biases of the RPN's two output convs and the
+    box head's two output layers so that their outputs on this batch have the
+    stds of ``_SPREAD_STD``; the RPN first, because the box head sees the
+    rois it makes. Returns the factors."""
+    def rescale(layer, out, target):
+        factor = target / float(out.float().std())
+        layer.weight.mul_(factor)
+        layer.bias.mul_(factor)
+        return factor
+
+    x = device_normalize(cfg, images, content_hw)
+    feats = model._features(x)
+    logits, deltas = model.rpn_outputs(feats)
+    _, cls_name, bbox_name = model.rpn.names
+    factors = {
+        "rpn_cls": rescale(getattr(model.rpn, cls_name),
+                           torch.cat([v.reshape(-1) for v in logits.values()]),
+                           _SPREAD_STD["rpn_cls"]),
+        "rpn_bbox": rescale(getattr(model.rpn, bbox_name),
+                            torch.cat([v.reshape(-1) for v in deltas.values()]),
+                            _SPREAD_STD["rpn_bbox"]),
+    }
+    out = model(x, im_hw)
+    factors["cls_score"] = rescale(model.box_head.cls_score, out["cls_score"],
+                                   _SPREAD_STD["cls_score"])
+    factors["bbox_pred"] = rescale(model.box_head.bbox_pred, out["bbox_pred"],
+                                   _SPREAD_STD["bbox_pred"])
+    return factors
+
+
+def is_rcnn(cfg) -> bool:
+    return cfg.MODEL.TYPE == "generalized_rcnn"
+
+
 def seeded_inference(cfg_path: str, seed: int, batch: int, device):
     """The config, its model with random weights from ``seed`` in the
-    compute dtype, make_inference_fn of it, and the arguments of one batch
-    of seeded uint8 canvases of the config's landscape test canvas."""
+    compute dtype (an R-CNN's output layers rescaled by
+    ``spread_rcnn_outputs``), the inference function of it, and the arguments
+    of one batch of seeded uint8 canvases of the config's landscape test
+    canvas."""
     cfg = load_cfg(cfg_path)
     model = create_model(cfg, device, torch.Generator(device=device).manual_seed(seed))
     model.to(compute_dtype(cfg))
     (ch, cw), _ = _test_canvas_shapes(cfg)
     b = random_canvases(np.random.RandomState(seed), batch, (ch, cw), device)
     args = (b["data"], b["im_hw"], b["im_scale"], b["content_hw"])
+    if is_rcnn(cfg):
+        spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+        return cfg, model, make_rcnn_inference_fn(cfg, model), args
     return cfg, model, make_inference_fn(cfg, model), args
+
+
+def _event_ms(fns):
+    """Run the stage functions in order, each fed the previous result, with
+    a CUDA event between them; returns the last result and the device ms of
+    each stage."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+    state = None
+    events[0].record()
+    for i, fn in enumerate(fns):
+        state = fn(state)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return state, [events[i].elapsed_time(events[i + 1]) for i in range(len(fns))]
+
+
+def retinanet_stages(cfg, model, x):
+    """(name, fn) stages of one RetinaNet batch; the last, untimed in the
+    report, returns the number of valid NMS candidates."""
+    data, im_hw, im_scale, content_hw = x
+    st = {}
+
+    def candidates(out):
+        st["cands"] = decode_candidates(cfg, out, im_hw, im_scale, cfg.TEST.BBOX_REG)
+        return st["cands"]
+
+    return [
+        ("normalize", lambda _: device_normalize(cfg, data, content_hw)),
+        ("forward", lambda im: model(im)),
+        ("decode_pre_nms", candidates),
+        ("nms", lambda c: batched_nms_multi(*c, cfg.TEST.NMS, cfg.TEST.DETECTIONS_PER_IM)),
+        ("gather", lambda k: gather_detections(st["cands"], *k)),
+        ("count", lambda _: st["cands"][3].sum()),
+    ]
+
+
+def rcnn_stages(cfg, model, x):
+    """(name, fn) stages of one Faster / Mask R-CNN batch, the steps of
+    GeneralizedRCNN.forward and make_rcnn_inference_fn one by one; the last,
+    untimed in the report, returns the number of valid detection-NMS
+    candidates."""
+    data, im_hw, im_scale, content_hw = x
+    st = {}
+
+    def keep(key, value):
+        st[key] = value
+        return value
+
+    def roi_align(props):
+        st["props"] = props
+        st["nhwc"] = {l: f.permute(0, 2, 3, 1) for l, f in st["nchw"].items()}
+        return model.box_roi_features(st["nhwc"], props[0], props[3], props[2])
+
+    def decode(head_out):
+        cls_score, bbox_pred = head_out
+        boxes, _, valid, _ = st["props"]
+        b, r = boxes.shape[:2]
+        prob = torch.softmax(cls_score.reshape(b, r, -1), dim=-1)
+        return keep("cands", decode_rcnn_candidates(
+            cfg, boxes, valid, prob, bbox_pred.reshape(b, r, -1), im_hw, im_scale))
+
+    stages = [
+        ("normalize", lambda _: device_normalize(cfg, data, content_hw)),
+        ("backbone_fpn", lambda im: keep("nchw", model._features(im))),
+        ("rpn_head", lambda feats: model.rpn_outputs(feats)),
+        ("candidates", lambda o: model.rpn_candidates(*o, im_hw)),
+        ("rpn_nms", lambda pl: nms_levels_batched(pl, cfg.TEST.RPN_NMS_THRESH,
+                                                  cfg.TEST.RPN_POST_NMS_TOP_N)),
+        ("collect", lambda kept: model.collect(*kept)),
+        ("roi_align", roi_align),
+        ("box_head", lambda rf: model.box_head(rf)),
+        ("decode", decode),
+        ("detection_nms", lambda c: batched_nms_multi(*c, cfg.TEST.NMS,
+                                                      cfg.TEST.DETECTIONS_PER_IM)),
+        ("gather", lambda k: keep("dets", rcnn_gather_detections(st["cands"], *k))),
+    ]
+    if cfg.MODEL.MASK_ON:
+        stages += [
+            ("mask_roi_align", lambda d: mask_roi_features(cfg, model, st["nhwc"], d["boxes"],
+                                                           d["valid"], im_scale)),
+            ("mask_head", lambda mf: torch.sigmoid(model.mask_heads(mf))),
+        ]
+    stages.append(("count", lambda _: st["cands"][3].sum()))
+    return stages
 
 
 def wall_seconds(fn, iters: int, warmup: int):
@@ -103,27 +256,19 @@ def main(argv=None):
     cfg, model, infer, x = seeded_inference(args.cfg, args.seed, args.batch, dev)
     n = args.batch
     ch, cw = x[0].shape[1:3]
+    torch.cuda.reset_peak_memory_stats()
     walls = wall_seconds(lambda: infer(*x), args.iters, 5)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    stages = {k: [] for k in ("normalize", "forward", "decode_pre_nms", "nms", "gather")}
+    staged = (rcnn_stages if is_rcnn(cfg) else retinanet_stages)(cfg, model, x)
+    stages = {name: [] for name, _ in staged}
     with torch.inference_mode():
         for _ in range(args.iters):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-            ev[0].record()
-            im = device_normalize(cfg, x[0], x[3])
-            ev[1].record()
-            out = model(im)
-            ev[2].record()
-            cands = decode_candidates(cfg, out, x[1], x[2], cfg.TEST.BBOX_REG)
-            ev[3].record()
-            keep = batched_nms_multi(*cands, cfg.TEST.NMS, cfg.TEST.DETECTIONS_PER_IM)
-            ev[4].record()
-            gather_detections(cands, *keep)
-            ev[5].record()
-            torch.cuda.synchronize()
-            for i, k in enumerate(stages):
-                stages[k].append(ev[i].elapsed_time(ev[i + 1]))
-        n_valid = int(cands[3].sum())
+            n_valid, ms = _event_ms([fn for _, fn in staged])
+            for (name, _), t in zip(staged, ms):
+                stages[name].append(t)
+        n_valid = int(n_valid)
+    stages.pop("count", None)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -154,6 +299,7 @@ def main(argv=None):
         "iters": args.iters,
         "stage_ms": {k: statistics.median(v) for k, v in stages.items()},
         "valid_candidates_per_batch": n_valid,
+        "peak_memory_gib": peak_gib,
         "profiled_batches": 5,
         "kernel_ms_per_batch": busy_ms / 5,
         "kernel_ms_by_category_per_batch": by_cat,

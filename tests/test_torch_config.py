@@ -36,7 +36,9 @@ def test_flagship_yaml_loads_equal(path):
     assert _asdict(t) == _asdict(j)
     for section in ("SOLVER", "TRAIN", "DISTILLATION", "RETINANET", "FPN", "MODEL"):
         assert _asdict(getattr(t, section)) == _asdict(getattr(j, section)), section
-    assert t.fpn_levels() == j.fpn_levels() == (3, 4, 5, 6, 7)
+    # RetinaNet heads run on P3..P7, the R-CNN configs' RPN on P2..P6.
+    levels = (3, 4, 5, 6, 7) if t.RETINANET.RETINANET_ON else (2, 3, 4, 5, 6)
+    assert t.fpn_levels() == j.fpn_levels() == levels
     assert t.num_anchors_per_cell() == j.num_anchors_per_cell() == 9
 
 

@@ -12,11 +12,14 @@ from sad_tpu_torch.eval.inference import (
     decode_candidates, device_normalize, gather_detections, make_inference_fn,
 )
 from sad_tpu_torch.models import create_model
-from sad_tpu_torch.ops import cls_loss_kernel, nms, nms_kernel
+from sad_tpu_torch.eval.rcnn_inference import make_rcnn_inference_fn
+from sad_tpu_torch.ops import cls_loss_kernel, nms, nms_kernel, roi_align_kernel
 from sad_tpu_torch.ops.cls_loss_kernel import ClsLossParams
 from sad_tpu_torch.ops.fused_losses import (
     cls_losses_bwd_plain, cls_losses_fwd_plain, fused_cls_losses_raw,
 )
+from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
+from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -144,3 +147,100 @@ def test_cls_loss_kernels_refuse_cpu_tensors(cuda):
         cls_loss_kernel.cls_losses_bwd(x, pt.cpu(), labels, gf, gd, FLAGSHIP)
     with pytest.raises(TypeError, match="float32"):
         cls_loss_kernel.cls_losses_fwd(x.double(), pt, labels, 2, FLAGSHIP)
+
+
+def _roi_case(dev, seed, batch, canvas, c, r, dtype):
+    rng = np.random.RandomState(seed)
+    ch, cw = canvas
+    feats = {l: torch.from_numpy(rng.randn(batch, ch >> l, cw >> l, c).astype(np.float32))
+             .to(dev, dtype) for l in (2, 3, 4, 5)}
+    xy = rng.uniform(-10, [cw * 0.9, ch * 0.9], (r, 2))
+    wh = np.exp(rng.uniform(np.log(2.0), np.log(ch), (r, 2)))
+    rois = np.concatenate([np.sort(rng.randint(0, batch, r))[:, None], xy, xy + wh], axis=1)
+    rois[0, 1:] = [10, 10, 10, 10]
+    rois[1, 1:] = [-900, -900, -800, -800]
+    rois = torch.from_numpy(rois.astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=r) > 0.15).to(dev)
+    return feats, rois, map_rois_to_fpn_levels(rois[:, 1:], 2, 5), valid
+
+
+@pytest.mark.parametrize("c,r,res,sr", [(256, 203, 7, 2), (64, 37, 14, 2), (3, 29, 7, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_equals_plain_twin(cuda, c, r, res, sr, dtype):
+    """float32 within 1e-5 * max|ref| + 1e-6; bfloat16 within one ulp (2^-7
+    of the larger magnitude)."""
+    feats, rois, levels, valid = _roi_case(cuda, c + r, 2, (256, 384), c, r, dtype)
+    before = roi_align_kernel.launches
+    got = multilevel_roi_align(feats, rois, levels, valid, res, sr)
+    assert roi_align_kernel.launches == before + 1
+    ref = multilevel_roi_align_plain(feats, rois, levels, valid, res, sr)
+    assert got.dtype == dtype and tuple(got.shape) == (r, res, res, c)
+    assert not bool(got[~valid].any())
+    g, f = got.float(), ref.float()
+    if dtype == torch.float32:
+        assert float((g - f).abs().max()) <= 1e-5 * float(f.abs().max()) + 1e-6
+    else:
+        assert bool(((g - f).abs() <= 2.0 ** -7 * torch.maximum(g.abs(), f.abs())).all())
+
+
+def test_roi_align_on_cuda_is_forward_only_and_counts_no_empty_launch(cuda):
+    feats, rois, levels, valid = _roi_case(cuda, 5, 1, (128, 192), 8, 11, torch.float32)
+    feats = {l: f.requires_grad_(True) for l, f in feats.items()}
+    out = multilevel_roi_align(feats, rois, levels, valid, 7, 2)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        out.sum().backward()
+    before = roi_align_kernel.launches
+    empty = multilevel_roi_align(feats, rois[:0], levels[:0], valid[:0], 7, 2)
+    assert tuple(empty.shape) == (0, 7, 7, 8) and roi_align_kernel.launches == before
+
+
+def test_roi_align_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    feats, rois, levels, valid = _roi_case(cuda, 6, 1, (128, 192), 8, 11, torch.float32)
+    fl = [feats[l] for l in (2, 3, 4, 5)]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        roi_align_kernel.roi_align_fwd_cuda([f.double() for f in fl], 2, rois, levels, valid, 7, 2)
+    with pytest.raises(TypeError, match="int32 levels"):
+        roi_align_kernel.roi_align_fwd_cuda(fl, 2, rois, levels.long(), valid, 7, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align_kernel.roi_align_fwd_cuda([f.transpose(1, 2) for f in fl], 2, rois, levels,
+                                            valid, 7, 2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        roi_align_kernel.roi_align_fwd_cuda(fl, 2, rois.cpu(), levels, valid, 7, 2)
+
+
+@pytest.mark.parametrize("n,k,max_out,thr", [(40, 1000, 1000, 0.7), (8, 80000, 100, 0.5)])
+def test_nms_kernel_equals_plain_at_the_rcnn_shapes(cuda, n, k, max_out, thr):
+    boxes, scores = _boxes(n + k, n, k, clusters=300)
+    scores[-3:, int(k * 0.8):] = np.float32(-1e30)
+    b, s = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    idx, valid = nms.nms_multi(b, s, thr, max_out)
+    ref = nms.nms_multi_plain(b, s, thr, max_out)
+    assert torch.equal(idx, ref[0]) and torch.equal(valid, ref[1])
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["faster", "mask"])
+def test_small_rcnn_on_the_card_launches_both_kernels(cuda, mask):
+    cfg = merge_cfg_from_dict(Config(), {
+        "MODEL": {"TYPE": "generalized_rcnn", "NUM_CLASSES": 81, "FASTER_RCNN": True,
+                  "MASK_ON": mask, "CONV_BODY": "FPN.add_fpn_ResNet50_conv5_body"},
+        "RESNETS": {"CHANNEL_RATIO": 0.25},
+        "FPN": {"FPN_ON": True, "MULTILEVEL_RPN": True, "MULTILEVEL_ROIS": True},
+        "FAST_RCNN": {"ROI_XFORM_RESOLUTION": 7, "MLP_HEAD_DIM": 256},
+        "MRCNN": {"RESOLUTION": 28, "ROI_XFORM_RESOLUTION": 14, "DIM_REDUCED": 64},
+        "TEST": {"SCALES": (256,), "MAX_SIZE": 384, "NMS": 0.5, "RPN_PRE_NMS_TOP_N": 300,
+                 "RPN_POST_NMS_TOP_N": 200},
+    })
+    model = create_model(cfg, cuda, torch.Generator(device=cuda).manual_seed(0)).to(torch.bfloat16)
+    rng = np.random.RandomState(1)
+    data = torch.from_numpy(rng.randint(0, 256, (2, 256, 384, 3), dtype=np.uint8)).to(cuda)
+    content = torch.tensor([[256, 300], [200, 384]], dtype=torch.float32, device=cuda)
+    scale = torch.tensor([1.0, 0.5], device=cuda)
+    before = nms_kernel.launches, roi_align_kernel.launches
+    dets = make_rcnn_inference_fn(cfg, model)(data, content / scale[:, None], scale, content)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before[0] + 2
+    assert roi_align_kernel.launches == before[1] + (2 if mask else 1)
+    assert tuple(dets["boxes"].shape) == (2, 100, 4) and bool(torch.isfinite(dets["boxes"]).all())
+    if mask:
+        assert tuple(dets["mask_prob"].shape) == (2, 100, 28, 28, 81)
+        assert bool(torch.isfinite(dets["mask_prob"]).all())

@@ -47,6 +47,8 @@ def test_chip_smoke_main_path_imports_no_sad_tpu():
         import sad_tpu_torch.ops.losses, sad_tpu_torch.train, sad_tpu_torch.config
         import sad_tpu_torch.data.minibatch, sad_tpu_torch.data.dataset
         import sad_tpu_torch.tools.profile_infer, sad_tpu_torch.tools.profile_train
+        import sad_tpu_torch.models.rcnn, sad_tpu_torch.eval.rcnn_inference
+        import sad_tpu_torch.ops.proposals, sad_tpu_torch.ops.roi_align_kernel
         allowed = set()
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   or (m.split(".")[0] == "sad_tpu" and m not in allowed)]

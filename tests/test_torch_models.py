@@ -30,7 +30,8 @@ from sad_tpu_torch.models import RetinaNet, arch as tarch
 from sad_tpu_torch.models.resnet import ResNetBody
 
 REPO = Path(__file__).resolve().parent.parent
-FLAGSHIP = sorted(str(p) for p in (REPO / "sad_tpu_torch" / "configs").glob("*.yaml"))
+# the RetinaNet configs; the R-CNN ones are held in tests/test_torch_rcnn.py
+FLAGSHIP = sorted(str(p) for p in (REPO / "sad_tpu_torch" / "configs").glob("retinanet_*.yaml"))
 
 ARCHS = {
     # __graft_entry__._tiny_arch widths, one block per stage

@@ -1,0 +1,198 @@
+"""Faster / Mask R-CNN serving as a whole: the port's decode and
+make_rcnn_inference_fn against sad_tpu's on converted float32 tiny weights
+(sad_tpu's NMS is its Pallas kernel interpreted on this CPU, its RoIAlign the
+dense form it takes here).
+
+The decode alone runs on identical head outputs: valid, classes and scores
+exactly, boxes within 1e-3 px. For the whole slice the kept detections must
+be the same (class, score) multiset with scores within 1e-4, boxes within
+2e-3 px and mask probabilities within 1e-3: the chain is longer than
+RetinaNet's (backbone, RPN, proposal decode, RoIAlign, two dense layers, a
+softmax over 4x-scaled logits), and the two frameworks sum every float32
+convolution and product in another order. Over the model seeds 20..31, both
+models, the kept sets were identical (no IoU landed within float32 rounding
+of an NMS threshold, so no seed had to be avoided) and the largest
+differences were 2.8e-5 in a score and 6.2e-4 px in a box; seed 21 is used
+here."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sad_tpu.config import register_dataset
+from sad_tpu.config.config import merge_cfg_from_dict as j_merge
+from sad_tpu.data.dataset import CocoDataset as JCocoDataset
+from sad_tpu.data.synth_coco import generate_synthetic_coco
+from sad_tpu.eval.rcnn_inference import decode_rcnn_detections as j_decode
+from sad_tpu.eval.rcnn_inference import make_rcnn_inference_fn as j_make_rcnn_inference_fn
+from sad_tpu.eval.test_engine import run_inference_on_roidb as j_run_inference_on_roidb
+from sad_tpu.models import create_model as j_create_model
+import sad_tpu_torch.config as tcfg
+from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
+from sad_tpu_torch.convert import load_params
+from sad_tpu_torch.data.dataset import CocoDataset
+from sad_tpu_torch.eval import rcnn_inference, test_engine
+from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_detections, make_rcnn_inference_fn
+from sad_tpu_torch.models import GeneralizedRCNN
+from test_torch_inference import _kept, canvases
+from test_torch_rcnn import TINY, cfg_pair, rcnn_params
+
+KEYS = ("boxes", "scores", "classes", "valid")
+
+
+def head_outputs(seed, b=2, r=40, c=5, agnostic=False):
+    """Identical numpy head outputs for both decodes: rois inside a 96x144
+    frame, peaked class probabilities, a tenth of the rois invalid."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, [100, 60], (b, r, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(8, 40, (b, r, 2))], axis=-1).astype(np.float32)
+    logits = rng.randn(b, r, c) * 2.5
+    prob = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    bbox = (rng.randn(b, r, 8 if agnostic else 4 * c) * 0.5).astype(np.float32)
+    valid = rng.rand(b, r) > 0.1
+    scale = rng.uniform(0.7, 1.4, b).astype(np.float32)
+    im_hw = np.round(np.array([[96, 144]] * b) / scale[:, None]).astype(np.float32)
+    return rois, valid, prob.astype(np.float32), bbox, im_hw, scale
+
+
+@pytest.mark.parametrize("agnostic", [False, True], ids=["class_specific", "class_agnostic"])
+@pytest.mark.parametrize("cand_topk", [0, 30])
+@pytest.mark.parametrize("bbox_reg", [True, False])
+def test_decode_alone_on_identical_head_outputs(agnostic, cand_topk, bbox_reg):
+    over = {"MODEL": {"CLS_AGNOSTIC_BBOX_REG": agnostic},
+            "TEST": {"NMS_CAND_TOPK": cand_topk, "BBOX_REG": bbox_reg}}
+    jc, tc = cfg_pair()
+    jc = j_merge(jc, {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
+    tc = t_merge(tc, {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
+    args = head_outputs(3 + agnostic, agnostic=agnostic)
+    ref = j_decode(jc, *(jnp.asarray(a) for a in args))
+    got = decode_rcnn_detections(tc, *(torch.from_numpy(a) for a in args))
+    got = {k: v.numpy() for k, v in got.items()}
+    assert got["boxes"].shape == (2, 100, 4) and got["valid"].dtype == bool
+    np.testing.assert_array_equal(got["valid"], np.asarray(ref["valid"]))
+    np.testing.assert_array_equal(got["classes"], np.asarray(ref["classes"]))
+    np.testing.assert_array_equal(got["scores"], np.asarray(ref["scores"]))
+    np.testing.assert_allclose(got["boxes"], np.asarray(ref["boxes"]), rtol=0, atol=1e-3)
+    valid = got["valid"]
+    assert 10 < valid.sum() < valid.size  # some slots stay empty, and those hold zeros
+    assert (got["boxes"][~valid] == 0).all() and (got["classes"][~valid] == 0).all()
+    assert got["classes"][valid].min() >= 1 and got["classes"][valid].max() <= 4
+
+
+def test_cand_topk_cut_keeps_the_full_result_when_few_candidates_pass():
+    """With no more valid candidates than NMS_CAND_TOPK the cut changes
+    nothing (TEST.NMS_CAND_TOPK's contract)."""
+    _, tc = cfg_pair()
+    args = [torch.from_numpy(a) for a in head_outputs(5, r=12)]
+    full = decode_rcnn_detections(tc, *args)
+    n_valid = int((args[1][:, :, None] & (args[2][:, :, 1:] > tc.TEST.SCORE_THRESH)).sum(dim=(1, 2)).max())
+    cut = decode_rcnn_detections(t_merge(tc, {"TEST": dict(TINY["TEST"], NMS_CAND_TOPK=n_valid)}), *args)
+    for key in KEYS:
+        assert torch.equal(cut[key], full[key]), key
+
+
+@pytest.fixture(scope="module", params=["faster", "mask"])
+def slice_pair(request):
+    jc, tc = cfg_pair(MASK_ON=request.param == "mask")
+    jmodel = j_create_model(jc)
+    params = rcnn_params(jmodel, seed=21)
+    port = load_params(GeneralizedRCNN(tc).eval(), params)
+    batch = canvases(0, n=2, canvas=(128, 192))
+    ref = j_make_rcnn_inference_fn(jc, jmodel)(params, *(jnp.asarray(a) for a in batch))
+    got = make_rcnn_inference_fn(tc, port)(*(torch.from_numpy(a) for a in batch))
+    return jc, tc, {k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in got.items()}
+
+
+def test_make_rcnn_inference_fn_matches_sad_tpu(slice_pair):
+    _, _, ref, got = slice_pair
+    assert got["boxes"].shape == (2, 100, 4) and got["valid"].dtype == bool
+    for j in range(2):
+        c1, s1, b1 = _kept(ref, j)
+        c2, s2, b2 = _kept(got, j)
+        assert len(c1) == len(c2) and len(c1) > 0
+        np.testing.assert_array_equal(c2, c1)
+        np.testing.assert_allclose(s2, s1, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(b2, b1, rtol=0, atol=2e-3)
+    assert got["valid"].sum() >= 10 and len(np.unique(got["classes"][got["valid"]])) >= 2
+    assert (got["boxes"][~got["valid"]] == 0).all()
+
+
+def test_mask_probabilities_match_sad_tpu(slice_pair):
+    jc, _, ref, got = slice_pair
+    if not jc.MODEL.MASK_ON:
+        assert "mask_prob" not in got and "mask_prob" not in ref
+        return
+    assert got["mask_prob"].shape == (2, 100, 28, 28, 5) == ref["mask_prob"].shape
+    for j in range(2):
+        # the same detections in the same slots: greedy NMS emits by score
+        valid = got["valid"][j]
+        np.testing.assert_array_equal(got["classes"][j], ref["classes"][j])
+        np.testing.assert_allclose(got["mask_prob"][j][valid], ref["mask_prob"][j][valid],
+                                   rtol=0, atol=1e-3)
+    # an invalid slot pools nothing: the mask head sees zeros in every one
+    empty = got["mask_prob"][~got["valid"]]
+    assert len(empty) > 1 and np.abs(empty - empty[0]).max() < 1e-6
+
+
+@pytest.fixture(scope="module")
+def synth_dataset(tmp_path_factory):
+    name = "torch_rcnn_synth_val"
+    root = tmp_path_factory.mktemp("torch_rcnn")
+    img_dir, ann = generate_synthetic_coco(str(root), split="val", n_images=3, seed=5,
+                                           size_range=(80, 160), objects_per_image=(1, 2))
+    register_dataset(name, img_dir, ann, allow_override=True)
+    tcfg.register_dataset(name, img_dir, ann, allow_override=True)
+    return name
+
+
+def test_run_inference_on_roidb_box_results(synth_dataset):
+    jc, tc = cfg_pair()
+    jmodel = j_create_model(jc)
+    params = rcnn_params(jmodel, seed=21)
+    port = load_params(GeneralizedRCNN(tc).eval(), params)
+    jds, tds = JCocoDataset(synth_dataset), CocoDataset(synth_dataset)
+    ref = j_run_inference_on_roidb(jc, jmodel, params, jds.get_roidb(include_gt=False),
+                                   jds.contiguous_to_json, batch_size=2)
+    got = test_engine.run_inference_on_roidb(tc, port, tds.get_roidb(include_gt=False),
+                                             tds.contiguous_to_json, batch_size=2)
+    assert len(got) == len(ref) > 5
+    key = lambda d: (d["image_id"], d["category_id"], -d["score"])  # noqa: E731
+    for a, b in zip(sorted(ref, key=key), sorted(got, key=key)):
+        assert (a["image_id"], a["category_id"]) == (b["image_id"], b["category_id"])
+        assert abs(a["score"] - b["score"]) <= 1e-5
+        np.testing.assert_allclose(b["bbox"], a["bbox"], rtol=0, atol=1e-3)
+    assert len({d["image_id"] for d in got}) == 3
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"MODEL": {"FASTER_RCNN": False}}, "precomputed proposals"),
+    ({"MODEL": {"KEYPOINTS_ON": True}}, "KEYPOINTS_ON"),
+    ({"FPN": {"FPN_ON": False}}, "single-scale"),
+])
+def test_unported_inference_branches_raise(over, match):
+    tc = t_merge(t_merge(tcfg.Config(), TINY),
+                 {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
+    with pytest.raises(NotImplementedError, match=match):
+        make_rcnn_inference_fn(tc, None)
+
+
+def test_aux_on_boxes_raises():
+    with pytest.raises(NotImplementedError, match="make_aux_on_boxes_fn"):
+        rcnn_inference.make_aux_on_boxes_fn(cfg_pair()[1], None)
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"TEST": {"BBOX_AUG": {"ENABLED": True}}}, "BBOX_AUG"),
+    ({"TEST": {"SOFT_NMS": {"ENABLED": True}}}, "SOFT_NMS"),
+    ({"TEST": {"BBOX_VOTE": {"ENABLED": True}}}, "BBOX_VOTE"),
+    ({"TEST": {"PROPOSAL_FILES": ("props.pkl",)}}, "PROPOSAL_FILES"),
+    ({"MODEL": {"MASK_ON": True}}, "MASK_ON"),
+    ({"MODEL": {"MASK_ON": True}, "TEST": {"MASK_AUG": {"ENABLED": True}}}, "MASK_AUG"),
+    ({"MODEL": {"TYPE": "rfcn"}}, "not ported"),
+])
+def test_engine_refuses_unported_rcnn_options(over, match):
+    tc = t_merge(t_merge(tcfg.Config(), TINY),
+                 {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
+    with pytest.raises(NotImplementedError, match=match):
+        test_engine.run_inference_on_roidb(tc, None, [], {}, batch_size=2)
