@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
 against its plain PyTorch version, and drive the RetinaNet serving path, the
-joint SAD training step and Faster / Mask R-CNN serving end to end.
+joint SAD training step, Faster / Mask R-CNN serving and the Faster / Mask
+R-CNN training step end to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -15,8 +16,9 @@ line each (name, what was checked, time):
   nms_kernel     csrc/nms.cu against ops.nms.nms_multi_plain on the card:
                  idx and valid exactly equal on every case; median times of
                  both at the RetinaNet decode shape (N=8, K=5000, max_out=100),
-                 the RPN shape (N=40, K=1000, max_out=1000, thr 0.7) and the
-                 R-CNN decode shape (N=8, K=80000, max_out=100)
+                 the RPN shape (N=40, K=1000, max_out=1000, thr 0.7), the
+                 training RPN shape (N=40, K=2000, max_out=2000, thr 0.7) and
+                 the R-CNN decode shape (N=8, K=80000, max_out=100)
   roi_align_kernel
                  csrc/roi_align.cu against the plain twin of ops/roi_align.py
                  on the card, float32 (within 1e-5 * max|ref| + 1e-6) and
@@ -28,6 +30,17 @@ line each (name, what was checked, time):
                  on the last row and column, invalid slots, an odd R, C=64,
                  C=3 (no vector loads), a 1x2 top level, sr 1 and 3; median
                  times, bytes moved and the bound at both shapes
+  roi_align_bwd_kernel
+                 the backward kernel of csrc/roi_align.cu against
+                 multilevel_roi_align_bwd_plain on the card, through its
+                 wrapper and through autograd (with a cotangent that is a
+                 non-contiguous view), on the cases above plus 600 rois on
+                 one cell; float32 within 1e-5 * max|ref| (1e-4 for the 600),
+                 bfloat16 one ulp (2^-7 of the larger magnitude) more:
+                 atomics land in no fixed order, so the two are not bit-equal;
+                 median times of both, and of the forward, at the box shape
+                 (R=4096, res 7) and the mask shape (R=1024, res 14) of the
+                 training step; bytes moved and the bound
   student_infer  R-50-FPN student config, random bf16 weights, a batch of
                  uint8 640x1024 canvases through make_inference_fn; output
                  shapes, finite boxes, classes in 1..80, NMS kernel launched,
@@ -67,6 +80,24 @@ line each (name, what was checked, time):
                  2 NMS launches and 1 (Faster) or 2 (Mask) RoIAlign launches
                  a batch; imgs/s
 
+  faster_rcnn_train, mask_rcnn_train
+                 the training step of the same two configs at full width and
+                 depth, --groups x 2 images on the 800x1344 canvas, bf16
+                 compute, float32 parameters, LR 1e-6
+                 (tools/profile_train.seeded_rcnn_train_step): from one state
+                 and one set of sampler uniforms a step with the kernels and
+                 a step with the plain NMS and plain RoIAlign (forward and
+                 backward) in their place, metrics within 1e-4 relative; the
+                 gradients each RoIAlign backward hands to the FPN outputs
+                 within one bf16 ulp + 1e-5 * max; the backward kernel timed
+                 on the rois the step sampled; then warm-up + timed steps:
+                 finite losses, loss_mask for Mask R-CNN, every trainable
+                 tensor updated, frozen tensors bit-identical, at least one
+                 fg roi an image, and a step's launches: NMS 1, RoIAlign
+                 forward 1 (Faster) or 3 (Mask: box, mask, and the mask
+                 target crop, which carries no gradient), backward 1 or 2;
+                 imgs/s, peak memory
+
 Then a JSON line with every kernel of the paths, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failure
 raises and the exit code is not 0; without a CUDA card the script exits 2
@@ -94,6 +125,7 @@ MASK_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml"
 DECODE_SHAPE = (8, 5000, 100, 0.5)  # RetinaNet decode: 8 images, 5 levels x 1000
 RPN_SHAPE = (40, 1000, 1000, 0.7)  # R-CNN proposals: 5 levels x 8 images
 RCNN_DECODE_SHAPE = (8, 80000, 100, 0.5)  # R-CNN decode: 1000 rois x 80 classes
+RPN_TRAIN_SHAPE = (40, 2000, 2000, 0.7)  # R-CNN training proposals: 5 levels x 8 images
 RCNN_CANVAS = (800, 1344)
 
 
@@ -157,6 +189,7 @@ def phase_nms(torch, rng, iters, warmup):
     n, k, max_out, thr = DECODE_SHAPE
     rn, rk, rmax, rthr = RPN_SHAPE
     dn, dk, dmax, dthr = RCNN_DECODE_SHAPE
+    tn, tk, tmax, tthr = RPN_TRAIN_SHAPE
     cases = {
         "decode N=8 K=5000 thr=0.5": (_nms_case(torch, rng, n, k, invalid_from=4600), thr, max_out),
         # a level's 1000 candidates of one image; the last 8 problems are the
@@ -164,6 +197,10 @@ def phase_nms(torch, rng, iters, warmup):
         "rpn N=40 K=1000 max_out=1000 thr=0.7": (
             _nms_case(torch, rng, rn, rk, clusters=200,
                       invalid_tail_rows=(range(32, 40), 819)), rthr, rmax),
+        # the training step's proposals: 2000 candidates a level and image
+        "rpn train N=40 K=2000 max_out=2000 thr=0.7": (
+            _nms_case(torch, rng, tn, tk, clusters=400,
+                      invalid_tail_rows=(range(32, 40), 819)), tthr, tmax),
         # 1000 rois x 80 classes, class-offset boxes, ~3 % over SCORE_THRESH
         "rcnn decode N=8 K=80000 thr=0.5": (
             _nms_case(torch, rng, dn, dk, clusters=400, valid_share=0.03), dthr, dmax),
@@ -193,6 +230,7 @@ def phase_nms(torch, rng, iters, warmup):
     stats, said = {}, []
     for key, name, plain_iters in (("decode", "decode N=8 K=5000 thr=0.5", iters),
                                    ("rpn", "rpn N=40 K=1000 max_out=1000 thr=0.7", 3),
+                                   ("rpn_train", "rpn train N=40 K=2000 max_out=2000 thr=0.7", 2),
                                    ("rcnn_decode", "rcnn decode N=8 K=80000 thr=0.5", iters)):
         (boxes, scores), t, m = cases[name]
         ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, t, m), iters * 5, warmup)
@@ -620,15 +658,6 @@ def phase_roi_align(torch, seed, batch, iters, warmup):
     if bool(out.any()):
         raise AssertionError("roi_align: all-invalid rois gave non-zero output")
     n_cases += 1
-    # the card path is forward-only
-    feats = {l: f.float().requires_grad_(True) for l, f in feats.items()}
-    out = multilevel_roi_align(feats, rois, map_rois_to_fpn_levels(rois[:, 1:], 2, 5), valid, 7, 2)
-    try:
-        out.sum().backward()
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("roi_align backward on the card did not raise")
     launched = roi_align_kernel.launches - before
     _phase("roi_align_kernel", f"{n_cases} cases within tolerance of the plain twin (float32 "
            f"1e-5 * max|ref| + 1e-6; bfloat16 one ulp), worst abs err {worst:.3e}, "
@@ -636,22 +665,182 @@ def phase_roi_align(torch, seed, batch, iters, warmup):
     return stats
 
 
+def _roi_align_bwd_bound(feats_hw, batch, c, esize, r, res, sr):
+    """RoIAlign backward: the cotangent read once, every gradient map written
+    once (it is dense: cells no roi touched are zeros that must be written),
+    the rois, levels and valid flags read once; a multiply and an add per tap."""
+    cells = batch * sum(h * w for h, w in feats_hw)
+    elems = r * res * res * c
+    bytes_moved = elems * esize + cells * c * esize + r * (20 + 4 + 1)
+    return bound(bytes_moved, 2 * 4 * sr * sr * elems), bytes_moved
+
+
+def _roi_align_bwd_check(torch, name, feats, rois, levels, valid, res, sr, gen, positive=False,
+                         rel=1e-5):
+    """Backward kernel against its plain version on one case, through the
+    wrapper and through autograd; returns max abs err. ``positive`` (a
+    cotangent without signs, so that nothing cancels) and a wider ``rel`` are
+    for a cell that collects ~10^4 terms: both versions add them in float32
+    in an order of their own, and the rounding of such a sum is ~1e-5 of it."""
+    from sad_tpu_torch.ops import roi_align_kernel
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_bwd_plain
+
+    lvls = sorted(feats)
+    f0 = feats[lvls[0]]
+    b, c, dtype = f0.shape[0], f0.shape[-1], f0.dtype
+    hw = {l: tuple(feats[l].shape[1:3]) for l in lvls}
+    g = torch.randn((rois.shape[0], res, res, c), generator=gen, device="cuda")
+    g = (g.abs() if positive else g).to(dtype)
+    got = roi_align_kernel.roi_align_bwd_cuda(g, [hw[l] for l in lvls], lvls[0], b, rois,
+                                              levels, valid, sr)
+    ref = multilevel_roi_align_bwd_plain(g, hw, b, rois, levels, valid, sr)
+    leaves = {l: f.detach().requires_grad_(True) for l, f in feats.items()}
+    out = multilevel_roi_align(leaves, rois, levels, valid, res, sr)
+    # a cotangent that is a non-contiguous view, as autograd may hand over
+    auto = torch.autograd.grad(out, [leaves[l] for l in lvls],
+                               g.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+    ref_max = max(float(ref[l].float().abs().max()) for l in lvls)
+    worst = 0.0
+    for k, l in enumerate(lvls):
+        for what, t in (("wrapper", got[k]), ("autograd", auto[k])):
+            if t.dtype != dtype or t.shape != feats[l].shape:
+                raise AssertionError(f"roi_align_bwd {name!r}: {what} P{l} is {t.dtype} "
+                                     f"{tuple(t.shape)}")
+            a, f = t.float(), ref[l].float()
+            err = (a - f).abs()
+            limit = rel * ref_max + 1e-30
+            if dtype != torch.float32:  # one bf16 ulp after the single cast
+                limit = limit + 2.0 ** -7 * torch.maximum(a.abs(), f.abs())
+            bad = int((err > limit).sum())
+            if bad or not bool(torch.isfinite(a).all()):
+                raise AssertionError(
+                    f"roi_align_bwd {name!r} ({dtype}, {what}, P{l}): {bad} of {err.numel()} "
+                    f"elements beyond the tolerance, max abs err {float(err.max()):.3e}, "
+                    f"max|ref| {ref_max:.3e}")
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
+    from sad_tpu_torch.ops import roi_align_kernel
+    from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
+    from sad_tpu_torch.ops.roi_align import (
+        multilevel_roi_align, multilevel_roi_align_bwd_plain, multilevel_roi_align_plain,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 11)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    n_cases, worst, stats, said = 0, 0.0, {}, []
+    before = roi_align_kernel.bwd_launches
+
+    # the two shapes of the training step, both dtypes; times at bf16, the step's dtype
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = _roi_feats(torch, gen, batch, RCNN_CANVAS, 256, dtype)
+        hw = {l: tuple(f.shape[1:3]) for l, f in feats.items()}
+        for key, per_im, res in (("box", 512, 7), ("mask", 128, 14)):
+            rois, valid = _rpn_like_rois(torch, rng, batch, per_im, RCNN_CANVAS)
+            levels = map_rois_to_fpn_levels(rois[:, 1:], 2, 5)
+            err = _roi_align_bwd_check(torch, f"{key} shape", feats, rois, levels, valid, res, 2,
+                                       gen)
+            worst, n_cases = max(worst, err), n_cases + 1
+            ferr, _ = _roi_align_check(torch, f"{key} shape of the step", feats, rois, levels,
+                                       valid, res, 2)
+            if dtype != torch.bfloat16:
+                continue
+            fms = _median_ms(torch, lambda: multilevel_roi_align(feats, rois, levels, valid, res, 2),
+                             iters * 3, warmup)
+            fplain = _median_ms(torch, lambda: multilevel_roi_align_plain(
+                feats, rois, levels, valid, res, 2), max(iters // 2, 2), 1)
+            fb, _, _ = _roi_align_bound(torch, feats, rois, levels, valid, res, 2)
+            stats[f"fwd_{key}"] = {"max_abs_err": ferr, "ms": fms, "plain_ms": fplain, **fb}
+            said.append(f"forward at the {key} shape of the step: kernel {fms:.4f} ms, plain "
+                        f"{fplain:.4f} ms, bound {fb['bound_ms']:.4f} ms")
+            g = torch.randn((rois.shape[0], res, res, 256), generator=gen,
+                            device="cuda").to(dtype)
+            dims = [hw[l] for l in sorted(hw)]
+            ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
+                g, dims, 2, batch, rois, levels, valid, 2), iters * 3, warmup)
+            plain_ms = _median_ms(torch, lambda: multilevel_roi_align_bwd_plain(
+                g, hw, batch, rois, levels, valid, 2), max(iters // 2, 2), 1)
+            b, nbytes = _roi_align_bwd_bound(dims, batch, 256, g.element_size(), rois.shape[0],
+                                             res, 2)
+            stats[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            said.append(f"{key} shape R={rois.shape[0]} res={res} bf16, spread rois: kernel "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {nbytes / 1e6:.1f} MB, bound "
+                        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, max abs err {err:.3e}")
+            del g
+        del feats
+
+    small = (256, 384)
+    edge = [  # name, batch, canvas, C, R, res, sr, levels
+        ("edge rois, C=64, R=37", 2, small, 64, 37, 7, 2, (2, 5)),
+        ("edge rois, res 14", 2, small, 64, 53, 14, 2, (2, 5)),
+        ("C=3: no vector loads", 3, small, 3, 29, 7, 2, (2, 5)),
+        ("C=20 float32 vectors, bf16 scalars", 1, small, 20, 31, 7, 2, (2, 5)),
+        ("1x2 top level", 1, (32, 64), 256, 16, 7, 2, (2, 5)),
+        ("one level only", 2, small, 64, 23, 7, 2, (3, 3)),
+        ("sr=1", 2, small, 64, 37, 7, 1, (2, 5)),
+        ("sr=3", 2, small, 64, 37, 7, 3, (2, 5)),
+    ]
+    for name, b, canvas, c, r, res, sr, (lo, hi) in edge:
+        rois, valid = _edge_rois(torch, rng, b, canvas, r)
+        levels = map_rois_to_fpn_levels(rois[:, 1:], lo, hi)
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = _roi_feats(torch, gen, b, canvas, c, dtype, lo, hi)
+            err = _roi_align_bwd_check(torch, name, feats, rois, levels, valid, res, sr, gen)
+            worst, n_cases = max(worst, err), n_cases + 1
+    # 600 rois on one and the same cell of P2: every atomic of a bin row collides
+    feats = _roi_feats(torch, gen, 2, small, 256, torch.float32)
+    rois = torch.tensor([[1.0, 41.0, 61.0, 43.0, 62.5]], device="cuda").repeat(600, 1)
+    valid = torch.ones(600, dtype=torch.bool, device="cuda")
+    levels = torch.full((600,), 2, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        err = _roi_align_bwd_check(torch, "600 rois on one cell",
+                                   {l: f.to(dtype) for l, f in feats.items()}, rois, levels,
+                                   valid, 7, 2, gen, positive=True, rel=1e-4)
+        worst, n_cases = max(worst, err), n_cases + 1
+    # all rois invalid: zeros
+    hw = [tuple(feats[l].shape[1:3]) for l in sorted(feats)]
+    g = torch.randn((600, 7, 7, 256), generator=gen, device="cuda")
+    zero = roi_align_kernel.roi_align_bwd_cuda(g, hw, 2, 2, rois, levels, ~valid, 2)
+    if any(bool(z.any()) for z in zero):
+        raise AssertionError("roi_align_bwd: all-invalid rois gave a non-zero gradient")
+    n_cases += 1
+    launched = roi_align_kernel.bwd_launches - before
+    _phase("roi_align_bwd_kernel", f"{n_cases} cases, wrapper and autograd, within tolerance of "
+           f"the plain version (float32 1e-5 * max|ref|, 1e-4 where 600 rois share a cell; bfloat16 "
+           f"one ulp more; atomics land in no fixed order, so not bit-equal), worst abs err {worst:.3e}, {launched} launches; "
+           f"medians: " + "; ".join(said), time.perf_counter() - t0)
+    return stats
+
+
 @contextlib.contextmanager
 def _plain_twins():
-    """For a check only: the plain NMS and the plain RoIAlign in place of the
-    two CUDA wrappers, so that the same entry points run without a kernel."""
+    """For a check only: the plain NMS and the plain RoIAlign, forward and
+    backward, in place of the three CUDA wrappers, so that the same entry
+    points run without a kernel."""
     from sad_tpu_torch.ops import nms, nms_kernel, roi_align, roi_align_kernel
 
     def plain_roi_align(feats, lvl_min, rois, levels, valid, res, sr):
         return roi_align.multilevel_roi_align_plain(
             {lvl_min + i: f for i, f in enumerate(feats)}, rois, levels, valid, res, sr)
 
-    saved = nms_kernel.nms_cuda, roi_align_kernel.roi_align_fwd_cuda
-    nms_kernel.nms_cuda, roi_align_kernel.roi_align_fwd_cuda = nms.nms_multi_plain, plain_roi_align
+    def plain_roi_align_bwd(grad_out, level_hw, lvl_min, batch, rois, levels, valid, sr):
+        out = roi_align.multilevel_roi_align_bwd_plain(
+            grad_out, {lvl_min + i: hw for i, hw in enumerate(level_hw)}, batch, rois, levels,
+            valid, sr)
+        return [out[l] for l in sorted(out)]
+
+    k = roi_align_kernel
+    saved = nms_kernel.nms_cuda, k.roi_align_fwd_cuda, k.roi_align_bwd_cuda
+    nms_kernel.nms_cuda = nms.nms_multi_plain
+    k.roi_align_fwd_cuda, k.roi_align_bwd_cuda = plain_roi_align, plain_roi_align_bwd
     try:
         yield
     finally:
-        nms_kernel.nms_cuda, roi_align_kernel.roi_align_fwd_cuda = saved
+        nms_kernel.nms_cuda, k.roi_align_fwd_cuda, k.roi_align_bwd_cuda = saved
 
 
 def phase_rcnn_infer(torch, name, cfg_path, seed, batch, iters, warmup):
@@ -731,6 +920,204 @@ def phase_rcnn_infer(torch, name, cfg_path, seed, batch, iters, warmup):
             "roi_align_launches": launches[1], "mask": bool(cfg.MODEL.MASK_ON)}
 
 
+def _kernel_counts():
+    from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
+
+    return nms_kernel.launches, roi_align_kernel.launches, roi_align_kernel.bwd_launches
+
+
+def _roi_branch_grads(torch, step, run, nchw, sampled):
+    """The gradients of the box loss and, for Mask R-CNN, of the mask loss
+    w.r.t. detached NHWC RoI levels: what each RoIAlign backward alone
+    produces (their sum would round a second time in bf16)."""
+    leaves = run.model.roi_features(
+        {l: f.detach().permute(0, 2, 3, 1).requires_grad_(True) for l, f in nchw.items()})
+    wrt = [leaves[l] for l in sorted(leaves)]
+    grads = list(torch.autograd.grad(step.box_branch(leaves, sampled)[0], wrt))
+    if run.cfg.MODEL.MASK_ON:
+        grads += torch.autograd.grad(step.mask_branch(leaves, sampled, run.batch), wrt)
+    return grads
+
+
+def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup):
+    from sad_tpu_torch.models.rcnn import flat_rois
+    from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.tools.profile_infer import wall_seconds
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_rcnn_train_step
+
+    t0 = time.perf_counter()
+    run = seeded_rcnn_train_step(os.path.join(REPO, cfg_path), seed=seed, n_groups=groups,
+                                 device="cuda")
+    cfg, step, batch = run.cfg, run.step, run.batch
+    mask_on = bool(cfg.MODEL.MASK_ON)
+    n = run.n_images
+    if tuple(batch["data_u8"].shape) != (n, *RCNN_CANVAS, 3):
+        raise AssertionError(f"{name}: canvas {tuple(batch['data_u8'].shape)}")
+    params = dict(run.model.named_parameters())
+    snap = {k: p.detach().clone() for k, p in params.items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(snap[k])
+            for v in run.state.velocity.values():
+                v.zero_()
+
+    # one step with the kernels and one with the plain versions, from the same
+    # state and the same sampler uniforms
+    p_all = cfg.TRAIN.RPN_POST_NMS_TOP_N + batch["gt_boxes"].shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    uniforms = (torch.rand((n, p_all), generator=gen, device="cuda"),
+                torch.rand((n, p_all), generator=gen, device="cuda"))
+    m_kernel = step(run.state, batch, BENCH_LR, uniforms=uniforms)
+    restore()
+    counts = _kernel_counts()
+    with _plain_twins():
+        m_plain = step(run.state, batch, BENCH_LR, uniforms=uniforms)
+    restore()
+    torch.cuda.synchronize()
+    if _kernel_counts() != counts:
+        raise AssertionError(f"{name}: the plain step launched a kernel")
+    worst = max(float((m_kernel[k] - m_plain[k]).abs() / m_plain[k].abs().clamp_min(1e-6))
+                for k in m_plain)
+    if sorted(m_kernel) != sorted(m_plain) or not worst <= 1e-4:
+        raise AssertionError(f"{name}: metrics of the kernel step vs the plain step: worst "
+                             f"rel err {worst:.3e} (limit 1e-4)")
+    if mask_on != ("loss_mask" in m_kernel):
+        raise AssertionError(f"{name}: loss_mask {'missing' if mask_on else 'present'}")
+
+    # the gradients that the RoIAlign backward hands to the FPN outputs
+    with torch.no_grad():
+        nchw = step.backbone(step.inputs(batch))
+        logits, deltas = run.model.rpn_outputs(nchw)
+    boxes, valid = step.proposals(logits, deltas, batch)
+    sampled = step.sample(boxes, valid, batch, uniforms)
+    g_kernel = _roi_branch_grads(torch, step, run, nchw, sampled)
+    with _plain_twins():
+        g_plain = _roi_branch_grads(torch, step, run, nchw, sampled)
+    torch.cuda.synchronize()
+    ref_max = max(float(g.float().abs().max()) for g in g_plain)
+    gworst = 0.0
+    for a, b in zip(g_kernel, g_plain):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        bad = int((err > 1e-5 * ref_max + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())).sum())
+        if bad or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: {bad} FPN-output gradient elements beyond one bf16 "
+                                 f"ulp + 1e-5 * max of the plain backward's")
+        gworst = max(gworst, float(err.max()))
+    fg_per_im = sampled["is_fg"].sum(dim=1).tolist()
+    valid_per_im = sampled["valid"].sum(dim=1).tolist()
+    proposals_per_im = valid.sum(dim=1).tolist()
+    if min(fg_per_im) < 1:
+        raise AssertionError(f"{name}: fg rois per image {fg_per_im}")
+    rois5 = flat_rois(sampled["rois"])
+    roi_levels = torch.bincount(step._roi_levels(rois5)[sampled["valid"].reshape(-1)],
+                                minlength=6)[2:].tolist()
+
+    # the backward kernel on the rois the step really sampled
+    res_box, cap = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION, step.mask_cap()
+    dims = [tuple(nchw[l].shape[2:]) for l in range(2, 6)]
+    c = nchw[2].shape[1]
+    dtype = nchw[2].dtype
+    own = []
+    shapes = [("box", rois5, sampled["valid"].reshape(-1), res_box)]
+    if mask_on:
+        shapes.append(("mask", flat_rois(sampled["rois"][:, :cap]),
+                       sampled["is_fg"][:, :cap].reshape(-1), cfg.MRCNN.ROI_XFORM_RESOLUTION))
+    for key, r5, ok, res in shapes:
+        r5 = r5.contiguous()
+        lv = step._roi_levels(r5)
+        g = torch.randn((r5.shape[0], res, res, c), generator=gen, device="cuda").to(dtype)
+        ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
+            g, dims, 2, n, r5, lv, ok, 2), iters * 2, warmup)
+        own.append(f"{key} R={r5.shape[0]} ({int(ok.sum())} live) {ms:.4f} ms")
+    target_stats = None
+    if mask_on:
+        # the target crop: the forward kernel over the (B * G, Hm, Wm, 1) rasters
+        rast = batch["gt_mask_rasters"]
+        bb, gg, hm, wm = rast.shape
+        maps = {2: rast.reshape(bb * gg, hm, wm, 1).float().contiguous()}
+        which = (torch.arange(bb, device="cuda")[:, None] * gg
+                 + sampled["matched_gt"][:, :cap]).reshape(-1, 1).float()
+        r5 = torch.cat([which, sampled["rois"][:, :cap].reshape(-1, 4)], dim=1).contiguous()
+        lv = torch.full((r5.shape[0],), 2, dtype=torch.int32, device="cuda")
+        ok = torch.ones((r5.shape[0],), dtype=torch.bool, device="cuda")
+        res = cfg.MRCNN.RESOLUTION
+        err, _ = _roi_align_check(torch, "mask target crop", maps, r5, lv, ok, res, 2)
+        ms = _median_ms(torch, lambda: multilevel_roi_align(maps, r5, lv, ok, res, 2),
+                        iters * 2, warmup)
+        plain_ms = _median_ms(torch, lambda: multilevel_roi_align_plain(maps, r5, lv, ok, res, 2),
+                              iters, warmup)
+        b_, _, _ = _roi_align_bound(torch, maps, r5, lv, ok, res, 2)
+        target_stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_}
+        own.append(f"mask target crop R={r5.shape[0]} res={res} C=1 over {bb * gg} rasters: "
+                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms")
+    del nchw, logits, deltas, g_kernel, g_plain, sampled
+
+    # the main path: counts set to 0 just before, read just after
+    frozen = {k: snap[k] for k in params if k not in set(step.names)}
+    losses = []
+    nms_kernel.launches = roi_align_kernel.launches = roi_align_kernel.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = wall_seconds(lambda: losses.append(step(run.state, batch, BENCH_LR)), iters, warmup)
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    n_steps = iters + warmup
+    want = (n_steps, (3 if mask_on else 1) * n_steps, (2 if mask_on else 1) * n_steps)
+    if launches != want:
+        raise AssertionError(f"{name}: NMS / RoIAlign forward / backward launches {launches} in "
+                             f"{n_steps} steps, want {want}")
+    vals = {k: [float(m[k]) for m in losses] for k in losses[0]}
+    if not all(np.isfinite(v).all() for v in vals.values()):
+        raise AssertionError(f"{name}: non-finite metrics {vals}")
+    still = [k for k in step.names if not bool(run.state.velocity[k].any())]
+    if still:
+        raise AssertionError(f"{name}: {len(still)} trainable tensors got no update, e.g. "
+                             f"{still[:3]}")
+    unchanged = [k for k in step.names if torch.equal(params[k], snap[k])]
+    if len(unchanged) > len(step.names) // 10:
+        raise AssertionError(f"{name}: {len(unchanged)} of {len(step.names)} trainable tensors "
+                             f"did not change, e.g. {unchanged[:3]}")
+    moved = [k for k in frozen if not torch.equal(params[k], frozen[k])]
+    if moved:
+        raise AssertionError(f"{name}: frozen tensors changed: {moved[:3]}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _phase(name, f"{cfg_path}: {n}x{RCNN_CANVAS[0]}x{RCNN_CANVAS[1]} uint8, G={groups}, bf16, LR "
+           f"{BENCH_LR}; kernel step vs plain step from one state: metrics within {worst:.2e} "
+           f"rel, FPN-output grads within tolerance (max abs diff {gworst:.3e} of max "
+           f"{ref_max:.3e}); proposals per image {proposals_per_im}, sampled valid "
+           f"{valid_per_im}, fg {fg_per_im}, rois per level P2..P5 {roi_levels}; backward "
+           f"kernel on the step's own rois: " + "; ".join(own) + f"; {n_steps} steps, loss "
+           f"{vals['loss'][0]:.4f} -> {vals['loss'][-1]:.4f}"
+           + (f", loss_mask {vals['loss_mask'][-1]:.4f}" if mask_on else "")
+           + f", all {len(step.names)} trainable tensors updated and "
+           f"{len(step.names) - len(unchanged)} changed, {len(frozen)} frozen bit-identical; "
+           f"launches NMS {launches[0]}, RoIAlign forward {launches[1]}"
+           + (" (box, mask and the target crop)" if mask_on else "")
+           + f", backward {launches[2]}; {n / med:.2f} imgs/s, {1000 * med:.3f} ms/step "
+           f"(median of {iters} after {warmup} warm-up), peak {peak:.2f} GiB",
+           time.perf_counter() - t0)
+    return {"imgs_per_s": n / med, "launches": launches, "steps": n_steps,
+            "target_stats": target_stats}
+
+
+# phases that can be run alone with --only
+PARTIAL = {
+    "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
+    "roi_align_kernel": lambda torch, a, rng: phase_roi_align(torch, a.seed, a.batch, a.iters,
+                                                              a.warmup),
+    "roi_align_bwd_kernel": lambda torch, a, rng: phase_roi_align_bwd(torch, a.seed, a.batch,
+                                                                      a.iters, a.warmup),
+    "faster_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
+        torch, "faster_rcnn_train", FASTER_CFG, a.seed + 4, a.groups, a.iters, a.warmup),
+    "mask_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
+        torch, "mask_rcnn_train", MASK_CFG, a.seed + 5, a.groups, a.iters, a.warmup),
+}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -739,6 +1126,8 @@ def main(argv=None) -> int:
     p.add_argument("--groups", type=int, default=4, help="loss groups of 2 images, joint step")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
+    p.add_argument("--only", default="", help="comma-separated phases to run alone while "
+                   "working on one (no result lines are printed): " + ", ".join(PARTIAL))
     args = p.parse_args(argv)
 
     import torch
@@ -767,8 +1156,14 @@ def main(argv=None) -> int:
            f"{os.path.relpath(lib.path, REPO)}); ptxas: {regs}", time.perf_counter() - t0)
 
     rng = np.random.RandomState(args.seed)
+    if args.only:
+        for name in args.only.split(","):
+            PARTIAL[name](torch, args, rng)
+        print("partial run: no result")
+        return 0
     nms_stats = phase_nms(torch, rng, args.iters, args.warmup)
     roi_stats = phase_roi_align(torch, args.seed, args.batch, args.iters, args.warmup)
+    roi_bwd_stats = phase_roi_align_bwd(torch, args.seed, args.batch, args.iters, args.warmup)
     fwd_stats, bwd_stats = phase_cls_losses(torch, args.seed, args.batch, args.groups,
                                             args.iters, args.warmup)
 
@@ -789,8 +1184,14 @@ def main(argv=None) -> int:
                             args.iters, args.warmup)
     if nms_kernel.launches != mask["nms_launches"] or (
             roi_align_kernel.launches != mask["roi_align_launches"]):
-        raise AssertionError("a kernel was launched after the last main-path run")
+        raise AssertionError("a kernel was launched after the R-CNN serving runs")
     rcnn_batches = (faster["nms_launches"] + mask["nms_launches"]) // 2
+    # the R-CNN training steps: the counts are set to 0 inside, after the comparisons
+    faster_t = PARTIAL["faster_rcnn_train"](torch, args, rng)
+    mask_t = PARTIAL["mask_rcnn_train"](torch, args, rng)
+    if _kernel_counts() != mask_t["launches"]:
+        raise AssertionError("a kernel was launched after the last main-path run")
+    train_steps = faster_t["steps"] + mask_t["steps"]
 
     nms_entry = {
         "route": "cuda",
@@ -802,6 +1203,12 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/roi_align.cu",
         "replaces": "sad_tpu/ops/pallas_roi_align.py:234 (_mlra_kernel)",
+        "library_ms": None,
+    }
+    roi_bwd_entry = {
+        "route": "cuda",
+        "source": "sad_tpu_torch/csrc/roi_align.cu",
+        "replaces": "sad_tpu/ops/pallas_roi_align.py:505 (_mlra_bwd_kernel)",
         "library_ms": None,
     }
     print(json.dumps({"kernels": [{
@@ -820,6 +1227,26 @@ def main(argv=None) -> int:
     }, {
         "name": "roi_align_fwd@mask", **roi_stats["mask"], **roi_entry,
         "launches": mask["roi_align_launches"] // 2,
+    }, {
+        # the training steps: one NMS, one box RoIAlign pair a step of both families; the
+        # mask pair and the mask target crop (forward only) a step of Mask R-CNN
+        "name": "greedy_nms@rpn_train", "launches": train_steps,
+        **nms_stats["rpn_train"], **nms_entry,
+    }, {
+        "name": "roi_align_fwd@box_train", "launches": train_steps,
+        **roi_bwd_stats["fwd_box"], **roi_entry,
+    }, {
+        "name": "roi_align_fwd@mask_train", "launches": mask_t["steps"],
+        **roi_bwd_stats["fwd_mask"], **roi_entry,
+    }, {
+        "name": "roi_align_fwd@mask_targets", "launches": mask_t["steps"],
+        **mask_t["target_stats"], **roi_entry,
+    }, {
+        "name": "roi_align_bwd@box", "launches": train_steps,
+        **roi_bwd_stats["box"], **roi_bwd_entry,
+    }, {
+        "name": "roi_align_bwd@mask", "launches": mask_t["steps"],
+        **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
         "name": "cls_losses_fwd",
         "route": "cuda",

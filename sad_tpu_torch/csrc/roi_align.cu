@@ -1,8 +1,10 @@
-// Multilevel RoIAlign forward: every roi is pooled from its own FPN level.
+// Multilevel RoIAlign, forward and backward: every roi is pooled from its own
+// FPN level, and the backward scatters the cotangent back through the same
+// taps (the second half of this file).
 //
-// Replaces the TPU kernel _mlra_kernel of sad_tpu/ops/pallas_roi_align.py
-// (launched by _windowed_forward, with the per-roi descriptors of
-// _build_meta). That kernel turns RoIAlign into windowed tent-weight matrix
+// The forward replaces the TPU kernel _mlra_kernel of
+// sad_tpu/ops/pallas_roi_align.py (launched by _windowed_forward, with the
+// per-roi descriptors of _build_meta). That kernel turns RoIAlign into windowed tent-weight matrix
 // products with double-buffered copies, because a gather is slow on a TPU.
 // Here the gather is the natural form, so none of that is carried over: no
 // windows or tiles, no roi descriptors built ahead of the launch, no padding
@@ -211,6 +213,138 @@ void launch(const LevelTable& lv, const float* rois, const int32_t* levels, cons
       lv, rois, levels, valid, static_cast<T*>(out), batch, c, res, sr);
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward: dF_l[b, y, x, :] += w_y * w_x * g[r, p, q, :] for every valid roi,
+// bin (p, q), sample (i, j) and each of its four taps, with exactly the
+// forward's taps (make_tap above: the position, the [-1, n] rule, the clamp,
+// the weights already divided by sr). No gradient goes to the rois.
+//
+// Replaces the TPU kernel _mlra_bwd_kernel of sad_tpu/ops/pallas_roi_align.py
+// (launched by _windowed_backward). That kernel walks the rois one after
+// another and reads, updates and writes back 32x32 windows of the gradient,
+// which is right only because a TPU grid runs in order on one core. Blocks run
+// in parallel here, so the sum is Detectron's scatter (roi_align_op.cu
+// RoIAlignBackwardFeature): float32 atomicAdd into float32 gradient maps that
+// the launch function zeroes on the same stream. All levels lie in one
+// allocation; the wrapper casts it once to the feature type, so the sum is
+// float32 whatever the features are. Nothing of the TPU kernel's windows,
+// staging buffer, width padding or roi limit is carried over.
+//
+// Atomics land in no fixed order, so two runs differ in the last bits of a
+// cell that several taps hit, and the kernel is held to its plain version by
+// a tolerance, not bit for bit.
+//
+// Layout: the forward's. One block takes (roi r, bin row p), fills the same
+// tap tables in shared memory, and each thread owns (bin q, a run of V
+// channels): it loads its V cotangent values once (16 bytes when V > 1) and
+// adds them per tap with one 16-byte vector atomic per four channels
+// (atomicAdd(float4*), Hopper's red.global.add.v4.f32; scalar atomics when C
+// or a pointer forbids vectors); neighbouring threads hit neighbouring
+// channels of one cell, so a warp's atomics fall into whole cache lines.
+// An invalid roi returns before it touches anything; level and batch index
+// are clamped as in the forward, so no address is out of bounds.
+//
+// What bounds it: bytes by the count of the roofline (the cotangent read once
+// and the gradient maps written once), but in practice the 4 * sr * sr
+// atomics per cotangent element at the L2, and their collisions where many
+// rois cover the same cells. What a later version could do: merge the taps of
+// a bin row that fall on the same cell before going to memory (a roi spans
+// 7..14 cells of its FPN level, so its footprint is several times smaller
+// than its 4 * sr * sr * res taps a bin row), or rois sorted by level and
+// image.
+
+struct GradTable {
+  float* grad[kMaxLevels];  // (B, h, w, C) float32, zeroed before the launch
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int n_levels;
+  int lvl_min;
+};
+
+// dst[0..V) += g[0..V) * wt; V a multiple of 4 means dst is 16-byte aligned
+template <int V>
+__device__ __forceinline__ void atomic_add_run(float* dst, const float* g, float wt) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst + k),
+                make_float4(g[k] * wt, g[k + 1] * wt, g[k + 2] * wt, g[k + 3] * wt));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) atomicAdd(dst + k, g[k] * wt);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+roi_align_bwd_kernel(GradTable lv,
+                     const float* __restrict__ rois,      // (R, 5)
+                     const int32_t* __restrict__ levels,  // (R,) absolute FPN level
+                     const bool* __restrict__ valid,      // (R,)
+                     const T* __restrict__ gout,          // (R, res, res, C) cotangent
+                     int batch, int c, int res, int sr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tap* xtap = reinterpret_cast<Tap*>(smem_raw);  // res * sr
+  Tap* ytap = xtap + res * sr;                   // sr
+
+  const int r = blockIdx.x / res;
+  const int p = blockIdx.x - r * res;
+  if (!valid[r]) return;
+  const int cv = c / V;
+
+  int li = levels[r] - lv.lvl_min;
+  li = min(max(li, 0), lv.n_levels - 1);
+  const int h = lv.h[li], w = lv.w[li];
+  const float scale = 1.0f / (float)(1 << (li + lv.lvl_min));
+  const float* roi = rois + (size_t)r * 5;
+  int b = (int)roi[0];
+  b = min(max(b, 0), batch - 1);
+  const float x1 = roi[1] * scale, y1 = roi[2] * scale;
+  const float x2 = roi[3] * scale, y2 = roi[4] * scale;
+  const float bin_w = fmaxf(x2 - x1, 1.0f) / (float)res;
+  const float bin_h = fmaxf(y2 - y1, 1.0f) / (float)res;
+
+  for (int t = threadIdx.x; t < res * sr; t += kThreads) {
+    xtap[t] = make_tap(x1, bin_w, t / sr, t % sr, sr, w);
+  }
+  if (threadIdx.x < sr) ytap[threadIdx.x] = make_tap(y1, bin_h, p, threadIdx.x, sr, h);
+  __syncthreads();
+
+  float* gmap = lv.grad[li] + (size_t)b * h * w * c;
+  const T* grow = gout + ((size_t)r * res + p) * res * c;
+  for (int e = threadIdx.x; e < res * cv; e += kThreads) {
+    const int q = e / cv;
+    const int cc = (e - q * cv) * V;
+    float g[V];
+    Pack<T, V>::load(grow + (size_t)q * c + cc, g);
+    for (int i = 0; i < sr; ++i) {
+      const Tap ty = ytap[i];
+      float* row_lo = gmap + (size_t)ty.lo * w * c + cc;
+      float* row_hi = gmap + (size_t)ty.hi * w * c + cc;
+      for (int j = 0; j < sr; ++j) {
+        const Tap tx = xtap[q * sr + j];
+        float* dst[4] = {row_lo + (size_t)tx.lo * c, row_lo + (size_t)tx.hi * c,
+                         row_hi + (size_t)tx.lo * c, row_hi + (size_t)tx.hi * c};
+        const float wt[4] = {ty.w_lo * tx.w_lo, ty.w_lo * tx.w_hi,
+                             ty.w_hi * tx.w_lo, ty.w_hi * tx.w_hi};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) atomic_add_run<V>(dst[t], g, wt[t]);
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+void launch_bwd(const GradTable& lv, const float* rois, const int32_t* levels,
+                const bool* valid, const void* gout, int n_rois, int batch, int c, int res,
+                int sr, cudaStream_t stream) {
+  const size_t smem = (size_t)(res * sr + sr) * sizeof(Tap);
+  roi_align_bwd_kernel<T, V><<<(unsigned)(n_rois * res), kThreads, smem, stream>>>(
+      lv, rois, levels, valid, static_cast<const T*>(gout), batch, c, res, sr);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. vec: 1 when C is a multiple of the
@@ -246,6 +380,52 @@ extern "C" int sad_roi_align_fwd_launch(const void* const* feats, const int* hs,
       launch<__nv_bfloat16, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr, stream);
     } else {
       launch<__nv_bfloat16, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr, stream);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward. ``grads`` are the per-level float32 gradient maps, all inside
+// the one allocation [grad_base, grad_base + grad_bytes), which is zeroed here
+// on ``stream`` before the kernel adds into it. dtype is the cotangent's
+// (0 = float32, 1 = bfloat16); vec: 1 when C is a multiple of its 16-byte
+// vector width and ``gout`` and every gradient map are 16-byte aligned.
+extern "C" int sad_roi_align_bwd_launch(float* const* grads, const int* hs, const int* ws,
+                                        int n_levels, int lvl_min, const float* rois,
+                                        const int32_t* levels, const bool* valid,
+                                        const void* gout, void* grad_base, size_t grad_bytes,
+                                        int n_rois, int batch, int c, int res, int sr,
+                                        int dtype, int vec, cudaStream_t stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || lvl_min < 0 || lvl_min + n_levels > 31 ||
+      n_rois < 0 || batch < 1 || c < 1 || res < 1 || sr < 1 || (dtype != 0 && dtype != 1) ||
+      (long long)n_rois * res > 2147483647LL ||
+      (size_t)(res * sr + sr) * sizeof(Tap) > 48 * 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaMemsetAsync(grad_base, 0, grad_bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (n_rois == 0) return (int)cudaSuccess;
+  GradTable lv;
+  for (int i = 0; i < kMaxLevels; ++i) {
+    lv.grad[i] = i < n_levels ? grads[i] : nullptr;
+    lv.h[i] = i < n_levels ? hs[i] : 0;
+    lv.w[i] = i < n_levels ? ws[i] : 0;
+  }
+  lv.n_levels = n_levels;
+  lv.lvl_min = lvl_min;
+  if (dtype == 0) {
+    if (vec && c % 4 == 0) {
+      launch_bwd<float, 4>(lv, rois, levels, valid, gout, n_rois, batch, c, res, sr, stream);
+    } else {
+      launch_bwd<float, 1>(lv, rois, levels, valid, gout, n_rois, batch, c, res, sr, stream);
+    }
+  } else {
+    if (vec && c % 8 == 0) {
+      launch_bwd<__nv_bfloat16, 8>(lv, rois, levels, valid, gout, n_rois, batch, c, res, sr,
+                                   stream);
+    } else {
+      launch_bwd<__nv_bfloat16, 1>(lv, rois, levels, valid, gout, n_rois, batch, c, res, sr,
+                                   stream);
     }
   }
   return (int)cudaGetLastError();

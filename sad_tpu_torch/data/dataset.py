@@ -1,9 +1,10 @@
 """COCO-JSON dataset layer (self-contained; no pycocotools).
 
-A copy of sad_tpu/data/dataset.py. The mask and keypoint branches serve the
-R-CNN families only, which the port does not have yet: a dataset with
-keypoint categories, and a flip of an entry that carries segmentations or
-keypoints, raise NotImplementedError (ROADMAP.md Queue 1 item 8).
+A copy of sad_tpu/data/dataset.py. Segmentations are kept and flipped for
+Mask R-CNN training (utils/segms.py). The keypoint branches serve Keypoint
+R-CNN, which the port does not have yet: a dataset with keypoint categories
+and a flip of an entry that carries keypoints raise NotImplementedError
+(ROADMAP.md Queue 1 item 8).
 
 Capability-equivalent to detectron/lib/datasets/json_dataset.py +
 roidb.py, parsing the COCO instance json directly:
@@ -31,7 +32,7 @@ import numpy as np
 
 from ..config.catalog import DatasetSpec, get_dataset_spec
 
-_RCNN_ONLY = ("{} serve the R-CNN families, which sad_tpu_torch does not port yet "
+_RCNN_ONLY = ("{} serve Keypoint R-CNN, which sad_tpu_torch does not port yet "
               "(ROADMAP.md Queue 1 item 8)")
 
 
@@ -163,7 +164,9 @@ def flip_entry(entry: dict) -> dict:
     out["boxes"] = boxes
     out["flipped"] = True
     if entry.get("segms"):
-        raise NotImplementedError(_RCNN_ONLY.format("flipped segmentations"))
+        from ..utils.segms import flip_segm
+
+        out["segms"] = [flip_segm(s, w) for s in entry["segms"]]
     kp = entry.get("gt_keypoints")
     if kp is not None and len(kp):
         raise NotImplementedError(_RCNN_ONLY.format("flipped keypoints"))

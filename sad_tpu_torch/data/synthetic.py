@@ -29,13 +29,15 @@ def random_canvases(rng: np.random.RandomState, batch: int, canvas: Tuple[int, i
 
 
 def random_train_entries(rng: np.random.RandomState, n: int, max_side: int = 1000,
-                         num_classes: int = 81, max_boxes: int = 8
+                         num_classes: int = 81, max_boxes: int = 8, polygons: bool = False
                          ) -> Tuple[List[dict], List[np.ndarray]]:
     """``n`` landscape roidb entries with 1..max_boxes gt boxes each, and
     their uint8 BGR images of random pixels: the inputs of
-    RetinaNetMinibatchBuilder.build. Sizes are drawn so that some images are
-    upscaled to the training scale and some downscaled (short sides of
-    360..800 px, long sides up to ``max_side``)."""
+    RetinaNetMinibatchBuilder.build and RCNNMinibatchBuilder.build. Sizes are
+    drawn so that some images are upscaled to the training scale and some
+    downscaled (short sides of 360..800 px, long sides up to ``max_side``).
+    With ``polygons`` every box carries one segmentation polygon, a 12-gon
+    inscribed in it (``segms``, as the dataset layer keeps them)."""
     entries, images = [], []
     for _ in range(n):
         h = int(rng.randint(360, 801))
@@ -51,5 +53,11 @@ def random_train_entries(rng: np.random.RandomState, n: int, max_side: int = 100
             "gt_classes": rng.randint(1, num_classes, k).astype(np.int32),
             "is_crowd": np.zeros(k, bool),
         })
+        if polygons:
+            t = np.linspace(0.0, 2.0 * np.pi, 12, endpoint=False)
+            cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
+            entries[-1]["segms"] = [
+                [np.stack([cx[j] + rx[j] * np.cos(t), cy[j] + ry[j] * np.sin(t)],
+                          axis=1).reshape(-1).tolist()] for j in range(k)]
         images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
     return entries, images

@@ -218,10 +218,12 @@ class GeneralizedRCNN(nn.Module):
         rpn_levels = range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1)
         return self.rpn({l: feats[l] for l in rpn_levels if l in feats})
 
-    def rpn_candidates(self, logits, deltas, im_hw: torch.Tensor):
-        """Per level, every image's TEST.RPN_PRE_NMS_TOP_N candidates:
+    def rpn_candidates(self, logits, deltas, im_hw: torch.Tensor, train: bool = False):
+        """Per level, every image's RPN_PRE_NMS_TOP_N candidates (the TEST
+        settings, or with ``train`` the TRAIN ones):
         [(level, boxes (B, k, 4), top_scores (B, k), masked (B, k))]."""
         cfg = self.cfg
+        mode = cfg.TRAIN if train else cfg.TEST
         im_hw = im_hw.float()
         na = len(cfg.FPN.RPN_ASPECT_RATIOS)
         prop_levels = []
@@ -232,27 +234,33 @@ class GeneralizedRCNN(nn.Module):
                 tuple(cfg.FPN.RPN_ASPECT_RATIOS), h, w)
             bx, ts, ms = proposal_candidates(
                 torch.sigmoid(lg), deltas[lvl].reshape(b, h, w, na, 4), anchors, im_hw,
-                cfg.TEST.RPN_PRE_NMS_TOP_N, float(cfg.TEST.RPN_MIN_SIZE))
+                mode.RPN_PRE_NMS_TOP_N, float(mode.RPN_MIN_SIZE))
             prop_levels.append((lvl, bx, ts, ms))
         return prop_levels
 
-    def collect(self, lv_b, lv_s, lv_v):
-        """The global top TEST.RPN_POST_NMS_TOP_N of the per-level NMS
-        results and each roi's RoI level."""
+    def collect(self, lv_b, lv_s, lv_v, train: bool = False):
+        """The global top RPN_POST_NMS_TOP_N of the per-level NMS results
+        and each roi's RoI level."""
         cfg = self.cfg
+        mode = cfg.TRAIN if train else cfg.TEST
         return collect_and_distribute_fpn_proposals(
-            lv_b, lv_s, lv_v, cfg.TEST.RPN_POST_NMS_TOP_N,
+            lv_b, lv_s, lv_v, mode.RPN_POST_NMS_TOP_N,
             cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL,
             cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL)
 
-    def proposals(self, feats: Dict[int, torch.Tensor], im_hw: torch.Tensor):
-        """RPN over NCHW ``feats``, candidates per (level, image), ONE NMS
-        call over all of them, then the global top-k and the RoI levels.
-        Returns (boxes (B, R, 4), scores (B, R), valid (B, R), levels (B, R))."""
-        cfg = self.cfg
-        prop_levels = self.rpn_candidates(*self.rpn_outputs(feats), im_hw)
+    def proposals_from_rpn(self, logits, deltas, im_hw: torch.Tensor, train: bool = False):
+        """Candidates per (level, image) from the RPN outputs, ONE NMS call
+        over all of them, then the global top-k and the RoI levels. Returns
+        (boxes (B, R, 4), scores (B, R), valid (B, R), levels (B, R))."""
+        mode = self.cfg.TRAIN if train else self.cfg.TEST
+        prop_levels = self.rpn_candidates(logits, deltas, im_hw, train)
         return self.collect(*nms_levels_batched(
-            prop_levels, cfg.TEST.RPN_NMS_THRESH, cfg.TEST.RPN_POST_NMS_TOP_N))
+            prop_levels, mode.RPN_NMS_THRESH, mode.RPN_POST_NMS_TOP_N), train)
+
+    def proposals(self, feats: Dict[int, torch.Tensor], im_hw: torch.Tensor):
+        """The RPN over NCHW ``feats`` and ``proposals_from_rpn`` with the
+        TEST settings."""
+        return self.proposals_from_rpn(*self.rpn_outputs(feats), im_hw)
 
     def box_roi_features(self, feats: Dict[int, torch.Tensor], boxes, roi_lvls, valid):
         """RoIAlign of (B, R, 4) per-image boxes for the box head, from the

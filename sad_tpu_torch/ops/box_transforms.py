@@ -1,5 +1,6 @@
-"""Box regression decode (ref: sad_tpu/ops/box_transforms.py:20-54,
-detectron/lib/utils/boxes.py bbox_transform), legacy "+1" pixel extents."""
+"""Box regression decode and encode, clipping and IoU (ref:
+sad_tpu/ops/box_transforms.py; detectron/lib/utils/boxes.py and
+cython_bbox.pyx), legacy "+1" pixel extents."""
 
 from __future__ import annotations
 
@@ -46,6 +47,51 @@ def bbox_transform(
         ],
         dim=-1,
     )
+
+
+def bbox_transform_inv(ex_rois: torch.Tensor, gt_rois: torch.Tensor,
+                       weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Regression targets from example boxes (..., 4) to gt boxes (..., 4)
+    (boxes.py bbox_transform_inv)."""
+    ex_rois, gt_rois = ex_rois.float(), gt_rois.float()
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+
+    wx, wy, ww, wh = weights
+    return torch.stack(
+        [
+            wx * (gt_cx - ex_cx) / ex_w,
+            wy * (gt_cy - ex_cy) / ex_h,
+            ww * torch.log(gt_w / ex_w),
+            wh * torch.log(gt_h / ex_h),
+        ],
+        dim=-1,
+    )
+
+
+def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU (..., N, K) of boxes (..., N, 4) and query boxes
+    (..., K, 4) with the "+1" areas (cython_bbox.pyx bbox_overlaps); 0 where
+    the union is not positive."""
+    boxes, query_boxes = boxes.float(), query_boxes.float()
+    b_area = (boxes[..., 2] - boxes[..., 0] + 1.0) * (boxes[..., 3] - boxes[..., 1] + 1.0)
+    q_area = (query_boxes[..., 2] - query_boxes[..., 0] + 1.0) * (
+        query_boxes[..., 3] - query_boxes[..., 1] + 1.0)
+    b, q = boxes[..., :, None, :], query_boxes[..., None, :, :]
+    iw = torch.clamp(torch.minimum(b[..., 2], q[..., 2]) - torch.maximum(b[..., 0], q[..., 0])
+                     + 1.0, min=0.0)
+    ih = torch.clamp(torch.minimum(b[..., 3], q[..., 3]) - torch.maximum(b[..., 1], q[..., 1])
+                     + 1.0, min=0.0)
+    inter = iw * ih
+    union = b_area[..., :, None] + q_area[..., None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
 
 
 def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:

@@ -225,3 +225,13 @@ def select_smooth_l1_loss(bbox_pred, bbox_targets, fg_mask, fg_num, beta: float,
     """The reference gathers the M fg rows (select_smooth_l1_loss_op.cu:23-48);
     the dense masked form gives the same total, as in sad_tpu."""
     return SelectSmoothL1Loss.apply(bbox_pred, bbox_targets, fg_mask, fg_num, beta, scale)
+
+
+def smooth_l1_loss(y_hat: torch.Tensor, y: torch.Tensor, inside_weights: torch.Tensor,
+                   outside_weights: torch.Tensor, beta: float = 1.0,
+                   scale: float = 1.0) -> torch.Tensor:
+    """scale / N * sum(out_w * huber(in_w * (y_hat - y), beta)), N the size of
+    dim 0: the dense Fast R-CNN and RPN box loss (ref: sad_tpu/ops/losses.py
+    smooth_l1_loss; smooth_l1_loss_op.cu). Plain autograd, as there."""
+    d = inside_weights * (y_hat.float() - y.float())
+    return (scale / y.shape[0]) * (outside_weights * _huber(d, beta)).sum()

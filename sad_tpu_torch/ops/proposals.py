@@ -9,17 +9,22 @@ the legacy +1 pixel extents. No step reads a value back to the host.
 ``torch.topk`` takes the place of sad_tpu's ``ops/topk.top_k``; there is no
 approximate path, so RPN.EXACT_TOPK loads and is ignored. Which index a tie
 at the k-th score reports may differ between the two: compare through
-``valid`` and score multisets. ``sample_proposal_labels`` (training) is not
-ported yet (ROADMAP.md Queue 1).
+``valid`` and score multisets.
+
+``sample_proposal_labels`` (training) is batched over images where sad_tpu
+maps one image under ``vmap``. Its random priorities come from a
+``torch.Generator`` or are handed over as two (B, P + G) tensors: JAX's
+numbers cannot be drawn here, so a comparison hands JAX's own over.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .box_transforms import bbox_transform, clip_boxes
+from .box_transforms import bbox_overlaps, bbox_transform, bbox_transform_inv, clip_boxes
 from .nms import NEG_INF, nms_multi
 from .roi_align import multilevel_roi_align  # noqa: F401  (sad_tpu keeps it here)
 
@@ -148,3 +153,105 @@ def collect_and_distribute_fpn_proposals(
     levels = map_rois_to_fpn_levels(out_boxes, roi_min_level, roi_max_level,
                                     canonical_scale, canonical_level)
     return out_boxes, torch.where(out_valid, top_scores, 0.0), out_valid, levels
+
+
+def sampled_fg_cap(batch_size_per_im: int, fg_fraction: float) -> int:
+    """How many leading slots of ``sample_proposal_labels``' output can hold
+    fg rois: kept fg rois sort first (priority 2 + u > bg 1 + u > demoted fg
+    0.5) and are capped at this count, so the first ``sampled_fg_cap(...)``
+    slots of an image hold every fg roi. The mask branch slices exactly this
+    prefix."""
+    return int(round(fg_fraction * batch_size_per_im))
+
+
+def sample_proposal_labels(
+    proposals: torch.Tensor,  # (B, P, 4) from the RPN
+    proposal_valid: torch.Tensor,  # (B, P)
+    gt_boxes: torch.Tensor,  # (B, G, 4) padded with zeros
+    gt_classes: torch.Tensor,  # (B, G) 0 = padding
+    batch_size_per_im: int,
+    fg_fraction: float,
+    fg_thresh: float,
+    bg_thresh_hi: float,
+    bg_thresh_lo: float,
+    num_classes: int,
+    bbox_reg_weights=(10.0, 10.0, 5.0, 5.0),
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Sample fg/bg rois of every image and build the Fast R-CNN targets
+    (ref: sad_tpu/ops/proposals.py sample_proposal_labels;
+    lib/roi_data/fast_rcnn.py _sample_rois), with static shapes:
+
+    - the gt boxes are appended to the proposals (Detectron trains on their
+      union);
+    - fg: IoU >= fg_thresh; bg: IoU in [lo, hi); a fixed batch_size_per_im
+      slots an image are filled by random priority, fg first and capped at
+      ``sampled_fg_cap``, then bg; what is left over is a pad slot (label -1,
+      zero weights, ``valid`` false);
+    - ``uniforms`` = (u_fg, u_bg), each (B, P + G) in [0, 1), are the
+      priorities' random parts; without them they are drawn from
+      ``generator`` on the proposals' device.
+
+    Every sort is stable, as ``jnp.argsort`` is: ties at priority 0 and 0.5
+    are common. Which boxes the pad slots hold is of no consequence.
+    Returns rois (B, S, 4), matched_gt (B, S), labels (B, S), bbox_targets,
+    bbox_inside_weights, bbox_outside_weights (B, S, 4 * num_classes), valid
+    and is_fg (B, S), S = batch_size_per_im."""
+    all_boxes = torch.cat([proposals.float(), gt_boxes.float()], dim=1)
+    all_valid = torch.cat([proposal_valid.bool(), gt_classes > 0], dim=1)
+    b, p = all_valid.shape
+    s = int(batch_size_per_im)
+    if p < s:
+        raise ValueError(f"sample_proposal_labels: {p} candidates an image cannot fill "
+                         f"{s} slots")
+    dev = all_boxes.device
+
+    iou = bbox_overlaps(all_boxes, gt_boxes)  # (B, P+G, G)
+    iou = torch.where((gt_classes > 0)[:, None, :], iou, -1.0)
+    max_iou, argmax_gt = iou.max(dim=2)
+
+    is_fg = (max_iou >= fg_thresh) & all_valid
+    is_bg = (max_iou < bg_thresh_hi) & (max_iou >= bg_thresh_lo) & all_valid
+
+    fg_cap = sampled_fg_cap(s, fg_fraction)
+    if uniforms is None:
+        u_fg = torch.rand((b, p), generator=generator, device=dev)
+        u_bg = torch.rand((b, p), generator=generator, device=dev)
+    else:
+        u_fg, u_bg = (u.to(dev, torch.float32) for u in uniforms)
+    pri = torch.where(is_fg, 2.0 + u_fg, 0.0)
+    pri = torch.where(is_bg, 1.0 + u_bg, pri)
+    # cap the fg count: the extra fg of lowest priority fall to just under the
+    # bg range, so that bg fills the rest
+    inf = torch.full_like(pri, float("inf"))
+    fg_rank = torch.argsort(
+        torch.argsort(torch.where(is_fg, -pri, inf), dim=1, stable=True), dim=1, stable=True)
+    pri = torch.where(is_fg & (fg_rank >= fg_cap), 0.5, pri)
+
+    sel = torch.argsort(-pri, dim=1, stable=True)[:, :s]
+    sel_valid = torch.gather(pri, 1, sel) > 0.5  # demoted fg and invalid dropped
+    sel_boxes = torch.gather(all_boxes, 1, sel[..., None].expand(b, s, 4))
+    sel_gt = torch.gather(argmax_gt, 1, sel)
+    sel_fg = torch.gather(is_fg, 1, sel) & (torch.gather(fg_rank, 1, sel) < fg_cap)
+    gt_cls = torch.gather(gt_classes, 1, sel_gt)
+    labels = torch.where(sel_fg & sel_valid, gt_cls, torch.zeros_like(gt_cls))
+
+    matched = torch.gather(gt_boxes.float(), 1, sel_gt[..., None].expand(b, s, 4))
+    targets = bbox_transform_inv(sel_boxes, matched, bbox_reg_weights)
+    # class-specific 4C layout with inside / outside weights
+    # (roi_data/fast_rcnn.py _expand_bbox_targets)
+    one_hot = F.one_hot(labels.long().clamp_min(0), num_classes).float()
+    w = (one_hot * sel_fg[..., None].float())[..., None]  # (B, S, C, 1)
+    dense_targets = (w * targets[:, :, None, :]).reshape(b, s, 4 * num_classes)
+    weights = w.expand(b, s, num_classes, 4).reshape(b, s, 4 * num_classes)
+    return {
+        "rois": sel_boxes,
+        "matched_gt": sel_gt,
+        "labels": torch.where(sel_valid, labels, torch.full_like(labels, -1)),
+        "bbox_targets": dense_targets,
+        "bbox_inside_weights": weights,
+        "bbox_outside_weights": weights,
+        "valid": sel_valid,
+        "is_fg": sel_fg,
+    }

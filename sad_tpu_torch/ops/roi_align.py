@@ -13,12 +13,16 @@ Levels outside the given ones and batch indices outside the batch are
 clamped into range. The batch column of the rois is always read (sad_tpu's
 ``slots_per_im`` shortcut, which ignores it, is a TPU matter).
 
-Dispatch is by tensor device: CUDA tensors go to the hand-written kernel
+Dispatch is by tensor device: CUDA tensors go to the hand-written kernels
 (ops/roi_align_kernel.py, csrc/roi_align.cu), CPU tensors to
 ``multilevel_roi_align_plain`` below. There is no flag and no fallback
-between them. Only the forward exists on the card so far: sad_tpu stops the
-gradient at the rois, and the gradient w.r.t. the features is the kernel
-that comes with the R-CNN training step (ROADMAP.md Queue 2).
+between them. The result is differentiable with respect to the feature maps
+and not to the rois (sad_tpu stops the gradient there too): on the card the
+backward is the scatter kernel, one launch per RoIAlign call, which adds
+every tap into float32 maps with atomics and casts once; on the CPU autograd
+differentiates the plain forward. ``multilevel_roi_align_bwd_plain`` is the
+scatter written out in PyTorch, the version the kernel is held against
+(within a tolerance: atomics land in no fixed order).
 """
 
 from __future__ import annotations
@@ -114,19 +118,72 @@ def multilevel_roi_align_plain(
     return acc.to(feats[0].dtype)
 
 
-class _RoIAlignForwardOnly(torch.autograd.Function):
-    """The kernel's forward; there is no backward on the card yet."""
+def multilevel_roi_align_bwd_plain(
+    grad_out: torch.Tensor,  # (R, res, res, C) cotangent
+    level_hw: Dict[int, Tuple[int, int]],  # {level: (H_l, W_l)}
+    batch: int,
+    rois: torch.Tensor,  # (R, 5)
+    roi_levels: torch.Tensor,  # (R,)
+    valid: torch.Tensor,  # (R,) bool
+    sampling_ratio: int = 2,
+) -> Dict[int, torch.Tensor]:
+    """The plain PyTorch version of the backward kernel: the gradient of
+    ``multilevel_roi_align_plain`` with respect to each feature map, {level:
+    (B, H_l, W_l, C)} in ``grad_out``'s dtype. Per sample and tap one
+    ``index_add_`` of the weighted cotangent into float32 maps laid end to
+    end, in a fixed order, and one cast at the end. Invalid rois add
+    nothing."""
+    lvls = sorted(level_hw)
+    if not lvls or lvls != list(range(lvls[0], lvls[-1] + 1)):
+        raise ValueError(f"RoIAlign needs consecutive FPN levels, got {lvls}")
+    lvl_min, dims = lvls[0], [tuple(level_hw[l]) for l in lvls]
+    r, res, _, c = grad_out.shape
+    sr, dev = int(sampling_ratio), grad_out.device
+    li, b, h, w, (ylo, yhi, wylo, wyhi), (xlo, xhi, wxlo, wxhi) = roi_geometry(
+        dims, lvl_min, batch, rois, roi_levels, res, sr)
+    sizes = [batch * hh * ww for hh, ww in dims]
+    bases = torch.tensor([sum(sizes[:k]) for k in range(len(sizes))],
+                         dtype=torch.int64, device=dev)
+    base = (bases[li] + b * h * w)[:, None, None]
+    w_ = w[:, None, None]
+    g = torch.where(valid.to(torch.bool)[:, None, None, None], grad_out.float(), 0.0)
+    g = g.reshape(-1, c)
+    flat = torch.zeros((sum(sizes), c), dtype=torch.float32, device=dev)
+    for i in range(sr):
+        for j in range(sr):
+            for yi, wy in ((ylo[:, :, i], wylo[:, :, i]), (yhi[:, :, i], wyhi[:, :, i])):
+                for xi, wx in ((xlo[:, :, j], wxlo[:, :, j]), (xhi[:, :, j], wxhi[:, :, j])):
+                    idx = base + yi[:, :, None] * w_ + xi[:, None, :]
+                    wt = wy[:, :, None] * wx[:, None, :]
+                    flat.index_add_(0, idx.reshape(-1), g * wt.reshape(-1, 1))
+    flat = flat.to(grad_out.dtype)
+    return {l: part.view(batch, hh, ww, c)
+            for l, part, (hh, ww) in zip(lvls, torch.split(flat, sizes), dims)}
+
+
+class _RoIAlignOnCard(torch.autograd.Function):
+    """The forward kernel and, for the feature maps, the backward kernel."""
 
     @staticmethod
     def forward(ctx, lvl_min, rois, roi_levels, valid, res, sr, *feats):
         from . import roi_align_kernel
 
+        ctx.save_for_backward(rois, roi_levels, valid)
+        ctx.geometry = (lvl_min, sr, feats[0].shape[0], [tuple(f.shape[1:3]) for f in feats],
+                        feats[0].dtype)
         return roi_align_kernel.roi_align_fwd_cuda(feats, lvl_min, rois, roi_levels, valid,
                                                    res, sr)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("RoIAlign backward: ROADMAP.md Queue 2")
+        from . import roi_align_kernel
+
+        rois, roi_levels, valid = ctx.saved_tensors
+        lvl_min, sr, batch, dims, dtype = ctx.geometry
+        # autograd hands over views and, under mixed precision, other dtypes
+        grads = roi_align_kernel.roi_align_bwd_cuda(
+            grad.to(dtype).contiguous(), dims, lvl_min, batch, rois, roi_levels, valid, sr)
+        return (None,) * 6 + tuple(grads)
 
 
 def multilevel_roi_align(
@@ -138,12 +195,13 @@ def multilevel_roi_align(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """RoIAlign each roi from its FPN level; rois keep their order. Returns
-    (R, res, res, C) in the features' dtype. No gradient reaches the rois."""
+    (R, res, res, C) in the features' dtype, differentiable with respect to
+    the feature maps. No gradient reaches the rois."""
     rois = rois.detach()
     dev = rois.device
     if dev.type == "cuda":
         lvl_min, feats = _level_list(features)
-        return _RoIAlignForwardOnly.apply(
+        return _RoIAlignOnCard.apply(
             lvl_min, rois.float().contiguous(), roi_levels.to(torch.int32).contiguous(),
             valid.to(torch.bool).contiguous(), int(resolution), int(sampling_ratio),
             *(f.contiguous() for f in feats))

@@ -1,25 +1,28 @@
-"""ctypes wrapper of the multilevel RoIAlign forward CUDA kernel
-(sad_tpu_torch/csrc/roi_align.cu).
+"""ctypes wrappers of the multilevel RoIAlign CUDA kernels, forward and
+backward (sad_tpu_torch/csrc/roi_align.cu).
 
-Replaces the Pallas kernel ``_mlra_kernel`` of
-sad_tpu/ops/pallas_roi_align.py (launched by ``_windowed_forward``). Callers
-go through sad_tpu_torch/ops/roi_align.py, which sends CUDA tensors here and
-CPU tensors to the plain twin.
+They replace the Pallas kernels ``_mlra_kernel`` (launched by
+``_windowed_forward``) and ``_mlra_bwd_kernel`` (``_windowed_backward``) of
+sad_tpu/ops/pallas_roi_align.py. Callers go through
+sad_tpu_torch/ops/roi_align.py, which sends CUDA tensors here and CPU
+tensors to the plain twins.
 
-``launches`` counts the kernel launches made by this process, so that a run
-can show that its main path went through the kernel.
+``launches`` and ``bwd_launches`` count the launches of the forward and the
+backward kernel made by this process, so that a run can show that its main
+path went through them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 launches = 0
+bwd_launches = 0
 
 MAX_LEVELS = 8  # kMaxLevels in the source
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # code, 16-byte vector width
@@ -27,12 +30,21 @@ _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # code, 16-byte vecto
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]
+_BWD_ARGTYPES = ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_size_t] + [_I] * 7 + [_P])
 
 
 def _fn():
     fn = _build.load_library().lib.sad_roi_align_fwd_launch
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _build.load_library().lib.sad_roi_align_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -98,3 +110,71 @@ def roi_align_fwd_cuda(
         raise RuntimeError(f"roi_align kernel launch failed: cudaError_t {err}")
     launches += 1
     return out
+
+
+def roi_align_bwd_cuda(
+    grad_out: torch.Tensor,  # (R, res, res, C) cotangent, float32 or bfloat16, contiguous
+    level_hw: Sequence[Tuple[int, int]],  # (H_l, W_l) of the consecutive levels
+    lvl_min: int,  # the FPN level of level_hw[0]
+    batch: int,
+    rois: torch.Tensor,  # (R, 5) float32
+    roi_levels: torch.Tensor,  # (R,) int32
+    valid: torch.Tensor,  # (R,) bool
+    sampling_ratio: int,
+) -> List[torch.Tensor]:
+    """The gradients of the feature maps, one (B, H_l, W_l, C) tensor a
+    level in ``grad_out``'s dtype: one launch adds every tap into float32
+    maps (one allocation, zeroed on the stream by the launch function), one
+    cast brings them to the dtype. Raises on anything the kernel does not
+    take."""
+    global bwd_launches
+    dims = [(int(h), int(w)) for h, w in level_hw]
+    if not 1 <= len(dims) <= MAX_LEVELS:
+        raise ValueError(f"roi_align_bwd_cuda takes 1..{MAX_LEVELS} levels, got {len(dims)}")
+    dev, dtype = grad_out.device, grad_out.dtype
+    tensors = [grad_out, rois, roi_levels, valid]
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("roi_align_bwd_cuda needs the cotangent, rois, levels and valid on "
+                         "one CUDA device")
+    if dtype not in _DTYPES:
+        raise TypeError(f"roi_align_bwd_cuda takes a float32 or bfloat16 cotangent, got {dtype}")
+    if (rois.dtype, roi_levels.dtype, valid.dtype) != (torch.float32, torch.int32, torch.bool):
+        raise TypeError(f"roi_align_bwd_cuda takes float32 rois, int32 levels and bool valid, "
+                        f"got {rois.dtype}/{roi_levels.dtype}/{valid.dtype}")
+    if grad_out.dim() != 4 or grad_out.shape[1] != grad_out.shape[2] or grad_out.shape[3] < 1:
+        raise ValueError(f"roi_align_bwd_cuda cotangent {tuple(grad_out.shape)}; want "
+                         "(R, res, res, C)")
+    r, res, _, c = grad_out.shape
+    if rois.shape != (r, 5) or roi_levels.shape != (r,) or valid.shape != (r,):
+        raise ValueError(f"roi_align_bwd_cuda shapes: rois {tuple(rois.shape)}, levels "
+                         f"{tuple(roi_levels.shape)}, valid {tuple(valid.shape)}; want ({r},5), "
+                         f"({r},), ({r},)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("roi_align_bwd_cuda takes contiguous tensors")
+    b, sr = int(batch), int(sampling_ratio)
+    sizes = [b * h * w * c for h, w in dims]
+    if res < 1 or sr < 1 or b < 1 or lvl_min < 0 or r * res >= 2**31 or any(
+            h < 1 or w < 1 or n >= 2**31 * c for (h, w), n in zip(dims, sizes)):
+        raise ValueError(f"roi_align_bwd_cuda: unsupported sizes R={r} res={res} sr={sr} "
+                         f"B={b} lvl_min={lvl_min} levels={dims}")
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    grads32 = list(torch.split(flat, sizes))
+    code, width = _DTYPES[dtype]
+    # with C a multiple of 4 every level starts a multiple of 16 bytes into the allocation
+    vec = int(c % width == 0 and grad_out.data_ptr() % 16 == 0 and flat.data_ptr() % 16 == 0)
+    n = len(dims)
+    ptrs = (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads32])
+    hs = (ctypes.c_int * n)(*[h for h, _ in dims])
+    ws = (ctypes.c_int * n)(*[w for _, w in dims])
+    fn = _bwd_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.cast(ptrs, _P), ctypes.cast(hs, _P), ctypes.cast(ws, _P), n, int(lvl_min),
+                 rois.data_ptr(), roi_levels.data_ptr(), valid.data_ptr(), grad_out.data_ptr(),
+                 flat.data_ptr(), flat.numel() * 4, r, b, c, res, sr, code, vec, stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align backward kernel launch failed: cudaError_t {err}")
+    if r > 0:  # with no roi only the memset ran: nothing to count
+        bwd_launches += 1
+    flat = flat.to(dtype)
+    return [g.view(b, h, w, c) for g, (h, w) in zip(torch.split(flat, sizes), dims)]

@@ -1,7 +1,9 @@
-"""Where the time of the joint SAD training step goes, on the card.
+"""Where the time of a training step goes, on the card: the joint SAD step,
+or with --cfg an R-CNN YAML the Faster / Mask R-CNN step.
 
     python -m sad_tpu_torch.tools.profile_train [--groups 4] [--iters 10] \
-        [--warmup 3] [--seed 0] [--out profile_train.json]
+        [--warmup 3] [--seed 0] [--out profile_train.json] \
+        [--cfg sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml]
 
 The R-50-FPN student and the frozen R-101-FPN teacher of
 sad_tpu_torch/configs/ at full width and depth, random weights from --seed,
@@ -18,8 +20,16 @@ Prints, and writes as JSON:
   cls-loss kernels, optimizer, elementwise, other), the top kernels by name,
   and the device idle share = 1 - kernel time / wall time;
 - the peak device memory of a step.
+With --cfg sad_tpu_torch/configs/e2e_{faster,mask}_rcnn_R-50-FPN.yaml: the
+R-50-FPN R-CNN at full width and depth with the same overrides, --groups x
+TRAIN.IMS_PER_BATCH seeded images with 1-8 gt boxes and a polygon each on
+the 800x1344 canvas, built by the port's RCNNMinibatchBuilder, the output
+layers rescaled by profile_infer.spread_rcnn_outputs so that the RPN fills
+its slots; stages: normalise, backbone+FPN, RPN head + losses, proposals,
+sampling, RoIAlign + box head + losses, mask branch, backward, SGD.
+
 Needs a CUDA card; raises without one. chip_smoke.py builds its training
-run with ``seeded_train_step``.
+runs with ``seeded_train_step`` and ``seeded_rcnn_train_step``.
 """
 
 from __future__ import annotations
@@ -37,11 +47,17 @@ import torch
 
 from sad_tpu_torch.config import load_cfg
 from sad_tpu_torch.data.minibatch import RetinaNetMinibatchBuilder
+from sad_tpu_torch.data.rpn_minibatch import RCNNMinibatchBuilder
 from sad_tpu_torch.data.synthetic import random_train_entries
 from sad_tpu_torch.device import get_device, nvidia_smi_line, set_tf32
 from sad_tpu_torch.models import create_model
-from sad_tpu_torch.tools.profile_infer import _quartiles, wall_seconds
-from sad_tpu_torch.train import TrainState, batch_to_torch, make_train_step
+from sad_tpu_torch.tools.profile_infer import (
+    _quartiles, is_rcnn, spread_rcnn_outputs, wall_seconds,
+)
+from sad_tpu_torch.train import (
+    TrainState, batch_to_torch, make_rcnn_train_step, make_train_step,
+)
+from sad_tpu_torch.train.rcnn_train import RCNNTrainStep
 from sad_tpu_torch.train.train_step import TrainStep
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -54,6 +70,9 @@ BENCH_LR = 1e-6
 
 _CATEGORIES = (
     ("cls_loss_kernels", ("cls_losses",)),
+    ("roi_align_bwd_kernel", ("roi_align_bwd_kernel",)),
+    ("roi_align_fwd_kernel", ("roi_align_fwd_kernel",)),
+    ("nms_kernel", ("nms_kernel",)),
     ("optimizer", ("multi_tensor_apply", "foreach")),
     ("conv", ("conv", "xmma", "cutlass", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw",
               "wgrad", "dgrad", "sm90_", "gemm")),
@@ -107,6 +126,75 @@ def seeded_train_step(student_yaml: str = STUDENT_CFG, teacher_yaml: str = TEACH
                            batch, n_images)
 
 
+@dataclass
+class SeededRCNNTrainStep:
+    cfg: Any
+    model: torch.nn.Module
+    step: RCNNTrainStep
+    state: TrainState
+    batch: Dict[str, Any]  # tensors on the device
+    n_images: int
+
+
+def seeded_rcnn_train_step(cfg_yaml: str, seed: int = 0, n_groups: int = 4, device="cuda",
+                           opts: Sequence[str] = ()) -> SeededRCNNTrainStep:
+    """The R-CNN of ``cfg_yaml`` with random float32 weights from ``seed``
+    and its four output layers rescaled (profile_infer.spread_rcnn_outputs,
+    so that the RPN spreads its scores and fills its slots), its training
+    step and zero momentum, and one batch of n_groups x TRAIN.IMS_PER_BATCH
+    seeded images with 1-8 gt boxes and a polygon each, built by
+    RCNNMinibatchBuilder.build into one uint8 canvas per image, on
+    ``device``. The sampler draws from a generator seeded with ``seed``."""
+    dev = get_device(device)
+    cfg = load_cfg(cfg_yaml, BENCH_OPTS + ["NUM_GPUS", str(n_groups)] + list(opts))
+    model = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(seed))
+    n_images = n_groups * cfg.TRAIN.IMS_PER_BATCH
+    entries, images = random_train_entries(
+        np.random.RandomState(seed), n_images, max_side=cfg.TRAIN.MAX_SIZE,
+        num_classes=cfg.MODEL.NUM_CLASSES, polygons=cfg.MODEL.MASK_ON)
+    built = RCNNMinibatchBuilder(cfg, device_normalize=True).build(
+        entries, seed=seed, images_bgr=images)
+    batch = batch_to_torch(built, dev)
+    with torch.no_grad():
+        spread_rcnn_outputs(cfg, model, batch["data_u8"], batch["im_hw"], batch["content_hw"])
+    step = make_rcnn_train_step(cfg, model, n_groups=n_groups,
+                                generator=torch.Generator(device=dev).manual_seed(seed))
+    return SeededRCNNTrainStep(cfg, model, step, TrainState.create(model), batch, n_images)
+
+
+RCNN_STAGES = ("normalize", "backbone_fpn", "rpn_head_losses", "proposals", "sample",
+               "roi_align_box_head_losses", "mask_branch", "backward", "sgd")
+
+
+def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
+    """Device ms of each stage of one R-CNN step, from CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(RCNN_STAGES) + 1)]
+    step, batch = run.step, run.batch
+    ev[0].record()
+    data = step.inputs(batch)
+    ev[1].record()
+    nchw = step.backbone(data)
+    ev[2].record()
+    logits, deltas, total, _ = step.rpn(nchw, batch)
+    ev[3].record()
+    boxes, valid = step.proposals(logits, deltas, batch)
+    ev[4].record()
+    sampled = step.sample(boxes, valid, batch)
+    ev[5].record()
+    feats = run.model.roi_features({l: f.permute(0, 2, 3, 1) for l, f in nchw.items()})
+    total = total + step.box_branch(feats, sampled)[0]
+    ev[6].record()
+    if run.cfg.MODEL.MASK_ON:
+        total = total + step.mask_branch(feats, sampled, batch)
+    ev[7].record()
+    grads = step.grads(total)
+    ev[8].record()
+    step.apply(run.state, grads, lr)
+    ev[9].record()
+    torch.cuda.synchronize()
+    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(RCNN_STAGES)}
+
+
 def stage_ms(run: SeededTrainStep, lr: float) -> Dict[str, float]:
     """Device ms of each stage of one step, from CUDA events."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
@@ -138,11 +226,21 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
+    p.add_argument("--cfg", default=None, help="an R-CNN YAML: profile its training step "
+                   "instead of the joint SAD step")
     args = p.parse_args(argv)
 
     set_tf32(False)
     gpu = nvidia_smi_line()
-    run = seeded_train_step(seed=args.seed, n_groups=args.groups, device="cuda")
+    rcnn = args.cfg is not None
+    if rcnn:
+        if not is_rcnn(load_cfg(args.cfg)):
+            raise ValueError(f"--cfg {args.cfg}: not a generalized_rcnn config; the joint SAD "
+                             "step is profiled without --cfg")
+        run = seeded_rcnn_train_step(args.cfg, seed=args.seed, n_groups=args.groups,
+                                     device="cuda")
+    else:
+        run = seeded_train_step(seed=args.seed, n_groups=args.groups, device="cuda")
     losses = []
     torch.cuda.reset_peak_memory_stats()
     walls = wall_seconds(lambda: losses.append(run.step(run.state, run.batch, BENCH_LR)["loss"]),
@@ -152,7 +250,7 @@ def main(argv=None):
     if not all(np.isfinite(losses)):
         raise FloatingPointError(f"non-finite loss in the timed steps: {losses}")
 
-    stages = [stage_ms(run, BENCH_LR) for _ in range(args.iters)]
+    stages = [(rcnn_stage_ms if rcnn else stage_ms)(run, BENCH_LR) for _ in range(args.iters)]
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -178,7 +276,8 @@ def main(argv=None):
         "batch": run.n_images,
         "groups": args.groups,
         "canvas": list(run.batch["data_u8"].shape[1:3]),
-        "compute_dtype": run.student_cfg.COMPUTE_DTYPE,
+        "cfg": args.cfg,
+        "compute_dtype": (run.cfg if rcnn else run.student_cfg).COMPUTE_DTYPE,
         "imgs_per_s": run.n_images / med,
         "step_ms": {k: v * 1e3 for k, v in _quartiles(walls).items() if k != "n"},
         "iters": args.iters,

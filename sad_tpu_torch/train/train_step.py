@@ -62,11 +62,14 @@ class TrainState:
 
 
 def batch_to_torch(batch: Dict[str, Any], device) -> Dict[str, Any]:
-    """A batch of numpy arrays (RetinaNetBatch.as_pytree()) as tensors on
-    ``device``, level dicts kept."""
+    """A batch of numpy arrays (RetinaNetBatch.as_pytree(), or what
+    RCNNMinibatchBuilder.build returns) as tensors on ``device``, level dicts
+    and plain numbers kept."""
     def conv(v):
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (int, float)):
+            return v
         return torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return {k: conv(v) for k, v in batch.items()}
 

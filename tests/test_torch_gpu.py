@@ -19,7 +19,9 @@ from sad_tpu_torch.ops.fused_losses import (
     cls_losses_bwd_plain, cls_losses_fwd_plain, fused_cls_losses_raw,
 )
 from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
-from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+from sad_tpu_torch.ops.roi_align import (
+    multilevel_roi_align, multilevel_roi_align_bwd_plain, multilevel_roi_align_plain,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -183,15 +185,60 @@ def test_roi_align_kernel_equals_plain_twin(cuda, c, r, res, sr, dtype):
         assert bool(((g - f).abs() <= 2.0 ** -7 * torch.maximum(g.abs(), f.abs())).all())
 
 
-def test_roi_align_on_cuda_is_forward_only_and_counts_no_empty_launch(cuda):
+def test_roi_align_on_cuda_is_differentiable_and_counts_no_empty_launch(cuda):
     feats, rois, levels, valid = _roi_case(cuda, 5, 1, (128, 192), 8, 11, torch.float32)
     feats = {l: f.requires_grad_(True) for l, f in feats.items()}
+    rois = rois.requires_grad_(True)
     out = multilevel_roi_align(feats, rois, levels, valid, 7, 2)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        out.sum().backward()
-    before = roi_align_kernel.launches
+    before = roi_align_kernel.bwd_launches
+    out.sum().backward()
+    assert roi_align_kernel.bwd_launches == before + 1
+    assert rois.grad is None and all(f.grad is not None and f.grad.shape == f.shape
+                                     for f in feats.values())
+    before = roi_align_kernel.launches, roi_align_kernel.bwd_launches
     empty = multilevel_roi_align(feats, rois[:0], levels[:0], valid[:0], 7, 2)
-    assert tuple(empty.shape) == (0, 7, 7, 8) and roi_align_kernel.launches == before
+    empty.sum().backward()
+    assert tuple(empty.shape) == (0, 7, 7, 8)
+    assert (roi_align_kernel.launches, roi_align_kernel.bwd_launches) == before
+
+
+@pytest.mark.parametrize("c,r,res,sr", [(256, 203, 7, 2), (64, 37, 14, 2), (3, 29, 7, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_bwd_kernel_within_tolerance_of_plain(cuda, c, r, res, sr, dtype):
+    """float32 within 1e-5 * max|ref|; bfloat16 one ulp (2^-7 of the larger
+    magnitude) more. Atomics land in no fixed order: not bit-equal."""
+    feats, rois, levels, valid = _roi_case(cuda, c + r + 1, 2, (256, 384), c, r, dtype)
+    hw = {l: tuple(f.shape[1:3]) for l, f in feats.items()}
+    g = torch.randn((r, res, res, c), device=cuda).to(dtype)
+    before = roi_align_kernel.bwd_launches
+    got = roi_align_kernel.roi_align_bwd_cuda(g, [hw[l] for l in sorted(hw)], 2, 2, rois,
+                                              levels, valid, sr)
+    assert roi_align_kernel.bwd_launches == before + 1
+    ref = multilevel_roi_align_bwd_plain(g, hw, 2, rois, levels, valid, sr)
+    ref_max = max(float(t.float().abs().max()) for t in ref.values())
+    for k, l in enumerate(sorted(hw)):
+        a, f = got[k].float(), ref[l].float()
+        assert got[k].dtype == dtype and got[k].shape == feats[l].shape
+        tol = 1e-5 * ref_max
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * torch.maximum(a.abs(), f.abs())
+        assert bool(((a - f).abs() <= tol).all())
+
+
+def test_roi_align_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    feats, rois, levels, valid = _roi_case(cuda, 7, 1, (128, 192), 8, 11, torch.float32)
+    dims = [tuple(feats[l].shape[1:3]) for l in (2, 3, 4, 5)]
+    g = torch.randn((11, 7, 7, 8), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        roi_align_kernel.roi_align_bwd_cuda(g.double(), dims, 2, 1, rois, levels, valid, 2)
+    with pytest.raises(TypeError, match="int32 levels"):
+        roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, 1, rois, levels.long(), valid, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align_kernel.roi_align_bwd_cuda(g.transpose(1, 2), dims, 2, 1, rois, levels, valid, 2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, 1, rois.cpu(), levels, valid, 2)
+    with pytest.raises(ValueError, match="shapes"):
+        roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, 1, rois[:5], levels, valid, 2)
 
 
 def test_roi_align_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -244,3 +291,30 @@ def test_small_rcnn_on_the_card_launches_both_kernels(cuda, mask):
     if mask:
         assert tuple(dets["mask_prob"].shape) == (2, 100, 28, 28, 81)
         assert bool(torch.isfinite(dets["mask_prob"]).all())
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["faster", "mask"])
+def test_small_rcnn_train_step_on_the_card_launches_the_kernels(cuda, mask):
+    """Two steps of a quarter-width R-CNN on the card: one NMS, one (Faster)
+    or three (Mask: box, mask, target crop) RoIAlign forward and one or two
+    backward launches a step; finite losses; parameters move."""
+    from sad_tpu_torch.tools.profile_train import seeded_rcnn_train_step
+
+    yaml = f"sad_tpu_torch/configs/e2e_{'mask' if mask else 'faster'}_rcnn_R-50-FPN.yaml"
+    run = seeded_rcnn_train_step(yaml, seed=1, n_groups=1, device=cuda, opts=[
+        "RESNETS.CHANNEL_RATIO", "0.25", "TRAIN.SCALES", "(256,)", "TRAIN.MAX_SIZE", "384",
+        "TEST.SCALES", "(256,)", "TEST.MAX_SIZE", "384", "FAST_RCNN.MLP_HEAD_DIM", "256",
+        "MRCNN.DIM_REDUCED", "64", "TRAIN.BATCH_SIZE_PER_IM", "128"])
+    snap = {n: p.detach().clone() for n, p in run.model.named_parameters()}
+    before = (nms_kernel.launches, roi_align_kernel.launches, roi_align_kernel.bwd_launches)
+    for _ in range(2):
+        m = run.step(run.state, run.batch, 1e-4)
+    torch.cuda.synchronize()
+    after = (nms_kernel.launches, roi_align_kernel.launches, roi_align_kernel.bwd_launches)
+    want = (2, 6 if mask else 2, 4 if mask else 2)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert all(bool(torch.isfinite(v)) for v in m.values()) and ("loss_mask" in m) == mask
+    names = set(run.step.names)
+    params = dict(run.model.named_parameters())
+    assert any(not torch.equal(params[n], snap[n]) for n in names)
+    assert all(torch.equal(params[n], snap[n]) for n in params if n not in names)

@@ -147,8 +147,8 @@ def test_resize_bilinear_numpy_path_equals_cv2(monkeypatch):
 def test_rcnn_only_branches_refuse():
     entry = {"width": 10, "boxes": np.zeros((1, 4), np.float32), "segms": [[[0, 0, 1, 1, 2, 2]]],
              "gt_keypoints": np.zeros((0, 17, 3), np.float32)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tdataset.flip_entry(entry)
+    # segmentations flip with the entry (Mask R-CNN training); keypoints wait
+    assert tdataset.flip_entry(entry)["segms"] == [[[9.0, 0.0, 8.0, 1.0, 7.0, 2.0]]]
     entry = dict(entry, segms=[], gt_keypoints=np.ones((1, 17, 3), np.float32))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tdataset.flip_entry(entry)

@@ -173,15 +173,16 @@ def test_model_outputs_and_dtypes():
 
 def test_seeded_train_step_harness_on_cpu():
     """The harness that chip_smoke.py and profile_train drive on the card,
-    at full depth but a small canvas and an eighth of the width, on the
-    CPU: a batch from RetinaNetMinibatchBuilder, finite losses, parameters
-    that move, frozen ones and the teacher unchanged."""
+    at full depth but the smallest canvas (one coarsest stride each way)
+    and a sixteenth of the width, on the CPU: a batch from
+    RetinaNetMinibatchBuilder, finite losses, parameters that move, frozen
+    ones and the teacher unchanged."""
     from sad_tpu_torch.tools.profile_train import seeded_train_step
 
     run = seeded_train_step(seed=0, n_groups=2, device="cpu", opts=[
-        "TRAIN.SCALES", "(128,)", "TRAIN.MAX_SIZE", "256", "RESNETS.CHANNEL_RATIO", "0.125",
+        "TRAIN.SCALES", "(128,)", "TRAIN.MAX_SIZE", "128", "RESNETS.CHANNEL_RATIO", "0.0625",
         "COMPUTE_DTYPE", "float32"])
-    assert tuple(run.batch["data_u8"].shape) == (4, 128, 256, 3)
+    assert tuple(run.batch["data_u8"].shape) == (4, 128, 128, 3)
     assert run.batch["fg_num"].shape == (2,) and float(run.batch["fg_num"].min()) > 0
     params = dict(run.student.named_parameters())
     snap = {n: p.detach().clone() for n, p in params.items()}
