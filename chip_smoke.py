@@ -13,12 +13,16 @@ line each (name, what was checked, time):
 
   env            card name and power limit (nvidia-smi), torch / CUDA
                  versions, TF32 switches, kernel build time
-  nms_kernel     csrc/nms.cu against ops.nms.nms_multi_plain on the card:
-                 idx and valid exactly equal on every case; median times of
-                 both at the RetinaNet decode shape (N=8, K=5000, max_out=100),
-                 the RPN shape (N=40, K=1000, max_out=1000, thr 0.7), the
-                 training RPN shape (N=40, K=2000, max_out=2000, thr 0.7) and
-                 the R-CNN decode shape (N=8, K=80000, max_out=100)
+  nms_kernel     csrc/nms.cu (sort, IoU bitmask, sweep; the argmax loop for
+                 problems over the sort's cap) against ops.nms.nms_multi_plain
+                 on the card: idx and valid exactly equal on every case (ties,
+                 -0.0 / +0.0 ties, invalid tails, K = max_out, every problem
+                 over the cap, one of three over it); median times of both at
+                 the RetinaNet decode shape (N=8, K=5000, max_out=100), the RPN
+                 shape (N=40, K=1000, max_out=1000, thr 0.7), the training RPN
+                 shape (N=40, K=2000, max_out=2000, thr 0.7), the R-CNN decode
+                 shape (N=8, K=80000, max_out=100) and over the cap, each beside
+                 the argmax loop's earlier time
   roi_align_kernel
                  csrc/roi_align.cu against the plain twin of ops/roi_align.py
                  on the card, float32 (within 1e-5 * max|ref| + 1e-6) and
@@ -31,16 +35,18 @@ line each (name, what was checked, time):
                  C=3 (no vector loads), a 1x2 top level, sr 1 and 3; median
                  times, bytes moved and the bound at both shapes
   roi_align_bwd_kernel
-                 the backward kernel of csrc/roi_align.cu against
+                 the backward gather of csrc/roi_align.cu against
                  multilevel_roi_align_bwd_plain on the card, through its
                  wrapper and through autograd (with a cotangent that is a
-                 non-contiguous view), on the cases above plus 600 rois on
-                 one cell; float32 within 1e-5 * max|ref| (1e-4 for the 600),
-                 bfloat16 one ulp (2^-7 of the larger magnitude) more:
-                 atomics land in no fixed order, so the two are not bit-equal;
-                 median times of both, and of the forward, at the box shape
-                 (R=4096, res 7) and the mask shape (R=1024, res 14) of the
-                 training step; bytes moved and the bound
+                 non-contiguous view), on the cases above plus rois over many
+                 map tiles (the canvas on P5 and on P2) and 600 rois on one
+                 cell; float32 within 1e-5 * max|ref| (1e-4 for the 600),
+                 bfloat16 one ulp (2^-7 of the larger magnitude) more: the two
+                 add in other orders, so they are not bit-equal, but two runs
+                 of the kernel are; median times of both, and of the forward,
+                 at the box shape (R=4096, res 7) and the mask shape (R=1024,
+                 res 14) of the training step, beside the atomic scatter's
+                 earlier time; bytes moved and the bound
   student_infer  R-50-FPN student config, random bf16 weights, a batch of
                  uint8 640x1024 canvases through make_inference_fn; output
                  shapes, finite boxes, classes in 1..80, NMS kernel launched,
@@ -127,6 +133,10 @@ RPN_SHAPE = (40, 1000, 1000, 0.7)  # R-CNN proposals: 5 levels x 8 images
 RCNN_DECODE_SHAPE = (8, 80000, 100, 0.5)  # R-CNN decode: 1000 rois x 80 classes
 RPN_TRAIN_SHAPE = (40, 2000, 2000, 0.7)  # R-CNN training proposals: 5 levels x 8 images
 RCNN_CANVAS = (800, 1344)
+# the card times of the kernels before their redesign (PERF.md section 6, rows #2
+# and #8; NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new medians
+NMS_EARLIER_MS = {"decode": 0.3069, "rpn": 1.2370, "rpn_train": 3.2288, "rcnn_decode": 3.4746}
+ROI_BWD_EARLIER_MS = {"box": 3.0123, "mask": 2.9818}
 
 
 def _phase(name: str, checked: str, seconds: float) -> None:
@@ -150,7 +160,7 @@ def _median_ms(torch, fn, iters: int, warmup: int) -> float:
 
 
 def _nms_case(torch, rng, n, k, clusters=60, invalid_from=None, tie_step=None,
-              all_invalid_rows=(), invalid_tail_rows=None, valid_share=None):
+              all_invalid_rows=(), invalid_tail_rows=None, valid_share=None, signed_zeros=False):
     """Clustered boxes on a 1024x640 canvas so real suppression happens."""
     centers = rng.uniform(0, [1024, 640], (n, clusters, 2))
     which = rng.randint(0, clusters, (n, k))
@@ -169,6 +179,11 @@ def _nms_case(torch, rng, n, k, clusters=60, invalid_from=None, tie_step=None,
         scores[list(rows), start:] = np.float32(-1e30)
     if valid_share is not None:
         scores[rng.uniform(size=(n, k)) > valid_share] = np.float32(-1e30)
+    if signed_zeros:  # exact +0.0 and -0.0 among negative and positive scores
+        scores -= np.float32(0.5)
+        pick = rng.uniform(size=(n, k))
+        scores[pick < 0.25] = np.float32(0.0)
+        scores[pick > 0.75] = np.float32(-0.0)
     dev = "cuda"
     return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
 
@@ -210,7 +225,14 @@ def phase_nms(torch, rng, iters, warmup):
         "all-invalid problem": (_nms_case(torch, rng, 3, 700, all_invalid_rows=(1,)), 0.5, max_out),
         "fewer valid than max_out": (_nms_case(torch, rng, 2, 300, invalid_from=40), 0.5, max_out),
         "exact score ties": (_nms_case(torch, rng, 8, 5000, tie_step=0.05), 0.5, max_out),
-        "K=20000": (_nms_case(torch, rng, 2, 20000, clusters=300), 0.5, max_out),
+        "-0.0 / +0.0 ties": (_nms_case(torch, rng, 4, 3000, signed_zeros=True), 0.5, 300),
+        "K = max_out = 1500, thr 0.7": (_nms_case(torch, rng, 6, 1500, clusters=150), 0.7, 1500),
+        # more valid candidates than the order stage sorts: the argmax loop
+        "K=20000, all valid: every problem over the sort's cap": (
+            _nms_case(torch, rng, 2, 20000, clusters=300), 0.5, max_out),
+        "one problem over the cap, two under": (
+            _nms_case(torch, rng, 3, 10000, clusters=300, invalid_tail_rows=((1, 2), 3000)),
+            0.5, max_out),
     }
     max_err = 0.0
     for name, ((boxes, scores), t, m) in cases.items():
@@ -231,7 +253,9 @@ def phase_nms(torch, rng, iters, warmup):
     for key, name, plain_iters in (("decode", "decode N=8 K=5000 thr=0.5", iters),
                                    ("rpn", "rpn N=40 K=1000 max_out=1000 thr=0.7", 3),
                                    ("rpn_train", "rpn train N=40 K=2000 max_out=2000 thr=0.7", 2),
-                                   ("rcnn_decode", "rcnn decode N=8 K=80000 thr=0.5", iters)):
+                                   ("rcnn_decode", "rcnn decode N=8 K=80000 thr=0.5", iters),
+                                   ("over_cap", "K=20000, all valid: every problem over the "
+                                    "sort's cap", 1)):
         (boxes, scores), t, m = cases[name]
         ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, t, m), iters * 5, warmup)
         plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, t, m),
@@ -239,7 +263,9 @@ def phase_nms(torch, rng, iters, warmup):
         _, valid = nms_kernel.nms_cuda(boxes, scores, t, m)
         b = _nms_bound(*scores.shape, m, valid)
         stats[key] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
-        said.append(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        earlier = f" (argmax loop of PERF.md row #2: {NMS_EARLIER_MS[key]} ms)" if (
+            key in NMS_EARLIER_MS) else ""
+        said.append(f"{name}: kernel {ms:.4f} ms{earlier}, plain {plain_ms:.4f} ms, bound "
                     f"{b['bound_ms']:.4f} ms by {b['bound_by']}, {int(valid.sum())} kept")
     _phase("nms_kernel", f"{len(cases)} cases, idx and valid exactly equal to the plain "
            f"version; medians: " + "; ".join(said), time.perf_counter() - t0)
@@ -760,6 +786,11 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
             g = torch.randn((rois.shape[0], res, res, 256), generator=gen,
                             device="cuda").to(dtype)
             dims = [hw[l] for l in sorted(hw)]
+            once = roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, batch, rois, levels, valid, 2)
+            again = roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, batch, rois, levels, valid, 2)
+            if not all(torch.equal(a, b) for a, b in zip(once, again)):
+                raise AssertionError(f"roi_align_bwd {key} shape: two runs differ")
+            del once, again
             ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
                 g, dims, 2, batch, rois, levels, valid, 2), iters * 3, warmup)
             plain_ms = _median_ms(torch, lambda: multilevel_roi_align_bwd_plain(
@@ -768,8 +799,10 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
                                              res, 2)
             stats[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
             said.append(f"{key} shape R={rois.shape[0]} res={res} bf16, spread rois: kernel "
-                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {nbytes / 1e6:.1f} MB, bound "
-                        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, max abs err {err:.3e}")
+                        f"{ms:.4f} ms (the atomic scatter of PERF.md row #8: "
+                        f"{ROI_BWD_EARLIER_MS[key]} ms), plain {plain_ms:.4f} ms, "
+                        f"{nbytes / 1e6:.1f} MB, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+                        f"max abs err {err:.3e}, two runs bit-equal")
             del g
         del feats
 
@@ -791,7 +824,24 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
             feats = _roi_feats(torch, gen, b, canvas, c, dtype, lo, hi)
             err = _roi_align_bwd_check(torch, name, feats, rois, levels, valid, res, sr, gen)
             worst, n_cases = max(worst, err), n_cases + 1
-    # 600 rois on one and the same cell of P2: every atomic of a bin row collides
+    # rois that span many map tiles: the whole canvas on P5 (4 x 6 tiles) and on P2
+    # (25 x 42), a quarter of it on P3, among spread rois, at the training canvas
+    rois, valid = _rpn_like_rois(torch, rng, 2, 40, RCNN_CANVAS)
+    ch, cw = RCNN_CANVAS
+    big = [[0, 0, 0, cw - 1, ch - 1], [1, 0, 0, cw - 1, ch - 1], [0, 0, 0, cw - 1, ch - 1],
+           [1, cw / 4, ch / 4, 3 * cw / 4, 3 * ch / 4]]
+    rois[:4] = torch.tensor(big, device="cuda")
+    valid[:4] = True
+    levels = map_rois_to_fpn_levels(rois[:, 1:], 2, 5)
+    levels[:4] = torch.tensor([5, 5, 2, 3], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = _roi_feats(torch, gen, 2, RCNN_CANVAS, 256, dtype)
+        for res in (7, 14):
+            err = _roi_align_bwd_check(torch, f"rois over many tiles, res {res}", feats, rois,
+                                       levels, valid, res, 2, gen)
+            worst, n_cases = max(worst, err), n_cases + 1
+        del feats
+    # 600 rois on one and the same cell of P2: one tile's list holds all of them
     feats = _roi_feats(torch, gen, 2, small, 256, torch.float32)
     rois = torch.tensor([[1.0, 41.0, 61.0, 43.0, 62.5]], device="cuda").repeat(600, 1)
     valid = torch.ones(600, dtype=torch.bool, device="cuda")
@@ -811,8 +861,9 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
     launched = roi_align_kernel.bwd_launches - before
     _phase("roi_align_bwd_kernel", f"{n_cases} cases, wrapper and autograd, within tolerance of "
            f"the plain version (float32 1e-5 * max|ref|, 1e-4 where 600 rois share a cell; bfloat16 "
-           f"one ulp more; atomics land in no fixed order, so not bit-equal), worst abs err {worst:.3e}, {launched} launches; "
-           f"medians: " + "; ".join(said), time.perf_counter() - t0)
+           f"one ulp more; the two add in other orders, so not bit-equal), worst abs err "
+           f"{worst:.3e}, {launched} launches; medians: " + "; ".join(said),
+           time.perf_counter() - t0)
     return stats
 
 
@@ -1213,12 +1264,12 @@ def main(argv=None) -> int:
     }
     print(json.dumps({"kernels": [{
         # RetinaNet decode shape; launches of the two RetinaNet serving runs
-        "name": "greedy_nms", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
+        "name": "greedy_nms_sorted", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
     }, {
         # one launch a batch of each R-CNN serving run, at each of the two shapes
-        "name": "greedy_nms@rpn", "launches": rcnn_batches, **nms_stats["rpn"], **nms_entry,
+        "name": "greedy_nms_sorted@rpn", "launches": rcnn_batches, **nms_stats["rpn"], **nms_entry,
     }, {
-        "name": "greedy_nms@rcnn_decode", "launches": rcnn_batches,
+        "name": "greedy_nms_sorted@rcnn_decode", "launches": rcnn_batches,
         **nms_stats["rcnn_decode"], **nms_entry,
     }, {
         # box RoIAlign: one launch a batch of both R-CNN runs; mask: of the Mask R-CNN run
@@ -1230,7 +1281,7 @@ def main(argv=None) -> int:
     }, {
         # the training steps: one NMS, one box RoIAlign pair a step of both families; the
         # mask pair and the mask target crop (forward only) a step of Mask R-CNN
-        "name": "greedy_nms@rpn_train", "launches": train_steps,
+        "name": "greedy_nms_sorted@rpn_train", "launches": train_steps,
         **nms_stats["rpn_train"], **nms_entry,
     }, {
         "name": "roi_align_fwd@box_train", "launches": train_steps,
@@ -1242,10 +1293,10 @@ def main(argv=None) -> int:
         "name": "roi_align_fwd@mask_targets", "launches": mask_t["steps"],
         **mask_t["target_stats"], **roi_entry,
     }, {
-        "name": "roi_align_bwd@box", "launches": train_steps,
+        "name": "roi_align_bwd_gather@box", "launches": train_steps,
         **roi_bwd_stats["box"], **roi_bwd_entry,
     }, {
-        "name": "roi_align_bwd@mask", "launches": mask_t["steps"],
+        "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"],
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
         "name": "cls_losses_fwd",

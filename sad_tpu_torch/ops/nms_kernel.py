@@ -1,11 +1,13 @@
-"""ctypes wrapper of the greedy-NMS CUDA kernel (sad_tpu_torch/csrc/nms.cu).
+"""ctypes wrapper of the greedy-NMS CUDA kernels (sad_tpu_torch/csrc/nms.cu):
+order (compact and sort), IoU bitmask, sweep, and the argmax loop for the
+problems with more valid candidates than the order stage holds.
 
 Replaces the Pallas kernels ``_nms_kernel`` and ``_nms_kernel_batched`` of
 sad_tpu/ops/pallas_nms.py. Callers go through sad_tpu_torch/ops/nms.py,
 which sends CUDA tensors here and CPU tensors to the plain version.
 
-``launches`` counts the kernel launches made by this process, so that a run
-can show that its main path went through the kernel.
+``launches`` counts the calls that launched the kernels, one per call, so
+that a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ from . import _build
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+# kOrderCap in the source, the valid candidates a problem the sort holds; the
+# launch refuses a scratch sized from another cap
+ORDER_CAP = 8192
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _fn():
@@ -59,13 +64,27 @@ def nms_cuda(
         return (torch.zeros((n, max_out), dtype=torch.int32, device=boxes.device),
                 torch.zeros((n, max_out), dtype=torch.bool, device=boxes.device))
     fn = _fn()
-    with torch.cuda.device(boxes.device):
-        idx = torch.empty((n, max_out), dtype=torch.int32, device=boxes.device)
-        valid = torch.empty((n, max_out), dtype=torch.bool, device=boxes.device)
-        live = torch.empty_like(scores)
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = fn(boxes.data_ptr(), scores.data_ptr(), live.data_ptr(), idx.data_ptr(),
-                 valid.data_ptr(), n, k, max_out, float(iou_threshold), stream)
+    dev = boxes.device
+    cap = min(k, ORDER_CAP)
+    words = -(-cap // 64)
+    # scratch, in one allocation, sized from min(K, ORDER_CAP) on the host: the
+    # argmax loop's live scores, the order stage's sorted indices and boxes,
+    # the mask, the sweep's removed words and its (count, keeps, done) state
+    parts = [n * k * 4, n * cap * 4, n * cap * 16, n * cap * words * 8, n * ORDER_CAP // 8,
+             3 * n * 4]
+    starts = [0]
+    for size in parts[:-1]:
+        starts.append(starts[-1] + -(-size // 16) * 16)
+    with torch.cuda.device(dev):
+        idx = torch.empty((n, max_out), dtype=torch.int32, device=dev)
+        valid = torch.empty((n, max_out), dtype=torch.bool, device=dev)
+        scratch = torch.empty(starts[-1] + parts[-1], dtype=torch.uint8, device=dev)
+        base = scratch.data_ptr()
+        live, sorted_idx, sorted_box, mask, removed, state = (base + o for o in starts)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(boxes.data_ptr(), scores.data_ptr(), live, sorted_idx, sorted_box, mask, removed,
+                 state, idx.data_ptr(), valid.data_ptr(), n, k, cap, max_out,
+                 float(iou_threshold), stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -18,11 +18,11 @@ Dispatch is by tensor device: CUDA tensors go to the hand-written kernels
 ``multilevel_roi_align_plain`` below. There is no flag and no fallback
 between them. The result is differentiable with respect to the feature maps
 and not to the rois (sad_tpu stops the gradient there too): on the card the
-backward is the scatter kernel, one launch per RoIAlign call, which adds
-every tap into float32 maps with atomics and casts once; on the CPU autograd
-differentiates the plain forward. ``multilevel_roi_align_bwd_plain`` is the
-scatter written out in PyTorch, the version the kernel is held against
-(within a tolerance: atomics land in no fixed order).
+backward is the gather kernel, one call per RoIAlign call, which bins the
+rois onto map tiles and writes each cell once in the feature dtype; on the
+CPU autograd differentiates the plain forward. ``multilevel_roi_align_bwd_plain``
+is the scatter written out in PyTorch, the version the kernel is held
+against (within a tolerance: the two add the same terms in other orders).
 """
 
 from __future__ import annotations

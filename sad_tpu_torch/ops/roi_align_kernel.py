@@ -30,7 +30,9 @@ _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # code, 16-byte vecto
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]
-_BWD_ARGTYPES = ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_size_t] + [_I] * 7 + [_P])
+_BWD_ARGTYPES = ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong] + [_I] * 7 + [_P])
+BWD_TILE = 8  # kBwdTile in the source: the backward's map tiles are 8 x 8 cells
+BWD_MAX_RES = 32  # kMaxBwdRes in the source
 
 
 def _fn():
@@ -123,10 +125,10 @@ def roi_align_bwd_cuda(
     sampling_ratio: int,
 ) -> List[torch.Tensor]:
     """The gradients of the feature maps, one (B, H_l, W_l, C) tensor a
-    level in ``grad_out``'s dtype: one launch adds every tap into float32
-    maps (one allocation, zeroed on the stream by the launch function), one
-    cast brings them to the dtype. Raises on anything the kernel does not
-    take."""
+    level in ``grad_out``'s dtype, views of one allocation that the kernels
+    write whole: the rois are binned onto 8 x 8 map tiles and one block a
+    (tile, channel slice) gathers and writes its cells once. Raises on
+    anything the kernels do not take."""
     global bwd_launches
     dims = [(int(h), int(w)) for h, w in level_hw]
     if not 1 <= len(dims) <= MAX_LEVELS:
@@ -153,17 +155,25 @@ def roi_align_bwd_cuda(
         raise ValueError("roi_align_bwd_cuda takes contiguous tensors")
     b, sr = int(batch), int(sampling_ratio)
     sizes = [b * h * w * c for h, w in dims]
-    if res < 1 or sr < 1 or b < 1 or lvl_min < 0 or r * res >= 2**31 or any(
-            h < 1 or w < 1 or n >= 2**31 * c for (h, w), n in zip(dims, sizes)):
+    tiles = [-(-h // BWD_TILE) * -(-w // BWD_TILE) for h, w in dims]  # a level's tiles an image
+    n_tiles = b * sum(tiles)
+    scratch_ints = 3 * n_tiles + 1 + r * max(tiles)
+    if res < 1 or res > BWD_MAX_RES or sr < 1 or b < 1 or lvl_min < 0 or r * res >= 2**31 or any(
+            h < 1 or w < 1 or n >= 2**31 * c for (h, w), n in zip(dims, sizes)) or (
+            scratch_ints >= 2**31):
         raise ValueError(f"roi_align_bwd_cuda: unsupported sizes R={r} res={res} sr={sr} "
                          f"B={b} lvl_min={lvl_min} levels={dims}")
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    grads32 = list(torch.split(flat, sizes))
-    code, width = _DTYPES[dtype]
+    flat = torch.empty(sum(sizes), dtype=dtype, device=dev)
+    grads = [g.view(b, h, w, c) for g, (h, w) in zip(torch.split(flat, sizes), dims)]
+    if r == 0:  # nothing to launch, and nothing to count
+        flat.zero_()
+        return grads
+    scratch = torch.empty(scratch_ints, dtype=torch.int32, device=dev)
+    code, _ = _DTYPES[dtype]
     # with C a multiple of 4 every level starts a multiple of 16 bytes into the allocation
-    vec = int(c % width == 0 and grad_out.data_ptr() % 16 == 0 and flat.data_ptr() % 16 == 0)
+    vec = int(c % 4 == 0 and grad_out.data_ptr() % 16 == 0 and flat.data_ptr() % 16 == 0)
     n = len(dims)
-    ptrs = (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads32])
+    ptrs = (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads])
     hs = (ctypes.c_int * n)(*[h for h, _ in dims])
     ws = (ctypes.c_int * n)(*[w for _, w in dims])
     fn = _bwd_fn()
@@ -171,10 +181,8 @@ def roi_align_bwd_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.cast(ptrs, _P), ctypes.cast(hs, _P), ctypes.cast(ws, _P), n, int(lvl_min),
                  rois.data_ptr(), roi_levels.data_ptr(), valid.data_ptr(), grad_out.data_ptr(),
-                 flat.data_ptr(), flat.numel() * 4, r, b, c, res, sr, code, vec, stream)
+                 scratch.data_ptr(), scratch_ints, r, b, c, res, sr, code, vec, stream)
     if err != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: cudaError_t {err}")
-    if r > 0:  # with no roi only the memset ran: nothing to count
-        bwd_launches += 1
-    flat = flat.to(dtype)
-    return [g.view(b, h, w, c) for g, (h, w) in zip(torch.split(flat, sizes), dims)]
+    bwd_launches += 1
+    return grads

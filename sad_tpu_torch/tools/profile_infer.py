@@ -55,7 +55,8 @@ from sad_tpu_torch.ops.nms import batched_nms_multi
 from sad_tpu_torch.ops.proposals import nms_levels_batched
 
 _CATEGORIES = (
-    ("nms_kernel", ("nms_kernel",)),
+    ("nms_kernel", ("nms_order_kernel", "nms_mask_kernel", "nms_sweep_kernel",
+                    "nms_argmax_kernel")),
     ("roi_align_kernel", ("roi_align_fwd_kernel",)),
     # cuDNN's convolutions are implicit GEMMs: name them before the dense layers' GEMMs
     ("conv", ("conv", "fprop", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw")),

@@ -70,9 +70,11 @@ BENCH_LR = 1e-6
 
 _CATEGORIES = (
     ("cls_loss_kernels", ("cls_losses",)),
-    ("roi_align_bwd_kernel", ("roi_align_bwd_kernel",)),
+    # the backward's binning (count, scan, fill) and gather kernels
+    ("roi_align_bwd_kernel", ("roi_align_bwd_gather_kernel", "roi_bwd_")),
     ("roi_align_fwd_kernel", ("roi_align_fwd_kernel",)),
-    ("nms_kernel", ("nms_kernel",)),
+    ("nms_kernel", ("nms_order_kernel", "nms_mask_kernel", "nms_sweep_kernel",
+                    "nms_argmax_kernel")),
     ("optimizer", ("multi_tensor_apply", "foreach")),
     ("conv", ("conv", "xmma", "cutlass", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw",
               "wgrad", "dgrad", "sm90_", "gemm")),

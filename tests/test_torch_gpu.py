@@ -206,7 +206,7 @@ def test_roi_align_on_cuda_is_differentiable_and_counts_no_empty_launch(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_roi_align_bwd_kernel_within_tolerance_of_plain(cuda, c, r, res, sr, dtype):
     """float32 within 1e-5 * max|ref|; bfloat16 one ulp (2^-7 of the larger
-    magnitude) more. Atomics land in no fixed order: not bit-equal."""
+    magnitude) more: the gather and the plain scatter add in other orders."""
     feats, rois, levels, valid = _roi_case(cuda, c + r + 1, 2, (256, 384), c, r, dtype)
     hw = {l: tuple(f.shape[1:3]) for l, f in feats.items()}
     g = torch.randn((r, res, res, c), device=cuda).to(dtype)
@@ -263,6 +263,53 @@ def test_nms_kernel_equals_plain_at_the_rcnn_shapes(cuda, n, k, max_out, thr):
     idx, valid = nms.nms_multi(b, s, thr, max_out)
     ref = nms.nms_multi_plain(b, s, thr, max_out)
     assert torch.equal(idx, ref[0]) and torch.equal(valid, ref[1])
+
+
+@pytest.mark.parametrize("case", ["all over the cap", "one over the cap", "signed zeros",
+                                  "K = max_out"])
+def test_nms_kernel_sorted_and_argmax_paths_equal_plain(cuda, case):
+    """Problems over the sort's cap (nms_kernel.ORDER_CAP valid candidates)
+    take the argmax loop, the others sort, mask and sweep; -0.0 and +0.0
+    tie; K = max_out runs the sweep to the end of every list."""
+    n, k, max_out, thr = {"all over the cap": (2, 9000, 100, 0.5),
+                          "one over the cap": (3, 9000, 100, 0.5),
+                          "signed zeros": (4, 3000, 300, 0.5),
+                          "K = max_out": (6, 1500, 1500, 0.7)}[case]
+    boxes, scores = _boxes(k + n, n, k, clusters=200)
+    if case == "one over the cap":
+        scores[1:, 3000:] = np.float32(-1e30)
+    if case == "signed zeros":
+        scores -= np.float32(0.5)
+        pick = np.random.RandomState(k).uniform(size=scores.shape)
+        scores[pick < 0.25] = np.float32(0.0)
+        scores[pick > 0.75] = np.float32(-0.0)
+    b, s = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    idx, valid = nms.nms_multi(b, s, thr, max_out)
+    ref = nms.nms_multi_plain(b, s, thr, max_out)
+    assert torch.equal(idx, ref[0]) and torch.equal(valid, ref[1])
+
+
+def test_roi_align_bwd_kernel_many_tiles_one_cell_and_two_runs(cuda):
+    """The whole canvas on P5 and on P2 (every map tile of the image), 300
+    rois on one cell, and two runs of the kernel bit-equal."""
+    feats, rois, levels, valid = _roi_case(cuda, 11, 2, (256, 384), 64, 40, torch.float32)
+    rois[2:6] = torch.tensor([[0, 0, 0, 383, 255], [1, 0, 0, 383, 255], [0, 0, 0, 383, 255],
+                              [1, 100, 60, 101, 61]], dtype=torch.float32, device=cuda)
+    levels[2:6] = torch.tensor([5, 5, 2, 2], dtype=torch.int32, device=cuda)
+    valid[2:6] = True
+    rois = torch.cat([rois, rois[5:6].repeat(300, 1)])
+    levels = torch.cat([levels, levels[5:6].repeat(300)])
+    valid = torch.cat([valid, valid[5:6].repeat(300)])
+    hw = {l: tuple(f.shape[1:3]) for l, f in feats.items()}
+    dims = [hw[l] for l in sorted(hw)]
+    g = torch.randn((rois.shape[0], 7, 7, 64), device=cuda).abs()
+    got = roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, 2, rois, levels, valid, 2)
+    again = roi_align_kernel.roi_align_bwd_cuda(g, dims, 2, 2, rois, levels, valid, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = multilevel_roi_align_bwd_plain(g, hw, 2, rois, levels, valid, 2)
+    ref_max = max(float(t.abs().max()) for t in ref.values())
+    for k, l in enumerate(sorted(hw)):
+        assert float((got[k] - ref[l]).abs().max()) <= 1e-4 * ref_max
 
 
 @pytest.mark.parametrize("mask", [False, True], ids=["faster", "mask"])
