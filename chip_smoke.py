@@ -59,11 +59,18 @@ line each (name, what was checked, time):
                  twin of ops/fused_losses.py on the card: the 5 flagship
                  levels at bs 8 with G=4, a row count that is no multiple of a
                  block, G=1, an ignored label that is a class, |x| > 90 (the
-                 FLT_MIN clamp), beta=0.5, non-integer gammas, PowSum off;
+                 FLT_MIN clamp), beta=0.5, non-integer gammas, PowSum off,
+                 C=20 (16-byte chunks), C=9 (the scalar instance), x and pt
+                 4 bytes off a 16-byte boundary (the scalar instance);
                  per-group sums within 1e-5 relative (summation order: the
                  kernel sums in double, the twin in float) and dx within
-                 1e-5 * max|dx| (ulp-level differences of exp/log/pow);
-                 median times of both kernels and the twin at the P3 shape
+                 1e-5 * max|dx| (ulp-level differences of exp/log/pow), and
+                 two runs of each kernel bit-equal; CUDA-event medians of
+                 both kernels at every level with their bounds, the P3
+                 medians beside the first design's, the twin's at P3
+  cls_loss_levels
+                 after the main paths (and last with --only): the device
+                 time of both kernels at every level from torch.profiler
   joint_step     the R-50 student and the frozen R-101 teacher at full width,
                  --groups x 2 images on the 640x1024 canvas, bf16 compute,
                  LR 1e-6: one step with the kernels and one with the plain
@@ -278,10 +285,14 @@ F32_OPS_PER_S = 67e12
 # float32 operations an element of the cls-loss kernels, counted from the
 # source: two expf and one logf (~20 each with their range reduction), one
 # IEEE division (~10), ~30 multiplies/adds for the terms and the masks, and
-# for PowSum one powf (~40); the backward adds ~20 multiplies/adds
-CLS_FWD_OPS, CLS_FWD_POW_OPS, CLS_BWD_OPS = 100, 40, 120
+# for PowSum log2f, exp2f and a multiply (~10); the backward adds ~20
+# multiplies/adds
+CLS_FWD_OPS, CLS_FWD_POW_OPS, CLS_BWD_OPS = 100, 10, 120
 # flagship per-level grids (640x1024 canvas, strides 8..128), A = 9, C = 80
 LEVEL_HW = {3: (80, 128), 4: (40, 64), 5: (20, 32), 6: (10, 16), 7: (5, 8)}
+# the card times of the cls-loss kernels at P3 of a bs 8 step before their
+# redesign (PERF.md section 6, rows #3 and #5; NVIDIA H100 80GB HBM3, 700.00 W)
+CLS_EARLIER_MS = {"fwd": 0.7658, "bwd": 0.6720}
 
 
 def bound(bytes_moved: float, ops: float) -> dict:
@@ -292,16 +303,28 @@ def bound(bytes_moved: float, ops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def _cls_case(torch, gen, rows, groups, x_scale=3.0, clamp_rows=0):
-    c = 80
-    x = torch.randn((rows, c), generator=gen, device="cuda") * x_scale
+def _cls_case(torch, gen, rows, groups, x_scale=3.0, clamp_rows=0, c=80, offset=0):
+    """x, pt (rows, c) float32, labels (rows,) int32 in -1..c, cotangents (G,);
+    offset > 0 makes x and pt views that start `offset` floats into their
+    buffers (4 * offset bytes off a 16-byte boundary)."""
+    x = torch.randn((rows * c + offset,), generator=gen, device="cuda")[offset:].view(rows, c)
+    x.mul_(x_scale)
     if clamp_rows:
         x[:clamp_rows] = x[:clamp_rows].sign() * (90.0 + 10.0 * x[:clamp_rows].abs())
-    pt = torch.rand((rows, c), generator=gen, device="cuda") * 0.998 + 0.001
+    pt = torch.rand((rows * c + offset,), generator=gen, device="cuda")[offset:].view(rows, c)
+    pt.mul_(0.998).add_(0.001)
     labels = torch.randint(-1, c + 1, (rows,), generator=gen, device="cuda", dtype=torch.int32)
     gf = torch.rand((groups,), generator=gen, device="cuda") + 0.5
     gd = torch.rand((groups,), generator=gen, device="cuda") + 0.5
     return x, pt, labels, gf, gd
+
+
+def _cls_bounds(rows, c, groups):
+    """The forward's and the backward's bounds with PowSum on: each input read
+    once (x, pt, labels; the backward's cotangents), each output written once."""
+    n = rows * c
+    return (bound(8 * n + 4 * rows + 12 * groups, (CLS_FWD_OPS + CLS_FWD_POW_OPS) * n),
+            bound(12 * n + 4 * rows + 8 * groups, CLS_BWD_OPS * n))
 
 
 def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
@@ -312,24 +335,34 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
     flag = K.ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)  # the flagship config
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = 9
-    cases = {f"P{l} bs{batch} G={groups}": (batch * h * w * a, groups, flag, {})
-             for l, (h, w) in LEVEL_HW.items()}
+    # name: rows, G, params, _cls_case keywords, the instance's vec width
+    level_of = {f"P{l} bs{batch} G={groups}": l for l in LEVEL_HW}
+    cases = {name: (batch * LEVEL_HW[l][0] * LEVEL_HW[l][1] * a, groups, flag, {}, 4)
+             for name, l in level_of.items()}
     cases.update({
-        "rows not a multiple of a block, G=3": (3 * 1013, 3, flag, {}),
-        "G=1": (4099, 1, flag, {}),
-        "IGNORED_LABEL=5 (a class)": (2 * 3001, 2, flag._replace(ignored_label=5), {}),
-        "|x| > 90 (FLT_MIN clamp)": (4 * 2000, 4, flag, {"x_scale": 30.0, "clamp_rows": 4000}),
-        "beta=0.5": (2 * 5000, 2, flag._replace(beta_d=0.5), {}),
-        "gamma_f=1.5 gamma_d=2.5": (2 * 5000, 2, flag._replace(gamma_f=1.5, gamma_d=2.5), {}),
-        "PowSum off": (2 * 5000, 2, flag._replace(want_powsum=False), {}),
+        "rows not a multiple of a block, G=3": (3 * 1013, 3, flag, {}, 4),
+        "G=1": (4099, 1, flag, {}, 4),
+        "IGNORED_LABEL=5 (a class)": (2 * 3001, 2, flag._replace(ignored_label=5), {}, 4),
+        "|x| > 90 (FLT_MIN clamp)": (4 * 2000, 4, flag, {"x_scale": 30.0, "clamp_rows": 4000}, 4),
+        "beta=0.5": (2 * 5000, 2, flag._replace(beta_d=0.5), {}, 4),
+        "gamma_f=1.5 gamma_d=2.5": (2 * 5000, 2, flag._replace(gamma_f=1.5, gamma_d=2.5), {}, 4),
+        "PowSum off": (2 * 5000, 2, flag._replace(want_powsum=False), {}, 4),
+        "C=20 (16-byte chunks)": (2 * 4001, 2, flag, {"c": 20}, 4),
+        "C=9 (scalar instance)": (3 * 1001, 3, flag, {"c": 9}, 1),
+        "x, pt 4 bytes off a 16-byte boundary": (2 * 3001, 2, flag, {"offset": 1}, 1),
     })
     fwd_err = bwd_err = 0.0
-    for name, (rows, g, p, kw) in cases.items():
+    levels, said = [], []
+    for name, (rows, g, p, kw, vec) in cases.items():
         x, pt, labels, gf, gd = _cls_case(torch, gen, rows, g, **kw)
+        got_vec = K.kernel_instance(x.shape[1], x.data_ptr(), pt.data_ptr(), p)[0]
+        if got_vec != vec:
+            raise AssertionError(f"cls losses {name!r}: instance of width {got_vec}, want {vec}")
         sums = K.cls_losses_fwd(x, pt, labels, g, p)
         ref = cls_losses_fwd_plain(x, pt, labels, g, p)
         dx = K.cls_losses_bwd(x, pt, labels, gf, gd, p)
         dref = cls_losses_bwd_plain(x, pt, labels, gf, gd, p)
+        again = (K.cls_losses_fwd(x, pt, labels, g, p), K.cls_losses_bwd(x, pt, labels, gf, gd, p))
         torch.cuda.synchronize()
         if not (bool(torch.isfinite(ref).all()) and bool(torch.isfinite(dref).all())):
             raise AssertionError(f"cls losses {name!r}: the plain twin is not finite")
@@ -340,26 +373,73 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
         if not rel <= 1e-5 or not drel <= 1e-5:
             raise AssertionError(f"cls losses {name!r}: sums rel err {rel:.3e}, dx err "
                                  f"{drel:.3e} of max|dx| (limits 1e-5)")
+        if not (torch.equal(sums, again[0]) and torch.equal(dx, again[1])):
+            raise AssertionError(f"cls losses {name!r}: two runs of the kernels differ")
         fwd_err = max(fwd_err, float((sums - ref).abs().max()))
         bwd_err = max(bwd_err, float((dx - dref).abs().max()))
-        del x, pt, labels, sums, ref, dx, dref
+        if name in level_of:  # a flagship level: time both kernels
+            level = level_of[name]
+            ms_fwd = _median_ms(torch, lambda: K.cls_losses_fwd(x, pt, labels, g, p),
+                                iters * 5, warmup)
+            ms_bwd = _median_ms(torch, lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, p),
+                                iters * 5, warmup)
+            b_fwd, b_bwd = _cls_bounds(rows, x.shape[1], g)
+            levels.append({"level": level, "rows": rows, "fwd_ms": ms_fwd, "bwd_ms": ms_bwd,
+                           "fwd_bound_ms": b_fwd["bound_ms"], "bwd_bound_ms": b_bwd["bound_ms"]})
+            said.append(f"P{level}: fwd {ms_fwd:.4f} (bound {b_fwd['bound_ms']:.4f}), bwd "
+                        f"{ms_bwd:.4f} (bound {b_bwd['bound_ms']:.4f})")
+            if level == 3:
+                plain_fwd = _median_ms(torch, lambda: cls_losses_fwd_plain(x, pt, labels, g, p),
+                                       iters, warmup)
+                plain_bwd = _median_ms(
+                    torch, lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, p), iters, warmup)
+                p3 = (rows, ms_fwd, ms_bwd, plain_fwd, plain_bwd, b_fwd, b_bwd)
+        del x, pt, labels, sums, ref, dx, dref, again
 
-    rows = batch * LEVEL_HW[3][0] * LEVEL_HW[3][1] * a
-    x, pt, labels, gf, gd = _cls_case(torch, gen, rows, groups)
-    ms_fwd = _median_ms(torch, lambda: K.cls_losses_fwd(x, pt, labels, groups, flag), iters * 5, warmup)
-    ms_bwd = _median_ms(torch, lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, flag), iters * 5, warmup)
-    plain_fwd = _median_ms(torch, lambda: cls_losses_fwd_plain(x, pt, labels, groups, flag), iters, warmup)
-    plain_bwd = _median_ms(torch, lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, flag), iters, warmup)
-    n = rows * 80
-    b_fwd = bound(8 * n + 4 * rows + 12 * groups, (CLS_FWD_OPS + CLS_FWD_POW_OPS) * n)
-    b_bwd = bound(12 * n + 4 * rows + 8 * groups, CLS_BWD_OPS * n)
+    rows, ms_fwd, ms_bwd, plain_fwd, plain_bwd, b_fwd, b_bwd = p3
     _phase("cls_loss_kernels", f"{len(cases)} cases, sums within 1e-5 relative and dx within "
-           f"1e-5 * max|dx| of the plain twin; P3 bs{batch} ({rows} rows x 80, G={groups}): "
-           f"fwd kernel {ms_fwd:.4f} ms (plain {plain_fwd:.4f}, bound {b_fwd['bound_ms']:.4f}), "
-           f"bwd kernel {ms_bwd:.4f} ms (plain {plain_bwd:.4f}, bound {b_bwd['bound_ms']:.4f}) "
-           f"(median)", time.perf_counter() - t0)
-    return ({"max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": plain_fwd, **b_fwd},
-            {"max_abs_err": bwd_err, "ms": ms_bwd, "plain_ms": plain_bwd, **b_bwd})
+           f"1e-5 * max|dx| of the plain twin, two runs bit-equal; P3 bs{batch} ({rows} rows x "
+           f"80, G={groups}): fwd kernel {ms_fwd:.4f} ms (before the redesign "
+           f"{CLS_EARLIER_MS['fwd']}; plain {plain_fwd:.4f}, bound {b_fwd['bound_ms']:.4f}), "
+           f"bwd kernel {ms_bwd:.4f} ms (before {CLS_EARLIER_MS['bwd']}; plain "
+           f"{plain_bwd:.4f}, bound {b_bwd['bound_ms']:.4f}) (median); levels, ms (event "
+           f"median): " + "; ".join(said), time.perf_counter() - t0)
+    per_level = lambda k: [{"level": v["level"], "rows": v["rows"], "ms": v[f"{k}_ms"],  # noqa: E731
+                            "bound_ms": v[f"{k}_bound_ms"]} for v in levels]
+    return ({"max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": plain_fwd, **b_fwd,
+             "levels": per_level("fwd")},
+            {"max_abs_err": bwd_err, "ms": ms_bwd, "plain_ms": plain_bwd, **b_bwd,
+             "levels": per_level("bwd")})
+
+
+def phase_cls_levels(torch, seed, batch, groups, iters, warmup, stats):
+    """The cls-loss kernels' device time at every flagship level from
+    torch.profiler, into stats' "levels". Run after the main paths: with the
+    profiler run before them, the host-bound training steps of the same
+    process read slower (PERF.md section 6)."""
+    from sad_tpu_torch.ops import cls_loss_kernel as K
+    from sad_tpu_torch.tools.profile_infer import device_ms
+
+    t0 = time.perf_counter()
+    flag = K.ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    said = []
+    for i, (level, (h, w)) in enumerate(LEVEL_HW.items()):
+        x, pt, labels, gf, gd = _cls_case(torch, gen, batch * h * w * 9, groups)
+        by_kernel = device_ms(lambda: K.cls_losses_fwd(x, pt, labels, groups, flag), iters * 5,
+                              warmup, "cls_losses")
+        fwd = sum(by_kernel.values())
+        sum_kernel = sum(v for k, v in by_kernel.items() if "cls_losses_sum" in k)
+        bwd = sum(device_ms(lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, flag), iters * 5,
+                            warmup, "cls_losses_bwd").values())
+        stats[0]["levels"][i]["device_ms"] = fwd
+        stats[1]["levels"][i]["device_ms"] = bwd
+        said.append(f"P{level}: fwd {fwd:.4f} (of which the sum kernel {sum_kernel:.4f}; bound "
+                    f"{stats[0]['levels'][i]['bound_ms']:.4f}), bwd {bwd:.4f} (bound "
+                    f"{stats[1]['levels'][i]['bound_ms']:.4f})")
+        del x, pt, labels, gf, gd
+    _phase("cls_loss_levels", "device ms a call (torch.profiler, mean of "
+           f"{iters * 5}): " + "; ".join(said), time.perf_counter() - t0)
 
 
 def _level_grads(torch, step, s_data, probs, batch):
@@ -1158,6 +1238,10 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup):
 # phases that can be run alone with --only
 PARTIAL = {
     "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
+    "cls_loss_kernels": lambda torch, a, rng: phase_cls_losses(torch, a.seed, a.batch, a.groups,
+                                                               a.iters, a.warmup),
+    "joint_step": lambda torch, a, rng: phase_joint_step(torch, a.seed, a.groups, a.iters,
+                                                         a.warmup),
     "roi_align_kernel": lambda torch, a, rng: phase_roi_align(torch, a.seed, a.batch, a.iters,
                                                               a.warmup),
     "roi_align_bwd_kernel": lambda torch, a, rng: phase_roi_align_bwd(torch, a.seed, a.batch,
@@ -1209,14 +1293,18 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     if args.only:
         for name in args.only.split(","):
-            PARTIAL[name](torch, args, rng)
+            out = PARTIAL[name](torch, args, rng)
+            if name == "cls_loss_kernels":
+                cls_stats = out
+        if "cls_loss_kernels" in args.only.split(","):
+            phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
+                             cls_stats)
         print("partial run: no result")
         return 0
     nms_stats = phase_nms(torch, rng, args.iters, args.warmup)
     roi_stats = phase_roi_align(torch, args.seed, args.batch, args.iters, args.warmup)
     roi_bwd_stats = phase_roi_align_bwd(torch, args.seed, args.batch, args.iters, args.warmup)
-    fwd_stats, bwd_stats = phase_cls_losses(torch, args.seed, args.batch, args.groups,
-                                            args.iters, args.warmup)
+    fwd_stats, bwd_stats = PARTIAL["cls_loss_kernels"](torch, args, rng)
 
     # the RetinaNet serving path: every count set to 0 just before it, read just after
     nms_kernel.launches = roi_align_kernel.launches = 0
@@ -1227,7 +1315,10 @@ def main(argv=None) -> int:
                 args.iters, args.warmup)
     nms_launches = nms_kernel.launches
     # the training path: the counts are set to 0 inside, after its comparisons
-    cls_launches = phase_joint_step(torch, args.seed, args.groups, args.iters, args.warmup)
+    cls_launches = PARTIAL["joint_step"](torch, args, rng)
+    for stats, launched in zip((fwd_stats, bwd_stats), cls_launches):
+        for lvl in stats["levels"]:
+            lvl["launches"] = launched // len(LEVEL_HW)
     # the R-CNN serving paths: the counts are set to 0 inside, after the comparisons
     faster = phase_rcnn_infer(torch, "faster_rcnn_infer", FASTER_CFG, args.seed + 2, args.batch,
                               args.iters, args.warmup)
@@ -1242,6 +1333,8 @@ def main(argv=None) -> int:
     mask_t = PARTIAL["mask_rcnn_train"](torch, args, rng)
     if _kernel_counts() != mask_t["launches"]:
         raise AssertionError("a kernel was launched after the last main-path run")
+    phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
+                     (fwd_stats, bwd_stats))
     train_steps = faster_t["steps"] + mask_t["steps"]
 
     nms_entry = {
@@ -1299,6 +1392,8 @@ def main(argv=None) -> int:
         "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"],
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
+        # P3's shape; "levels" holds every level's time and bound, each level one launch
+        # of each kernel a joint step
         "name": "cls_losses_fwd",
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/cls_losses.cu",

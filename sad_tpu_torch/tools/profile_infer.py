@@ -241,6 +241,28 @@ def wall_seconds(fn, iters: int, warmup: int):
     return times
 
 
+def device_ms(fn, iters: int, warmup: int, name: str = "") -> dict:
+    """Device ms a call of each of fn's CUDA kernels whose names hold `name`,
+    from torch.profiler over ``iters`` calls after ``warmup``: the kernels'
+    own time, without the host's share that a CUDA-event interval around a
+    small kernel holds. Raises if the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and name in e.key}
+    if not sum(ms.values()) > 0:
+        raise RuntimeError(f"the profiler saw no CUDA kernel named *{name}*")
+    return ms
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)

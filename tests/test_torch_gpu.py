@@ -99,25 +99,34 @@ def test_small_model_on_the_card_equals_plain_nms_decode(cuda):
 FLAGSHIP = ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
 
 
-def _cls_inputs(dev, rows, groups, seed):
+def _cls_inputs(dev, rows, groups, seed, c=80, offset=0):
+    """offset > 0: x and pt are views `offset` floats into their buffers."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((rows, 80), generator=gen, device=dev) * 3
+    x = torch.randn((rows * c + offset,), generator=gen, device=dev)[offset:].view(rows, c)
+    x.mul_(3)
     x[: rows // 20] *= 40  # |x| > 90: the FLT_MIN clamp of log p
-    pt = torch.rand((rows, 80), generator=gen, device=dev) * 0.998 + 0.001
-    labels = torch.randint(-1, 81, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    pt = torch.rand((rows * c + offset,), generator=gen, device=dev)[offset:].view(rows, c)
+    pt.mul_(0.998).add_(0.001)
+    labels = torch.randint(-1, c + 1, (rows,), generator=gen, device=dev, dtype=torch.int32)
     g = torch.rand((2, groups), generator=gen, device=dev) + 0.5
     return x, pt, labels, g[0].contiguous(), g[1].contiguous()
 
 
-@pytest.mark.parametrize("rows,groups,params", [
-    (8 * 40 * 64 * 9, 4, FLAGSHIP),  # P4 at bs 8
-    (3 * 1013, 3, FLAGSHIP._replace(want_powsum=False)),
-    (4099, 1, FLAGSHIP._replace(gamma_f=1.5, gamma_d=2.5, beta_d=0.5, ignored_label=5)),
+@pytest.mark.parametrize("rows,groups,params,c,offset,vec", [
+    (8 * 40 * 64 * 9, 4, FLAGSHIP, 80, 0, 4),  # P4 at bs 8
+    (3 * 1013, 3, FLAGSHIP._replace(want_powsum=False), 80, 0, 4),
+    (4099, 1, FLAGSHIP._replace(gamma_f=1.5, gamma_d=2.5, beta_d=0.5, ignored_label=5), 80, 0,
+     4),
+    (2 * 4001, 2, FLAGSHIP, 20, 0, 4),  # another width of 16-byte chunks
+    (3 * 1001, 3, FLAGSHIP, 9, 0, 1),  # C % 4 != 0: the scalar instance
+    (2 * 3001, 2, FLAGSHIP, 80, 1, 1),  # x, pt 4 bytes off 16: the scalar instance
+    (2 * 3001, 2, FLAGSHIP._replace(gamma_f=1.5), 9, 1, 1),  # scalar and generic
 ])
-def test_cls_loss_kernels_equal_plain_twin(cuda, rows, groups, params):
+def test_cls_loss_kernels_equal_plain_twin(cuda, rows, groups, params, c, offset, vec):
     """Sums within 1e-5 relative (the kernel sums in double, the twin in
-    float); dx within 1e-5 * max|dx|."""
-    x, pt, labels, gf, gd = _cls_inputs(cuda, rows, groups, rows)
+    float); dx within 1e-5 * max|dx|; two runs give the same bits."""
+    x, pt, labels, gf, gd = _cls_inputs(cuda, rows, groups, rows, c, offset)
+    assert cls_loss_kernel.kernel_instance(c, x.data_ptr(), pt.data_ptr(), params)[0] == vec
     before = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
     sums = cls_loss_kernel.cls_losses_fwd(x, pt, labels, groups, params)
     dx = cls_loss_kernel.cls_losses_bwd(x, pt, labels, gf, gd, params)
@@ -127,6 +136,8 @@ def test_cls_loss_kernels_equal_plain_twin(cuda, rows, groups, params):
     dref = cls_losses_bwd_plain(x, pt, labels, gf, gd, params)
     assert torch.all((sums - ref).abs() <= 1e-5 * ref.abs())
     assert float((dx - dref).abs().max()) <= 1e-5 * float(dref.abs().max())
+    assert torch.equal(sums, cls_loss_kernel.cls_losses_fwd(x, pt, labels, groups, params))
+    assert torch.equal(dx, cls_loss_kernel.cls_losses_bwd(x, pt, labels, gf, gd, params))
 
 
 def test_fused_losses_on_cuda_launch_both_kernels(cuda):
