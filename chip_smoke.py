@@ -61,16 +61,19 @@ line each (name, what was checked, time):
                  block, G=1, an ignored label that is a class, |x| > 90 (the
                  FLT_MIN clamp), beta=0.5, non-integer gammas, PowSum off,
                  C=20 (16-byte chunks), C=9 (the scalar instance), x and pt
-                 4 bytes off a 16-byte boundary (the scalar instance);
+                 4 bytes off a 16-byte boundary (the scalar instance; the
+                 library refuses the 16-byte one), pt log-uniform in
+                 1e-6..1e-3 (where PowSum's MUFU ex2/lg2 err most);
                  per-group sums within 1e-5 relative (summation order: the
                  kernel sums in double, the twin in float) and dx within
                  1e-5 * max|dx| (ulp-level differences of exp/log/pow), and
                  two runs of each kernel bit-equal; CUDA-event medians of
-                 both kernels at every level with their bounds, the P3
-                 medians beside the first design's, the twin's at P3
+                 both kernels and of the twin at P3, beside the first
+                 design's, and the bounds of every level
   cls_loss_levels
                  after the main paths (and last with --only): the device
-                 time of both kernels at every level from torch.profiler
+                 time of both kernels at every level from torch.profiler,
+                 beside its bound
   joint_step     the R-50 student and the frozen R-101 teacher at full width,
                  --groups x 2 images on the 640x1024 canvas, bf16 compute,
                  LR 1e-6: one step with the kernels and one with the plain
@@ -79,7 +82,8 @@ line each (name, what was checked, time):
                  then warm-up + timed steps: finite losses, every trainable
                  tensor updated (non-zero momentum) and at least 90 % of them
                  changed, frozen tensors and the teacher bit-identical,
-                 5 + 5 kernel launches a step; imgs/s
+                 5 + 5 kernel launches a step, one of each at each level's
+                 shape; imgs/s
 
   faster_rcnn_infer, mask_rcnn_infer
                  the two R-50-FPN R-CNN configs, random bf16 weights with the
@@ -303,16 +307,22 @@ def bound(bytes_moved: float, ops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def _cls_case(torch, gen, rows, groups, x_scale=3.0, clamp_rows=0, c=80, offset=0):
+def _cls_case(torch, gen, rows, groups, x_scale=3.0, clamp_rows=0, c=80, offset=0,
+              pt_near_zero=False):
     """x, pt (rows, c) float32, labels (rows,) int32 in -1..c, cotangents (G,);
     offset > 0 makes x and pt views that start `offset` floats into their
-    buffers (4 * offset bytes off a 16-byte boundary)."""
+    buffers (4 * offset bytes off a 16-byte boundary); pt is uniform in
+    [0.001, 0.999], or log-uniform in [1e-6, 1e-3] with pt_near_zero (a
+    trained teacher's background probabilities)."""
     x = torch.randn((rows * c + offset,), generator=gen, device="cuda")[offset:].view(rows, c)
     x.mul_(x_scale)
     if clamp_rows:
         x[:clamp_rows] = x[:clamp_rows].sign() * (90.0 + 10.0 * x[:clamp_rows].abs())
     pt = torch.rand((rows * c + offset,), generator=gen, device="cuda")[offset:].view(rows, c)
-    pt.mul_(0.998).add_(0.001)
+    if pt_near_zero:
+        pt.mul_(3.0 * np.log(10.0)).exp_().mul_(1e-6)
+    else:
+        pt.mul_(0.998).add_(0.001)
     labels = torch.randint(-1, c + 1, (rows,), generator=gen, device="cuda", dtype=torch.int32)
     gf = torch.rand((groups,), generator=gen, device="cuda") + 0.5
     gd = torch.rand((groups,), generator=gen, device="cuda") + 0.5
@@ -350,9 +360,10 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
         "C=20 (16-byte chunks)": (2 * 4001, 2, flag, {"c": 20}, 4),
         "C=9 (scalar instance)": (3 * 1001, 3, flag, {"c": 9}, 1),
         "x, pt 4 bytes off a 16-byte boundary": (2 * 3001, 2, flag, {"offset": 1}, 1),
+        "pt log-uniform in 1e-6..1e-3": (2 * 5000, 2, flag, {"pt_near_zero": True}, 4),
     })
     fwd_err = bwd_err = 0.0
-    levels, said = [], []
+    levels, rels = [], {}
     for name, (rows, g, p, kw, vec) in cases.items():
         x, pt, labels, gf, gd = _cls_case(torch, gen, rows, g, **kw)
         got_vec = K.kernel_instance(x.shape[1], x.data_ptr(), pt.data_ptr(), p)[0]
@@ -370,25 +381,35 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
         if not p.want_powsum and bool(sums[:, 2].any()):
             raise AssertionError(f"cls losses {name!r}: PowSum off but the kernel wrote one")
         drel = float((dx - dref).abs().max() / dref.abs().max())
+        rels[name] = (rel, drel)
         if not rel <= 1e-5 or not drel <= 1e-5:
             raise AssertionError(f"cls losses {name!r}: sums rel err {rel:.3e}, dx err "
                                  f"{drel:.3e} of max|dx| (limits 1e-5)")
         if not (torch.equal(sums, again[0]) and torch.equal(dx, again[1])):
             raise AssertionError(f"cls losses {name!r}: two runs of the kernels differ")
+        if kw.get("offset"):  # the library refuses 16-byte chunks of an unaligned x
+            before = (K.fwd_launches, K.bwd_launches)
+            for launch in (lambda: K._launch_fwd(x, pt, labels, g, p, 4, K.GAMMA2_POW),
+                           lambda: K._launch_bwd(x, pt, labels, gf, gd, p, 4, K.GAMMA2_POW)):
+                try:
+                    launch()
+                except RuntimeError:
+                    continue
+                raise AssertionError(f"cls losses {name!r}: the 16-byte instance launched")
+            if (K.fwd_launches, K.bwd_launches) != before:
+                raise AssertionError(f"cls losses {name!r}: a refused launch was counted")
         fwd_err = max(fwd_err, float((sums - ref).abs().max()))
         bwd_err = max(bwd_err, float((dx - dref).abs().max()))
-        if name in level_of:  # a flagship level: time both kernels
+        if name in level_of:  # a flagship level: its bounds; P3 timed here
             level = level_of[name]
-            ms_fwd = _median_ms(torch, lambda: K.cls_losses_fwd(x, pt, labels, g, p),
-                                iters * 5, warmup)
-            ms_bwd = _median_ms(torch, lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, p),
-                                iters * 5, warmup)
             b_fwd, b_bwd = _cls_bounds(rows, x.shape[1], g)
-            levels.append({"level": level, "rows": rows, "fwd_ms": ms_fwd, "bwd_ms": ms_bwd,
-                           "fwd_bound_ms": b_fwd["bound_ms"], "bwd_bound_ms": b_bwd["bound_ms"]})
-            said.append(f"P{level}: fwd {ms_fwd:.4f} (bound {b_fwd['bound_ms']:.4f}), bwd "
-                        f"{ms_bwd:.4f} (bound {b_bwd['bound_ms']:.4f})")
+            levels.append({"level": level, "rows": rows, "fwd_bound_ms": b_fwd["bound_ms"],
+                           "bwd_bound_ms": b_bwd["bound_ms"]})
             if level == 3:
+                ms_fwd = _median_ms(torch, lambda: K.cls_losses_fwd(x, pt, labels, g, p),
+                                    iters * 5, warmup)
+                ms_bwd = _median_ms(torch, lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, p),
+                                    iters * 5, warmup)
                 plain_fwd = _median_ms(torch, lambda: cls_losses_fwd_plain(x, pt, labels, g, p),
                                        iters, warmup)
                 plain_bwd = _median_ms(
@@ -397,14 +418,18 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
         del x, pt, labels, sums, ref, dx, dref, again
 
     rows, ms_fwd, ms_bwd, plain_fwd, plain_bwd, b_fwd, b_bwd = p3
+    worst = max(rels, key=lambda k: rels[k][0])
+    near0 = rels["pt log-uniform in 1e-6..1e-3"]
     _phase("cls_loss_kernels", f"{len(cases)} cases, sums within 1e-5 relative and dx within "
-           f"1e-5 * max|dx| of the plain twin, two runs bit-equal; P3 bs{batch} ({rows} rows x "
+           f"1e-5 * max|dx| of the plain twin (worst sums {rels[worst][0]:.2e} at {worst!r}, "
+           f"dx {max(v[1] for v in rels.values()):.2e}; pt near 0: sums {near0[0]:.2e}, dx "
+           f"{near0[1]:.2e}), two runs bit-equal; P3 bs{batch} ({rows} rows x "
            f"80, G={groups}): fwd kernel {ms_fwd:.4f} ms (before the redesign "
            f"{CLS_EARLIER_MS['fwd']}; plain {plain_fwd:.4f}, bound {b_fwd['bound_ms']:.4f}), "
            f"bwd kernel {ms_bwd:.4f} ms (before {CLS_EARLIER_MS['bwd']}; plain "
-           f"{plain_bwd:.4f}, bound {b_bwd['bound_ms']:.4f}) (median); levels, ms (event "
-           f"median): " + "; ".join(said), time.perf_counter() - t0)
-    per_level = lambda k: [{"level": v["level"], "rows": v["rows"], "ms": v[f"{k}_ms"],  # noqa: E731
+           f"{plain_bwd:.4f}, bound {b_bwd['bound_ms']:.4f}) (CUDA-event medians of "
+           f"{iters * 5})", time.perf_counter() - t0)
+    per_level = lambda k: [{"level": v["level"], "rows": v["rows"],  # noqa: E731
                             "bound_ms": v[f"{k}_bound_ms"]} for v in levels]
     return ({"max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": plain_fwd, **b_fwd,
              "levels": per_level("fwd")},
@@ -414,7 +439,9 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
 
 def phase_cls_levels(torch, seed, batch, groups, iters, warmup, stats):
     """The cls-loss kernels' device time at every flagship level from
-    torch.profiler, into stats' "levels". Run after the main paths: with the
+    torch.profiler, into stats' "levels" as "device_ms" (the level's only
+    time: an event median there is mostly host time). Run after the main
+    paths: with the
     profiler run before them, the host-bound training steps of the same
     process read slower (PERF.md section 6)."""
     from sad_tpu_torch.ops import cls_loss_kernel as K
@@ -502,15 +529,23 @@ def phase_joint_step(torch, seed, groups, iters, warmup):
     teacher_snap = [p.detach().clone() for p in run.teacher.parameters()]
     losses = []
     cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
+    cls_loss_kernel.fwd_by_rows, cls_loss_kernel.bwd_by_rows = {}, {}
     torch.cuda.reset_peak_memory_stats()
     times = wall_seconds(lambda: losses.append(step(run.state, run.batch, BENCH_LR)["loss"]),
                          iters, warmup)
     torch.cuda.synchronize()
     launches = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+    by_rows = (cls_loss_kernel.fwd_by_rows, cls_loss_kernel.bwd_by_rows)
     n_steps = iters + warmup
     if launches != (5 * n_steps, 5 * n_steps):
         raise AssertionError(f"cls-loss kernels launched {launches} times in {n_steps} "
                              f"steps, want 5 + 5 a step")
+    # each level's (rows, 80) grid: one launch of each kernel a step
+    level_rows = {lvl: run.n_images * h * w * 9 for lvl, (h, w) in LEVEL_HW.items()}
+    per_level = {lvl: (by_rows[0].get(r, 0), by_rows[1].get(r, 0)) for lvl, r in level_rows.items()}
+    if any(v != (n_steps, n_steps) for v in per_level.values()):
+        raise AssertionError(f"cls-loss launches by level (fwd, bwd) {per_level} in {n_steps} "
+                             f"steps, want one of each a level a step")
     vals = [float(v) for v in losses]
     if not all(np.isfinite(vals)):
         raise AssertionError(f"non-finite joint-step loss: {vals}")
@@ -537,10 +572,11 @@ def phase_joint_step(torch, seed, groups, iters, warmup):
            f"steps, loss {vals[0]:.4f} -> {vals[-1]:.4f}, all {len(t_mask)} trainable tensors "
            f"updated and {len(t_mask) - len(unchanged)} changed (unchanged: {unchanged}), "
            f"{len(frozen)} frozen and the teacher bit-identical, kernels launched "
-           f"{launches[0]} fwd + {launches[1]} bwd; {run.n_images / med:.2f} imgs/s, "
+           f"{launches[0]} fwd + {launches[1]} bwd (fwd, bwd by level: {per_level}); "
+           f"{run.n_images / med:.2f} imgs/s, "
            f"{1000 * med:.3f} ms/step (median of {iters} after {warmup} warm-up), peak "
            f"{peak:.2f} GiB", time.perf_counter() - t0)
-    return launches
+    return launches, per_level
 
 
 def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
@@ -1309,16 +1345,17 @@ def main(argv=None) -> int:
     # the RetinaNet serving path: every count set to 0 just before it, read just after
     nms_kernel.launches = roi_align_kernel.launches = 0
     cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
+    cls_loss_kernel.fwd_by_rows, cls_loss_kernel.bwd_by_rows = {}, {}
     phase_infer(torch, "student_infer", STUDENT_CFG, args.seed, args.batch,
                 args.iters, args.warmup)
     phase_infer(torch, "teacher_infer", TEACHER_CFG, args.seed + 1, args.batch,
                 args.iters, args.warmup)
     nms_launches = nms_kernel.launches
     # the training path: the counts are set to 0 inside, after its comparisons
-    cls_launches = PARTIAL["joint_step"](torch, args, rng)
-    for stats, launched in zip((fwd_stats, bwd_stats), cls_launches):
+    cls_launches, cls_by_level = PARTIAL["joint_step"](torch, args, rng)
+    for i, stats in enumerate((fwd_stats, bwd_stats)):
         for lvl in stats["levels"]:
-            lvl["launches"] = launched // len(LEVEL_HW)
+            lvl["launches"] = cls_by_level[lvl["level"]][i]
     # the R-CNN serving paths: the counts are set to 0 inside, after the comparisons
     faster = phase_rcnn_infer(torch, "faster_rcnn_infer", FASTER_CFG, args.seed + 2, args.batch,
                               args.iters, args.warmup)
@@ -1392,8 +1429,8 @@ def main(argv=None) -> int:
         "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"],
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
-        # P3's shape; "levels" holds every level's time and bound, each level one launch
-        # of each kernel a joint step
+        # P3's shape; "levels" holds every level's device time, bound and the launches
+        # counted at that level's shape in the joint step
         "name": "cls_losses_fwd",
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/cls_losses.cu",

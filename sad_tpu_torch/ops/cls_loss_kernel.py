@@ -8,7 +8,9 @@ sad_tpu_torch/ops/fused_losses.py, which sends CUDA tensors here and CPU
 tensors to the plain twin.
 
 ``fwd_launches`` and ``bwd_launches`` count the launches made by this
-process, so that a run can show that its main path went through the kernels.
+process, so that a run can show that its main path went through the kernels;
+``fwd_by_rows`` and ``bwd_by_rows`` tally the same launches by the row count
+M of x, which tells the FPN levels of a step apart.
 
 The wrapper picks the kernels' instance (``kernel_instance``): 16-byte
 chunks when C % 4 == 0 and x and pt are 16-byte aligned, else scalar
@@ -28,6 +30,8 @@ from . import _build
 
 fwd_launches = 0
 bwd_launches = 0
+fwd_by_rows: dict = {}
+bwd_by_rows: dict = {}
 
 THREADS = 256  # kThreads in the source
 ELEMS_PER_THREAD = 16  # kElems: a thread's elements an iteration
@@ -117,18 +121,17 @@ def cls_losses_fwd(x: torch.Tensor, pt: torch.Tensor, labels: torch.Tensor, n_gr
     """(G, 3) float32 per-group (focal_raw, distill_raw, powsum) of the (M, C)
     logits x, teacher probs pt and (M,) int32 labels; powsum is 0 when not
     wanted. Raises on anything the kernel does not take."""
-    global fwd_launches
     _check(x, pt, labels, n_groups)
-    out = launch_fwd(x, pt, labels, n_groups, p,
-                     *kernel_instance(x.shape[1], x.data_ptr(), pt.data_ptr(), p))
-    fwd_launches += 1
-    return out
+    return _launch_fwd(x, pt, labels, n_groups, p,
+                       *kernel_instance(x.shape[1], x.data_ptr(), pt.data_ptr(), p))
 
 
-def launch_fwd(x, pt, labels, n_groups: int, p: ClsLossParams, vec: int, spec: int):
-    """The forward through the instance (vec, spec), on checked tensors;
-    counts no launch (cls_losses_fwd does; tools/profile_cls_losses.py times
-    each instance)."""
+def _launch_fwd(x, pt, labels, n_groups: int, p: ClsLossParams, vec: int, spec: int):
+    """The forward through the instance (vec, spec), on checked tensors; the
+    library refuses vec 4 for a C or a pointer it does not take. Besides
+    cls_losses_fwd, tools/profile_cls_losses.py calls it to time each
+    instance."""
+    global fwd_launches
     rpg, c = x.shape[0] // n_groups, x.shape[1]
     bpg = launch_geometry(rpg, n_groups, c)
     fn = _fn("sad_cls_losses_fwd", _FWD_ARGTYPES)
@@ -143,6 +146,8 @@ def launch_fwd(x, pt, labels, n_groups: int, p: ClsLossParams, vec: int, spec: i
                  p.ignored_label, int(bool(p.want_powsum)), stream)
     if err != 0:
         raise RuntimeError(f"cls-loss forward kernel launch failed: cudaError_t {err}")
+    fwd_launches += 1
+    fwd_by_rows[x.shape[0]] = fwd_by_rows.get(x.shape[0], 0) + 1
     return out
 
 
@@ -151,23 +156,20 @@ def cls_losses_bwd(x: torch.Tensor, pt: torch.Tensor, labels: torch.Tensor,
                    p: ClsLossParams) -> torch.Tensor:
     """dx (M, C) float32 of focal_raw . g_focal + distill_raw . g_distill,
     with the published backwards; g_focal and g_distill are (G,) float32."""
-    global bwd_launches
     n_groups = g_focal.shape[0] if g_focal.dim() == 1 else -1
     _check(x, pt, labels, n_groups)
     gf = g_focal.to(x.device, torch.float32).contiguous()
     gd = g_distill.to(x.device, torch.float32).contiguous()
     if gd.shape != gf.shape:
         raise ValueError(f"g_focal {tuple(gf.shape)} and g_distill {tuple(gd.shape)} differ")
-    dx = launch_bwd(x, pt, labels, gf, gd, p,
-                    *kernel_instance(x.shape[1], x.data_ptr(), pt.data_ptr(), p))
-    bwd_launches += 1
-    return dx
+    return _launch_bwd(x, pt, labels, gf, gd, p,
+                       *kernel_instance(x.shape[1], x.data_ptr(), pt.data_ptr(), p))
 
 
-def launch_bwd(x, pt, labels, gf, gd, p: ClsLossParams, vec: int, spec: int):
+def _launch_bwd(x, pt, labels, gf, gd, p: ClsLossParams, vec: int, spec: int):
     """The backward through the instance (vec, spec), on checked tensors and
-    (G,) float32 cotangents; dx is a fresh, 16-byte aligned allocation.
-    Counts no launch."""
+    (G,) float32 cotangents; dx is a fresh, 16-byte aligned allocation."""
+    global bwd_launches
     n_groups = gf.shape[0]
     rpg, c = x.shape[0] // n_groups, x.shape[1]
     bpg = launch_geometry(rpg, n_groups, c)
@@ -182,4 +184,6 @@ def launch_bwd(x, pt, labels, gf, gd, p: ClsLossParams, vec: int, spec: int):
                  p.ignored_label, stream)
     if err != 0:
         raise RuntimeError(f"cls-loss backward kernel launch failed: cudaError_t {err}")
+    bwd_launches += 1
+    bwd_by_rows[x.shape[0]] = bwd_by_rows.get(x.shape[0], 0) + 1
     return dx

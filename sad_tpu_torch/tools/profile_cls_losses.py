@@ -20,7 +20,9 @@ warm-up calls; the forward's includes its sum kernel):
 - the registers, stack and spills of each instance (the ptxas lines of the
   build), and its static SASS instructions, all and MUFU (cuobjdump -sass
   of the built library, where the toolkit has cuobjdump).
-Needs a CUDA card; raises without one.
+The public wrappers pick the instance from the shapes and pointers, so the
+tool forces each one through the wrapper's launchers, which count their
+launches as the wrappers' do. Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -134,10 +136,11 @@ def main(argv=None):
     times = {}
     for what, (v, s) in fwd.items():
         pp = flag_nopow if s == K.GAMMA2_NOPOW else FLAGSHIP
-        times[f"fwd {what}"] = _ms(lambda: K.launch_fwd(x, pt, labels, g, pp, v, s), args.iters)
-    for what, (v, s) in bwd.items():
-        times[f"bwd {what}"] = _ms(lambda: K.launch_bwd(x, pt, labels, gf, gd, FLAGSHIP, v, s),
+        times[f"fwd {what}"] = _ms(lambda: K._launch_fwd(x, pt, labels, g, pp, v, s),
                                    args.iters)
+    for what, (v, s) in bwd.items():
+        times[f"bwd {what}"] = _ms(
+            lambda: K._launch_bwd(x, pt, labels, gf, gd, FLAGSHIP, v, s), args.iters)
     dx = torch.empty_like(x)
     times["x.sum() + pt.sum() (8 B an element read)"] = _ms(lambda: (x.sum(), pt.sum()),
                                                              args.iters)
@@ -148,9 +151,9 @@ def main(argv=None):
         "fwd_bytes_ms_at_3.35TB/s": (8 * n + 4 * rows) / HBM_BYTES_PER_S * 1e3,
         "bwd_bytes_ms_at_3.35TB/s": (12 * n + 4 * rows) / HBM_BYTES_PER_S * 1e3,
         "fwd_clock_power_under_load": _clock_under_load(
-            lambda: K.launch_fwd(x, pt, labels, g, FLAGSHIP, vec_, spec_), 3000),
+            lambda: K._launch_fwd(x, pt, labels, g, FLAGSHIP, vec_, spec_), 3000),
         "bwd_clock_power_under_load": _clock_under_load(
-            lambda: K.launch_bwd(x, pt, labels, gf, gd, FLAGSHIP, vec_, spec_), 3000),
+            lambda: K._launch_bwd(x, pt, labels, gf, gd, FLAGSHIP, vec_, spec_), 3000),
     }
     for k, t in times.items():
         print(f"[P3] {k}: {t:.4f} ms", flush=True)

@@ -99,14 +99,19 @@ def test_small_model_on_the_card_equals_plain_nms_decode(cuda):
 FLAGSHIP = ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
 
 
-def _cls_inputs(dev, rows, groups, seed, c=80, offset=0):
-    """offset > 0: x and pt are views `offset` floats into their buffers."""
+def _cls_inputs(dev, rows, groups, seed, c=80, offset=0, pt_near_zero=False):
+    """offset > 0: x and pt are views `offset` floats into their buffers;
+    pt_near_zero: pt log-uniform in [1e-6, 1e-3], else uniform in
+    [0.001, 0.999]."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((rows * c + offset,), generator=gen, device=dev)[offset:].view(rows, c)
     x.mul_(3)
     x[: rows // 20] *= 40  # |x| > 90: the FLT_MIN clamp of log p
     pt = torch.rand((rows * c + offset,), generator=gen, device=dev)[offset:].view(rows, c)
-    pt.mul_(0.998).add_(0.001)
+    if pt_near_zero:
+        pt.mul_(3.0 * np.log(10.0)).exp_().mul_(1e-6)
+    else:
+        pt.mul_(0.998).add_(0.001)
     labels = torch.randint(-1, c + 1, (rows,), generator=gen, device=dev, dtype=torch.int32)
     g = torch.rand((2, groups), generator=gen, device=dev) + 0.5
     return x, pt, labels, g[0].contiguous(), g[1].contiguous()
@@ -125,7 +130,27 @@ def _cls_inputs(dev, rows, groups, seed, c=80, offset=0):
 def test_cls_loss_kernels_equal_plain_twin(cuda, rows, groups, params, c, offset, vec):
     """Sums within 1e-5 relative (the kernel sums in double, the twin in
     float); dx within 1e-5 * max|dx|; two runs give the same bits."""
-    x, pt, labels, gf, gd = _cls_inputs(cuda, rows, groups, rows, c, offset)
+    _check_cls_kernels(*_cls_inputs(cuda, rows, groups, rows, c, offset), groups, params, vec)
+
+
+def test_cls_loss_kernels_pt_near_zero(cuda):
+    """PowSum's MUFU ex2/lg2 err most where log2(pt) is large: the same
+    limits with a trained teacher's background probabilities."""
+    _check_cls_kernels(*_cls_inputs(cuda, 2 * 5000, 2, 7, pt_near_zero=True), 2, FLAGSHIP, 4)
+
+
+def test_cls_loss_library_refuses_unaligned_16_byte_chunks(cuda):
+    x, pt, labels, gf, gd = _cls_inputs(cuda, 2 * 301, 2, 3, offset=1)
+    before = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        cls_loss_kernel._launch_fwd(x, pt, labels, 2, FLAGSHIP, 4, cls_loss_kernel.GAMMA2_POW)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        cls_loss_kernel._launch_bwd(x, pt, labels, gf, gd, FLAGSHIP, 4, cls_loss_kernel.GAMMA2_POW)
+    assert (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches) == before
+
+
+def _check_cls_kernels(x, pt, labels, gf, gd, groups, params, vec):
+    c = x.shape[1]
     assert cls_loss_kernel.kernel_instance(c, x.data_ptr(), pt.data_ptr(), params)[0] == vec
     before = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
     sums = cls_loss_kernel.cls_losses_fwd(x, pt, labels, groups, params)
