@@ -24,16 +24,22 @@ line each (name, what was checked, time):
                  shape (N=8, K=80000, max_out=100) and over the cap, each beside
                  the argmax loop's earlier time
   roi_align_kernel
-                 csrc/roi_align.cu against the plain twin of ops/roi_align.py
-                 on the card, float32 (within 1e-5 * max|ref| + 1e-6) and
-                 bfloat16 (every element within one bf16 ulp, 2^-7 of the
-                 larger magnitude): the box shape (R=8000, res 7) and the
-                 mask shape (R=800, res 14) on the four levels of a batch of 8
-                 800x1344 canvases at C=256, rois of every level; rois wholly
-                 outside the map, zero-area rois, extreme aspect ratios, rois
-                 on the last row and column, invalid slots, an odd R, C=64,
-                 C=3 (no vector loads), a 1x2 top level, sr 1 and 3; median
-                 times, bytes moved and the bound at both shapes
+                 csrc/roi_align.cu's forward against the plain twin of
+                 ops/roi_align.py on the card, float32 and bfloat16: every
+                 case bit-equal (the two add the same products in the same
+                 order) and within the tolerance (float32 1e-5 * max|ref| +
+                 1e-6; bfloat16 one ulp, 2^-7 of the larger magnitude): the
+                 box shape (R=8000, res 7) and the mask shape (R=800, res 14)
+                 on the four levels of a batch of 8 800x1344 canvases at
+                 C=256, rois of every level, two runs of the box shape
+                 bit-equal; rois wholly outside the map, zero-area rois,
+                 extreme aspect ratios, rois on the last row and column,
+                 invalid slots, an odd R, C=64, C=3 and C=20 (the scalar
+                 instances), a 1x2 top level, sr 1 and 3; rois wider than the
+                 staging buffer (the whole 200x336 P2 map at res 7, 14 and 28:
+                 bands, and column chunks at 28); 600 rois on one image and
+                 level; C=1 at res 28 over 200x336 rasters; CUDA-event medians,
+                 bytes moved and the bound at both shapes
   roi_align_bwd_kernel
                  the backward gather of csrc/roi_align.cu against
                  multilevel_roi_align_bwd_plain on the card, through its
@@ -74,6 +80,11 @@ line each (name, what was checked, time):
                  after the main paths (and last with --only): the device
                  time of both kernels at every level from torch.profiler,
                  beside its bound
+  roi_align_device
+                 after the main paths: the RoIAlign forward's device time
+                 (torch.profiler) at the box and mask shapes of serving and
+                 training, the mask-target crop, and on the rois the two
+                 training steps sampled, beside the earlier kernel's
   joint_step     the R-50 student and the frozen R-101 teacher at full width,
                  --groups x 2 images on the 640x1024 canvas, bf16 compute,
                  LR 1e-6: one step with the kernels and one with the plain
@@ -107,7 +118,9 @@ line each (name, what was checked, time):
                  backward) in their place, metrics within 1e-4 relative; the
                  gradients each RoIAlign backward hands to the FPN outputs
                  within one bf16 ulp + 1e-5 * max; the backward kernel timed
-                 on the rois the step sampled; then warm-up + timed steps:
+                 on the rois the step sampled (and the forward, on the device
+                 in roi_align_device); the mask-target crop bit-equal to the
+                 plain twin; then warm-up + timed steps:
                  finite losses, loss_mask for Mask R-CNN, every trainable
                  tensor updated, frozen tensors bit-identical, at least one
                  fg roi an image, and a step's launches: NMS 1, RoIAlign
@@ -148,6 +161,11 @@ RCNN_CANVAS = (800, 1344)
 # and #8; NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new medians
 NMS_EARLIER_MS = {"decode": 0.3069, "rpn": 1.2370, "rpn_train": 3.2288, "rcnn_decode": 3.4746}
 ROI_BWD_EARLIER_MS = {"box": 3.0123, "mask": 2.9818}
+# device ms of the RoIAlign forward before its redesign (a block a roi's bin
+# row) at the shapes of sad_tpu_torch/tools/profile_roi_align.py (PERF.md
+# section 6, row #7)
+ROI_FWD_EARLIER_MS = {"box": 0.4639, "mask": 0.1383, "box_train": 0.2470, "mask_train": 0.1745,
+                      "mask_targets": 0.0595}
 
 
 def _phase(name: str, checked: str, seconds: float) -> None:
@@ -628,23 +646,6 @@ def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
     return batch / med
 
 
-def _rpn_like_rois(torch, rng, batch, per_im, canvas):
-    """Image-major rois as an RPN at work makes them: log-uniform sizes from
-    16 px to the canvas height, aspect ratios 1:3..3:1, anywhere on the
-    canvas and clipped to it, 2 % of the slots invalid."""
-    ch, cw = canvas
-    r = batch * per_im
-    size = np.exp(rng.uniform(np.log(16.0), np.log(float(ch)), r))
-    ar = np.exp(rng.uniform(-np.log(3.0), np.log(3.0), r))
-    w, h = size * np.sqrt(ar), size / np.sqrt(ar)
-    cx, cy = rng.uniform(0, cw, r), rng.uniform(0, ch, r)
-    boxes = np.stack([np.clip(cx - w / 2, 0, cw - 1), np.clip(cy - h / 2, 0, ch - 1),
-                      np.clip(cx + w / 2, 0, cw - 1), np.clip(cy + h / 2, 0, ch - 1)], axis=1)
-    rois = np.concatenate([np.repeat(np.arange(batch), per_im)[:, None], boxes], axis=1)
-    valid = rng.uniform(size=r) > 0.02
-    return (torch.from_numpy(rois.astype(np.float32)).cuda(), torch.from_numpy(valid).cuda())
-
-
 def _edge_rois(torch, rng, batch, canvas, r):
     """rois that exercise the edge rules: wholly outside the map, zero area,
     1:60 and 60:1 aspect ratios, on the last row and column, negative
@@ -674,43 +675,10 @@ def _roi_feats(torch, gen, batch, canvas, c, dtype, lvl_min=2, lvl_max=5):
             for l in range(lvl_min, lvl_max + 1)}
 
 
-def _roi_align_bound(torch, feats, rois, levels, valid, res, sr):
-    """RoIAlign on this run's data. Bytes: the output written once, every
-    feature cell that a valid roi's samples touch read once, the rois, levels
-    and valid flags read once. Operations: a multiply and an add per tap, 4
-    taps a sample, sr x sr samples an output element."""
-    from sad_tpu_torch.ops.roi_align import roi_geometry
-
-    lvls = sorted(feats)
-    b, c = feats[lvls[0]].shape[0], feats[lvls[0]].shape[-1]
-    dims = [(feats[l].shape[1], feats[l].shape[2]) for l in lvls]
-    li, bi, _, _, (ylo, yhi, wylo, wyhi), (xlo, xhi, wxlo, wxhi) = roi_geometry(
-        dims, lvls[0], b, rois, levels, res, sr)
-    r = rois.shape[0]
-    # a sample outside [-1, n] has weight 0 on both taps and needs no cell
-    y_in = ((wylo + wyhi) > 0).float().reshape(r, -1)
-    x_in = ((wxlo + wxhi) > 0).float().reshape(r, -1)
-    ylo, yhi, xlo, xhi = (t.reshape(r, -1) for t in (ylo, yhi, xlo, xhi))
-    touched = 0
-    for k, (h, w) in enumerate(dims):
-        for img in range(b):
-            sel = valid & (li == k) & (bi == img)
-            n_sel = int(sel.sum())
-            if n_sel == 0:
-                continue
-            rows = torch.zeros((n_sel, h), device="cuda")
-            cols = torch.zeros((n_sel, w), device="cuda")
-            rows.scatter_add_(1, ylo[sel], y_in[sel]).scatter_add_(1, yhi[sel], y_in[sel])
-            cols.scatter_add_(1, xlo[sel], x_in[sel]).scatter_add_(1, xhi[sel], x_in[sel])
-            touched += int((((rows > 0).float().T @ (cols > 0).float()) > 0).sum())
-    esize = feats[lvls[0]].element_size()
-    out_elems = r * res * res * c
-    bytes_moved = out_elems * esize + touched * c * esize + r * (20 + 4 + 1)
-    return bound(bytes_moved, 2 * 4 * sr * sr * out_elems), bytes_moved, touched
-
-
 def _roi_align_check(torch, name, feats, rois, levels, valid, res, sr):
-    """Kernel against plain twin on one case; returns max abs err."""
+    """Kernel against plain twin on one case: within the tolerance and, since
+    the two add the same products in the same order, bit for bit; returns max
+    abs err."""
     from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
 
     got = multilevel_roi_align(feats, rois, levels, valid, res, sr)
@@ -731,13 +699,21 @@ def _roi_align_check(torch, name, feats, rois, levels, valid, res, sr):
     if bad:
         raise AssertionError(f"roi_align {name!r} ({dtype}): {bad} of {err.numel()} elements "
                              f"beyond the tolerance, max abs err {float(err.max()):.3e}")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"roi_align {name!r} ({dtype}): {int((got != ref).sum())} of "
+                             f"{got.numel()} elements not bit-equal to the plain twin")
     return float(err.max()), float((g == f).float().mean())
 
 
-def phase_roi_align(torch, seed, batch, iters, warmup):
+def phase_roi_align(torch, seed, batch, iters, warmup, timers):
+    """The forward kernel against its plain twin, bit for bit, on the main
+    paths' shapes and the edge cases; CUDA-event medians at the two serving
+    shapes, whose calls go into ``timers`` for their device time, read after
+    the main paths."""
     from sad_tpu_torch.ops import roi_align_kernel
     from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
     from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound, rpn_like_rois
 
     t0 = time.perf_counter()
     rng = np.random.RandomState(seed + 7)
@@ -749,35 +725,41 @@ def phase_roi_align(torch, seed, batch, iters, warmup):
     for dtype in (torch.float32, torch.bfloat16):
         feats = _roi_feats(torch, gen, batch, RCNN_CANVAS, 256, dtype)
         for key, per_im, res in (("box", 1000, 7), ("mask", 100, 14)):
-            rois, valid = _rpn_like_rois(torch, rng, batch, per_im, RCNN_CANVAS)
+            rois, valid = rpn_like_rois(rng, batch, per_im, RCNN_CANVAS, "cuda")
             levels = map_rois_to_fpn_levels(rois[:, 1:], 2, 5)
             err, same = _roi_align_check(torch, f"{key} shape", feats, rois, levels, valid, res, 2)
             worst, n_cases = max(worst, err), n_cases + 1
             if dtype != torch.bfloat16:
                 continue
-            ms = _median_ms(torch, lambda: multilevel_roi_align(feats, rois, levels, valid, res, 2),
-                            iters * 5, warmup)
+            run = (lambda f=feats, r=rois, lv=levels, v=valid, rs=res:
+                   multilevel_roi_align(f, r, lv, v, rs, 2))
+            if key == "box":  # two runs give the same bits
+                if not torch.equal(run(), run()):
+                    raise AssertionError("roi_align box shape: two runs differ")
+                n_cases += 1
+            ms = _median_ms(torch, run, iters * 5, warmup)
             plain_ms = _median_ms(torch, lambda: multilevel_roi_align_plain(
                 feats, rois, levels, valid, res, 2), iters, warmup)
-            b, nbytes, touched = _roi_align_bound(torch, feats, rois, levels, valid, res, 2)
+            b, nbytes, touched = roi_align_bound(feats, rois, levels, valid, res, 2)
             counts = torch.bincount(levels[valid], minlength=6)[2:].tolist()
             if min(counts) == 0:
                 raise AssertionError(f"roi_align {key} shape: a level got no roi: {counts}")
             stats[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            timers[key] = (run, stats[key])
             said.append(f"{key} shape R={rois.shape[0]} res={res} bf16, rois per level P2..P5 "
-                        f"{counts}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"{counts}: kernel {ms:.4f} ms (event median), plain {plain_ms:.4f} ms, "
                         f"{nbytes / 1e6:.1f} MB ({touched} cells touched), bound "
                         f"{b['bound_ms']:.4f} ms by {b['bound_by']}, max abs err {err:.3e}, "
                         f"{100 * same:.3f} % of elements bit-equal")
         del feats
 
-    # edge rules, odd sizes and the scalar-load path, both dtypes
+    # edge rules, odd sizes and the scalar instances, both dtypes
     small = (256, 384)
     edge = [  # name, batch, canvas, C, R, res, sr, levels
         ("edge rois, C=64, R=37", 2, small, 64, 37, 7, 2, (2, 5)),
         ("edge rois, res 14", 2, small, 64, 53, 14, 2, (2, 5)),
-        ("C=3: no vector loads", 3, small, 3, 29, 7, 2, (2, 5)),
-        ("C=20 float32 vectors, bf16 scalars", 1, small, 20, 31, 7, 2, (2, 5)),
+        ("C=3: the scalar instance, one lane", 3, small, 3, 29, 7, 2, (2, 5)),
+        ("C=20: the scalar instance, 8 lanes", 1, small, 20, 31, 7, 2, (2, 5)),
         ("1x2 top level", 1, (32, 64), 256, 16, 7, 2, (2, 5)),
         ("one level only", 2, small, 64, 23, 7, 2, (3, 3)),
         ("sr=1", 2, small, 64, 37, 7, 1, (2, 5)),
@@ -792,6 +774,41 @@ def phase_roi_align(torch, seed, batch, iters, warmup):
                 raise AssertionError(f"top level is {tuple(feats[5].shape)}")
             err, _ = _roi_align_check(torch, name, feats, rois, levels, valid, res, sr)
             worst, n_cases = max(worst, err), n_cases + 1
+    # rois wider than the staging buffer: the whole 200x336 P2 map of the
+    # 800x1344 canvas (bands of bin rows, and column chunks at res 28) and the
+    # whole P3 map, among spread rois
+    ch, cw = RCNN_CANVAS
+    rois, valid = rpn_like_rois(rng, 2, 30, RCNN_CANVAS, "cuda")
+    rois[:3] = torch.tensor([[0, 0, 0, cw - 1, ch - 1], [1, 0, 0, cw - 1, ch - 1],
+                             [1, cw / 3, ch / 3, cw - 1, ch - 1]], device="cuda")
+    valid[:3] = True
+    levels = map_rois_to_fpn_levels(rois[:, 1:], 2, 5)
+    levels[:3] = torch.tensor([2, 3, 2], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = _roi_feats(torch, gen, 2, RCNN_CANVAS, 256, dtype)
+        for res in (7, 14, 28):
+            err, _ = _roi_align_check(torch, f"rois wider than the buffer, res {res}", feats, rois,
+                                      levels, valid, res, 2)
+            worst, n_cases = max(worst, err), n_cases + 1
+        del feats
+    # 600 rois on one image and one level, a tenth of them on one cell
+    rois, _ = rpn_like_rois(rng, 1, 600, RCNN_CANVAS, "cuda")
+    rois[:60] = torch.tensor([0.0, 41.0, 61.0, 43.0, 62.5], device="cuda")
+    valid = torch.ones(600, dtype=torch.bool, device="cuda")
+    levels = torch.full((600,), 2, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = _roi_feats(torch, gen, 1, RCNN_CANVAS, 64, dtype)
+        err, _ = _roi_align_check(torch, "600 rois on one image and level", feats, rois, levels,
+                                  valid, 7, 2)
+        worst, n_cases = max(worst, err), n_cases + 1
+    # C = 1 at res 28 over {0, 1} rasters of 200x336 (the mask-target crop's shape)
+    rois, valid = rpn_like_rois(rng, 40, 8, RCNN_CANVAS, "cuda")
+    levels = torch.full((rois.shape[0],), 2, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        maps = {2: (torch.rand((40, ch // 4, cw // 4, 1), generator=gen, device="cuda") > 0.5)
+                .to(dtype)}
+        err, _ = _roi_align_check(torch, "C=1 at res 28", maps, rois, levels, valid, 28, 2)
+        worst, n_cases = max(worst, err), n_cases + 1
     # all rois invalid: zeros, and the kernel still counts as launched
     feats = _roi_feats(torch, gen, 1, small, 64, torch.bfloat16)
     rois, valid = _edge_rois(torch, rng, 1, small, 19)
@@ -801,10 +818,32 @@ def phase_roi_align(torch, seed, batch, iters, warmup):
         raise AssertionError("roi_align: all-invalid rois gave non-zero output")
     n_cases += 1
     launched = roi_align_kernel.launches - before
-    _phase("roi_align_kernel", f"{n_cases} cases within tolerance of the plain twin (float32 "
-           f"1e-5 * max|ref| + 1e-6; bfloat16 one ulp), worst abs err {worst:.3e}, "
-           f"{launched} launches; medians: " + "; ".join(said), time.perf_counter() - t0)
+    _phase("roi_align_kernel", f"{n_cases} cases bit-equal to the plain twin (and within its "
+           f"tolerance: float32 1e-5 * max|ref| + 1e-6; bfloat16 one ulp), two runs bit-equal, "
+           f"worst abs err {worst:.3e}, {launched} launches; medians: " + "; ".join(said),
+           time.perf_counter() - t0)
     return stats
+
+
+def phase_roi_align_device(torch, timers, iters, warmup):
+    """The RoIAlign forward's device time at each main-path shape from
+    torch.profiler, into its stats as "device_ms" beside the earlier kernel's
+    ("earlier_device_ms", ROI_FWD_EARLIER_MS). Run after the main paths, as
+    [cls_loss_levels] is (PERF.md section 6)."""
+    from sad_tpu_torch.tools.profile_infer import device_ms
+
+    t0 = time.perf_counter()
+    said = []
+    for key, (run, stats) in timers.items():
+        ms = sum(device_ms(run, iters * 5, warmup, "roi_align_fwd").values())
+        stats["device_ms"] = ms
+        earlier = None if ":" in key else ROI_FWD_EARLIER_MS.get(key)
+        if earlier is not None:
+            stats["earlier_device_ms"] = earlier
+        said.append(f"{key} {ms:.4f}" + (f" (earlier kernel {earlier})" if earlier else "")
+                    + (f", bound {stats['bound_ms']:.4f}" if "bound_ms" in stats else ""))
+    _phase("roi_align_device", "device ms a call (torch.profiler, mean of "
+           f"{iters * 5}): " + "; ".join(said), time.perf_counter() - t0)
 
 
 def _roi_align_bwd_bound(feats_hw, batch, c, esize, r, res, sr):
@@ -864,12 +903,13 @@ def _roi_align_bwd_check(torch, name, feats, rois, levels, valid, res, sr, gen, 
     return worst
 
 
-def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
+def phase_roi_align_bwd(torch, seed, batch, iters, warmup, timers):
     from sad_tpu_torch.ops import roi_align_kernel
     from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
     from sad_tpu_torch.ops.roi_align import (
         multilevel_roi_align, multilevel_roi_align_bwd_plain, multilevel_roi_align_plain,
     )
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound, rpn_like_rois
 
     t0 = time.perf_counter()
     rng = np.random.RandomState(seed + 11)
@@ -882,7 +922,7 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
         feats = _roi_feats(torch, gen, batch, RCNN_CANVAS, 256, dtype)
         hw = {l: tuple(f.shape[1:3]) for l, f in feats.items()}
         for key, per_im, res in (("box", 512, 7), ("mask", 128, 14)):
-            rois, valid = _rpn_like_rois(torch, rng, batch, per_im, RCNN_CANVAS)
+            rois, valid = rpn_like_rois(rng, batch, per_im, RCNN_CANVAS, "cuda")
             levels = map_rois_to_fpn_levels(rois[:, 1:], 2, 5)
             err = _roi_align_bwd_check(torch, f"{key} shape", feats, rois, levels, valid, res, 2,
                                        gen)
@@ -891,14 +931,16 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
                                        valid, res, 2)
             if dtype != torch.bfloat16:
                 continue
-            fms = _median_ms(torch, lambda: multilevel_roi_align(feats, rois, levels, valid, res, 2),
-                             iters * 3, warmup)
+            run = (lambda f=feats, r=rois, lv=levels, v=valid, rs=res:
+                   multilevel_roi_align(f, r, lv, v, rs, 2))
+            fms = _median_ms(torch, run, iters * 3, warmup)
             fplain = _median_ms(torch, lambda: multilevel_roi_align_plain(
                 feats, rois, levels, valid, res, 2), max(iters // 2, 2), 1)
-            fb, _, _ = _roi_align_bound(torch, feats, rois, levels, valid, res, 2)
+            fb, _, _ = roi_align_bound(feats, rois, levels, valid, res, 2)
             stats[f"fwd_{key}"] = {"max_abs_err": ferr, "ms": fms, "plain_ms": fplain, **fb}
-            said.append(f"forward at the {key} shape of the step: kernel {fms:.4f} ms, plain "
-                        f"{fplain:.4f} ms, bound {fb['bound_ms']:.4f} ms")
+            timers[f"{key}_train"] = (run, stats[f"fwd_{key}"])
+            said.append(f"forward at the {key} shape of the step: kernel {fms:.4f} ms (event "
+                        f"median), plain {fplain:.4f} ms, bound {fb['bound_ms']:.4f} ms")
             g = torch.randn((rois.shape[0], res, res, 256), generator=gen,
                             device="cuda").to(dtype)
             dims = [hw[l] for l in sorted(hw)]
@@ -942,7 +984,7 @@ def phase_roi_align_bwd(torch, seed, batch, iters, warmup):
             worst, n_cases = max(worst, err), n_cases + 1
     # rois that span many map tiles: the whole canvas on P5 (4 x 6 tiles) and on P2
     # (25 x 42), a quarter of it on P3, among spread rois, at the training canvas
-    rois, valid = _rpn_like_rois(torch, rng, 2, 40, RCNN_CANVAS)
+    rois, valid = rpn_like_rois(rng, 2, 40, RCNN_CANVAS, "cuda")
     ch, cw = RCNN_CANVAS
     big = [[0, 0, 0, cw - 1, ch - 1], [1, 0, 0, cw - 1, ch - 1], [0, 0, 0, cw - 1, ch - 1],
            [1, cw / 4, ch / 4, 3 * cw / 4, 3 * ch / 4]]
@@ -1106,11 +1148,12 @@ def _roi_branch_grads(torch, step, run, nchw, sampled):
     return grads
 
 
-def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup):
+def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers):
     from sad_tpu_torch.models.rcnn import flat_rois
     from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
     from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
     from sad_tpu_torch.tools.profile_infer import wall_seconds
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound
     from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_rcnn_train_step
 
     t0 = time.perf_counter()
@@ -1200,6 +1243,11 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup):
         ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
             g, dims, 2, n, r5, lv, ok, 2), iters * 2, warmup)
         own.append(f"{key} R={r5.shape[0]} ({int(ok.sum())} live) {ms:.4f} ms")
+        # the forward on the same rois, timed on the device after the main paths
+        own_feats = {l: nchw[l].permute(0, 2, 3, 1).contiguous() for l in range(2, 6)}
+        timers[f"{key}_train:{name} own rois"] = (
+            lambda f=own_feats, r=r5, lv=lv, v=ok, rs=res: multilevel_roi_align(f, r, lv, v, rs, 2),
+            {})
     target_stats = None
     if mask_on:
         # the target crop: the forward kernel over the (B * G, Hm, Wm, 1) rasters
@@ -1217,10 +1265,14 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup):
                         iters * 2, warmup)
         plain_ms = _median_ms(torch, lambda: multilevel_roi_align_plain(maps, r5, lv, ok, res, 2),
                               iters, warmup)
-        b_, _, _ = _roi_align_bound(torch, maps, r5, lv, ok, res, 2)
+        b_, _, _ = roi_align_bound(maps, r5, lv, ok, res, 2)
         target_stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_}
+        timers["mask_targets"] = (
+            lambda m=maps, r=r5, l_=lv, v=ok, rs=res: multilevel_roi_align(m, r, l_, v, rs, 2),
+            target_stats)
         own.append(f"mask target crop R={r5.shape[0]} res={res} C=1 over {bb * gg} rasters: "
-                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms")
+                   f"kernel {ms:.4f} ms (event median), plain {plain_ms:.4f} ms, bound "
+                   f"{b_['bound_ms']:.4f} ms")
     del nchw, logits, deltas, g_kernel, g_plain, sampled
 
     # the main path: counts set to 0 just before, read just after
@@ -1279,14 +1331,18 @@ PARTIAL = {
     "joint_step": lambda torch, a, rng: phase_joint_step(torch, a.seed, a.groups, a.iters,
                                                          a.warmup),
     "roi_align_kernel": lambda torch, a, rng: phase_roi_align(torch, a.seed, a.batch, a.iters,
-                                                              a.warmup),
-    "roi_align_bwd_kernel": lambda torch, a, rng: phase_roi_align_bwd(torch, a.seed, a.batch,
-                                                                      a.iters, a.warmup),
+                                                              a.warmup, ROI_TIMERS),
+    "roi_align_bwd_kernel": lambda torch, a, rng: phase_roi_align_bwd(
+        torch, a.seed, a.batch, a.iters, a.warmup, ROI_TIMERS),
     "faster_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
-        torch, "faster_rcnn_train", FASTER_CFG, a.seed + 4, a.groups, a.iters, a.warmup),
+        torch, "faster_rcnn_train", FASTER_CFG, a.seed + 4, a.groups, a.iters, a.warmup,
+        ROI_TIMERS),
     "mask_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
-        torch, "mask_rcnn_train", MASK_CFG, a.seed + 5, a.groups, a.iters, a.warmup),
+        torch, "mask_rcnn_train", MASK_CFG, a.seed + 5, a.groups, a.iters, a.warmup, ROI_TIMERS),
 }
+# the RoIAlign forward's calls at the main paths' shapes, filled by the phases
+# above and timed on the device by phase_roi_align_device after the main paths
+ROI_TIMERS = {}
 
 
 def main(argv=None) -> int:
@@ -1335,11 +1391,13 @@ def main(argv=None) -> int:
         if "cls_loss_kernels" in args.only.split(","):
             phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
                              cls_stats)
+        if ROI_TIMERS:
+            phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
         print("partial run: no result")
         return 0
     nms_stats = phase_nms(torch, rng, args.iters, args.warmup)
-    roi_stats = phase_roi_align(torch, args.seed, args.batch, args.iters, args.warmup)
-    roi_bwd_stats = phase_roi_align_bwd(torch, args.seed, args.batch, args.iters, args.warmup)
+    roi_stats = PARTIAL["roi_align_kernel"](torch, args, rng)
+    roi_bwd_stats = PARTIAL["roi_align_bwd_kernel"](torch, args, rng)
     fwd_stats, bwd_stats = PARTIAL["cls_loss_kernels"](torch, args, rng)
 
     # the RetinaNet serving path: every count set to 0 just before it, read just after
@@ -1372,6 +1430,13 @@ def main(argv=None) -> int:
         raise AssertionError("a kernel was launched after the last main-path run")
     phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
                      (fwd_stats, bwd_stats))
+    phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
+    # the forward's device time on the rois the training steps sampled, beside
+    # the spread rois' at the same shapes
+    for key in ("box", "mask"):
+        roi_bwd_stats[f"fwd_{key}"]["device_ms_own_rois"] = {
+            k.split(":")[1].split(" ")[0]: st["device_ms"] for k, (_, st) in ROI_TIMERS.items()
+            if k.startswith(f"{key}_train:")}
     train_steps = faster_t["steps"] + mask_t["steps"]
 
     nms_entry = {

@@ -7,9 +7,9 @@
 // per-roi descriptors of _build_meta). That kernel turns RoIAlign into windowed tent-weight matrix
 // products with double-buffered copies, because a gather is slow on a TPU.
 // Here the gather is the natural form, so none of that is carried over: no
-// windows or tiles, no roi descriptors built ahead of the launch, no padding
-// of R, C or the level widths, no limit on R, and levels of any size (a 1x2
-// level works).
+// windows or tiles of the map, no roi descriptors built ahead of the launch,
+// no padding of R, C or the level widths, no limit on R, and levels of any
+// size (a 1x2 level works).
 //
 // Semantics (pallas_roi_align.py:209-231 and :382-502; those of Detectron's
 // roi_align_op.cu:89-160). For roi r = [batch, x1, y1, x2, y2] on level l:
@@ -25,24 +25,57 @@
 // nothing. A level outside the table or a batch index outside the batch is
 // clamped into range, so no address is ever out of bounds.
 // Build with --fmad=false so that the sample positions are computed exactly
-// as written (the plain PyTorch twin in ops/roi_align.py does the same
-// arithmetic in the same order).
+// as written: each output element adds acc = acc + v * (wy * wx) over sample
+// i, sample j, then the (lo, lo), (lo, hi), (hi, lo), (hi, hi) cells, as the
+// plain PyTorch twin in ops/roi_align.py does, so the two are bit-equal.
 //
 // Layout: features are (B, H_l, W_l, C) with C contiguous, the output is
-// (R, res, res, C). One block pools one row of bins (roi r, bin row p): its
-// threads first fill a table of the res * sr x-samples and the sr y-samples
-// in shared memory, then each thread owns (bin q, a run of V channels) and
-// walks the sr x sr samples x 4 taps. Neighbouring threads read neighbouring
-// channels, so every tap is one contiguous read of C values; with C a
-// multiple of the vector width the loads are 16 bytes a thread.
+// (R, res, res, C). One block takes one roi and a group of its channel
+// slices of L lanes x V channels (V = 16 bytes of the type, or 1 for the
+// scalar instances): all its slices where R gives kMinBlocks blocks or more
+// (the serving and training box shapes), else fewer, down to one.
+//   1. the roi's record is read in one round trip; warp 0 builds its
+//      res * sr x taps and warp 1 its y taps, once for the block's slices,
+//      in shared memory. A running count over each axis's taps ranks the
+//      distinct cells they reach (the sample positions grow along an axis,
+//      so a tap adds a cell only beyond the last tap's hi cell), and each tap
+//      keeps the slots of its two cells in that compact list (at most
+//      2 * res * sr an axis, whatever the roi's width on its map). Should the
+//      positions ever fail to grow, every tap keeps two slots of its own.
+//   2. for each slice, the distinct rows x distinct columns of the roi are
+//      copied into a shared buffer of ``cap`` cells (kStageBytes) with
+//      cp.async (16-byte copies that skip L1; 4-byte ones for float scalars,
+//      plain copies for bf16 scalars): every tapped cell once a slice. A roi
+//      that fits the buffer is one tile; a larger one is walked in column
+//      chunks no wider than cap / (2 sr) slots and, in each, bands of bin
+//      rows that fit. The SM's other resident blocks sum while the copies fly.
+//   3. the threads take the tile's (bin, lane) items, lane fastest, each
+//      thread keeping one lane: 16 reads of V channels from shared memory an
+//      item at sr 2, the sums in float32 registers, one store. The block has
+//      as many warps as make the fewest idle lanes over a slice's
+//      res * res * L items (at most 256 threads), so a small C (one lane,
+//      L = 1: the mask-target crop, C = 1 at res 28) still gives every thread
+//      an item.
+// Instances: <T, 16-byte V, L = 8> for C a multiple of V with C / V >= 8 and
+// 16-byte aligned pointers (the main paths: bf16, C = 256, 4 slices a roi);
+// <T, 1, 8> for other C >= 8 and <T, 1, 1> below; each with sr = 2 fixed at
+// compile time (the loops unrolled) and with sr at run time.
 //
-// What bounds it: bytes. Each output element costs 4 * sr * sr multiply-adds
-// (0.05 ms of float32 work at 8000 rois, res 7, C = 256) against an output of
-// 200 MB in bf16 and up to 366 MB of feature maps; neighbouring bins and rois
-// reread the same cells, which the 50 MB L2 absorbs only in part.
-// What a later version could do: stage a roi's window in shared memory (TMA)
-// so each cell is read once per roi, sort rois by level and image for L2
-// locality, or pool several bin rows per block to reuse the x table.
+// What bounds it: issue slots and each block's chain of latencies, not bytes
+// (tools/profile_roi_align.py; PERF.md section 6). At the serving box shape
+// (R = 8000, res 7, C = 256, bf16) an item of 8 channels costs ~530 SASS
+// instructions (16 multiplies and 16 adds a channel, bf16 unpacks, shared
+// loads, addresses), ~0.2 ms of the card's issue rate, and the staged cells
+// (each roi's distinct cells, 1.18 GB, 2.3x the byte bound's bytes) come from
+// L2 at ~5 TB/s; the byte bound is 0.15 ms. A block a (roi, slice) spent
+// 0.13 ms on its roi load, tables and barriers alone, which a block a roi
+// cuts to ~0.08. The earlier kernel (a block a bin row, 16 global loads an
+// element) spent 0.357 of its 0.464 ms there even with every tap on one 2x2
+// block of cells.
+// What a later version could do: hide the per-roi chain behind the previous
+// roi's sums without halving the buffer (the persistent, double-buffered
+// variants tried lost more to smaller tiles and barriers than they hid), and
+// cut the instructions an item (the bf16 unpacks are a quarter of them).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +83,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // most threads a forward block
+constexpr int kStageBytes = 49152;  // a forward block's staging buffer: 4 blocks an SM
+constexpr int kMinBlocks = 4096;    // ~8 waves of 4 resident forward blocks on 132 SMs
 constexpr int kMaxLevels = 8;
 
 struct LevelTable {
@@ -83,17 +118,45 @@ __device__ __forceinline__ Tap make_tap(float start, float bin, int p, int i, in
   return t;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// V values of T: Raw is their bits, unpack turns them into float32, stage
+// copies them from the map into shared memory, load and store go to global
+// memory
 template <typename T, int V> struct Pack;
 
 template <> struct Pack<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ void unpack(Raw x, float* v) { v[0] = x; }
+  static __device__ __forceinline__ void stage(Raw* dst, const float* src) { cp_async4(dst, src); }
   static __device__ __forceinline__ void load(const float* p, float* v) { v[0] = __ldg(p); }
   static __device__ __forceinline__ void store(float* p, const float* v) { p[0] = v[0]; }
 };
 
 template <> struct Pack<float, 4> {
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const Raw& x, float* v) {
+    v[0] = __uint_as_float(x.x); v[1] = __uint_as_float(x.y);
+    v[2] = __uint_as_float(x.z); v[3] = __uint_as_float(x.w);
+  }
+  static __device__ __forceinline__ void stage(Raw* dst, const float* src) { cp_async16(dst, src); }
   static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    unpack(__ldg(reinterpret_cast<const uint4*>(p)), v);
   }
   static __device__ __forceinline__ void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -101,6 +164,14 @@ template <> struct Pack<float, 4> {
 };
 
 template <> struct Pack<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  // a bf16 is the high half of a float32
+  static __device__ __forceinline__ void unpack(Raw x, float* v) {
+    v[0] = __uint_as_float((uint32_t)x << 16);
+  }
+  static __device__ __forceinline__ void stage(Raw* dst, const __nv_bfloat16* src) {
+    *dst = __ldg(reinterpret_cast<const unsigned short*>(src));  // no 2-byte cp.async
+  }
   static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
     v[0] = __bfloat162float(*p);
   }
@@ -110,15 +181,17 @@ template <> struct Pack<__nv_bfloat16, 1> {
 };
 
 template <> struct Pack<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const Raw& x, float* v) {
     const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      // a bf16 is the high half of a float32
       v[2 * k] = __uint_as_float(w[k] << 16);
       v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
     }
+  }
+  static __device__ __forceinline__ void stage(Raw* dst, const __nv_bfloat16* src) {
+    cp_async16(dst, src);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
     uint32_t w[4];
@@ -132,85 +205,286 @@ template <> struct Pack<__nv_bfloat16, 8> {
   }
 };
 
-template <typename T, int V>
+// a tap in slot form: the slots of its two cells in the axis's list of
+// distinct cells, and its weights (one 16-byte shared load)
+struct __align__(16) SlotTap {
+  int lo, hi;
+  float w_lo, w_hi;
+};
+
+// bytes of a forward block's tap tables (two SlotTaps and four ints a tap,
+// two counts), rounded up to 16 so that the staging buffer after them is
+// 16-byte aligned
+__host__ __device__ constexpr int fwd_tables_bytes(int n) { return (48 * n + 8 + 15) & ~15; }
+
+// a / d for 0 <= a < 2^22 and d >= 1, with inv = 1.0f / d: (a + 0.5) / d
+// lies at least 0.5 / d from an integer, more than the product's rounding
+__device__ __forceinline__ int div_small(int a, float inv) {
+  return (int)(((float)a + 0.5f) * inv);
+}
+
+// one warp: the n = res * sr taps of one axis in slot form, the cell of each
+// slot, and the count of slots
+__device__ void build_axis(float start, float bin, int res, int sr, int len, SlotTap* tab,
+                           int* cell, int* count, int lane) {
+  const int n = res * sr;
+  int prev_lo = -1, prev_hi = -1, total = 0;
+  bool grows = true;
+  for (int base = 0; base < n; base += 32) {
+    const int k = base + lane;
+    const bool on = k < n;
+    const Tap t = make_tap(start, bin, k / sr, k % sr, sr, len);
+    int plo = __shfl_up_sync(0xffffffffu, t.lo, 1);
+    int phi = __shfl_up_sync(0xffffffffu, t.hi, 1);
+    if (lane == 0) {
+      plo = prev_lo;
+      phi = prev_hi;
+    }
+    grows = __all_sync(0xffffffffu, !on || t.lo >= plo) && grows;
+    const int nlo = on && t.lo > phi;
+    const int nhi = on && t.hi != t.lo && t.hi > phi;
+    int incl = nlo + nhi;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    const int s_hi = total + incl - 1;
+    const int s_lo = s_hi - (t.hi != t.lo);
+    if (on) {
+      tab[k] = SlotTap{s_lo, s_hi, t.w_lo, t.w_hi};
+      if (nlo) cell[s_lo] = t.lo;
+      if (nhi) cell[s_hi] = t.hi;
+    }
+    total += __shfl_sync(0xffffffffu, incl, 31);
+    prev_lo = __shfl_sync(0xffffffffu, t.lo, 31);
+    prev_hi = __shfl_sync(0xffffffffu, t.hi, 31);
+  }
+  if (!grows) {  // the same for the whole warp
+    for (int k = lane; k < n; k += 32) {
+      const Tap t = make_tap(start, bin, k / sr, k % sr, sr, len);
+      tab[k] = SlotTap{2 * k, 2 * k + 1, t.w_lo, t.w_hi};
+      cell[2 * k] = t.lo;
+      cell[2 * k + 1] = t.hi;
+    }
+    total = 2 * n;
+  }
+  if (lane == 0) *count = total;
+}
+
+// a tile: bin rows [p0, p1) x bin columns [q0, q1), which read the slots
+// [ra, ra + rows) x [ca, ca + cols)
+struct FwdTile {
+  int p0, p1, q0, q1, ra, rows, ca, cols;
+};
+
+// the tiles of a roi in order; every thread of the block computes the same
+// ones from the tap tables
+struct TileWalk {
+  const SlotTap* xt;
+  const SlotTap* yt;
+  int res, sr, cap;
+
+  __device__ int xa(int q) const { return xt[q * sr].lo; }
+  __device__ int xb(int q) const { return xt[q * sr + sr - 1].hi; }
+  __device__ int ya(int p) const { return yt[p * sr].lo; }
+  __device__ int yb(int p) const { return yt[p * sr + sr - 1].hi; }
+
+  __device__ FwdTile band(int p0, int q0, int q1) const {
+    const int cols = xb(q1 - 1) - xa(q0) + 1;
+    int p1 = p0 + 1;
+    while (p1 < res && (yb(p1) - ya(p0) + 1) * cols <= cap) ++p1;
+    return FwdTile{p0, p1, q0, q1, ya(p0), yb(p1 - 1) - ya(p0) + 1, xa(q0), cols};
+  }
+  __device__ FwdTile chunk(int q0) const {  // columns no wider than cap / (2 sr) slots
+    int q1 = q0 + 1;
+    while (q1 < res && (xb(q1) - xa(q0) + 1) * 2 * sr <= cap) ++q1;
+    return band(0, q0, q1);
+  }
+  __device__ FwdTile first(int nrows, int ncols) const {
+    return nrows * ncols <= cap ? FwdTile{0, res, 0, res, 0, nrows, 0, ncols} : chunk(0);
+  }
+  __device__ bool next(const FwdTile& t, FwdTile* n) const {
+    if (t.p1 < res) {
+      *n = band(t.p1, t.q0, t.q1);
+      return true;
+    }
+    if (t.q1 < res) {
+      *n = chunk(t.q1);
+      return true;
+    }
+    return false;
+  }
+};
+
+template <typename T, int V, int L, int SR>  // SR 0: sr at run time
 __global__ void __launch_bounds__(kThreads)
 roi_align_fwd_kernel(LevelTable lv,
                      const float* __restrict__ rois,      // (R, 5)
                      const int32_t* __restrict__ levels,  // (R,) absolute FPN level
                      const bool* __restrict__ valid,      // (R,)
                      T* __restrict__ out,                 // (R, res, res, C)
-                     int batch, int c, int res, int sr) {
+                     int batch, int c, int res, int sr_arg, int cap, int group) {
+  using P = Pack<T, V>;
+  using Raw = typename P::Raw;
+  const int sr = SR ? SR : sr_arg;
+  const int n = res * sr;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tap* xtap = reinterpret_cast<Tap*>(smem_raw);  // res * sr
-  Tap* ytap = xtap + res * sr;                   // sr
+  SlotTap* xt = reinterpret_cast<SlotTap*>(smem_raw);  // n
+  SlotTap* yt = xt + n;                                 // n
+  int* xcell = reinterpret_cast<int*>(yt + n);          // 2n: the map column of each x slot
+  int* ycell = xcell + 2 * n;                           // 2n: the map row of each y slot
+  int* count = ycell + 2 * n;                           // x slots, y slots
+  Raw* stage = reinterpret_cast<Raw*>(smem_raw + fwd_tables_bytes(n));
 
-  const int r = blockIdx.x / res;
-  const int p = blockIdx.x - r * res;
-  const int cv = c / V;
-  T* orow = out + ((size_t)r * res + p) * res * c;
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid % L;  // the same in every pass: nthreads is a multiple of L
+  // the block's slices: [s0, s1), lane's first channel of each at s * L * V + lane * V
+  const int s0 = blockIdx.y * group;
+  const int s1 = min(s0 + group, ((c + V - 1) / V + L - 1) / L);
+  T* const oroi = out + (size_t)r * res * res * c + lane * V;
 
+  // the roi's record in one round trip
+  const float* roi = rois + (size_t)r * 5;
+  const float bx = roi[0], rx1 = roi[1], ry1 = roi[2], rx2 = roi[3], ry2 = roi[4];
+  const int level = levels[r];
   if (!valid[r]) {
     float zero[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) zero[k] = 0.0f;
-    for (int e = threadIdx.x; e < res * cv; e += kThreads) Pack<T, V>::store(orow + (size_t)e * V, zero);
+    for (int s = s0; s < s1 && s * (L * V) + lane * V < c; ++s) {
+      for (int bin = tid / L; bin < res * res; bin += nthreads / L) {
+        P::store(oroi + (size_t)bin * c + s * (L * V), zero);
+      }
+    }
     return;
   }
 
-  int li = levels[r] - lv.lvl_min;
-  li = min(max(li, 0), lv.n_levels - 1);
+  const int li = min(max(level - lv.lvl_min, 0), lv.n_levels - 1);
   const int h = lv.h[li], w = lv.w[li];
   const float scale = 1.0f / (float)(1 << (li + lv.lvl_min));
-  const float* roi = rois + (size_t)r * 5;
-  int b = (int)roi[0];
-  b = min(max(b, 0), batch - 1);
-  const float x1 = roi[1] * scale, y1 = roi[2] * scale;
-  const float x2 = roi[3] * scale, y2 = roi[4] * scale;
-  const float bin_w = fmaxf(x2 - x1, 1.0f) / (float)res;
-  const float bin_h = fmaxf(y2 - y1, 1.0f) / (float)res;
-
-  for (int t = threadIdx.x; t < res * sr; t += kThreads) {
-    xtap[t] = make_tap(x1, bin_w, t / sr, t % sr, sr, w);
+  const int b = min(max((int)bx, 0), batch - 1);
+  const float x1 = rx1 * scale, y1 = ry1 * scale;
+  const float x2 = rx2 * scale, y2 = ry2 * scale;
+  if (tid < 32) {
+    build_axis(x1, fmaxf(x2 - x1, 1.0f) / (float)res, res, sr, w, xt, xcell, count, tid);
+  } else if (tid < 64) {
+    build_axis(y1, fmaxf(y2 - y1, 1.0f) / (float)res, res, sr, h, yt, ycell, count + 1, tid - 32);
   }
-  if (threadIdx.x < sr) ytap[threadIdx.x] = make_tap(y1, bin_h, p, threadIdx.x, sr, h);
   __syncthreads();
 
-  const T* fmap = static_cast<const T*>(lv.feat[li]) + (size_t)b * h * w * c;
-  for (int e = threadIdx.x; e < res * cv; e += kThreads) {
-    const int q = e / cv;
-    const int cc = (e - q * cv) * V;
-    float acc[V];
+  const T* const fmap = static_cast<const T*>(lv.feat[li]) + (size_t)b * h * w * c + lane * V;
+  const TileWalk walk{xt, yt, res, sr, cap};
+  // tile t of slice s into the buffer, a 16-byte lane of a cell a copy
+  auto copy_tile = [&](const FwdTile& t, int s) {
+    if (s * (L * V) + lane * V >= c) return;
+    const T* src = fmap + s * (L * V);
+    const float inv = 1.0f / (float)t.cols;
+    for (int e = tid / L; e < t.rows * t.cols; e += nthreads / L) {
+      const int rr = div_small(e, inv);
+      const int cc = e - rr * t.cols;
+      P::stage(stage + e * L + lane, src + ((size_t)ycell[t.ra + rr] * w + xcell[t.ca + cc]) * c);
+    }
+  };
+  // the bins of tile t of slice s
+  auto sum_tile = [&](const FwdTile& t, int s) {
+    if (s * (L * V) + lane * V >= c) return;
+    T* o = oroi + s * (L * V);
+    const Raw* buf = stage + lane;
+    const int nq = t.q1 - t.q0;
+    const float inv = 1.0f / (float)nq;
+    for (int bin = tid / L; bin < (t.p1 - t.p0) * nq; bin += nthreads / L) {
+      const int pp = div_small(bin, inv);
+      const int p = t.p0 + pp, q = t.q0 + bin - pp * nq;
+      float acc[V];
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = 0.0f;
-    for (int i = 0; i < sr; ++i) {
-      const Tap ty = ytap[i];
-      const T* row_lo = fmap + (size_t)ty.lo * w * c + cc;
-      const T* row_hi = fmap + (size_t)ty.hi * w * c + cc;
-      for (int j = 0; j < sr; ++j) {
-        const Tap tx = xtap[q * sr + j];
-        const T* src[4] = {row_lo + (size_t)tx.lo * c, row_lo + (size_t)tx.hi * c,
-                           row_hi + (size_t)tx.lo * c, row_hi + (size_t)tx.hi * c};
-        const float wt[4] = {ty.w_lo * tx.w_lo, ty.w_lo * tx.w_hi,
-                             ty.w_hi * tx.w_lo, ty.w_hi * tx.w_hi};
+      for (int k = 0; k < V; ++k) acc[k] = 0.0f;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          float v[V];
-          Pack<T, V>::load(src[t], v);
+      for (int i = 0; i < sr; ++i) {  // unrolled where sr is the compile-time 2
+        const SlotTap ty = yt[p * sr + i];
+        const Raw* rlo = buf + ((ty.lo - t.ra) * t.cols - t.ca) * L;
+        const Raw* rhi = buf + ((ty.hi - t.ra) * t.cols - t.ca) * L;
 #pragma unroll
-          for (int k = 0; k < V; ++k) acc[k] = acc[k] + v[k] * wt[t];
+        for (int j = 0; j < sr; ++j) {
+          const SlotTap tx = xt[q * sr + j];
+          const Raw* src[4] = {rlo + tx.lo * L, rlo + tx.hi * L, rhi + tx.lo * L,
+                               rhi + tx.hi * L};
+          const float wt[4] = {ty.w_lo * tx.w_lo, ty.w_lo * tx.w_hi,
+                               ty.w_hi * tx.w_lo, ty.w_hi * tx.w_hi};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float v[V];
+            P::unpack(*src[u], v);
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] = acc[k] + v[k] * wt[u];
+          }
         }
       }
+      P::store(o + ((size_t)p * res + q) * c, acc);
     }
-    Pack<T, V>::store(orow + (size_t)q * c + cc, acc);
+  };
+
+  // each slice's tiles in turn
+  for (int s = s0; s < s1; ++s) {
+    FwdTile t = walk.first(count[1], count[0]);
+    while (true) {
+      copy_tile(t, s);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      sum_tile(t, s);
+      FwdTile nt;
+      const bool more = walk.next(t, &nt);
+      __syncthreads();  // every thread is done with the buffer before it is refilled
+      if (!more) break;
+      t = nt;
+    }
   }
 }
 
-template <typename T, int V>
-void launch(const LevelTable& lv, const float* rois, const int32_t* levels, const bool* valid,
-            void* out, int n_rois, int batch, int c, int res, int sr, cudaStream_t stream) {
-  const size_t smem = (size_t)(res * sr + sr) * sizeof(Tap);
-  roi_align_fwd_kernel<T, V><<<(unsigned)(n_rois * res), kThreads, smem, stream>>>(
-      lv, rois, levels, valid, static_cast<T*>(out), batch, c, res, sr);
+// shared memory of a forward block: the tap tables, then a buffer of cap
+// cells of L * V values
+template <typename T, int V, int L>
+size_t fwd_smem(int res, int sr, int cap) {
+  return (size_t)fwd_tables_bytes(res * sr) + (size_t)cap * L * V * sizeof(T);
+}
+
+template <typename T, int V, int L>
+int launch(const LevelTable& lv, const float* rois, const int32_t* levels, const bool* valid,
+           void* out, int n_rois, int batch, int c, int res, int sr, cudaStream_t stream) {
+  const int cell_bytes = L * V * (int)sizeof(T);
+  const int fit = kStageBytes / cell_bytes;
+  const int cap = fit > 4 * sr * sr ? fit : 4 * sr * sr;  // a bin row of a chunk always fits
+  const size_t smem = fwd_smem<T, V, L>(res, sr, cap);
+  const int slices = ((c + V - 1) / V + L - 1) / L;
+  if (smem > 227 * 1024 || cap >= (1 << 22) || res * res >= (1 << 22)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // a block takes `group` slices of its roi (one roi load and one table build
+  // for all of them), as many as leave kMinBlocks blocks or more
+  int group = slices;
+  while (group > 1 && (long long)n_rois * ((slices + group - 1) / group) < kMinBlocks) {
+    group = (group + 1) / 2;
+  }
+  const int groups = (slices + group - 1) / group;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  // the fewest threads (a multiple of 32, at least the two warps of the tap
+  // tables) that take a slice's res * res * L items in as few passes as
+  // kThreads do
+  const int items = res * res * L;
+  const int passes = (items + kThreads - 1) / kThreads;
+  const int per_pass = ((items + passes - 1) / passes + 31) / 32 * 32;
+  const int threads = per_pass > 64 ? per_pass : 64;
+  auto kernel = sr == 2 ? &roi_align_fwd_kernel<T, V, L, 2> : &roi_align_fwd_kernel<T, V, L, 0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)n_rois, (unsigned)groups);
+  kernel<<<grid, threads, smem, stream>>>(lv, rois, levels, valid, static_cast<T*>(out), batch, c,
+                                          res, sr, cap, group);
+  return (int)cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -575,8 +849,7 @@ extern "C" int sad_roi_align_fwd_launch(const void* const* feats, const int* hs,
                                         int dtype, int vec, cudaStream_t stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || lvl_min < 0 || lvl_min + n_levels > 31 ||
       n_rois < 0 || batch < 1 || c < 1 || res < 1 || sr < 1 || (dtype != 0 && dtype != 1) ||
-      (long long)n_rois * res > 2147483647LL ||
-      (size_t)(res * sr + sr) * sizeof(Tap) > 48 * 1024) {
+      (long long)res * sr > 4096) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rois == 0) return (int)cudaSuccess;
@@ -588,20 +861,31 @@ extern "C" int sad_roi_align_fwd_launch(const void* const* feats, const int* hs,
   }
   lv.n_levels = n_levels;
   lv.lvl_min = lvl_min;
+  int err;
   if (dtype == 0) {
-    if (vec && c % 4 == 0) {
-      launch<float, 4>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr, stream);
+    if (vec && c % 4 == 0 && c / 4 >= 8) {
+      err = launch<float, 4, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
+                                stream);
+    } else if (c >= 8) {
+      err = launch<float, 1, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
+                                stream);
     } else {
-      launch<float, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr, stream);
+      err = launch<float, 1, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
+                                stream);
     }
   } else {
-    if (vec && c % 8 == 0) {
-      launch<__nv_bfloat16, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr, stream);
+    if (vec && c % 8 == 0 && c / 8 >= 8) {
+      err = launch<__nv_bfloat16, 8, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
+                                        stream);
+    } else if (c >= 8) {
+      err = launch<__nv_bfloat16, 1, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
+                                        stream);
     } else {
-      launch<__nv_bfloat16, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr, stream);
+      err = launch<__nv_bfloat16, 1, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
+                                        stream);
     }
   }
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // The backward. ``grads`` are the per-level gradient maps in the cotangent's

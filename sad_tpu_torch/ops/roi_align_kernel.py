@@ -89,7 +89,7 @@ def roi_align_fwd_cuda(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("roi_align_fwd_cuda takes contiguous tensors")
     res, sr = int(resolution), int(sampling_ratio)
-    if res < 1 or sr < 1 or lvl_min < 0 or r * res >= 2**31 or any(
+    if res < 1 or sr < 1 or res * sr > 4096 or lvl_min < 0 or r >= 2**31 or any(
             f.numel() >= 2**31 * c for f in feats):
         raise ValueError(f"roi_align_fwd_cuda: unsupported sizes R={r} res={res} sr={sr} "
                          f"lvl_min={lvl_min}")

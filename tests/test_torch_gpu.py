@@ -202,11 +202,15 @@ def _roi_case(dev, seed, batch, canvas, c, r, dtype):
     return feats, rois, map_rois_to_fpn_levels(rois[:, 1:], 2, 5), valid
 
 
-@pytest.mark.parametrize("c,r,res,sr", [(256, 203, 7, 2), (64, 37, 14, 2), (3, 29, 7, 3)])
+@pytest.mark.parametrize("c,r,res,sr", [(256, 203, 7, 2), (64, 37, 14, 2), (3, 29, 7, 3),
+                                         (20, 31, 14, 2), (1, 41, 28, 2), (256, 23, 28, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_roi_align_kernel_equals_plain_twin(cuda, c, r, res, sr, dtype):
     """float32 within 1e-5 * max|ref| + 1e-6; bfloat16 within one ulp (2^-7
-    of the larger magnitude)."""
+    of the larger magnitude); and bit for bit, since the kernel adds the same
+    products in the same order. The cases reach every instance: 16-byte
+    vectors (C = 256, 64), scalars with 8 lanes (C = 20) and one lane (C = 3,
+    1), sr 2 fixed and sr 3 at run time, res 28 with rois over many bands."""
     feats, rois, levels, valid = _roi_case(cuda, c + r, 2, (256, 384), c, r, dtype)
     before = roi_align_kernel.launches
     got = multilevel_roi_align(feats, rois, levels, valid, res, sr)
@@ -219,6 +223,7 @@ def test_roi_align_kernel_equals_plain_twin(cuda, c, r, res, sr, dtype):
         assert float((g - f).abs().max()) <= 1e-5 * float(f.abs().max()) + 1e-6
     else:
         assert bool(((g - f).abs() <= 2.0 ** -7 * torch.maximum(g.abs(), f.abs())).all())
+    assert torch.equal(got, ref)
 
 
 def test_roi_align_on_cuda_is_differentiable_and_counts_no_empty_launch(cuda):
