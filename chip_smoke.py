@@ -38,7 +38,9 @@ line each (name, what was checked, time):
                  instances), a 1x2 top level, sr 1 and 3; rois wider than the
                  staging buffer (the whole 200x336 P2 map at res 7, 14 and 28:
                  bands, and column chunks at 28); 600 rois on one image and
-                 level; C=1 at res 28 over 200x336 rasters; CUDA-event medians,
+                 level; C=1 at res 28 over 200x336 rasters; rois whose sample
+                 positions fail to grow (past 2^19 cells of a map over 2^20
+                 wide: two slots a tap), C=1 and 64; CUDA-event medians,
                  bytes moved and the bound at both shapes
   roi_align_bwd_kernel
                  the backward gather of csrc/roi_align.cu against
@@ -84,7 +86,8 @@ line each (name, what was checked, time):
                  after the main paths: the RoIAlign forward's device time
                  (torch.profiler) at the box and mask shapes of serving and
                  training, the mask-target crop, and on the rois the two
-                 training steps sampled, beside the earlier kernel's
+                 training steps sampled; the earlier kernel's on other rois
+                 of the same shapes beside them in the phase's line
   joint_step     the R-50 student and the frozen R-101 teacher at full width,
                  --groups x 2 images on the 640x1024 canvas, bf16 compute,
                  LR 1e-6: one step with the kernels and one with the plain
@@ -162,10 +165,9 @@ RCNN_CANVAS = (800, 1344)
 NMS_EARLIER_MS = {"decode": 0.3069, "rpn": 1.2370, "rpn_train": 3.2288, "rcnn_decode": 3.4746}
 ROI_BWD_EARLIER_MS = {"box": 3.0123, "mask": 2.9818}
 # device ms of the RoIAlign forward before its redesign (a block a roi's bin
-# row) at the shapes of sad_tpu_torch/tools/profile_roi_align.py (PERF.md
-# section 6, row #7)
-ROI_FWD_EARLIER_MS = {"box": 0.4639, "mask": 0.1383, "box_train": 0.2470, "mask_train": 0.1745,
-                      "mask_targets": 0.0595}
+# row) on the rois of sad_tpu_torch/tools/profile_roi_align.py at the same
+# shapes (PERF.md section 6, row #7), printed beside the new device times
+ROI_FWD_EARLIER_MS = {"box": 0.4639, "mask": 0.1383, "box_train": 0.2470, "mask_train": 0.1745}
 
 
 def _phase(name: str, checked: str, seconds: float) -> None:
@@ -712,7 +714,9 @@ def phase_roi_align(torch, seed, batch, iters, warmup, timers):
     the main paths."""
     from sad_tpu_torch.ops import roi_align_kernel
     from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
-    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.ops.roi_align import (
+        multilevel_roi_align, multilevel_roi_align_plain, roi_geometry,
+    )
     from sad_tpu_torch.tools.profile_roi_align import roi_align_bound, rpn_like_rois
 
     t0 = time.perf_counter()
@@ -759,7 +763,7 @@ def phase_roi_align(torch, seed, batch, iters, warmup, timers):
         ("edge rois, C=64, R=37", 2, small, 64, 37, 7, 2, (2, 5)),
         ("edge rois, res 14", 2, small, 64, 53, 14, 2, (2, 5)),
         ("C=3: the scalar instance, one lane", 3, small, 3, 29, 7, 2, (2, 5)),
-        ("C=20: the scalar instance, 8 lanes", 1, small, 20, 31, 7, 2, (2, 5)),
+        ("C=20: the scalar instance", 1, small, 20, 31, 7, 2, (2, 5)),
         ("1x2 top level", 1, (32, 64), 256, 16, 7, 2, (2, 5)),
         ("one level only", 2, small, 64, 23, 7, 2, (3, 3)),
         ("sr=1", 2, small, 64, 37, 7, 1, (2, 5)),
@@ -809,6 +813,23 @@ def phase_roi_align(torch, seed, batch, iters, warmup, timers):
                 .to(dtype)}
         err, _ = _roi_align_check(torch, "C=1 at res 28", maps, rois, levels, valid, 28, 2)
         worst, n_cases = max(worst, err), n_cases + 1
+    # rois past 2^19 cells on a map over 2^20 cells wide, where float rounding
+    # steps some roi's sample position back a cell: two slots a tap on that axis
+    w, r = 2**20 + 64, 256
+    x1 = rng.uniform(2**21, 2**22, r)
+    rois = torch.from_numpy(np.stack([np.zeros(r), x1, np.zeros(r), x1 + rng.uniform(0, 12, r),
+                                      np.full(r, 6.0)], axis=1).astype(np.float32)).cuda()
+    levels = torch.full((r,), 2, dtype=torch.int32, device="cuda")
+    valid = torch.ones(r, dtype=torch.bool, device="cuda")
+    xlo = roi_geometry([(2, w)], 2, 1, rois, levels, 28, 2)[5][0].reshape(r, -1)
+    if not bool((xlo[:, 1:] < xlo[:, :-1]).any()):
+        raise AssertionError("roi_align: no roi's x positions fail to grow on the wide map")
+    for c in (1, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            maps = {2: torch.randn((1, 2, w, c), generator=gen, device="cuda").to(dtype)}
+            err, _ = _roi_align_check(torch, f"positions that fail to grow, C={c}", maps, rois,
+                                      levels, valid, 28, 2)
+            worst, n_cases = max(worst, err), n_cases + 1
     # all rois invalid: zeros, and the kernel still counts as launched
     feats = _roi_feats(torch, gen, 1, small, 64, torch.bfloat16)
     rois, valid = _edge_rois(torch, rng, 1, small, 19)
@@ -827,9 +848,10 @@ def phase_roi_align(torch, seed, batch, iters, warmup, timers):
 
 def phase_roi_align_device(torch, timers, iters, warmup):
     """The RoIAlign forward's device time at each main-path shape from
-    torch.profiler, into its stats as "device_ms" beside the earlier kernel's
-    ("earlier_device_ms", ROI_FWD_EARLIER_MS). Run after the main paths, as
-    [cls_loss_levels] is (PERF.md section 6)."""
+    torch.profiler, into its stats as "device_ms"; the phase's line prints
+    the earlier kernel's (ROI_FWD_EARLIER_MS, other rois of the same shape)
+    beside it. Run after the main paths, as [cls_loss_levels] is (PERF.md
+    section 6)."""
     from sad_tpu_torch.tools.profile_infer import device_ms
 
     t0 = time.perf_counter()
@@ -837,10 +859,10 @@ def phase_roi_align_device(torch, timers, iters, warmup):
     for key, (run, stats) in timers.items():
         ms = sum(device_ms(run, iters * 5, warmup, "roi_align_fwd").values())
         stats["device_ms"] = ms
-        earlier = None if ":" in key else ROI_FWD_EARLIER_MS.get(key)
-        if earlier is not None:
-            stats["earlier_device_ms"] = earlier
-        said.append(f"{key} {ms:.4f}" + (f" (earlier kernel {earlier})" if earlier else "")
+        earlier = ROI_FWD_EARLIER_MS.get(key)
+        said.append(f"{key} {ms:.4f}"
+                    + (f" (earlier kernel on profile_roi_align.py's rois: {earlier})"
+                       if earlier else "")
                     + (f", bound {stats['bound_ms']:.4f}" if "bound_ms" in stats else ""))
     _phase("roi_align_device", "device ms a call (torch.profiler, mean of "
            f"{iters * 5}): " + "; ".join(said), time.perf_counter() - t0)

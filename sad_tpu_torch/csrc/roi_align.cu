@@ -40,8 +40,10 @@
 //      distinct cells they reach (the sample positions grow along an axis,
 //      so a tap adds a cell only beyond the last tap's hi cell), and each tap
 //      keeps the slots of its two cells in that compact list (at most
-//      2 * res * sr an axis, whatever the roi's width on its map). Should the
-//      positions ever fail to grow, every tap keeps two slots of its own.
+//      2 * res * sr an axis, whatever the roi's width on its map). Where the
+//      positions pass ~2^19 (maps wider or taller than ~half a million cells)
+//      float rounding can step one back a cell; every tap of such an axis
+//      keeps two slots of its own.
 //   2. for each slice, the distinct rows x distinct columns of the roi are
 //      copied into a shared buffer of ``cap`` cells (kStageBytes) with
 //      cp.async (16-byte copies that skip L1; 4-byte ones for float scalars,
@@ -57,9 +59,13 @@
 //      L = 1: the mask-target crop, C = 1 at res 28) still gives every thread
 //      an item.
 // Instances: <T, 16-byte V, L = 8> for C a multiple of V with C / V >= 8 and
-// 16-byte aligned pointers (the main paths: bf16, C = 256, 4 slices a roi);
-// <T, 1, 8> for other C >= 8 and <T, 1, 1> below; each with sr = 2 fixed at
-// compile time (the loops unrolled) and with sr at run time.
+// 16-byte aligned pointers (the main paths: bf16, C = 256, 4 slices a roi),
+// <T, 1, 1> for every other C (the mask-target crop: C = 1); each with sr = 2
+// fixed at compile time (the loops unrolled) and with sr at run time.
+// Limit: a block's shared memory, fwd_smem (48 bytes a tap of res * sr, then
+// the buffer: kStageBytes, or one bin's 4 sr^2 cells where that is more), is
+// at most kMaxSmem. With the kStageBytes buffer (any sr for the scalar
+// instance, sr <= 9 for the 16-byte ones) that is res * sr <= kMaxTaps.
 //
 // What bounds it: issue slots and each block's chain of latencies, not bytes
 // (tools/profile_roi_align.py; PERF.md section 6). At the serving box shape
@@ -85,6 +91,9 @@ namespace {
 
 constexpr int kThreads = 256;      // most threads a forward block
 constexpr int kStageBytes = 49152;  // a forward block's staging buffer: 4 blocks an SM
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may have on sm_90
+// the most taps an axis: their tables (fwd_tables_bytes) and the buffer fit kMaxSmem
+constexpr int kMaxTaps = (kMaxSmem - kStageBytes - 8) / 48;
 constexpr int kMinBlocks = 4096;    // ~8 waves of 4 resident forward blocks on 132 SMs
 constexpr int kMaxLevels = 8;
 
@@ -259,7 +268,7 @@ __device__ void build_axis(float start, float bin, int res, int sr, int len, Slo
     prev_lo = __shfl_sync(0xffffffffu, t.lo, 31);
     prev_hi = __shfl_sync(0xffffffffu, t.hi, 31);
   }
-  if (!grows) {  // the same for the whole warp
+  if (!grows) {  // the same for the whole warp; only past ~2^19 cells of an axis
     for (int k = lane; k < n; k += 32) {
       const Tap t = make_tap(start, bin, k / sr, k % sr, sr, len);
       tab[k] = SlotTap{2 * k, 2 * k + 1, t.w_lo, t.w_hi};
@@ -449,6 +458,20 @@ size_t fwd_smem(int res, int sr, int cap) {
   return (size_t)fwd_tables_bytes(res * sr) + (size_t)cap * L * V * sizeof(T);
 }
 
+// opts a forward instance into kMaxSmem of dynamic shared memory, once a
+// device (the attribute belongs to the device's copy of the kernel)
+template <typename T, int V, int L, int SR>
+cudaError_t fwd_opt_in() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(roi_align_fwd_kernel<T, V, L, SR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 template <typename T, int V, int L>
 int launch(const LevelTable& lv, const float* rois, const int32_t* levels, const bool* valid,
            void* out, int n_rois, int batch, int c, int res, int sr, cudaStream_t stream) {
@@ -457,7 +480,7 @@ int launch(const LevelTable& lv, const float* rois, const int32_t* levels, const
   const int cap = fit > 4 * sr * sr ? fit : 4 * sr * sr;  // a bin row of a chunk always fits
   const size_t smem = fwd_smem<T, V, L>(res, sr, cap);
   const int slices = ((c + V - 1) / V + L - 1) / L;
-  if (smem > 227 * 1024 || cap >= (1 << 22) || res * res >= (1 << 22)) {
+  if (smem > kMaxSmem || cap >= (1 << 22) || res * res >= (1 << 22)) {
     return (int)cudaErrorInvalidValue;
   }
   // a block takes `group` slices of its roi (one roi load and one table build
@@ -477,8 +500,7 @@ int launch(const LevelTable& lv, const float* rois, const int32_t* levels, const
   const int threads = per_pass > 64 ? per_pass : 64;
   auto kernel = sr == 2 ? &roi_align_fwd_kernel<T, V, L, 2> : &roi_align_fwd_kernel<T, V, L, 0>;
   if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = sr == 2 ? fwd_opt_in<T, V, L, 2>() : fwd_opt_in<T, V, L, 0>();
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)n_rois, (unsigned)groups);
@@ -849,7 +871,7 @@ extern "C" int sad_roi_align_fwd_launch(const void* const* feats, const int* hs,
                                         int dtype, int vec, cudaStream_t stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || lvl_min < 0 || lvl_min + n_levels > 31 ||
       n_rois < 0 || batch < 1 || c < 1 || res < 1 || sr < 1 || (dtype != 0 && dtype != 1) ||
-      (long long)res * sr > 4096) {
+      (long long)res * sr > kMaxTaps) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rois == 0) return (int)cudaSuccess;
@@ -866,9 +888,6 @@ extern "C" int sad_roi_align_fwd_launch(const void* const* feats, const int* hs,
     if (vec && c % 4 == 0 && c / 4 >= 8) {
       err = launch<float, 4, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
                                 stream);
-    } else if (c >= 8) {
-      err = launch<float, 1, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
-                                stream);
     } else {
       err = launch<float, 1, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
                                 stream);
@@ -876,9 +895,6 @@ extern "C" int sad_roi_align_fwd_launch(const void* const* feats, const int* hs,
   } else {
     if (vec && c % 8 == 0 && c / 8 >= 8) {
       err = launch<__nv_bfloat16, 8, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
-                                        stream);
-    } else if (c >= 8) {
-      err = launch<__nv_bfloat16, 1, 8>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,
                                         stream);
     } else {
       err = launch<__nv_bfloat16, 1, 1>(lv, rois, levels, valid, out, n_rois, batch, c, res, sr,

@@ -32,7 +32,17 @@ _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]
 _BWD_ARGTYPES = ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong] + [_I] * 7 + [_P])
 BWD_TILE = 8  # kBwdTile in the source: the backward's map tiles are 8 x 8 cells
+STAGE_BYTES = 49152  # kStageBytes in the source
+MAX_SMEM = 227 * 1024  # kMaxSmem in the source
 BWD_MAX_RES = 32  # kMaxBwdRes in the source
+
+
+def fwd_smem(res: int, sr: int, cell_bytes: int) -> int:
+    """fwd_smem of the source: a forward block's shared memory, the tap
+    tables (48 bytes a tap, rounded up to 16) and then a buffer of
+    STAGE_BYTES, or of one bin's 4 sr^2 cells where that is more."""
+    tables = (48 * res * sr + 8 + 15) // 16 * 16
+    return tables + max(STAGE_BYTES // cell_bytes, 4 * sr * sr) * cell_bytes
 
 
 def _fn():
@@ -89,7 +99,7 @@ def roi_align_fwd_cuda(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("roi_align_fwd_cuda takes contiguous tensors")
     res, sr = int(resolution), int(sampling_ratio)
-    if res < 1 or sr < 1 or res * sr > 4096 or lvl_min < 0 or r >= 2**31 or any(
+    if res < 1 or sr < 1 or lvl_min < 0 or r >= 2**31 or any(
             f.numel() >= 2**31 * c for f in feats):
         raise ValueError(f"roi_align_fwd_cuda: unsupported sizes R={r} res={res} sr={sr} "
                          f"lvl_min={lvl_min}")
@@ -98,6 +108,12 @@ def roi_align_fwd_cuda(
         return out
     code, width = _DTYPES[dtype]
     vec = int(c % width == 0 and all(t.data_ptr() % 16 == 0 for t in feats + [out]))
+    # the staged cell of the instance the library picks: 8 lanes of 16 bytes, or one value
+    cell = 128 if vec and c // width >= 8 else feats[0].element_size()
+    if fwd_smem(res, sr, cell) > MAX_SMEM:
+        raise ValueError(f"roi_align_fwd_cuda: res={res} sr={sr} needs "
+                         f"{fwd_smem(res, sr, cell)} bytes of shared memory a block, over "
+                         f"{MAX_SMEM}")
     n = len(feats)
     ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
     hs = (ctypes.c_int * n)(*[f.shape[1] for f in feats])

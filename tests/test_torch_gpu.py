@@ -209,8 +209,8 @@ def test_roi_align_kernel_equals_plain_twin(cuda, c, r, res, sr, dtype):
     """float32 within 1e-5 * max|ref| + 1e-6; bfloat16 within one ulp (2^-7
     of the larger magnitude); and bit for bit, since the kernel adds the same
     products in the same order. The cases reach every instance: 16-byte
-    vectors (C = 256, 64), scalars with 8 lanes (C = 20) and one lane (C = 3,
-    1), sr 2 fixed and sr 3 at run time, res 28 with rois over many bands."""
+    vectors (C = 256, 64), one-lane scalars (C = 20, 3, 1), sr 2 fixed and
+    sr 3 at run time, res 28 with rois over many bands."""
     feats, rois, levels, valid = _roi_case(cuda, c + r, 2, (256, 384), c, r, dtype)
     before = roi_align_kernel.launches
     got = multilevel_roi_align(feats, rois, levels, valid, res, sr)
@@ -294,6 +294,30 @@ def test_roi_align_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                             valid, 7, 2)
     with pytest.raises(ValueError, match="one CUDA device"):
         roi_align_kernel.roi_align_fwd_cuda(fl, 2, rois.cpu(), levels, valid, 7, 2)
+    with pytest.raises(ValueError, match="shared memory"):  # tap tables over the SM's room
+        roi_align_kernel.roi_align_fwd_cuda(fl, 2, rois, levels, valid, 1, 3900)
+
+
+@pytest.mark.parametrize("c", [1, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_positions_that_fail_to_grow(cuda, c, dtype):
+    """Rois past 2^19 cells on a map over 2^20 cells wide, where float
+    rounding steps some roi's sample position back a cell: the kernel's
+    two-slots-a-tap tables, bit-equal to the plain twin."""
+    from sad_tpu_torch.ops.roi_align import roi_geometry
+
+    rng = np.random.RandomState(11)
+    w, r, res = 2**20 + 64, 48, 28
+    feats = {2: torch.from_numpy(rng.randn(1, 2, w, c).astype(np.float32)).to(cuda, dtype)}
+    x1 = rng.uniform(2**21, 2**22, r)
+    rois = torch.from_numpy(np.stack([np.zeros(r), x1, np.zeros(r), x1 + rng.uniform(0, 12, r),
+                                      np.full(r, 6.0)], axis=1).astype(np.float32)).to(cuda)
+    levels = torch.full((r,), 2, dtype=torch.int32, device=cuda)
+    valid = torch.ones(r, dtype=torch.bool, device=cuda)
+    xlo = roi_geometry([(2, w)], 2, 1, rois, levels, res, 2)[5][0].reshape(r, -1)
+    assert bool((xlo[:, 1:] < xlo[:, :-1]).any())
+    got = multilevel_roi_align(feats, rois, levels, valid, res, 2)
+    assert torch.equal(got, multilevel_roi_align_plain(feats, rois, levels, valid, res, 2))
 
 
 @pytest.mark.parametrize("n,k,max_out,thr", [(40, 1000, 1000, 0.7), (8, 80000, 100, 0.5)])

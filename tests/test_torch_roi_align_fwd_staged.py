@@ -8,8 +8,9 @@ half as many, down to one (``slice_group``). For the roi, once:
 - each axis's res * sr taps (``roi_geometry``'s cells and weights) get slots
   in a compact list of the axis's distinct cells: the taps move
   monotonically along an axis, so a running count of the cells a tap adds
-  beyond the last tap's hi cell ranks them (``axis_slots``); should the
-  positions ever fail to grow, every tap keeps two slots of its own.
+  beyond the last tap's hi cell ranks them (``axis_slots``); where float
+  rounding steps a position back a cell (positions past ~2^19, on a map that
+  wide), every tap of that axis keeps two slots of its own.
 For each slice in turn:
 - the roi is staged in tiles, each a rectangle of slots that the shared
   buffer of ``cap`` cells holds: the whole roi where it fits, else column
@@ -30,6 +31,7 @@ import pytest
 import torch
 
 from sad_tpu.ops.proposals import dense_multilevel_roi_align
+from sad_tpu_torch.ops import roi_align_kernel as K
 from sad_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_geometry
 
 from test_torch_roi_align import _jax, _torch, fixture_inputs
@@ -87,12 +89,11 @@ def tiles(x_lo, x_hi, y_lo, y_hi, res, sr, cap):
 def kernel_instance(c, esize, aligned=True):
     """(V, L) of the instance the library picks: 16-byte vectors with 8
     lanes where C is a multiple of the vector and C / V >= 8 (and the
-    pointers are 16-byte aligned), else scalars with 8 lanes for C >= 8 and
-    one lane below."""
+    pointers are 16-byte aligned), else scalars with one lane."""
     vec = 16 // esize
     if aligned and c % vec == 0 and c // vec >= 8:
         return vec, 8
-    return 1, (8 if c >= 8 else 1)
+    return 1, 1
 
 
 def cap_cells(stage_bytes, lanes, vec, esize, sr):
@@ -206,7 +207,7 @@ def _check_log(log, res, sr):
 def test_staged_forward_equals_the_plain_twin_bit_for_bit(res, sr, dtype):
     feats, rois, levels, valid = _torch(*fixture_inputs(seed=res + sr), dtype=dtype)
     vec, lanes = kernel_instance(8, feats[2].element_size())  # the fixture's C = 8
-    assert (vec, lanes) == (1, 8)
+    assert (vec, lanes) == (1, 1)
     got, log = staged_forward(feats, rois, levels, valid, res, sr, lanes, vec)
     _check_log(log, res, sr)
     ref = multilevel_roi_align_plain(feats, rois, levels, valid, res, sr)
@@ -217,7 +218,7 @@ def test_staged_forward_equals_the_plain_twin_bit_for_bit(res, sr, dtype):
 def test_staged_forward_matches_sad_tpu_dense(res):
     inputs = fixture_inputs(seed=5)
     ref = np.asarray(dense_multilevel_roi_align(*_jax(*inputs), res, 2))
-    got, _ = staged_forward(*_torch(*inputs), res, 2, 8, 1)
+    got, _ = staged_forward(*_torch(*inputs), res, 2, 1, 1)  # the instance at C = 8
     err = np.abs(got.numpy() - ref).max()
     assert err <= 1e-5 * np.abs(ref).max() + 1e-6, err
 
@@ -241,7 +242,7 @@ def test_a_roi_wider_than_the_budget_walks_chunks_and_bands():
     assert torch.equal(got, multilevel_roi_align_plain(feats, rois, levels, valid, 14, 2))
     # the main instance (384 cells of 64 bf16): a whole P2 map of the 800x1344
     # canvas walks bands at res 14 and column chunks of bands at res 28
-    assert kernel_instance(256, 2) == (8, 8) and kernel_instance(256, 2, aligned=False) == (1, 8)
+    assert kernel_instance(256, 2) == (8, 8) and kernel_instance(256, 2, aligned=False) == (1, 1)
     cap = cap_cells(STAGE_BYTES, 8, 8, 2, 2)
     assert cap == 384
     for res, n_chunks in ((14, 1), (28, 2)):
@@ -266,6 +267,43 @@ def test_axis_slots_rank_the_distinct_cells():
     s_lo, s_hi, cells = axis_slots(lo, hi)
     assert (s_lo, s_hi) == ([0, 2, 4], [1, 3, 5])
     assert [cells[s] for s in s_lo] == [5, 4, 6] and [cells[s] for s in s_hi] == [6, 5, 7]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_positions_that_fail_to_grow_keep_two_slots_a_tap(dtype):
+    """On a map over 2^20 cells wide, rois whose x positions lie past 2^19
+    cells: float rounding steps some roi's sample position back a cell (a
+    tap's lo cell below the last tap's), so that axis gives every tap two
+    slots of its own, and the result is still the plain twin's bit for bit."""
+    rng = np.random.RandomState(11)
+    w, r, res = 2**20 + 64, 48, 28
+    feats = {2: torch.from_numpy(rng.randn(1, 2, w, 1).astype(np.float32)).to(dtype)}
+    x1 = rng.uniform(2**21, 2**22, r)  # 2^19..2^20 cells on level 2
+    rois = torch.from_numpy(np.stack([np.zeros(r), x1, np.zeros(r), x1 + rng.uniform(0, 12, r),
+                                      np.full(r, 6.0)], axis=1).astype(np.float32))
+    levels, valid = torch.full((r,), 2, dtype=torch.int32), torch.ones(r, dtype=torch.bool)
+    xlo, xhi = (t.reshape(r, -1) for t in roi_geometry([(2, w)], 2, 1, rois, levels, res, 2)[5][:2])
+    falls = (xlo[:, 1:] < xlo[:, :-1]).any(1)
+    assert 0 < int(falls.sum()) < r
+    k = int(falls.nonzero()[0])
+    s_lo, s_hi, cells = axis_slots(xlo[k], xhi[k])
+    assert (s_lo, s_hi) == (list(range(0, 4 * res, 2)), list(range(1, 4 * res, 2)))
+    assert [cells[s] for s in s_lo] == xlo[k].tolist()
+    got, log = staged_forward(feats, rois, levels, valid, res, 2, 1, 1)
+    _check_log(log, res, 2)
+    assert torch.equal(got, multilevel_roi_align_plain(feats, rois, levels, valid, res, 2))
+
+
+def test_the_wrapper_limit_is_the_kernels_shared_memory():
+    """roi_align_kernel.fwd_smem mirrors the source's: at the main shape
+    (bf16, res 7, sr 2) the tables and the 48 KB buffer; the most taps an
+    axis (kMaxTaps) where the buffer is 48 KB; a bin's 4 sr^2 cells of 128
+    bytes outgrow it from sr 10."""
+    assert K.fwd_smem(7, 2, 128) == 688 + STAGE_BYTES == 49840
+    assert K.fwd_smem(3818, 1, 4) <= K.MAX_SMEM < K.fwd_smem(3819, 1, 4)
+    assert K.fwd_smem(1, 9, 128) == 448 + STAGE_BYTES
+    assert K.fwd_smem(1, 10, 128) == 496 + 400 * 128
+    assert K.STAGE_BYTES == STAGE_BYTES
 
 
 @pytest.mark.parametrize("lanes,res", [(1, 28), (8, 7), (8, 14)])
