@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
 against its plain PyTorch version, and drive the RetinaNet serving path, the
-joint SAD training step, Faster / Mask R-CNN serving and the Faster / Mask
-R-CNN training step end to end.
+joint SAD training step, Faster / Mask R-CNN serving, the Faster / Mask
+R-CNN training step and the training workflow (pseudo-labels, train_net,
+checkpoints, resume) end to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -131,8 +132,39 @@ line each (name, what was checked, time):
                  target crop, which carries no gradient), backward 1 or 2;
                  imgs/s, peak memory
 
-Then a JSON line with every kernel of the paths, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Any failure
+  sad_train_loop after the R-CNN training step, in a temporary directory:
+                 a synthetic COCO (48 labeled, 48 unlabeled images, sides
+                 480-800); the R-101 teacher (random bf16 weights) writes
+                 pseudo-labels (its top 10 an image) over the unlabeled split
+                 at the score where every image keeps a box (both passes under deterministic
+                 cuDNN), registered as the unlabeled stream; train_net
+                 trains the R-50 student with it at bs 8 (G = 4), the
+                 profile_train settings, 40 iterations, snapshots at 16 and
+                 32, 6 loader processes, torch.profiler over iterations
+                 36..38: batches labeled / pseudo-labeled by parity,
+                 model_iter15/31, model_final, stats.jsonl, cfg.yaml, every
+                 loss finite, one cls-loss fwd and bwd launch a level a step
+                 and no other kernel; a second invocation a no-op; then,
+                 under deterministic cuDNN, an 8-iteration run and a run
+                 resumed in a fresh directory from its model_iter3.pkl end
+                 bit-equal. Prints the loop's imgs/s over iterations 17..30
+                 and 3..14 (which draw on the queue the loader prefilled),
+                 from the median iteration and from the window's time, beside the same configuration's step on
+                 one prebuilt batch, host ms to build a batch, prefetch copy
+                 ms, the share of steps that waited on the loader, queue
+                 depth, device idle share over the profiled iterations and
+                 peak memory
+  mask_rcnn_train_loop
+                 Mask R-CNN R-50-FPN through train_net on the same data, 16
+                 iterations, a snapshot at 8: the same files and checks,
+                 launches NMS 1, RoIAlign forward 3 and backward 2 a step, a
+                 second invocation a no-op; under deterministic cuDNN a
+                 4-iteration run and one resumed from its model_iter1.pkl
+                 bit-equal; imgs/s and the feed
+
+Then a JSON line with every kernel of the paths (with the loops' launches
+as train_loop_launches), the card's name and power limit, and as the last
+line {"ok": true, "device": {...}}. Any failure
 raises and the exit code is not 0; without a CUDA card the script exits 2
 and prints no result.
 """
@@ -143,6 +175,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import sys
 import time
@@ -1345,6 +1378,364 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
             "target_stats": target_stats}
 
 
+LOOP_WORKERS = 6  # DATA_LOADER.NUM_PROCESSES: the card's host has 8 cores
+LOOP_WARMUP = 3  # loop iterations before the timed ones
+
+
+def _loop_opts(out_dir, *extra):
+    """train_net options of the loop phases: profile_train's BENCH_OPTS, bs 8
+    (4 groups of TRAIN.IMS_PER_BATCH 2), LR 1e-6, the synthetic COCO, a
+    snapshot every 4 iterations (TRAIN.SNAPSHOT_ITERS / NUM_GPUS)."""
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, BENCH_OPTS
+
+    return BENCH_OPTS + [
+        "NUM_GPUS", "4", "OUTPUT_DIR", out_dir, "TRAIN.DATASETS", "('smoke_lab',)",
+        "SOLVER.BASE_LR", str(BENCH_LR), "TRAIN.SNAPSHOT_ITERS", "16",
+        "DATA_LOADER.NUM_PROCESSES", str(LOOP_WORKERS)] + list(extra)
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (warning where an op has none), for a bit-for-bit
+    comparison of two runs; restored after."""
+    prior = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prior[:2]
+        torch.use_deterministic_algorithms(prior[2])
+
+
+def _run_dir(out_dir):
+    return os.path.join(out_dir, "train", "smoke_lab")
+
+
+def _check_run_files(name, out_dir, snapshots):
+    files = sorted(os.listdir(_run_dir(out_dir)))
+    want = sorted(["cfg.yaml", "model_final.pkl", "stats.jsonl"]
+                  + [f"model_iter{i}.pkl" for i in snapshots])
+    if files != want:
+        raise AssertionError(f"{name}: run files {files}, want {want}")
+    with open(os.path.join(_run_dir(out_dir), "stats.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    if not lines or not all(np.isfinite(ln["loss"]) for ln in lines):
+        raise AssertionError(f"{name}: stats.jsonl losses {[ln['loss'] for ln in lines]}")
+    return lines
+
+
+def _check_noop(torch, name, train_net, argv, out_dir, max_iter):
+    """A second invocation on a finished run's directory trains nothing,
+    launches no kernel and leaves model_final.pkl as it was."""
+    final = os.path.join(_run_dir(out_dir), "model_final.pkl")
+    mtime = os.path.getmtime(final)
+    before = _all_counts()
+    again = train_net.main(argv)
+    if again.start_iter != max_iter or again.iter_seconds or _all_counts() != before or (
+            os.path.getmtime(final) != mtime):
+        raise AssertionError(f"{name}: a second invocation was not a no-op")
+    del again
+
+
+def _check_resume(torch, name, train_net, argv_for, root, snap, max_iter):
+    """Under _deterministic: an uninterrupted run ``argv_for(dir, max_iter)``
+    and a run in a fresh directory that holds only its
+    model_iter{snap}.pkl; their final parameters and momenta must be
+    bit-equal."""
+    from sad_tpu_torch.train.checkpoint import load_checkpoint
+
+    whole_dir, resumed_dir = os.path.join(root, "whole"), os.path.join(root, "resumed")
+    snap_file = f"model_iter{snap}.pkl"
+    with _deterministic(torch):
+        whole = train_net.main(argv_for(whole_dir, max_iter))
+        os.makedirs(_run_dir(resumed_dir))
+        os.link(os.path.join(_run_dir(whole_dir), snap_file),
+                os.path.join(_run_dir(resumed_dir), snap_file))
+        resumed = train_net.main(argv_for(resumed_dir, max_iter))
+    if resumed.start_iter != snap + 1 or len(resumed.iter_seconds) != max_iter - snap - 1:
+        raise AssertionError(f"{name}: the resumed run started at {resumed.start_iter}")
+    a, b = whole.model.state_dict(), resumed.model.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    differ += [k for k in whole.state.velocity
+               if not torch.equal(whole.state.velocity[k], resumed.state.velocity[k])]
+    final = load_checkpoint(os.path.join(_run_dir(resumed_dir), "model_final.pkl"))["iter"]
+    if differ or final != max_iter:
+        raise AssertionError(f"{name}: resumed at {snap + 1} != uninterrupted: {len(differ)} "
+                             f"tensors differ, e.g. {differ[:3]}; final iter {final}")
+    return (f"a {max_iter}-iteration run and one resumed in a fresh directory from its "
+            f"model_iter{snap}.pkl end bit-identical ({len(a) + len(whole.state.velocity)} "
+            f"parameter and momentum tensors; deterministic cuDNN)")
+
+
+def _all_counts():
+    from sad_tpu_torch.ops import cls_loss_kernel
+
+    return _kernel_counts() + (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+
+
+def _reset_counts():
+    from sad_tpu_torch.ops import cls_loss_kernel, nms_kernel, roi_align_kernel
+
+    nms_kernel.launches = roi_align_kernel.launches = roi_align_kernel.bwd_launches = 0
+    cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
+    cls_loss_kernel.fwd_by_rows, cls_loss_kernel.bwd_by_rows = {}, {}
+
+
+def _loop_numbers(torch, result, first, last):
+    """The loop's imgs/s over iterations first..last-1: from the median
+    iteration, and from the window's images over its host time (stalls on the
+    loader come in bursts, which the median does not see); and its host feed
+    over the same iterations."""
+    times = result.iter_seconds[first:last]
+    med = statistics.median(times)
+    n_images = result.loader.batch_images
+    return {"imgs_per_s": n_images / med, "step_ms": 1e3 * med, "timed": len(times),
+            "imgs_per_s_window": n_images * len(times) / sum(times),
+            "thread_cpu_ms": 1e3 * statistics.median(result.iter_thread_cpu[first:last]),
+            "process_cpu_ms": 1e3 * statistics.median(result.iter_process_cpu[first:last]),
+            **{k: v for k, v in result.feed_summary(first, last).items() if k != "served"}}
+
+
+def _ms_by_stream(numbers):
+    return ", ".join(f"{k} {v:.1f}" for k, v in numbers["build_ms_median_by_stream"].items())
+
+
+def _smoke_coco(root, seed):
+    """The synthetic COCO of the loop phases under ``root``, written by the
+    first phase that asks (its time is that phase's): 48 labeled images as
+    smoke_lab and 48 unlabeled ones as smoke_unl, sides 480-800. The shapes
+    are of the generator's 8 categories; both jsons list 80, as COCO does,
+    so that the 81-class teacher's detections map to categories."""
+    from sad_tpu_torch.config import register_dataset
+    from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
+
+    for name, split, labeled, k in (("smoke_lab", "lab", True, 0), ("smoke_unl", "unl", False, 1)):
+        js = os.path.join(root, f"{'instances' if labeled else 'image_info'}_{split}.json")
+        img_dir = os.path.join(root, f"images_{split}")
+        if not os.path.exists(js):
+            img_dir, js = generate_synthetic_coco(root, split, 48, seed=seed + k,
+                                                  size_range=(480, 800), labeled=labeled)
+            with open(js) as f:
+                doc = json.load(f)
+            names = {c["id"]: c["name"] for c in doc["categories"]}
+            doc["categories"] = [{"id": i, "name": names.get(i, f"category{i}")}
+                                 for i in range(1, 81)]
+            with open(js, "w") as f:
+                json.dump(doc, f)
+        register_dataset(name, img_dir, js, allow_override=True)
+    return os.path.join(root, "images_unl")
+
+
+def phase_sad_train_loop(torch, seed, iters, warmup, data_root):
+    """The SAD workflow through its entry points: the R-101 teacher
+    pseudo-labels an unlabeled split, train_net trains the R-50 student on
+    the labeled set and the pseudo-labeled one by turns, then the checks.
+    Runs go to a temporary directory under ``data_root``, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="sad_train_loop_", dir=data_root) as tmp:
+        return _sad_train_loop(torch, seed, iters, warmup, data_root, tmp)
+
+
+def _sad_train_loop(torch, seed, iters, warmup, data_root, tmp):
+    from sad_tpu_torch.config import load_cfg, register_dataset
+    from sad_tpu_torch.config.config import cfg_to_yaml
+    from sad_tpu_torch.data.loader import stream_for_batch
+    from sad_tpu_torch.eval.test_engine import generate_pseudo_labels
+    from sad_tpu_torch.models import compute_dtype, create_model
+    from sad_tpu_torch.ops import cls_loss_kernel, nms_kernel
+    from sad_tpu_torch.tools import train_net
+    from sad_tpu_torch.tools.profile_infer import wall_seconds
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, BENCH_OPTS, seeded_train_step
+
+    t0 = time.perf_counter()
+    unl_dir = _smoke_coco(data_root, 0)
+
+    # the teacher's pseudo-labels: a first pass at threshold 0 finds the
+    # threshold at which every image keeps at least one box (its lowest
+    # top score), the second writes the set
+    tcfg = load_cfg(os.path.join(REPO, TEACHER_CFG), BENCH_OPTS)
+    teacher_yaml = os.path.join(tmp, "teacher.yaml")
+    with open(teacher_yaml, "w") as f:
+        f.write(cfg_to_yaml(tcfg))
+    # a random teacher scores every box alike: keep its top 10 an image, near
+    # COCO's 7.3 objects an image, as a trained teacher's threshold would
+    pl_cfg = load_cfg(os.path.join(REPO, TEACHER_CFG), BENCH_OPTS + ["TEST.DETECTIONS_PER_IM", "10"])
+    teacher = create_model(pl_cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed + 1))
+    teacher.to(compute_dtype(pl_cfg))
+    _reset_counts()
+    with _deterministic(torch):
+        probe = generate_pseudo_labels(pl_cfg, teacher, "smoke_unl",
+                                       os.path.join(tmp, "probe.json"), score_thresh=0.0)
+    with open(probe) as f:
+        top = {}
+        for a in json.load(f)["annotations"]:
+            top[a["image_id"]] = max(top.get(a["image_id"], 0.0), a["score"])
+    if len(top) != 48:
+        raise AssertionError(f"pseudo-labels: only {len(top)} of 48 images have a detection")
+    thr = min(top.values())
+    with _deterministic(torch):
+        pl_json = generate_pseudo_labels(pl_cfg, teacher, "smoke_unl",
+                                         os.path.join(tmp, "pseudo_unl.json"), score_thresh=thr)
+    pl_nms = nms_kernel.launches
+    del teacher
+    with open(pl_json) as f:
+        boxes = [a["image_id"] for a in json.load(f)["annotations"]]
+    per_image = np.bincount(boxes)[1:]
+    if len(set(boxes)) != 48:
+        raise AssertionError(f"pseudo-labels at {thr}: {len(set(boxes))} of 48 images keep a box")
+    register_dataset("smoke_pl", unl_dir, pl_json, is_pseudo_labeled=True, allow_override=True)
+
+    # 40 iterations: the first ones draw on the queue the loader prefilled,
+    # the later ones show whether the loader keeps up. Snapshots at 16 and 32
+    # (iterations 15 and 31 write them) and the profiled iterations 36..38
+    # stay out of both windows
+    max_iter, prof_start, prof_num, early, steady = 40, 36, 2, (LOOP_WARMUP, 15), (17, 31)
+    prof_dir = os.path.join(tmp, "profile")
+    student = os.path.join(REPO, STUDENT_CFG)
+
+    def argv(out_dir, n_iter, *extra):
+        return ["--cfg", student, "--teacher_cfg", teacher_yaml, "--skip-test"] + _loop_opts(
+            out_dir, "DISTILLATION.UNLABEL_DISTILLATION", "True",
+            "DISTILLATION.UNLABEL_DATASETS", "('smoke_pl',)", "SOLVER.MAX_ITER", str(n_iter),
+            *extra)
+
+    # the main path: train_net with every count at 0 just before, read just after
+    out_a = os.path.join(tmp, "a")
+    run_argv = argv(out_a, max_iter, "TRAIN.SNAPSHOT_ITERS", "64", "PROFILE_DIR", prof_dir,
+                    "PROFILE_START_ITER", str(prof_start), "PROFILE_NUM_ITERS", str(prof_num))
+    held = torch.cuda.memory_allocated() / 2**30  # by earlier phases, not the run
+    _reset_counts()
+    t_run = time.perf_counter()
+    result = train_net.main(run_argv)
+    run_s = time.perf_counter() - t_run
+    launches = _all_counts()
+    by_rows = (dict(cls_loss_kernel.fwd_by_rows), dict(cls_loss_kernel.bwd_by_rows))
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    n_steps = max_iter
+    if launches != (0, 0, 0, 5 * n_steps, 5 * n_steps):
+        raise AssertionError(f"sad_train_loop: launches (NMS, RoIAlign fwd, bwd, cls fwd, bwd) "
+                             f"{launches} in {n_steps} steps, want cls 5 + 5 a step only")
+    level_rows = {lvl: result.loader.batch_images * h * w * 9 for lvl, (h, w) in LEVEL_HW.items()}
+    per_level = {lvl: (by_rows[0].get(r, 0), by_rows[1].get(r, 0)) for lvl, r in level_rows.items()}
+    if any(v != (n_steps, n_steps) for v in per_level.values()):
+        raise AssertionError(f"sad_train_loop: cls-loss launches by level {per_level}, want one "
+                             f"fwd and one bwd a level a step")
+    served = result.feed_summary()["served"]
+    want = [stream_for_batch(i, True) for i in range(max_iter)]
+    if served != want:
+        raise AssertionError(f"sad_train_loop: batch streams {served}, want {want}")
+    lines = _check_run_files("sad_train_loop", out_a, (15, 31))
+    fed = _loop_numbers(torch, result, *early)
+    timed = _loop_numbers(torch, result, *steady)
+    with open(os.path.join(prof_dir, "profile_summary.json")) as f:
+        prof = json.load(f)
+    del result
+    _check_noop(torch, "sad_train_loop", train_net, run_argv, out_a, max_iter)
+    shutil.rmtree(out_a)
+
+    # the same configuration's step on one prebuilt batch, as profile_train times it
+    run = seeded_train_step(seed=seed, n_groups=4, device="cuda")
+    walls = wall_seconds(lambda: run.step(run.state, run.batch, BENCH_LR), iters, warmup)
+    step_imgs = run.n_images / statistics.median(walls)
+    del run
+    torch.cuda.empty_cache()
+
+    resume = _check_resume(torch, "sad_train_loop", train_net, argv, tmp, 3, 8)
+    _phase("sad_train_loop", f"pseudo-labels of the R-101 teacher (top 10 an image) over 48 "
+           f"unlabeled images at score {thr:.4f} (every image's lowest top score): {len(boxes)} "
+           f"boxes, {per_image.min()}-{per_image.max()} an image, {pl_nms} NMS launches; "
+           f"train_net R-50 student + R-101 teacher, bs 8 (G=4), {n_steps} iterations, labeled "
+           f"and pseudo-labeled batches by parity ({served.count('labeled')} + "
+           f"{served.count('unlabeled')}), {LOOP_WORKERS} loader processes; model_iter15/31, "
+           f"model_final, stats.jsonl (loss {lines[0]['loss']:.4f} -> {lines[-1]['loss']:.4f}, "
+           f"every loss finite), cfg.yaml; cls-loss launches {launches[3]} fwd + {launches[4]} "
+           f"bwd, one of each a level a step; a second invocation a no-op; {resume}. "
+           f"Loop, iterations {steady[0]}..{steady[1] - 1}: {timed['imgs_per_s']:.2f} imgs/s from "
+           f"the median iteration ({timed['step_ms']:.2f} ms), {timed['imgs_per_s_window']:.2f} "
+           f"from the window's time; iterations {early[0]}..{early[1] - 1}, on the prefilled "
+           f"queue: {fed['imgs_per_s']:.2f} / {fed['imgs_per_s_window']:.2f}; an iteration's "
+           f"CPU time {timed['thread_cpu_ms']:.1f} ms in the loop thread, "
+           f"{timed['process_cpu_ms']:.1f} ms in the process (medians); the same "
+           f"configuration's step on one prebuilt batch {step_imgs:.2f} imgs/s; host build "
+           f"{timed['build_ms_median']:.1f} ms a batch (median of {timed['batches_built']}; by "
+           f"stream {_ms_by_stream(timed)}), prefetch copy {timed['copy_ms_median']:.2f} ms, "
+           f"{100 * timed['waited_share']:.0f} % of the window's steps waited on the loader "
+           f"({timed['wait_ms_total']:.0f} ms in all; {100 * fed['waited_share']:.0f} % of the "
+           f"early ones), queue depth median {timed['queue_depth_median']} (min "
+           f"{timed['queue_depth_min']}); device idle {prof['device_idle_share']:.4f} over "
+           f"iterations {prof_start}..{prof_start + prof_num} ({prof['kernel_ms']:.1f} ms kernels "
+           f"in {prof['wall_ms']:.1f} ms, torch.profiler); peak {peak:.2f} GiB over what earlier "
+           f"phases hold; train_net "
+           f"{run_s:.1f} s", time.perf_counter() - t0)
+    return {"launches": launches, "per_level": per_level, "loop": timed, "loop_fed": fed,
+            "step_imgs": step_imgs, "idle": prof["device_idle_share"], "peak_gib": peak}
+
+
+def phase_mask_rcnn_train_loop(torch, data_root):
+    """Mask R-CNN R-50-FPN through train_net, then the same checks. Runs go
+    to a temporary directory under ``data_root``, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="mask_rcnn_train_loop_", dir=data_root) as tmp:
+        return _mask_rcnn_train_loop(torch, data_root, tmp)
+
+
+def _mask_rcnn_train_loop(torch, data_root, tmp):
+    from sad_tpu_torch.tools import train_net
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0)
+    # iteration 7 writes the snapshot; the window is the iterations after it
+    max_iter, snap, window = 16, 7, (8, 16)
+
+    def argv(out_dir, n_iter, snapshot_iters=32):
+        return ["--cfg", os.path.join(REPO, MASK_CFG), "--skip-test"] + _loop_opts(
+            out_dir, "SOLVER.MAX_ITER", str(n_iter), "TRAIN.SNAPSHOT_ITERS", str(snapshot_iters))
+
+    # the main path: train_net with every count at 0 just before, read just after
+    out_a = os.path.join(tmp, "a")
+    run_argv = argv(out_a, max_iter)
+    held = torch.cuda.memory_allocated() / 2**30  # by earlier phases, not the run
+    _reset_counts()
+    result = train_net.main(run_argv)
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    want = (max_iter, 3 * max_iter, 2 * max_iter, 0, 0)
+    if launches != want:
+        raise AssertionError(f"mask_rcnn_train_loop: launches (NMS, RoIAlign fwd, bwd, cls fwd, "
+                             f"bwd) {launches} in {max_iter} steps, want {want}")
+    lines = _check_run_files("mask_rcnn_train_loop", out_a, (snap,))
+    if "loss_mask" not in lines[-1]:
+        raise AssertionError("mask_rcnn_train_loop: no loss_mask in stats.jsonl")
+    timed = _loop_numbers(torch, result, *window)
+    del result
+    _check_noop(torch, "mask_rcnn_train_loop", train_net, run_argv, out_a, max_iter)
+    shutil.rmtree(out_a)
+    # deterministic cuDNN is slow on this model: a short pair, snapshot at 2
+    resume = _check_resume(torch, "mask_rcnn_train_loop", train_net,
+                           lambda d, n: argv(d, n, snapshot_iters=8), tmp, 1, 4)
+    _phase("mask_rcnn_train_loop", f"train_net {MASK_CFG}, bs 8 (G=4), 800x1344, {max_iter} "
+           f"iterations, {LOOP_WORKERS} loader processes: model_iter{snap}, model_final, "
+           f"stats.jsonl (loss {lines[0]['loss']:.4f} -> {lines[-1]['loss']:.4f}, loss_mask "
+           f"{lines[-1]['loss_mask']:.4f}, every loss finite), cfg.yaml; launches NMS "
+           f"{launches[0]}, RoIAlign forward {launches[1]}, backward {launches[2]}; a second "
+           f"invocation a no-op; {resume}. Loop, iterations {window[0]}..{window[1] - 1}: "
+           f"{timed['imgs_per_s']:.2f} imgs/s from the median iteration "
+           f"({timed['step_ms']:.2f} ms), {timed['imgs_per_s_window']:.2f} from the window's "
+           f"time; an iteration's CPU time {timed['thread_cpu_ms']:.1f} ms in the loop thread, "
+           f"{timed['process_cpu_ms']:.1f} ms in the process; host build "
+           f"{timed['build_ms_median']:.1f} ms a batch, prefetch copy "
+           f"{timed['copy_ms_median']:.2f} ms, {100 * timed['waited_share']:.0f} % of the steps "
+           f"waited on the loader ({timed['wait_ms_total']:.0f} ms in all), queue depth median "
+           f"{timed['queue_depth_median']}; peak {peak:.2f} GiB over what earlier phases hold",
+           time.perf_counter() - t0)
+    return {"launches": launches, "loop": timed, "peak_gib": peak}
+
+
 # phases that can be run alone with --only
 PARTIAL = {
     "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
@@ -1361,6 +1752,10 @@ PARTIAL = {
         ROI_TIMERS),
     "mask_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
         torch, "mask_rcnn_train", MASK_CFG, a.seed + 5, a.groups, a.iters, a.warmup, ROI_TIMERS),
+    "sad_train_loop": lambda torch, a, rng: phase_sad_train_loop(torch, a.seed + 6, a.iters,
+                                                                 a.warmup, a.loop_data),
+    "mask_rcnn_train_loop": lambda torch, a, rng: phase_mask_rcnn_train_loop(torch,
+                                                                             a.loop_data),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -1391,6 +1786,15 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: sad_tpu_torch is not importable from {REPO}: {e}", file=sys.stderr)
         return 3
+    import tempfile
+
+    # the training workflow's synthetic COCO and runs, removed at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as loop_data:
+        args.loop_data = loop_data
+        return _main(torch, args)
+
+
+def _main(torch, args) -> int:
     from sad_tpu_torch.device import nvidia_smi_line, set_tf32
     from sad_tpu_torch.ops import _build, cls_loss_kernel, nms_kernel, roi_align_kernel
 
@@ -1449,7 +1853,11 @@ def main(argv=None) -> int:
     faster_t = PARTIAL["faster_rcnn_train"](torch, args, rng)
     mask_t = PARTIAL["mask_rcnn_train"](torch, args, rng)
     if _kernel_counts() != mask_t["launches"]:
-        raise AssertionError("a kernel was launched after the last main-path run")
+        raise AssertionError("a kernel was launched after the R-CNN training runs")
+    # the training workflow: the counts are set to 0 inside, just before each train_net
+    # run, and read just after it (the resume checks that follow launch more)
+    sad_loop = PARTIAL["sad_train_loop"](torch, args, rng)
+    mask_loop = PARTIAL["mask_rcnn_train_loop"](torch, args, rng)
     phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
                      (fwd_stats, bwd_stats))
     phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
@@ -1499,21 +1907,27 @@ def main(argv=None) -> int:
         # the training steps: one NMS, one box RoIAlign pair a step of both families; the
         # mask pair and the mask target crop (forward only) a step of Mask R-CNN
         "name": "greedy_nms_sorted@rpn_train", "launches": train_steps,
+        "train_loop_launches": mask_loop["launches"][0],
         **nms_stats["rpn_train"], **nms_entry,
     }, {
         "name": "roi_align_fwd@box_train", "launches": train_steps,
+        "train_loop_launches": mask_loop["launches"][1] // 3,
         **roi_bwd_stats["fwd_box"], **roi_entry,
     }, {
         "name": "roi_align_fwd@mask_train", "launches": mask_t["steps"],
+        "train_loop_launches": mask_loop["launches"][1] // 3,
         **roi_bwd_stats["fwd_mask"], **roi_entry,
     }, {
         "name": "roi_align_fwd@mask_targets", "launches": mask_t["steps"],
+        "train_loop_launches": mask_loop["launches"][1] // 3,
         **mask_t["target_stats"], **roi_entry,
     }, {
         "name": "roi_align_bwd_gather@box", "launches": train_steps,
+        "train_loop_launches": mask_loop["launches"][2] // 2,
         **roi_bwd_stats["box"], **roi_bwd_entry,
     }, {
         "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"],
+        "train_loop_launches": mask_loop["launches"][2] // 2,
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
         # P3's shape; "levels" holds every level's device time, bound and the launches
@@ -1522,14 +1936,14 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/cls_losses.cu",
         "replaces": "sad_tpu/ops/pallas_losses.py:152 (_fwd_kernel) and :284 (_fwd_kernel_aligned)",
-        "launches": cls_launches[0],
+        "launches": cls_launches[0], "train_loop_launches": sad_loop["launches"][3],
         **fwd_stats, "library_ms": None,
     }, {
         "name": "cls_losses_bwd",
         "route": "cuda",
         "source": "sad_tpu_torch/csrc/cls_losses.cu",
         "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
-        "launches": cls_launches[1],
+        "launches": cls_launches[1], "train_loop_launches": sad_loop["launches"][4],
         **bwd_stats, "library_ms": None,
     }]}))
     print(nvidia_smi_line())

@@ -24,7 +24,6 @@ key, or a shape that disagrees, raises.
 
 from __future__ import annotations
 
-import pickle
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -107,25 +106,3 @@ def load_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
         raise ValueError(f"shape mismatch for {[(k, tuple(sd[k].shape), tuple(own[k].shape)) for k in bad[:5]]}")
     model.load_state_dict(sd, strict=True)
     return model
-
-
-class _NoJaxUnpickler(pickle.Unpickler):
-    def find_class(self, module, name):
-        if module.split(".")[0] in ("jax", "jaxlib", "flax"):
-            raise pickle.UnpicklingError(
-                f"checkpoint refers to {module}.{name}; sad_tpu_torch loads "
-                "only checkpoints of plain dicts and numpy arrays"
-            )
-        return super().find_class(module, name)
-
-
-def load_checkpoint_params(path: str) -> Dict[str, Any]:
-    """The param tree of a native sad_tpu checkpoint pickle
-    (``{'params': ..., 'velocity': ..., 'iter': ..., 'cfg_yaml': ...}``,
-    sad_tpu/train/checkpoint.py:37-59), read without importing jax. Only
-    unpickle files this project wrote: unpickling runs code."""
-    with open(path, "rb") as f:
-        payload = _NoJaxUnpickler(f).load()
-    if not isinstance(payload, dict) or "params" not in payload:
-        raise KeyError(f"{path}: not a sad_tpu checkpoint (no 'params' entry)")
-    return payload["params"]

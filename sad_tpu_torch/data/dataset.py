@@ -19,7 +19,11 @@ roidb.py, parsing the COCO instance json directly:
   (retinanet.py:119-120); empty images are dropped (roidb.py:123
   filter_for_training),
 - multi-dataset union for the labeled+pseudo-labeled semi-supervised mix
-  (roidb.py:37 combined_roidb_for_training).
+  (roidb.py:37 combined_roidb_for_training): train/train_loop.py takes
+  DISTILLATION.UNLABEL_DATASETS through it as the second stream. A
+  pseudo-labeled set (eval/test_engine.generate_pseudo_labels, registered
+  with is_pseudo_labeled=True) reads as any COCO json (its per-box "score"
+  is ignored), and the training filter drops its images with no pseudo box.
 """
 
 from __future__ import annotations

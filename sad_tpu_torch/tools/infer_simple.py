@@ -5,8 +5,8 @@ Usage:
   python -m sad_tpu_torch.tools.infer_simple --cfg cfg.yaml --weights model.pkl \
       --image-dir imgs/ --output-dir out/ [--thresh 0.5] [--device cuda]
 
---weights is a native sad_tpu checkpoint pickle; without weights the model
-keeps its seeded random initialisation.
+--weights is a native sad_tpu (or port) checkpoint or a reference Caffe2 blob
+pickle; without weights the model keeps its seeded random initialisation.
 """
 
 from __future__ import annotations
@@ -20,11 +20,11 @@ import numpy as np
 import torch
 
 from sad_tpu_torch.config import load_cfg
-from sad_tpu_torch.convert import load_checkpoint_params, load_params
 from sad_tpu_torch.device import get_device
 from sad_tpu_torch.eval.inference import make_inference_fn
 from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
 from sad_tpu_torch.models.model_builder import compute_dtype, create_model
+from sad_tpu_torch.train.checkpoint import load_reference_or_native
 
 logger = logging.getLogger("infer_simple")
 
@@ -61,7 +61,7 @@ def main(argv=None):
     model = create_model(cfg, dev, gen)
     weights = args.weights or cfg.TEST.WEIGHTS
     if weights:
-        load_params(model, load_checkpoint_params(weights))
+        load_reference_or_native(weights, model, cfg)
     model.to(compute_dtype(cfg))
     infer = make_inference_fn(cfg, model)
     land, port = _test_canvas_shapes(cfg)

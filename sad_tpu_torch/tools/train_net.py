@@ -1,0 +1,60 @@
+"""Train a RetinaNet, a SAD student or an R-CNN (ref: sad_tpu/tools/train_net.py;
+detectron/tools/train_net.py).
+
+    python -m sad_tpu_torch.tools.train_net --cfg student.yaml \
+        [--teacher_cfg teacher.yaml] --skip-test [--max-iters N] \
+        [--device cuda|cpu] [KEY VALUE ...]
+
+Reference YAML configs load directly (the config surface is compatible).
+Checkpoints, stats.jsonl and cfg.yaml go to OUTPUT_DIR/train/<datasets>/;
+re-running on the same directory resumes (TRAIN.AUTO_RESUME). The
+evaluation pass after training (test_net) is not ported yet: without
+--skip-test the command raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ..config import load_cfg
+from ..config.config import get_output_dir
+from ..train.train_loop import train_model
+from ..utils.logging import setup_logging
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--cfg", dest="cfg_file", required=True)
+    p.add_argument("--teacher_cfg", dest="teacher_cfg_file", default=None)
+    p.add_argument("--skip-test", action="store_true")
+    p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--multi-gpu-testing", action="store_true",
+                   help="accepted for reference-CLI parity")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default), 'cuda:N' or 'cpu'; no fallback from the card")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    logger = setup_logging("train_net")
+    args = parse_args(argv)
+    if not args.skip_test:
+        raise NotImplementedError(
+            "train_net's evaluation pass (test_net_on_dataset, COCO eval) is not ported to "
+            "sad_tpu_torch yet (ROADMAP.md Queue 1 item 3); pass --skip-test")
+    cfg = load_cfg(args.cfg_file, args.opts or None)
+    teacher_cfg = load_cfg(args.teacher_cfg_file) if args.teacher_cfg_file else None
+    if cfg.MODEL.TYPE == "distillation" and teacher_cfg is None:
+        logger.error("MODEL.TYPE=distillation requires --teacher_cfg")
+        sys.exit(1)
+
+    result = train_model(cfg, teacher_cfg, max_iters=args.max_iters, device=args.device)
+    logger.info("Training complete -> %s", get_output_dir(cfg, training=True))
+    return result
+
+
+if __name__ == "__main__":
+    main()

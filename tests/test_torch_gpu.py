@@ -430,3 +430,63 @@ def test_small_rcnn_train_step_on_the_card_launches_the_kernels(cuda, mask):
     params = dict(run.model.named_parameters())
     assert any(not torch.equal(params[n], snap[n]) for n in names)
     assert all(torch.equal(params[n], snap[n]) for n in params if n not in names)
+
+
+class _SeededBatches:
+    """Host batches of a training batch's kinds (uint8 canvas, int32 and
+    float32 level dicts, bool masks, a plain number), each a function of its
+    index."""
+
+    def __init__(self):
+        self.i = 0
+
+    @staticmethod
+    def batch(i):
+        rng = np.random.RandomState(i)
+        return {"data_u8": rng.randint(0, 256, (4, 320, 512, 3)).astype(np.uint8),
+                "labels": {3: rng.randint(-1, 81, (4, 40, 64, 9)).astype(np.int32)},
+                "bbox_targets": {3: rng.randn(4, 40, 64, 9, 4).astype(np.float32)},
+                "fg_mask": {3: rng.uniform(size=(4, 40, 64, 9)) < 0.2},
+                "gt_mask_stride": 4}
+
+    def get_next_batch(self, timeout=None):
+        self.i += 1
+        return self.batch(self.i - 1)
+
+    def queue_depth(self):
+        return 0
+
+    def shutdown(self):
+        pass
+
+
+def test_device_prefetcher_copies_equal_synchronous_copies(cuda):
+    """50 batches through DevicePrefetcher's pinned non_blocking copies on
+    its side stream equal the same arrays copied synchronously, while a
+    long kernel runs on the default stream between gets and the comparison
+    of each batch waits behind it (so the next copies overlap the use of the
+    last batch, and its memory is freed while still in use)."""
+    from sad_tpu_torch.data.loader import DevicePrefetcher
+
+    feed = DevicePrefetcher(_SeededBatches(), cuda)
+    busy = torch.randn((4096, 4096), device=cuda)
+    equal = []
+    try:
+        for i in range(50):
+            got = feed.get_next_batch(timeout=60)
+            for _ in range(4):
+                busy = torch.tanh(busy @ busy * 1e-3)
+            want = _SeededBatches.batch(i)
+            flat = [(got["data_u8"], want["data_u8"])] + [
+                (got[k][3], want[k][3]) for k in ("labels", "bbox_targets", "fg_mask")]
+            assert got["gt_mask_stride"] == 4
+            for g, w in flat:
+                w = torch.from_numpy(w)
+                assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape
+                equal.append((g == w.to(cuda)).all())  # read when the queue gets there
+            del got, flat
+        equal = torch.stack(equal).cpu()
+    finally:
+        feed.shutdown()
+    assert bool(equal.all()) and len(equal) == 200
+    assert len(feed.copy_seconds) >= 50

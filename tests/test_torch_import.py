@@ -49,6 +49,10 @@ def test_chip_smoke_main_path_imports_no_sad_tpu():
         import sad_tpu_torch.tools.profile_infer, sad_tpu_torch.tools.profile_train
         import sad_tpu_torch.models.rcnn, sad_tpu_torch.eval.rcnn_inference
         import sad_tpu_torch.ops.proposals, sad_tpu_torch.ops.roi_align_kernel
+        import sad_tpu_torch.train.train_loop, sad_tpu_torch.train.checkpoint
+        import sad_tpu_torch.data.loader, sad_tpu_torch.data.mp_loader
+        import sad_tpu_torch.data.synth_coco, sad_tpu_torch.tools.train_net
+        import sad_tpu_torch.eval.test_engine
         allowed = set()
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   or (m.split(".")[0] == "sad_tpu" and m not in allowed)]

@@ -191,8 +191,9 @@ def test_native_checkpoint_loads_without_jax(pair, tmp_path):
     out = tmp_path / "sd.pt"
     code = textwrap.dedent(f"""
         import sys, torch
-        from sad_tpu_torch.convert import load_checkpoint_params, params_to_state_dict
-        sd = params_to_state_dict(load_checkpoint_params({str(ckpt)!r}))
+        from sad_tpu_torch.convert import params_to_state_dict
+        from sad_tpu_torch.train.checkpoint import load_checkpoint
+        sd = params_to_state_dict(load_checkpoint({str(ckpt)!r})["params"])
         assert not [m for m in ("jax", "flax") if m in sys.modules]
         torch.save(sd, {str(out)!r})
     """)
