@@ -2,8 +2,9 @@
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
 against its plain PyTorch version, and drive the RetinaNet serving path, the
 joint SAD training step, Faster / Mask R-CNN serving, the Faster / Mask
-R-CNN training step and the training workflow (pseudo-labels, train_net,
-checkpoints, resume) end to end.
+R-CNN training step, the training workflow (pseudo-labels, train_net,
+checkpoints, resume) and the evaluation path (test_net, the COCO evaluator)
+end to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -161,9 +162,29 @@ line each (name, what was checked, time):
                  second invocation a no-op; under deterministic cuDNN a
                  4-iteration run and one resumed from its model_iter1.pkl
                  bit-equal; imgs/s and the feed
+  test_net       the evaluation path through test_net, on a synthetic COCO
+                 val split (32 images, sides 480-800) in the same temporary
+                 directory: its own ground truth as detections scores bbox
+                 and segm AP 1.0; the R-50 student (whole split) and Mask
+                 R-CNN R-50-FPN (output layers spread as in mask_rcnn_infer,
+                 --range 0 8), seeded random weights saved as native pickles
+                 and loaded through --weights: results.json holds the 12 bbox
+                 metrics (and the 12 segm_ ones), all finite; bbox_results.json
+                 and results.json byte-identical to a run with the plain NMS
+                 and RoIAlign in place of the kernels; launches NMS 1 a batch
+                 (student), NMS 2 and RoIAlign 2 a batch (Mask); the
+                 EXPECTED_RESULTS gate raising on AP 0.99 with tolerance 0.
+                 Prints each model's dataset imgs/s (images over the wall time
+                 of run_inference_on_roidb) beside its reused-batch imgs/s,
+                 the host split in ms a batch (load + resize, copy + device +
+                 copy back, mask gather, paste, RLE, dict building), the
+                 evaluations' seconds, and the device's idle share over the
+                 inference loop (torch.profiler kernel time of a second,
+                 profiled loop over the unprofiled wall)
 
 Then a JSON line with every kernel of the paths (with the loops' launches
-as train_loop_launches), the card's name and power limit, and as the last
+as train_loop_launches and the evaluation's as test_net_launches), the
+card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure
 raises and the exit code is not 0; without a CUDA card the script exits 2
 and prints no result.
@@ -1503,30 +1524,38 @@ def _ms_by_stream(numbers):
     return ", ".join(f"{k} {v:.1f}" for k, v in numbers["build_ms_median_by_stream"].items())
 
 
-def _smoke_coco(root, seed):
-    """The synthetic COCO of the loop phases under ``root``, written by the
-    first phase that asks (its time is that phase's): 48 labeled images as
-    smoke_lab and 48 unlabeled ones as smoke_unl, sides 480-800. The shapes
-    are of the generator's 8 categories; both jsons list 80, as COCO does,
-    so that the 81-class teacher's detections map to categories."""
+# the synthetic COCO splits of the workflow phases: split, labeled, seed offset, images
+SMOKE_SPLITS = {"smoke_lab": ("lab", True, 0, 48), "smoke_unl": ("unl", False, 1, 48),
+                "smoke_val": ("val", True, 2, 32)}
+
+
+def _smoke_coco(root, seed, names=("smoke_lab", "smoke_unl")):
+    """The synthetic COCO splits ``names`` under ``root``, each written by the
+    first phase that asks (its time is that phase's) and registered in the
+    port's catalog: 48 labeled images as smoke_lab, 48 unlabeled ones as
+    smoke_unl, 32 labeled ones as smoke_val; sides 480-800. The shapes are
+    of the generator's 8 categories; the jsons list 80, as COCO does, so
+    that the 81-class models' detections map to categories. Returns the
+    image directory of the last."""
     from sad_tpu_torch.config import register_dataset
     from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
 
-    for name, split, labeled, k in (("smoke_lab", "lab", True, 0), ("smoke_unl", "unl", False, 1)):
+    for name in names:
+        split, labeled, k, n = SMOKE_SPLITS[name]
         js = os.path.join(root, f"{'instances' if labeled else 'image_info'}_{split}.json")
         img_dir = os.path.join(root, f"images_{split}")
         if not os.path.exists(js):
-            img_dir, js = generate_synthetic_coco(root, split, 48, seed=seed + k,
+            img_dir, js = generate_synthetic_coco(root, split, n, seed=seed + k,
                                                   size_range=(480, 800), labeled=labeled)
             with open(js) as f:
                 doc = json.load(f)
-            names = {c["id"]: c["name"] for c in doc["categories"]}
-            doc["categories"] = [{"id": i, "name": names.get(i, f"category{i}")}
+            names_by_id = {c["id"]: c["name"] for c in doc["categories"]}
+            doc["categories"] = [{"id": i, "name": names_by_id.get(i, f"category{i}")}
                                  for i in range(1, 81)]
             with open(js, "w") as f:
                 json.dump(doc, f)
         register_dataset(name, img_dir, js, allow_override=True)
-    return os.path.join(root, "images_unl")
+    return img_dir
 
 
 def phase_sad_train_loop(torch, seed, iters, warmup, data_root):
@@ -1736,6 +1765,186 @@ def _mask_rcnn_train_loop(torch, data_root, tmp):
     return {"launches": launches, "loop": timed, "peak_gib": peak}
 
 
+def _gt_as_detections(doc):
+    """The split's own non-crowd ground truth as detections of score 1, with
+    its polygons as RLE masks."""
+    from sad_tpu_torch.utils.segms import mask_to_rle, polys_to_mask
+
+    hw = {im["id"]: (im["height"], im["width"]) for im in doc["images"]}
+    return [{"image_id": a["image_id"], "category_id": a["category_id"], "bbox": a["bbox"],
+             "score": 1.0, "segmentation": mask_to_rle(polys_to_mask(a["segmentation"],
+                                                                     *hw[a["image_id"]]))}
+            for a in doc["annotations"] if not a["iscrowd"]]
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None):
+    """test_net.main on ``model`` (saved as a native pickle, loaded through
+    --weights) over smoke_val or its ``im_range``, with the kernels and then
+    with their plain twins: the kernel run's launches, results, detections'
+    bytes and timing, and the device's kernel ms over the same inference
+    loop, profiled."""
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.data.dataset import CocoDataset
+    from sad_tpu_torch.eval import test_engine
+    from sad_tpu_torch.models import compute_dtype
+    from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
+    from sad_tpu_torch.tools import test_net
+    from sad_tpu_torch.tools.profile_infer import device_ms
+    from sad_tpu_torch.train.checkpoint import save_checkpoint
+
+    pkl = os.path.join(tmp, f"{name}.pkl")
+    save_checkpoint(pkl, model)
+    extra = ["--range", *map(str, im_range)] if im_range else []
+
+    def run(out_dir):
+        argv = ["--cfg", os.path.join(REPO, cfg_path), "--weights", pkl, *extra,
+                "TEST.DATASETS", "('smoke_val',)", "OUTPUT_DIR", out_dir]
+        test_net.main(argv)
+        return os.path.join(out_dir, "test", "smoke_val")
+
+    # the main path: the counts set to 0 just before, read just after
+    _reset_counts()
+    got_dir = run(os.path.join(tmp, f"{name}_kernels"))
+    launches = nms_kernel.launches, roi_align_kernel.launches
+    with _plain_twins():
+        twin_dir = run(os.path.join(tmp, f"{name}_plain"))
+    if (nms_kernel.launches, roi_align_kernel.launches) != launches:
+        raise AssertionError(f"test_net {name}: the plain-twin run launched a kernel")
+    files = {}
+    for fname in ("bbox_results.json", "results.json"):
+        with open(os.path.join(got_dir, fname), "rb") as f:
+            files[fname] = f.read()
+        with open(os.path.join(twin_dir, fname), "rb") as f:
+            if f.read() != files[fname]:
+                raise AssertionError(f"test_net {name}: {fname} differs from the plain-twin run")
+    timing = _read_json(os.path.join(got_dir, "timing.json"))
+    # the device's kernel time over the same loop, beside the unprofiled wall
+    cfg = load_cfg(os.path.join(REPO, cfg_path), ["TEST.DATASETS", "('smoke_val',)"])
+    ds = CocoDataset("smoke_val")
+    roidb = ds.get_roidb(include_gt=False)[slice(*(im_range or (None,)))]
+    model.to(compute_dtype(cfg))
+    kernel_ms = sum(device_ms(lambda: test_engine.run_inference_on_roidb(
+        cfg, model, roidb, ds.contiguous_to_json), 1, 0).values())
+    return {"launches": launches, "results": json.loads(files["results.json"]),
+            "n_dets": len(json.loads(files["bbox_results.json"])), "timing": timing,
+            "kernel_ms": kernel_ms, "idle": 1.0 - kernel_ms / (1e3 * timing["wall"]),
+            "bytes": len(files["bbox_results.json"])}
+
+
+def _split_line(t):
+    n = t["batches"]
+    parts = [f"{k.replace('_', ' ')} {1e3 * t[k] / n:.1f}"
+             for k in ("load_resize", "device", "mask_gather", "paste", "rle", "dicts")]
+    return ", ".join(parts)
+
+
+def phase_test_net(torch, seed, data_root, batch_imgs):
+    """The evaluation path through its entry point, test_net: the R-50
+    student and Mask R-CNN R-50-FPN on a synthetic COCO val split, the COCO
+    evaluator, then the checks. Runs go to a temporary directory under
+    ``data_root``, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="test_net_", dir=data_root) as tmp:
+        return _test_net(torch, seed, data_root, tmp, batch_imgs)
+
+
+def _test_net(torch, seed, data_root, tmp, batch_imgs):
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.config.config import Config, merge_cfg_from_dict
+    from sad_tpu_torch.data.dataset import CocoDataset
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.eval.coco_eval import COCOEvaluator
+    from sad_tpu_torch.eval.task_evaluation import ExpectedResultsError, check_expected_results
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.tools.profile_infer import spread_rcnn_outputs
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0, ("smoke_val",))
+    doc = CocoDataset("smoke_val").dataset
+    n_images = len(doc["images"])
+    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl",
+            "AR1", "AR10", "AR100", "ARs", "ARm", "ARl")
+
+    # the split's own ground truth as detections scores 1.0, boxes and masks
+    gt_dets = _gt_as_detections(doc)
+    gt_box = COCOEvaluator(doc).evaluate(gt_dets)
+    gt_segm = COCOEvaluator(doc, iou_type="segm").evaluate(gt_dets)
+    if gt_box["AP"] != 1.0 or gt_segm["AP"] != 1.0:
+        raise AssertionError(f"test_net: the ground truth as detections scores bbox AP "
+                             f"{gt_box['AP']}, segm AP {gt_segm['AP']}, want 1.0")
+
+    runs = {}
+    # the R-50 student: random weights from the seed, the whole split
+    student_cfg = load_cfg(os.path.join(REPO, STUDENT_CFG))
+    model = create_model(student_cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+    runs["student"] = _test_net_run(torch, "student", STUDENT_CFG, model, tmp)
+    del model
+    # Mask R-CNN: the output layers spread on one batch of canvases as in
+    # [mask_rcnn_infer]; the first 8 images (--range), as the segm
+    # evaluator decodes every detection's mask to the full image
+    mask_cfg = load_cfg(os.path.join(REPO, MASK_CFG))
+    model = create_model(mask_cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed + 1))
+    b = random_canvases(np.random.RandomState(seed + 1), 8, _test_canvas_shapes(mask_cfg)[0],
+                        "cuda")
+    spread_rcnn_outputs(mask_cfg, model, b["data"], b["im_hw"], b["content_hw"])
+    mask_images = 8
+    runs["mask"] = _test_net_run(torch, "mask", MASK_CFG, model, tmp, (0, mask_images))
+    del model, b
+    torch.cuda.empty_cache()
+
+    lines = []
+    for name, r in runs.items():
+        res, t = r["results"], r["timing"]
+        want = list(keys) + ([f"segm_{k}" for k in keys] if name == "mask" else [])
+        if sorted(res) != sorted(want) or not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"test_net {name}: results.json {res}")
+        nms_l, roi_l = r["launches"]
+        want_l = (t["batches"], 0) if name == "student" else (2 * t["batches"], 2 * t["batches"])
+        if (nms_l, roi_l) != want_l:
+            raise AssertionError(f"test_net {name}: {nms_l} NMS / {roi_l} RoIAlign launches in "
+                                 f"{t['batches']} batches, want {want_l}")
+        imgs = t["images"] / t["wall"]
+        reused = (f"{batch_imgs[name]:.2f}" if name in batch_imgs
+                  else "(not measured in this run)")
+        lines.append(
+            f"{name}: {t['images']} images in {t['batches']} batches, {r['n_dets']} detections "
+            f"({r['bytes'] / 1e6:.1f} MB of json), launches NMS {nms_l}, RoIAlign {roi_l}; "
+            f"dataset {imgs:.2f} imgs/s against {reused} for a reused batch; ms a "
+            f"batch: {_split_line(t)}; eval bbox {t['eval_bbox']:.2f} s"
+            + (f", segm {t['eval_segm']:.2f} s" if "eval_segm" in t else "")
+            + f"; device idle {r['idle']:.4f} ({r['kernel_ms']:.1f} ms kernels in "
+            f"{1e3 * t['wall']:.1f} ms); AP {res['AP']:.4f}, AR100 {res['AR100']:.4f}"
+            + (f", segm AP {res['segm_AP']:.4f}" if name == "mask" else ""))
+        r["imgs_per_s"] = imgs
+
+    # the EXPECTED_RESULTS gate on the student's results
+    gate = merge_cfg_from_dict(Config(), {
+        "EXPECTED_RESULTS": (("smoke_val", "box", "AP", 0.99),),
+        "EXPECTED_RESULTS_RTOL": 0.0, "EXPECTED_RESULTS_ATOL": 0.0})
+    try:
+        check_expected_results(gate, {"smoke_val": {"box": runs["student"]["results"]}})
+    except ExpectedResultsError:
+        pass
+    else:
+        raise AssertionError("test_net: the EXPECTED_RESULTS gate passed an AP of "
+                             f"{runs['student']['results']['AP']} against 0.99 with tolerance 0")
+
+    _phase("test_net", f"synthetic COCO val split, {n_images} images (sides 480-800, "
+           f"{len(doc['annotations'])} annotations); its ground truth as detections: bbox AP "
+           f"{gt_box['AP']:.1f}, segm AP {gt_segm['AP']:.1f}; test_net --weights (native "
+           f"pickles of seeded random weights): bbox_results.json and results.json "
+           f"byte-identical to the plain-twin runs, every metric finite, the EXPECTED_RESULTS "
+           f"gate raising on AP 0.99; " + "; ".join(lines), time.perf_counter() - t0)
+    return runs
+
+
 # phases that can be run alone with --only
 PARTIAL = {
     "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
@@ -1756,6 +1965,8 @@ PARTIAL = {
                                                                  a.warmup, a.loop_data),
     "mask_rcnn_train_loop": lambda torch, a, rng: phase_mask_rcnn_train_loop(torch,
                                                                              a.loop_data),
+    "test_net": lambda torch, a, rng: phase_test_net(torch, a.seed + 7, a.loop_data,
+                                                     a.batch_imgs),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -1788,9 +1999,10 @@ def main(argv=None) -> int:
         return 3
     import tempfile
 
-    # the training workflow's synthetic COCO and runs, removed at the end
+    # the workflow phases' synthetic COCO and runs, removed at the end
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as loop_data:
         args.loop_data = loop_data
+        args.batch_imgs = {}  # the serving phases' imgs/s, printed beside test_net's
         return _main(torch, args)
 
 
@@ -1830,8 +2042,8 @@ def _main(torch, args) -> int:
     nms_kernel.launches = roi_align_kernel.launches = 0
     cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
     cls_loss_kernel.fwd_by_rows, cls_loss_kernel.bwd_by_rows = {}, {}
-    phase_infer(torch, "student_infer", STUDENT_CFG, args.seed, args.batch,
-                args.iters, args.warmup)
+    student_imgs = phase_infer(torch, "student_infer", STUDENT_CFG, args.seed, args.batch,
+                               args.iters, args.warmup)
     phase_infer(torch, "teacher_infer", TEACHER_CFG, args.seed + 1, args.batch,
                 args.iters, args.warmup)
     nms_launches = nms_kernel.launches
@@ -1849,6 +2061,7 @@ def _main(torch, args) -> int:
             roi_align_kernel.launches != mask["roi_align_launches"]):
         raise AssertionError("a kernel was launched after the R-CNN serving runs")
     rcnn_batches = (faster["nms_launches"] + mask["nms_launches"]) // 2
+    args.batch_imgs = {"student": student_imgs, "mask": mask["imgs_per_s"]}
     # the R-CNN training steps: the counts are set to 0 inside, after the comparisons
     faster_t = PARTIAL["faster_rcnn_train"](torch, args, rng)
     mask_t = PARTIAL["mask_rcnn_train"](torch, args, rng)
@@ -1858,6 +2071,12 @@ def _main(torch, args) -> int:
     # run, and read just after it (the resume checks that follow launch more)
     sad_loop = PARTIAL["sad_train_loop"](torch, args, rng)
     mask_loop = PARTIAL["mask_rcnn_train_loop"](torch, args, rng)
+    # the evaluation path: the counts are set to 0 inside, just before each
+    # test_net run with the kernels, and read just after it
+    evals = PARTIAL["test_net"](torch, args, rng)
+    eval_nms = evals["student"]["launches"][0]
+    eval_rcnn = evals["mask"]["launches"][0] // 2
+    eval_roi = evals["mask"]["launches"][1] // 2
     phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
                      (fwd_stats, bwd_stats))
     phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
@@ -1890,19 +2109,22 @@ def _main(torch, args) -> int:
     print(json.dumps({"kernels": [{
         # RetinaNet decode shape; launches of the two RetinaNet serving runs
         "name": "greedy_nms_sorted", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
+        "test_net_launches": eval_nms,
     }, {
         # one launch a batch of each R-CNN serving run, at each of the two shapes
         "name": "greedy_nms_sorted@rpn", "launches": rcnn_batches, **nms_stats["rpn"], **nms_entry,
+        "test_net_launches": eval_rcnn,
     }, {
         "name": "greedy_nms_sorted@rcnn_decode", "launches": rcnn_batches,
-        **nms_stats["rcnn_decode"], **nms_entry,
+        **nms_stats["rcnn_decode"], **nms_entry, "test_net_launches": eval_rcnn,
     }, {
         # box RoIAlign: one launch a batch of both R-CNN runs; mask: of the Mask R-CNN run
         "name": "roi_align_fwd@box", **roi_stats["box"], **roi_entry,
         "launches": faster["roi_align_launches"] + mask["roi_align_launches"] // 2,
+        "test_net_launches": eval_roi,
     }, {
         "name": "roi_align_fwd@mask", **roi_stats["mask"], **roi_entry,
-        "launches": mask["roi_align_launches"] // 2,
+        "launches": mask["roi_align_launches"] // 2, "test_net_launches": eval_roi,
     }, {
         # the training steps: one NMS, one box RoIAlign pair a step of both families; the
         # mask pair and the mask target crop (forward only) a step of Mask R-CNN

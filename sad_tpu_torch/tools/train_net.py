@@ -2,14 +2,15 @@
 detectron/tools/train_net.py).
 
     python -m sad_tpu_torch.tools.train_net --cfg student.yaml \
-        [--teacher_cfg teacher.yaml] --skip-test [--max-iters N] \
+        [--teacher_cfg teacher.yaml] [--skip-test] [--max-iters N] \
         [--device cuda|cpu] [KEY VALUE ...]
 
 Reference YAML configs load directly (the config surface is compatible).
 Checkpoints, stats.jsonl and cfg.yaml go to OUTPUT_DIR/train/<datasets>/;
-re-running on the same directory resumes (TRAIN.AUTO_RESUME). The
-evaluation pass after training (test_net) is not ported yet: without
---skip-test the command raises.
+re-running on the same directory resumes (TRAIN.AUTO_RESUME). Unless
+--skip-test, the trained student is then evaluated on TEST.DATASETS[0] on the
+same device (test_net's evaluation: bbox_results.json and results.json in
+OUTPUT_DIR/test/<datasets>/) and held to cfg.EXPECTED_RESULTS.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..config import load_cfg
 from ..config.config import get_output_dir
 from ..train.train_loop import train_model
 from ..utils.logging import setup_logging
+from .test_net import evaluate_and_check
 
 
 def parse_args(argv=None):
@@ -31,7 +33,8 @@ def parse_args(argv=None):
     p.add_argument("--skip-test", action="store_true")
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--multi-gpu-testing", action="store_true",
-                   help="accepted for reference-CLI parity")
+                   help="accepted for reference-CLI parity; one card serves (multi-GPU is "
+                        "ROADMAP.md Queue 1 item 7)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default), 'cuda:N' or 'cpu'; no fallback from the card")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
@@ -41,10 +44,6 @@ def parse_args(argv=None):
 def main(argv=None):
     logger = setup_logging("train_net")
     args = parse_args(argv)
-    if not args.skip_test:
-        raise NotImplementedError(
-            "train_net's evaluation pass (test_net_on_dataset, COCO eval) is not ported to "
-            "sad_tpu_torch yet (ROADMAP.md Queue 1 item 3); pass --skip-test")
     cfg = load_cfg(args.cfg_file, args.opts or None)
     teacher_cfg = load_cfg(args.teacher_cfg_file) if args.teacher_cfg_file else None
     if cfg.MODEL.TYPE == "distillation" and teacher_cfg is None:
@@ -53,6 +52,9 @@ def main(argv=None):
 
     result = train_model(cfg, teacher_cfg, max_iters=args.max_iters, device=args.device)
     logger.info("Training complete -> %s", get_output_dir(cfg, training=True))
+    if not args.skip_test:
+        results = evaluate_and_check(cfg, result.model)
+        logger.info("Eval results: %s", results)
     return result
 
 

@@ -1,11 +1,13 @@
 """Segmentation masks on the host: polygon rasters, uncompressed and
 compressed COCO RLE, horizontal flips (ref: detectron/lib/utils/segms.py).
 
-A copy of what the R-CNN training batches and the dataset's flip need from
-sad_tpu/utils/segms.py: ``polys_to_mask``, ``flip_polys``, ``flip_segm``,
-``mask_to_rle``, ``rle_to_mask`` and ``rle_string_to_counts``. numpy and PIL
-only (no pycocotools). Pasting masks into images and the cv2-exact resize
-stay with the evaluation code that needs them.
+A copy of what the R-CNN training batches, the dataset's flip, the mask
+results of inference and the COCO evaluator need from sad_tpu/utils/segms.py:
+``polys_to_mask``, ``flip_polys``, ``flip_segm``, ``mask_to_bbox``,
+``paste_mask_into_image``, ``mask_to_rle``, ``rle_to_mask``,
+``rle_string_to_counts`` and ``polygon_area``. numpy, PIL and (when it
+imports) cv2; no pycocotools. The cv2-exact resize is the port's one copy in
+data/minibatch.py.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import List, Sequence
 
 import numpy as np
 from PIL import Image, ImageDraw
+
+from ..data.minibatch import _resize_bilinear
 
 
 def polys_to_mask(polygons: Sequence[Sequence[float]], height: int, width: int) -> np.ndarray:
@@ -44,6 +48,49 @@ def flip_segm(segm, width: int):
     if isinstance(segm, dict):
         return mask_to_rle(rle_to_mask(segm)[:, ::-1])
     return flip_polys(segm, width)
+
+
+def mask_to_bbox(mask: np.ndarray) -> np.ndarray:
+    ys, xs = np.where(mask > 0)
+    if len(xs) == 0:
+        return np.zeros(4, np.float32)
+    return np.asarray([xs.min(), ys.min(), xs.max(), ys.max()], np.float32)
+
+
+def paste_mask_into_image(
+    mask_prob: np.ndarray,  # (res, res) float
+    box: np.ndarray,  # (4,) xyxy in image coords
+    im_h: int,
+    im_w: int,
+    thresh: float = 0.5,
+) -> np.ndarray:
+    """Resize a roi-frame mask back into image frame and binarize —
+    exact transcription of test.py segm_results:817-861: zero-pad the mask
+    by 1 px and expand the box by (M+2)/M (prevents cv2's replicated-border
+    "top hat" artifacts), int32-truncate the expanded box, bilinear-resize
+    (cv2 INTER_LINEAR semantics), strict > threshold, clipped paste."""
+    m = mask_prob.shape[0]
+    scale = (m + 2.0) / m
+    w_half = (box[2] - box[0]) * 0.5 * scale
+    h_half = (box[3] - box[1]) * 0.5 * scale
+    x_c = (box[2] + box[0]) * 0.5
+    y_c = (box[3] + box[1]) * 0.5
+    ref = np.array(
+        [x_c - w_half, y_c - h_half, x_c + w_half, y_c + h_half]
+    ).astype(np.int32)
+    padded = np.zeros((m + 2, m + 2), np.float32)
+    padded[1:-1, 1:-1] = mask_prob
+    w = max(int(ref[2] - ref[0] + 1), 1)
+    h = max(int(ref[3] - ref[1] + 1), 1)
+    mask = (_resize_bilinear(padded, h, w) > thresh).astype(np.uint8)
+
+    out = np.zeros((im_h, im_w), np.uint8)
+    x0, y0 = max(int(ref[0]), 0), max(int(ref[1]), 0)
+    x1, y1 = min(int(ref[2]) + 1, im_w), min(int(ref[3]) + 1, im_h)
+    out[y0:y1, x0:x1] = mask[
+        y0 - ref[1] : y1 - ref[1], x0 - ref[0] : x1 - ref[0]
+    ]
+    return out
 
 
 def mask_to_rle(mask: np.ndarray) -> dict:
@@ -97,3 +144,10 @@ def rle_string_to_counts(s) -> List[int]:
             x += counts[-2]
         counts.append(x)
     return counts
+
+
+def polygon_area(poly: Sequence[float]) -> float:
+    """Shoelace area of one flat [x0,y0,x1,y1,...] polygon."""
+    xs = np.asarray(poly[0::2], np.float64)
+    ys = np.asarray(poly[1::2], np.float64)
+    return float(abs(np.dot(xs, np.roll(ys, -1)) - np.dot(ys, np.roll(xs, -1))) / 2.0)

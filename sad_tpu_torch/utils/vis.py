@@ -3,9 +3,9 @@
 PIL-based (matplotlib-free) box/label rendering for infer_simple and
 debugging. Writes PNG/PDF via PIL.
 
-A copy of sad_tpu/utils/vis.py for boxes and labels. Mask overlays and
-keypoint skeletons serve the R-CNN families, which the port does not have
-yet: asking for them raises NotImplementedError (ROADMAP.md Queue 1 item 8).
+A copy of sad_tpu/utils/vis.py for boxes, labels and mask overlays.
+Keypoint skeletons serve Keypoint R-CNN, which the port does not have yet:
+asking for them raises NotImplementedError (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 from PIL import Image, ImageDraw
+
+from .segms import rle_to_mask
 
 
 def colormap(n: int = 79) -> np.ndarray:
@@ -30,6 +32,22 @@ def colormap(n: int = 79) -> np.ndarray:
     return np.asarray(colors, np.uint8)
 
 
+def _blend_mask(
+    arr: np.ndarray, mask: np.ndarray, color, alpha: float = 0.4
+) -> None:
+    """In-place semi-transparent mask fill + 1px white border
+    (ref: vis.py vis_mask:97-112)."""
+    idx = mask.astype(bool)
+    col = np.asarray(color, np.float32)
+    arr[idx] = (arr[idx] * (1 - alpha) + col * alpha).astype(np.uint8)
+    # border: mask pixels adjacent to a non-mask pixel
+    pad = np.pad(idx, 1)
+    interior = (
+        pad[:-2, 1:-1] & pad[2:, 1:-1] & pad[1:-1, :-2] & pad[1:-1, 2:]
+    )
+    arr[idx & ~interior] = (255, 255, 255)
+
+
 def vis_one_image(
     im_rgb: np.ndarray,
     boxes: np.ndarray,  # (K, 4) xyxy
@@ -39,17 +57,29 @@ def vis_one_image(
     class_names: Optional[Sequence[str]] = None,
     thresh: float = 0.5,
     out_path: Optional[str] = None,
-    segms: Optional[Sequence] = None,  # R-CNN masks: not ported
+    segms: Optional[Sequence] = None,  # per-k RLE dict / binary mask / None
     keypoints: Optional[Sequence] = None,  # R-CNN keypoints: not ported
 ) -> Image.Image:
-    """Boxes + labels (ref: vis.py vis_one_image_opencv: vis_class +
-    vis_bbox)."""
-    if segms is not None or keypoints is not None:
+    """Boxes + labels, optional mask overlays (ref: vis.py
+    vis_one_image_opencv: vis_mask + vis_class + vis_bbox)."""
+    if keypoints is not None:
         raise NotImplementedError(
-            "mask and keypoint overlays serve the R-CNN families, which "
-            "sad_tpu_torch does not port yet (ROADMAP.md Queue 1 item 8)")
+            "keypoint overlays serve Keypoint R-CNN, which sad_tpu_torch does "
+            "not port yet (ROADMAP.md Queue 1 item 8)")
     arr = np.ascontiguousarray(im_rgb).copy()
     cmap = colormap()
+    if segms is not None:
+        for k in range(len(boxes)):
+            if valid is not None and not valid[k]:
+                continue
+            if scores[k] < thresh or k >= len(segms) or segms[k] is None:
+                continue
+            m = segms[k]
+            if isinstance(m, dict):
+                m = rle_to_mask(m)
+            _blend_mask(
+                arr, np.asarray(m), cmap[int(classes[k]) % len(cmap)]
+            )
     img = Image.fromarray(arr)
     draw = ImageDraw.Draw(img)
     for k in range(len(boxes)):

@@ -29,6 +29,7 @@ import torch
 from sad_tpu.ops.pallas_losses import fused_cls_losses_raw
 from sad_tpu_torch.ops import cls_loss_kernel as K
 from sad_tpu_torch.ops.fused_losses import cls_losses_bwd_plain, cls_losses_fwd_plain
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = K.ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
 LOG_FLT_MIN = np.float32(-87.33654475)

@@ -22,6 +22,7 @@ from sad_tpu_torch.ops.cls_loss_kernel import ClsLossParams
 from sad_tpu_torch.ops.fused_losses import (
     FusedClsLossesRaw, cls_losses_bwd_plain, cls_losses_fwd_plain, fused_cls_losses_raw_plain,
 )
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
 VARIANTS = {

@@ -490,3 +490,27 @@ def test_device_prefetcher_copies_equal_synchronous_copies(cuda):
         feed.shutdown()
     assert bool(equal.all()) and len(equal) == 200
     assert len(feed.copy_seconds) >= 50
+
+
+def test_mask_class_gather_and_paste_on_the_card_equal_the_cpus(cuda):
+    """run_inference_on_roidb gathers each kept detection's own class
+    channel of a bf16 mask_prob where it lies, then pastes on the host: the
+    card's gather gives the CPU's values, so the same pasted masks and RLE."""
+    from sad_tpu_torch.eval.test_engine import gather_class_masks
+    from sad_tpu_torch.utils.segms import mask_to_rle, paste_mask_into_image
+
+    gen = torch.Generator().manual_seed(0)
+    mask_prob = torch.rand((2, 100, 28, 28, 81), generator=gen).to(torch.bfloat16)
+    classes = torch.randint(0, 81, (2, 100), generator=gen, dtype=torch.int32)
+    got = gather_class_masks(mask_prob.to(cuda), classes.to(cuda)).cpu()
+    want = gather_class_masks(mask_prob, classes)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    rng = np.random.RandomState(1)
+    for j in range(2):
+        for k in range(0, 100, 7):
+            x1, y1 = rng.uniform(0, 500, 2)
+            box = np.array([x1, y1, x1 + rng.uniform(1, 300), y1 + rng.uniform(1, 300)],
+                           np.float32)
+            a = paste_mask_into_image(got[j, k].numpy(), box, 600, 800, 0.5)
+            b = paste_mask_into_image(want[j, k].numpy(), box, 600, 800, 0.5)
+            assert np.array_equal(a, b) and mask_to_rle(a) == mask_to_rle(b)

@@ -14,6 +14,7 @@ from sad_tpu_torch.config import load_cfg
 from sad_tpu_torch.convert import state_dict_to_params
 from sad_tpu_torch.models import create_model
 from sad_tpu_torch.tools.infer_simple import main
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = {
     "MODEL": {"TYPE": "retinanet", "NUM_CLASSES": 5,

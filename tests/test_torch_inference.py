@@ -29,7 +29,7 @@ from sad_tpu.ops.image_norm import normalize_u8_on_device as j_normalize
 import sad_tpu_torch.config as tcfg
 from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.convert import load_params
-from test_torch_models import random_params
+from test_torch_models import one_torch_thread, random_params  # noqa: F401
 from sad_tpu_torch.eval.inference import cell_anchors_on, decode_detections, make_inference_fn
 from sad_tpu_torch.models import RetinaNet
 from sad_tpu_torch.models.arch import ModelArch

@@ -30,6 +30,7 @@ from sad_tpu_torch.data.minibatch import RetinaNetMinibatchBuilder
 from sad_tpu_torch.data.mp_loader import MultiprocessTrainingLoader, spool_batch, unspool_batch
 from sad_tpu_torch.data.rpn_minibatch import RCNNMinibatchBuilder
 from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = {
     "MODEL": {"TYPE": "retinanet", "NUM_CLASSES": 9},

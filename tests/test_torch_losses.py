@@ -20,6 +20,7 @@ import torch
 from sad_tpu.ops import losses as J
 from sad_tpu.ops import reference_numpy as R
 from sad_tpu_torch.ops import losses as T
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 C = 80
 

@@ -24,6 +24,7 @@ from sad_tpu_torch.config.config import merge_cfg_from_dict as tmerge
 from sad_tpu_torch.data import dataset as tdataset
 from sad_tpu_torch.data.dataset import CocoDataset as TDataset
 from sad_tpu_torch.utils.vis import vis_one_image
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = {
     "MODEL": {"TYPE": "distillation", "NUM_CLASSES": 81},
@@ -156,5 +157,12 @@ def test_rcnn_only_branches_refuse():
     assert flipped["flipped"] and flipped["boxes"][0, 0] == 9.0
     im = np.zeros((8, 8, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        vis_one_image(im, np.zeros((1, 4)), np.ones(1), np.ones(1, int), segms=[None])
+        vis_one_image(im, np.zeros((1, 4)), np.ones(1), np.ones(1, int),
+                      keypoints=[np.zeros(51)])
     assert vis_one_image(im, np.zeros((1, 4)), np.ones(1), np.ones(1, int)).size == (8, 8)
+    # mask overlays serve Mask R-CNN's results (ported): a mask tints its pixels
+    mask = np.zeros((8, 8), np.uint8)
+    mask[2:6, 2:6] = 1
+    out = np.asarray(vis_one_image(im, np.zeros((1, 4)), np.ones(1), np.ones(1, int),
+                                   segms=[mask]))
+    assert out[3:5, 3:5].any() and not out[7, 7].any()

@@ -46,6 +46,21 @@ def _port_arch(jax_arch):
     return tarch.ModelArch(**dataclasses.asdict(jax_arch))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread while a test module of the port runs: the tiny
+    models gain nothing from intra-op threads, and beside the other test
+    processes on the same cores their spin-waits cost tens of seconds a
+    file. Test modules import it to use it; the prior count comes back
+    after the module."""
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prior)
+
+
 def random_params(module, x, seed):
     """Float32 params for a Flax module from numpy: fan-in scaled kernels,
     AffineChannel scales and offsets away from 1/0, non-zero biases (cheaper

@@ -22,6 +22,7 @@ import torch
 
 from sad_tpu.ops import nms as jnms
 from sad_tpu_torch.ops import nms as tnms
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 NEG = np.float32(-1e30)
 ONE = np.float32(1.0)

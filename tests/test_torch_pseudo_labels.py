@@ -21,7 +21,7 @@ import sad_tpu_torch.config as tcfg
 from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu.models import RetinaNet as JaxRetinaNet
 from sad_tpu_torch.convert import load_params
-from test_torch_models import random_params
+from test_torch_models import one_torch_thread, random_params  # noqa: F401
 from sad_tpu_torch.eval.test_engine import generate_pseudo_labels
 from sad_tpu_torch.models import RetinaNet
 from sad_tpu_torch.models.arch import ModelArch

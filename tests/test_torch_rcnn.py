@@ -23,6 +23,7 @@ from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.convert import load_params, params_to_state_dict, state_dict_to_params
 from sad_tpu_torch.models import GeneralizedRCNN, create_model
 from sad_tpu_torch.models import rcnn as trcnn
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = {
     "MODEL": {"TYPE": "generalized_rcnn", "CONV_BODY": "FPN.add_fpn_ResNet50_conv5_body",

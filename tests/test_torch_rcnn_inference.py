@@ -37,6 +37,7 @@ from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_detections, make_rcnn_
 from sad_tpu_torch.models import GeneralizedRCNN
 from test_torch_inference import _kept, canvases
 from test_torch_rcnn import TINY, cfg_pair, rcnn_params
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 KEYS = ("boxes", "scores", "classes", "valid")
 
@@ -187,12 +188,17 @@ def test_aux_on_boxes_raises():
     ({"TEST": {"SOFT_NMS": {"ENABLED": True}}}, "SOFT_NMS"),
     ({"TEST": {"BBOX_VOTE": {"ENABLED": True}}}, "BBOX_VOTE"),
     ({"TEST": {"PROPOSAL_FILES": ("props.pkl",)}}, "PROPOSAL_FILES"),
-    ({"MODEL": {"MASK_ON": True}}, "MASK_ON"),
+    ({"MODEL": {"FASTER_RCNN": False}, "TEST": {"PROPOSAL_FILES": ("props.pkl",)}},
+     "Queue 1 item 8"),
     ({"MODEL": {"MASK_ON": True}, "TEST": {"MASK_AUG": {"ENABLED": True}}}, "MASK_AUG"),
     ({"MODEL": {"TYPE": "rfcn"}}, "not ported"),
 ])
 def test_engine_refuses_unported_rcnn_options(over, match):
+    """Both entry points refuse before any work: test_net_on_dataset before
+    it reads the dataset. MODEL.MASK_ON is ported (mask results as RLE)."""
     tc = t_merge(t_merge(tcfg.Config(), TINY),
                  {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
     with pytest.raises(NotImplementedError, match=match):
         test_engine.run_inference_on_roidb(tc, None, [], {}, batch_size=2)
+    with pytest.raises(NotImplementedError, match=match):
+        test_engine.test_net_on_dataset(tc, None, "coco_2017_val", batch_size=2)

@@ -22,6 +22,7 @@ from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.ops.losses import smooth_l1_loss
 from sad_tpu_torch.train import mask_keypoint as tmk
 from sad_tpu_torch.train import rcnn_train as trt
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 
 def close(got, ref, rel=1e-5, abs_=1e-7):

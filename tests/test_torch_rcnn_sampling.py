@@ -16,6 +16,7 @@ from sad_tpu.ops.proposals import sample_proposal_labels as j_sample
 from sad_tpu.ops.proposals import sampled_fg_cap as j_fg_cap
 from sad_tpu_torch.ops import box_transforms as tbox
 from sad_tpu_torch.ops.proposals import sample_proposal_labels, sampled_fg_cap
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = dict(batch_size_per_im=16, fg_fraction=0.25, fg_thresh=0.5, bg_thresh_hi=0.5,
             bg_thresh_lo=0.0, num_classes=5)

@@ -33,6 +33,7 @@ from sad_tpu_torch.models import GeneralizedRCNN, bias_mask, trainable_mask
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step
 from sad_tpu_torch.train import rcnn_train
 from test_torch_rcnn import rcnn_params
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 HW = (64, 64)
 LR = 1e-2

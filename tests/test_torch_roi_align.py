@@ -20,6 +20,7 @@ from sad_tpu.ops.proposals import map_rois_to_fpn_levels as j_map_levels
 from sad_tpu_torch.ops import roi_align_kernel
 from sad_tpu_torch.ops.proposals import multilevel_roi_align as reexported
 from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 
 def fixture_inputs(seed=0, b=2, c=8, canvas=(256, 384), thin=False):

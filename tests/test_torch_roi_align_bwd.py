@@ -21,6 +21,7 @@ from sad_tpu_torch.ops import roi_align_kernel
 from sad_tpu_torch.ops.roi_align import (
     multilevel_roi_align, multilevel_roi_align_bwd_plain, multilevel_roi_align_plain,
 )
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 
 def case(seed=0, b=2, c=8, canvas=(128, 192), r=12, res=7):

@@ -16,6 +16,7 @@ import torch
 
 from sad_tpu.ops.proposals import dense_multilevel_roi_align
 from sad_tpu_torch.ops.roi_align import multilevel_roi_align_bwd_plain, roi_geometry
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 TILE = 8
 

@@ -35,6 +35,7 @@ from sad_tpu_torch.ops import roi_align_kernel as K
 from sad_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_geometry
 
 from test_torch_roi_align import _jax, _torch, fixture_inputs
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_THREADS = 256  # kThreads in the source
 STAGE_BYTES = 49152  # kStageBytes in the source

@@ -19,6 +19,7 @@ from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.data import rpn_minibatch as trm
 from sad_tpu_torch.data.dataset import flip_entry
 from sad_tpu_torch.utils import segms as tsegms
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
 OVER = {
     "MODEL": {"TYPE": "generalized_rcnn", "FASTER_RCNN": True, "MASK_ON": True, "NUM_CLASSES": 5,

@@ -17,9 +17,10 @@ written by the port:
   differ in the last bits without it); a third invocation is a no-op;
 - a NaN loss aborts with model_nan_abort.pkl;
 - the train_net CLI: the teacher's pseudo-labels registered as the
-  unlabeled stream and trained with --skip-test; without it the command
-  raises naming Queue 1 item 3; a distillation config without
-  --teacher_cfg exits 1.
+  unlabeled stream and trained with --skip-test; without it the finished
+  run is evaluated (results.json) and an impossible EXPECTED_RESULTS raises
+  ExpectedResultsError; a distillation config without --teacher_cfg
+  exits 1.
 """
 
 import glob
@@ -42,9 +43,10 @@ from sad_tpu_torch.config.config import cfg_to_yaml
 from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.convert import state_dict_to_params
 from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
+from sad_tpu_torch.eval.task_evaluation import ExpectedResultsError
 from sad_tpu_torch.train import checkpoint as tck
 from sad_tpu_torch.train import train_loop as tloop
-from test_torch_models import random_params
+from test_torch_models import one_torch_thread, random_params  # noqa: F401
 
 LAB, PL = "torch_loop_lab", "torch_loop_pl"
 
@@ -97,19 +99,6 @@ def t_cfg(out_dir, *extras):
 
 def train_dir(out_dir):
     return os.path.join(str(out_dir), "train", LAB)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny model gains nothing from torch's intra-op threads, and next
-    to other test processes on the same cores their spin-waits cost tens of
-    seconds."""
-    prior = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(prior)
 
 
 @pytest.fixture(scope="module")
@@ -320,8 +309,22 @@ def test_train_net_cli_on_pseudo_labels(data, tmp_path):
     with open(os.path.join(run, "stats.jsonl")) as f:
         assert all(np.isfinite(json.loads(l)["loss"]) for l in f)
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        train_net.main(["--cfg", ycfg, "--teacher_cfg", yteacher, "--device", "cpu"] + opts)
+    # without --skip-test: the finished run resumes as a no-op, then the
+    # student is evaluated on TEST.DATASETS and held to EXPECTED_RESULTS
+    test_opts = opts + ["TEST.DATASETS", f"('{LAB}',)", "TEST.SCALES", "(64,)",
+                        "TEST.MAX_SIZE", "128"]
+    evaluated = train_net.main(["--cfg", ycfg, "--teacher_cfg", yteacher, "--device", "cpu"]
+                               + test_opts)
+    assert evaluated.start_iter == 4 and evaluated.iter_seconds == []
+    test_dir = os.path.join(str(tmp_path / "cli"), "test", LAB)
+    with open(os.path.join(test_dir, "results.json")) as f:
+        results = json.load(f)
+    assert len(results) == 12 and all(np.isfinite(v) for v in results.values())
+    assert os.path.exists(os.path.join(test_dir, "bbox_results.json"))
+    with pytest.raises(ExpectedResultsError, match="AP"):
+        train_net.main(["--cfg", ycfg, "--teacher_cfg", yteacher, "--device", "cpu"] + test_opts
+                       + ["EXPECTED_RESULTS", f"(('{LAB}', 'box', 'AP', 0.99),)",
+                          "EXPECTED_RESULTS_RTOL", "0.0", "EXPECTED_RESULTS_ATOL", "0.0"])
     with pytest.raises(SystemExit) as info:
         train_net.main(["--cfg", ycfg, "--skip-test", "--device", "cpu"] + opts)
     assert info.value.code == 1
