@@ -3,8 +3,8 @@
 against its plain PyTorch version, and drive the RetinaNet serving path, the
 joint SAD training step, Faster / Mask R-CNN serving, the Faster / Mask
 R-CNN training step, the training workflow (pseudo-labels, train_net,
-checkpoints, resume) and the evaluation path (test_net, the COCO evaluator)
-end to end.
+checkpoints, resume), the evaluation path (test_net, the COCO evaluator) and
+the paper's R-101 <- X-101-64x4d pair at scale 500 end to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -182,6 +182,44 @@ line each (name, what was checked, time):
                  inference loop (torch.profiler kernel time of a second,
                  profiled loop over the unprofiled wall)
 
+  cls_loss_kernels_500
+                 with the kernel checks: the cls-loss kernels against their
+                 plain twin at the 5 levels of the scale-500 pair's 512x896
+                 canvas (P3 516,096 rows x 80 at bs 8, G=4), the same bounds;
+                 P3 timed; device times per level last, in cls_loss_levels_500
+  label_assign   after test_net, on the host: the native float32 assignment
+                 pass (sad_tpu_torch/native, built by g++ from the checkout)
+                 bit-equal to its numpy float32 twin on the 48 labeled images
+                 of the synthetic COCO at both canvases (640x1024 at scale
+                 600, 512x896 at 500), on the minibatch builder's assignment
+                 grid; ms an image of the pass, the twin and the whole
+                 assign_retinanet_labels; the images where a float64 pass
+                 would tie other anchors
+  x101_teacher_infer
+                 the X-101-64x4d-FPN teacher (64 groups of width 4, FOLD_AFFINE)
+                 at full width, bs 8 on 512x896, random bf16 weights: the
+                 checks of teacher_infer (decode equal to the plain-NMS one),
+                 NMS launches (and no other kernel), imgs/s, kernel ms a batch
+                 by category, idle share, peak memory
+  joint_step_500 the R-101 student and the frozen X-101 teacher of the scale-500
+                 YAMLs, bs 8 (G=4) on 512x896: the checks of joint_step (a
+                 kernel step against a plain-twin step, one launch of each
+                 cls-loss kernel at each of the 5 new level shapes a step),
+                 imgs/s, kernel ms a step by category, peak memory
+  fold_affine    FOLD_AFFINE on against off, the same weights in one process
+                 (seeded AffineChannel values away from s = 1, b = 0): the
+                 R-50 student's serving (bf16 model; per-level outputs
+                 within 0.05 of the unfolded output's max) and the R-50 +
+                 R-101 joint step (first-step metrics within 1e-2 relative);
+                 imgs/s of each, timed off/on/on/off, and elementwise kernel
+                 ms beside all kernel ms (torch.profiler)
+  softmax_step   a seeded R-50 RetinaNet step with RETINANET.SOFTMAX at full
+                 width, bs 8: each level's softmax focal loss within 1e-5 of
+                 the levels' sum and its cls-logit gradients within 1e-5 of the
+                 largest, against the float64 formula on the card,
+                 then warm-up + timed steps (finite, every trainable tensor
+                 updated, no kernel of ours launched); imgs/s
+
 Then a JSON line with every kernel of the paths (with the loops' launches
 as train_loop_launches and the evaluation's as test_net_launches), the
 card's name and power limit, and as the last
@@ -206,6 +244,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 STUDENT_CFG = "sad_tpu_torch/configs/retinanet_R-50-FPN_student.yaml"
 TEACHER_CFG = "sad_tpu_torch/configs/retinanet_R-101-FPN_teacher.yaml"
+# the paper's second experiment: R-101 student <- X-101-64x4d teacher at scale 500
+STUDENT_500_CFG = "sad_tpu_torch/configs/retinanet_R-101-FPN_student_500.yaml"
+TEACHER_500_CFG = "sad_tpu_torch/configs/retinanet_X-101-64x4d-FPN_teacher_500.yaml"
 FASTER_CFG = "sad_tpu_torch/configs/e2e_faster_rcnn_R-50-FPN.yaml"
 MASK_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml"
 # N problems, K candidates, max_out, threshold
@@ -228,12 +269,15 @@ def _phase(name: str, checked: str, seconds: float) -> None:
     print(f"[{name}] {checked} ({seconds:.3f} s)", flush=True)
 
 
-def _median_ms(torch, fn, iters: int, warmup: int) -> float:
-    """Median of per-call device times from CUDA events."""
+def _median_ms(torch, fn, iters: int, warmup: int, before=None) -> float:
+    """Median of per-call device times from CUDA events; ``before`` (e.g.
+    _l2_flush's) runs ahead of each call, outside the timed interval."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -368,6 +412,8 @@ F32_OPS_PER_S = 67e12
 CLS_FWD_OPS, CLS_FWD_POW_OPS, CLS_BWD_OPS = 100, 10, 120
 # flagship per-level grids (640x1024 canvas, strides 8..128), A = 9, C = 80
 LEVEL_HW = {3: (80, 128), 4: (40, 64), 5: (20, 32), 6: (10, 16), 7: (5, 8)}
+# the scale-500 pair's (512x896 canvas)
+LEVEL_HW_500 = {3: (64, 112), 4: (32, 56), 5: (16, 28), 6: (8, 14), 7: (4, 7)}
 # the card times of the cls-loss kernels at P3 of a bs 8 step before their
 # redesign (PERF.md section 6, rows #3 and #5; NVIDIA H100 80GB HBM3, 700.00 W)
 CLS_EARLIER_MS = {"fwd": 0.7658, "bwd": 0.6720}
@@ -403,6 +449,15 @@ def _cls_case(torch, gen, rows, groups, x_scale=3.0, clamp_rows=0, c=80, offset=
     return x, pt, labels, gf, gd
 
 
+def _l2_flush(torch):
+    """A write over 256 MiB, five times the H100's 50 MB L2: a call timed
+    after it finds none of its inputs in L2, and pays the write-back of an
+    L2 full of other lines, as it leaves its own last writes for the next
+    kernel to pay."""
+    buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    return buf.zero_
+
+
 def _cls_bounds(rows, c, groups):
     """The forward's and the backward's bounds with PowSum on: each input read
     once (x, pt, labels; the backward's cotangents), each output written once."""
@@ -411,7 +466,10 @@ def _cls_bounds(rows, c, groups):
             bound(12 * n + 4 * rows + 8 * groups, CLS_BWD_OPS * n))
 
 
-def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
+def phase_cls_losses(torch, seed, batch, groups, iters, warmup, level_hw=LEVEL_HW,
+                     phase="cls_loss_kernels", levels_only=False):
+    """The cls-loss kernels against their plain twin at the levels of
+    ``level_hw`` and, unless ``levels_only``, at the edge cases."""
     from sad_tpu_torch.ops import cls_loss_kernel as K
     from sad_tpu_torch.ops.fused_losses import cls_losses_bwd_plain, cls_losses_fwd_plain
 
@@ -420,10 +478,10 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = 9
     # name: rows, G, params, _cls_case keywords, the instance's vec width
-    level_of = {f"P{l} bs{batch} G={groups}": l for l in LEVEL_HW}
-    cases = {name: (batch * LEVEL_HW[l][0] * LEVEL_HW[l][1] * a, groups, flag, {}, 4)
+    level_of = {f"P{l} bs{batch} G={groups}": l for l in level_hw}
+    cases = {name: (batch * level_hw[l][0] * level_hw[l][1] * a, groups, flag, {}, 4)
              for name, l in level_of.items()}
-    cases.update({
+    cases.update({} if levels_only else {
         "rows not a multiple of a block, G=3": (3 * 1013, 3, flag, {}, 4),
         "G=1": (4099, 1, flag, {}, 4),
         "IGNORED_LABEL=5 (a class)": (2 * 3001, 2, flag._replace(ignored_label=5), {}, 4),
@@ -479,30 +537,34 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
             b_fwd, b_bwd = _cls_bounds(rows, x.shape[1], g)
             levels.append({"level": level, "rows": rows, "fwd_bound_ms": b_fwd["bound_ms"],
                            "bwd_bound_ms": b_bwd["bound_ms"]})
-            if level == 3:
+            if level == 3:  # each call after an L2 flush
+                flush = _l2_flush(torch)
                 ms_fwd = _median_ms(torch, lambda: K.cls_losses_fwd(x, pt, labels, g, p),
-                                    iters * 5, warmup)
+                                    iters * 5, warmup, flush)
                 ms_bwd = _median_ms(torch, lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, p),
-                                    iters * 5, warmup)
+                                    iters * 5, warmup, flush)
                 plain_fwd = _median_ms(torch, lambda: cls_losses_fwd_plain(x, pt, labels, g, p),
-                                       iters, warmup)
+                                       iters, warmup, flush)
                 plain_bwd = _median_ms(
-                    torch, lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, p), iters, warmup)
+                    torch, lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, p), iters, warmup,
+                    flush)
+                del flush
                 p3 = (rows, ms_fwd, ms_bwd, plain_fwd, plain_bwd, b_fwd, b_bwd)
         del x, pt, labels, sums, ref, dx, dref, again
 
     rows, ms_fwd, ms_bwd, plain_fwd, plain_bwd, b_fwd, b_bwd = p3
     worst = max(rels, key=lambda k: rels[k][0])
-    near0 = rels["pt log-uniform in 1e-6..1e-3"]
-    _phase("cls_loss_kernels", f"{len(cases)} cases, sums within 1e-5 relative and dx within "
+    near0 = rels.get("pt log-uniform in 1e-6..1e-3")
+    near0 = "" if near0 is None else f"; pt near 0: sums {near0[0]:.2e}, dx {near0[1]:.2e}"
+    _phase(phase, f"{len(cases)} cases, sums within 1e-5 relative and dx within "
            f"1e-5 * max|dx| of the plain twin (worst sums {rels[worst][0]:.2e} at {worst!r}, "
-           f"dx {max(v[1] for v in rels.values()):.2e}; pt near 0: sums {near0[0]:.2e}, dx "
-           f"{near0[1]:.2e}), two runs bit-equal; P3 bs{batch} ({rows} rows x "
+           f"dx {max(v[1] for v in rels.values()):.2e}{near0}), two runs bit-equal; "
+           f"P3 bs{batch} ({rows} rows x "
            f"80, G={groups}): fwd kernel {ms_fwd:.4f} ms (before the redesign "
            f"{CLS_EARLIER_MS['fwd']}; plain {plain_fwd:.4f}, bound {b_fwd['bound_ms']:.4f}), "
            f"bwd kernel {ms_bwd:.4f} ms (before {CLS_EARLIER_MS['bwd']}; plain "
            f"{plain_bwd:.4f}, bound {b_bwd['bound_ms']:.4f}) (CUDA-event medians of "
-           f"{iters * 5})", time.perf_counter() - t0)
+           f"{iters * 5}, each call after an L2 flush)", time.perf_counter() - t0)
     per_level = lambda k: [{"level": v["level"], "rows": v["rows"],  # noqa: E731
                             "bound_ms": v[f"{k}_bound_ms"]} for v in levels]
     return ({"max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": plain_fwd, **b_fwd,
@@ -511,36 +573,39 @@ def phase_cls_losses(torch, seed, batch, groups, iters, warmup):
              "levels": per_level("bwd")})
 
 
-def phase_cls_levels(torch, seed, batch, groups, iters, warmup, stats):
-    """The cls-loss kernels' device time at every flagship level from
-    torch.profiler, into stats' "levels" as "device_ms" (the level's only
-    time: an event median there is mostly host time). Run after the main
-    paths: with the
-    profiler run before them, the host-bound training steps of the same
-    process read slower (PERF.md section 6)."""
+def phase_cls_levels(torch, seed, batch, groups, iters, warmup, stats, level_hw=LEVEL_HW,
+                     name="cls_loss_levels"):
+    """The cls-loss kernels' device time at every level of ``level_hw`` from
+    torch.profiler, each call after an L2 flush (_l2_flush), into stats'
+    "levels" as "device_ms" (the level's only time: an event median there is
+    mostly host time). Run after the main paths: with the profiler run before
+    them, the host-bound training steps of the same process read slower
+    (PERF.md section 6)."""
     from sad_tpu_torch.ops import cls_loss_kernel as K
     from sad_tpu_torch.tools.profile_infer import device_ms
 
     t0 = time.perf_counter()
     flag = K.ClsLossParams(2.0, 0.25, 2.0, 0.5, 0.0, -1, 1.8, True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = _l2_flush(torch)  # its fill kernel is no "cls_losses" kernel, so not counted
     said = []
-    for i, (level, (h, w)) in enumerate(LEVEL_HW.items()):
+    for i, (level, (h, w)) in enumerate(level_hw.items()):
         x, pt, labels, gf, gd = _cls_case(torch, gen, batch * h * w * 9, groups)
-        by_kernel = device_ms(lambda: K.cls_losses_fwd(x, pt, labels, groups, flag), iters * 5,
-                              warmup, "cls_losses")
+        by_kernel = device_ms(lambda: (flush(), K.cls_losses_fwd(x, pt, labels, groups, flag)),
+                              iters * 5, warmup, "cls_losses")
         fwd = sum(by_kernel.values())
         sum_kernel = sum(v for k, v in by_kernel.items() if "cls_losses_sum" in k)
-        bwd = sum(device_ms(lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, flag), iters * 5,
-                            warmup, "cls_losses_bwd").values())
+        bwd = sum(device_ms(lambda: (flush(), K.cls_losses_bwd(x, pt, labels, gf, gd, flag)),
+                            iters * 5, warmup, "cls_losses_bwd").values())
         stats[0]["levels"][i]["device_ms"] = fwd
         stats[1]["levels"][i]["device_ms"] = bwd
         said.append(f"P{level}: fwd {fwd:.4f} (of which the sum kernel {sum_kernel:.4f}; bound "
                     f"{stats[0]['levels'][i]['bound_ms']:.4f}), bwd {bwd:.4f} (bound "
                     f"{stats[1]['levels'][i]['bound_ms']:.4f})")
         del x, pt, labels, gf, gd
-    _phase("cls_loss_levels", "device ms a call (torch.profiler, mean of "
-           f"{iters * 5}): " + "; ".join(said), time.perf_counter() - t0)
+    _phase(name, "device ms a call (torch.profiler, mean of "
+           f"{iters * 5}, each call after an L2 flush): " + "; ".join(said),
+           time.perf_counter() - t0)
 
 
 def _level_grads(torch, step, s_data, probs, batch):
@@ -552,17 +617,39 @@ def _level_grads(torch, step, s_data, probs, batch):
     return {k: v.detach() for k, v in metrics.items()}, torch.autograd.grad(total, logits)
 
 
-def phase_joint_step(torch, seed, groups, iters, warmup):
+def _kernel_ms_by_category(torch, fn, n, category):
+    """Kernel ms a call of fn by category (``category(kernel name)``) and in
+    all, from torch.profiler over n calls."""
+    from sad_tpu_torch.tools.profile_infer import device_ms
+
+    by_cat = {}
+    for kernel, ms in device_ms(fn, n, 0).items():
+        by_cat[category(kernel)] = by_cat.get(category(kernel), 0.0) + ms
+    return by_cat, sum(by_cat.values())
+
+
+def _cats(by_cat):
+    return ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1]))
+
+
+def phase_joint_step(torch, seed, groups, iters, warmup, name="joint_step", student=STUDENT_CFG,
+                     teacher=TEACHER_CFG, level_hw=LEVEL_HW, profile=False):
+    """The joint SAD step of a student / teacher pair at full width: a kernel
+    step against a plain-twin step, then the main path's steps; with
+    ``profile`` also kernel ms a step by category (torch.profiler)."""
     from sad_tpu_torch.ops import cls_loss_kernel
     from sad_tpu_torch.ops.fused_losses import fused_cls_losses_raw_plain
-    from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_train_step
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, _category, seeded_train_step
     from sad_tpu_torch.train import make_train_step
     from sad_tpu_torch.tools.profile_infer import wall_seconds
 
     t0 = time.perf_counter()
-    run = seeded_train_step(seed=seed, n_groups=groups, device="cuda")
-    if tuple(run.batch["data_u8"].shape) != (run.n_images, 640, 1024, 3):
-        raise AssertionError(f"joint step canvas {tuple(run.batch['data_u8'].shape)}")
+    run = seeded_train_step(os.path.join(REPO, student), os.path.join(REPO, teacher), seed=seed,
+                            n_groups=groups, device="cuda")
+    canvas = (level_hw[3][0] * 8, level_hw[3][1] * 8)
+    if tuple(run.batch["data_u8"].shape) != (run.n_images, *canvas, 3):
+        raise AssertionError(f"{name} canvas {tuple(run.batch['data_u8'].shape)}, want "
+                             f"{canvas}")
     step = run.step
     plain = make_train_step(run.student_cfg, run.student, run.teacher, n_groups=groups,
                             teacher_cfg=run.teacher_cfg, cls_losses=fused_cls_losses_raw_plain)
@@ -615,7 +702,7 @@ def phase_joint_step(torch, seed, groups, iters, warmup):
         raise AssertionError(f"cls-loss kernels launched {launches} times in {n_steps} "
                              f"steps, want 5 + 5 a step")
     # each level's (rows, 80) grid: one launch of each kernel a step
-    level_rows = {lvl: run.n_images * h * w * 9 for lvl, (h, w) in LEVEL_HW.items()}
+    level_rows = {lvl: run.n_images * h * w * 9 for lvl, (h, w) in level_hw.items()}
     per_level = {lvl: (by_rows[0].get(r, 0), by_rows[1].get(r, 0)) for lvl, r in level_rows.items()}
     if any(v != (n_steps, n_steps) for v in per_level.values()):
         raise AssertionError(f"cls-loss launches by level (fwd, bwd) {per_level} in {n_steps} "
@@ -640,7 +727,14 @@ def phase_joint_step(torch, seed, groups, iters, warmup):
         raise AssertionError("the teacher's parameters changed")
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    _phase("joint_step", f"R-50 student + R-101 teacher, {run.n_images}x640x1024 uint8, "
+    cats = ""
+    if profile:  # after the counts were read: these steps are no part of the main path
+        by_cat, busy = _kernel_ms_by_category(
+            torch, lambda: step(run.state, run.batch, BENCH_LR), 3, _category)
+        cats = (f"; kernel ms a step {busy:.3f} (torch.profiler, 3 steps): {_cats(by_cat)}; "
+                f"device idle {1 - busy / (1000 * med):.4f} of the median step")
+    pair = f"{os.path.basename(student)} + {os.path.basename(teacher)}"
+    _phase(name, f"{pair}, {run.n_images}x{canvas[0]}x{canvas[1]} uint8, "
            f"G={groups}, bf16, LR {BENCH_LR}: metrics of a kernel step and a plain-twin step "
            f"within {worst:.2e} rel, cls-logit grads within {gworst:.2e} of max; {n_steps} "
            f"steps, loss {vals[0]:.4f} -> {vals[-1]:.4f}, all {len(t_mask)} trainable tensors "
@@ -649,25 +743,29 @@ def phase_joint_step(torch, seed, groups, iters, warmup):
            f"{launches[0]} fwd + {launches[1]} bwd (fwd, bwd by level: {per_level}); "
            f"{run.n_images / med:.2f} imgs/s, "
            f"{1000 * med:.3f} ms/step (median of {iters} after {warmup} warm-up), peak "
-           f"{peak:.2f} GiB", time.perf_counter() - t0)
+           f"{peak:.2f} GiB{cats}", time.perf_counter() - t0)
     return launches, per_level
 
 
-def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
+def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup, canvas=(640, 1024),
+                profile=False):
+    """A RetinaNet config's serving path at full width on ``canvas``; with
+    ``profile`` also kernel ms a batch by category (torch.profiler). Returns
+    imgs/s and the NMS launches of the main path's batches (the check's, the
+    warm-up's and the timed ones; not the profiled ones)."""
     from sad_tpu_torch.eval.inference import decode_candidates, device_normalize, gather_detections
     from sad_tpu_torch.ops import nms_kernel
     from sad_tpu_torch.ops.nms import nms_multi_plain, offset_by_class
-    from sad_tpu_torch.tools.profile_infer import seeded_inference, wall_seconds
+    from sad_tpu_torch.tools.profile_infer import _category, seeded_inference, wall_seconds
 
     t0 = time.perf_counter()
     cfg, model, infer, args = seeded_inference(os.path.join(REPO, cfg_path), seed, batch, "cuda")
-    if tuple(args[0].shape) != (batch, 640, 1024, 3):
-        raise AssertionError(f"{name}: canvas {tuple(args[0].shape)}, want {batch}x640x1024x3")
+    if tuple(args[0].shape) != (batch, *canvas, 3):
+        raise AssertionError(f"{name}: canvas {tuple(args[0].shape)}, want {batch}x{canvas}x3")
     data, im_hw, im_scale, content_hw = args
     before = nms_kernel.launches
     dets = infer(*args)
     torch.cuda.synchronize()
-    launched = nms_kernel.launches - before
     max_out = cfg.TEST.DETECTIONS_PER_IM
     n_fg = cfg.MODEL.NUM_CLASSES - 1
     for key in ("boxes", "scores", "classes", "valid"):
@@ -680,7 +778,7 @@ def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
     cls = dets["classes"][valid]
     if cls.numel() == 0 or int(cls.min()) < 1 or int(cls.max()) > n_fg:
         raise AssertionError(f"{name}: {cls.numel()} detections, classes outside 1..{n_fg}")
-    if launched < 1:
+    if nms_kernel.launches == before:
         raise AssertionError(f"{name}: the NMS kernel was not launched")
 
     # the same per-level outputs through decode with the plain NMS, on the card
@@ -695,11 +793,22 @@ def phase_infer(torch, name, cfg_path, seed, batch, iters, warmup):
 
     times = wall_seconds(lambda: infer(*args), iters, warmup)
     med = statistics.median(times)
-    _phase(name, f"{cfg_path}: {batch}x640x1024 uint8, {int(valid.sum())} detections, "
-           f"classes in 1..{n_fg}, finite boxes, NMS kernel launched {launched}x, equal to "
-           f"the plain-NMS decode; {batch / med:.2f} imgs/s, {1000 * med / batch:.3f} ms/img "
-           f"(median of {iters} after {warmup} warm-up)", time.perf_counter() - t0)
-    return batch / med
+    launched = nms_kernel.launches - before
+    if launched != 1 + warmup + iters:
+        raise AssertionError(f"{name}: the NMS kernel launched {launched}x in "
+                             f"{1 + warmup + iters} batches")
+    cats = ""
+    if profile:  # after the count was read: these batches are no part of the main path
+        torch.cuda.reset_peak_memory_stats()
+        by_cat, busy = _kernel_ms_by_category(torch, lambda: infer(*args), 5, _category)
+        cats = (f"; kernel ms a batch {busy:.3f} (torch.profiler, 5 batches): {_cats(by_cat)}; "
+                f"device idle {1 - busy / (1000 * med):.4f} of the median batch; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _phase(name, f"{cfg_path}: {batch}x{canvas[0]}x{canvas[1]} uint8, {int(valid.sum())} "
+           f"detections, classes in 1..{n_fg}, finite boxes, equal to the plain-NMS decode, "
+           f"NMS kernel launched {launched}x in {1 + warmup + iters} batches; "
+           f"{batch / med:.2f} imgs/s, {1000 * med / batch:.3f} ms/img (median of {iters} after {warmup} warm-up){cats}", time.perf_counter() - t0)
+    return {"imgs_per_s": batch / med, "nms_launches": launched}
 
 
 def _edge_rois(torch, rng, batch, canvas, r):
@@ -1945,6 +2054,375 @@ def _test_net(torch, seed, data_root, tmp, batch_imgs):
     return runs
 
 
+def phase_label_assign(torch, data_root):
+    """The native float32 assignment pass (sad_tpu_torch/native, g++ from
+    the checkout) against its numpy float32 twin, bit-equal, on the synthetic
+    COCO's labeled images at both canvases (640x1024, scale 600; 512x896,
+    scale 500), each image's gt boxes scaled as the minibatch builder scales
+    them, on the builder's assignment grid. Host ms an image of the native
+    pass, of the twin and of the whole assign_retinanet_labels. No kernel of
+    the card runs here."""
+    from sad_tpu_torch import native
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.data.anchors import assign_retinanet_labels
+    from sad_tpu_torch.data.dataset import CocoDataset
+    from sad_tpu_torch.data.minibatch import RetinaNetMinibatchBuilder, compute_im_scale
+    from sad_tpu_torch.native.plain import assign_overlaps_plain
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0, names=("smoke_lab",))
+    roidb = CocoDataset("smoke_lab").get_roidb()
+    t_build = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t_build
+    said, stats = [], {}
+    for cfg_path in (STUDENT_CFG, STUDENT_500_CFG):
+        cfg = load_cfg(os.path.join(REPO, cfg_path))
+        builder = RetinaNetMinibatchBuilder(cfg)
+        grid = builder._assign_grid
+        flat = grid.flat_anchors()
+        ch, cw = builder.landscape
+        ms_native, ms_plain, ms_assign, fg = [], [], [], 0.0
+        for e in roidb:
+            scale = compute_im_scale(e["height"], e["width"], cfg.TRAIN.SCALES[0],
+                                     cfg.TRAIN.MAX_SIZE)
+            keep = (e["gt_classes"] > 0) & ~e["is_crowd"]
+            gt = (e["boxes"][keep] * scale).astype(np.float32)
+            t = time.perf_counter()
+            got = native.assign_overlaps(flat, gt)
+            ms_native.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            ref = assign_overlaps_plain(flat, gt)
+            ms_plain.append(1e3 * (time.perf_counter() - t))
+            for a, b in zip(got, ref):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    raise AssertionError(f"label_assign: {cfg_path} image {e['id']}: the native "
+                                         "pass differs from its float32 twin")
+            t = time.perf_counter()
+            out = assign_retinanet_labels(grid, gt, e["gt_classes"][keep], ch, cw,
+                                          cfg.RETINANET.POSITIVE_OVERLAP,
+                                          cfg.RETINANET.NEGATIVE_OVERLAP)
+            ms_assign.append(1e3 * (time.perf_counter() - t))
+            fg += out[3]
+        key = f"{ch}x{cw}"
+        stats[key] = {"native_ms": statistics.median(ms_native),
+                      "plain_ms": statistics.median(ms_plain),
+                      "assign_ms": statistics.median(ms_assign)}
+        said.append(f"{key} ({len(flat)} anchors): native {stats[key]['native_ms']:.2f} ms an "
+                    f"image, float32 twin {stats[key]['plain_ms']:.2f}, "
+                    f"assign_retinanet_labels {stats[key]['assign_ms']:.2f} (medians); "
+                    f"{fg / len(roidb):.1f} fg anchors an image")
+    _phase("label_assign", f"the native pass (loaded in {build_s:.2f} s, "
+           f"{native.library_path().name}) bit-equal to its numpy float32 twin on all "
+           f"{len(roidb)} images at both canvases; " + "; ".join(said), time.perf_counter() - t0)
+    return stats
+
+
+def _elementwise_ms(torch, fn, category, n=5):
+    """(elementwise kernel ms, all kernel ms) a call of fn, torch.profiler
+    over n calls."""
+    by_cat, busy = _kernel_ms_by_category(torch, fn, n, category)
+    return by_cat.get("elementwise", 0.0), busy
+
+
+def _spread_affine(torch, model, seed):
+    """Seeded frozen AffineChannel values away from their init (s = 1, b = 0,
+    where the fold is exact), as a trained model's BN statistics are: s in
+    0.5..1.5, b ~ N(0, 0.1)."""
+    from sad_tpu_torch.models.resnet import AffineChannel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, AffineChannel):
+                m.s.copy_(torch.rand(m.s.shape, generator=gen, device="cuda") + 0.5)
+                m.b.copy_(torch.randn(m.b.shape, generator=gen, device="cuda") * 0.1)
+
+
+# FOLD_AFFINE against the unfolded form with the same weights. At float32 the
+# two differ by rounding only: output levels within FOLD_F32_TOL of the level's
+# largest magnitude, the first step's metrics within FOLD_F32_STEP relative,
+# its momentum (the gradient) within FOLD_F32_GRAD in L2 of each trainable
+# tensor; each of FOLD_FAULTS must read above all three. At bf16 W*s is rounded
+# once more (the rounding of conv(x, W) * s goes): outputs within FOLD_BF16_TOL,
+# metrics within FOLD_STEP_REL; a dropped b hides in that rounding, so the
+# float32 readings are what hold the fold. Each limit lies between the sound
+# reading and the smallest fault's on the H100 (PERF.md section 6)
+FOLD_F32_TOL, FOLD_F32_STEP, FOLD_F32_GRAD = 2e-5, 2e-6, 1e-2
+FOLD_BF16_TOL, FOLD_STEP_REL = 0.03, 1e-3
+# planted faults of a fold: one conv's b dropped (early in the body, at its
+# end) and one shortcut's s not applied; each is one AffineChannel of the
+# folded student set to b = 0 or s = 1, restored after
+FOLD_FAULTS = {"b of res2_0_branch2a dropped": ("res2_0_branch2a_bn", "b"),
+               "b of res5_2_branch2c dropped": ("res5_2_branch2c_bn", "b"),
+               "s of res3_0_branch1 not applied": ("res3_0_branch1_bn", "s")}
+
+
+@contextlib.contextmanager
+def _planted(torch, model, suffix, attr):
+    """One of FOLD_FAULTS in ``model`` for the duration of the block."""
+    (m,) = [m for n, m in model.named_modules() if n.endswith(suffix)]
+    p = getattr(m, attr)
+    keep = p.detach().clone()
+    with torch.no_grad():
+        p.fill_(0.0 if attr == "b" else 1.0)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            p.copy_(keep)
+
+
+def _out_rel(got, want):
+    """The largest |got - want| of an output level over its largest |want|."""
+    return max(float((got[k][l] - want[k][l]).abs().max() / want[k][l].abs().max())
+               for k in want for l in want[k])
+
+
+def _fold_serving(torch, off, on, x):
+    """Fold (``on``) against unfold (``off``) on the normalised batch x:
+    the sound reading, each planted fault's, and whether an output level
+    came out bit-equal (the fold did not run)."""
+    heads = ("cls_logits", "bbox_pred")
+    with torch.inference_mode():
+        want, got = off(x, outputs=heads), on(x, outputs=heads)
+    faults = {}
+    for fault, (suffix, attr) in FOLD_FAULTS.items():
+        with _planted(torch, on, suffix, attr), torch.inference_mode():
+            faults[fault] = _out_rel(on(x, outputs=heads), want)
+    same = any(torch.equal(got[k][l], want[k][l]) for k in want for l in want[k])
+    return _out_rel(got, want), faults, same
+
+
+def _fold_step(torch, runs, lr):
+    """The first joint step of runs["off"] and runs["on"] (seeded alike) and
+    of the folded one with each planted fault, from the same state: the
+    metrics' largest relative difference and the momentum's (the gradient's)
+    largest L2 difference of a trainable tensor, sound and each fault's."""
+    off, on = runs["off"], runs["on"]
+    a, b = off.student.state_dict(), on.student.state_dict()
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("fold_affine: the two seeded students' weights differ")
+    params = dict(on.student.named_parameters())
+    snap = {n: params[n].detach().clone() for n in on.step.names}  # what a step changes
+
+    def step():
+        with torch.no_grad():
+            for n, p in snap.items():
+                params[n].copy_(p)
+            for v in on.state.velocity.values():
+                v.zero_()
+        return on.step(on.state, on.batch, lr)
+
+    want = off.step(off.state, off.batch, lr)
+    if sorted(step()) != sorted(want):
+        raise AssertionError("fold_affine: the folded step's metrics are other ones")
+
+    def rel(m):
+        return (max(float((m[k] - want[k]).abs() / want[k].abs().clamp_min(1e-30)) for k in want),
+                max(float((on.state.velocity[n] - v).norm() / v.norm().clamp_min(1e-30))
+                    for n, v in off.state.velocity.items()))
+
+    sound = rel(step())
+    faults = {}
+    for fault, (suffix, attr) in FOLD_FAULTS.items():
+        with _planted(torch, on.student, suffix, attr):
+            faults[fault] = rel(step())
+    step()
+    return sound, faults
+
+
+def phase_fold_affine(torch, seed, batch, groups, iters, warmup):
+    """FOLD_AFFINE on against off with the same weights in one process (the
+    AffineChannels spread by _spread_affine): the R-50 student's serving and
+    the R-50 <- R-101 joint step (float32 parameters), each at float32 and
+    at bf16 compute. The readings within the stated limits, and each of
+    FOLD_FAULTS above the float32 ones; at bf16 imgs/s and elementwise
+    kernel ms of each, the two timed in turns (off, on, on, off)."""
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.eval.inference import device_normalize, make_inference_fn
+    from sad_tpu_torch.models import compute_dtype, create_model
+    from sad_tpu_torch.tools import profile_infer, profile_train
+    from sad_tpu_torch.tools.profile_infer import seeded_inference, wall_seconds
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_train_step
+
+    t0 = time.perf_counter()
+    path = os.path.join(REPO, STUDENT_CFG)
+    cfg, off_model, off_infer, args = seeded_inference(path, seed, batch, "cuda")
+    _spread_affine(torch, off_model, seed)
+    models = {}
+    for dt in ("bfloat16", "float32"):
+        for fold in ("False", "True"):
+            c = load_cfg(path, ["COMPUTE_DTYPE", dt, "FOLD_AFFINE", fold])
+            m = create_model(c, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+            m.to(compute_dtype(c)).load_state_dict(off_model.state_dict())
+            models[dt, fold] = m
+    on_infer = make_inference_fn(load_cfg(path, ["FOLD_AFFINE", "True"]),
+                                 models["bfloat16", "True"])
+    data, _, _, content_hw = args
+    serve_hw = "x".join(map(str, data.shape[1:3]))
+    with torch.inference_mode():
+        x = device_normalize(cfg, data, content_hw)
+    serve = {dt: _fold_serving(torch, models[dt, "False"], models[dt, "True"], x)
+             for dt in ("float32", "bfloat16")}
+    del x, models
+    times = {"off": [], "on": []}
+    for key in ("off", "on", "on", "off"):
+        fn = (off_infer if key == "off" else on_infer)
+        times[key] += wall_seconds(lambda: fn(*args), iters, warmup)
+    serve_ew = {key: _elementwise_ms(torch, lambda: fn(*args), profile_infer._category)
+                for key, fn in (("off", off_infer), ("on", on_infer))}
+    serve_imgs = {k: batch / statistics.median(v) for k, v in times.items()}
+    del off_model, off_infer, on_infer
+    torch.cuda.empty_cache()
+
+    step = {}
+    for dt in ("float32", "bfloat16"):
+        runs = {key: seeded_train_step(seed=seed, n_groups=groups, device="cuda",
+                                       opts=["COMPUTE_DTYPE", dt, "FOLD_AFFINE", fold])
+                for key, fold in (("off", "False"), ("on", "True"))}
+        for r in runs.values():
+            _spread_affine(torch, r.student, seed)
+            _spread_affine(torch, r.teacher, seed + 1)
+        step[dt] = _fold_step(torch, runs, BENCH_LR)
+        if dt == "float32":
+            del runs
+            torch.cuda.empty_cache()
+    train = {"off": [], "on": []}
+    for key in ("off", "on", "on", "off"):
+        r = runs[key]
+        train[key] += wall_seconds(lambda: r.step(r.state, r.batch, BENCH_LR), iters, warmup)
+    train_ew = {key: _elementwise_ms(torch, lambda: r.step(r.state, r.batch, BENCH_LR),
+                                      profile_train._category, n=3)
+                for key, r in runs.items()}
+    n_img = runs["off"].n_images
+    train_hw = "x".join(map(str, runs["off"].batch["data_u8"].shape[1:3]))
+    del runs
+    torch.cuda.empty_cache()
+    out = {"serve_imgs": serve_imgs,
+           "train_imgs": {k: n_img / statistics.median(v) for k, v in train.items()},
+           "serve_ew": serve_ew, "train_ew": train_ew, "serve": serve, "step": step}
+    fmt = lambda d: f"off {d['off'][0]:.3f} of {d['off'][1]:.3f}, on {d['on'][0]:.3f} of " \
+                    f"{d['on'][1]:.3f}"  # noqa: E731
+    faults = lambda d, i=None: ", ".join(  # noqa: E731
+        f"{k} {v if i is None else v[i]:.3e}" for k, v in d.items())
+    (s32, f32, _), (s16, f16, _) = serve["float32"], serve["bfloat16"]
+    ((m32, g32), sf32), ((m16, _), sf16) = step["float32"], step["bfloat16"]
+    _phase("fold_affine", f"fold vs unfold, planted faults in brackets. R-50 student serving, "
+           f"{batch}x{serve_hw} uint8: float32 outputs within {s32:.3e} of max (limit "
+           f"{FOLD_F32_TOL}; {faults(f32)}), bf16 {s16:.3e} (limit {FOLD_BF16_TOL}; "
+           f"{faults(f16)}); bf16 imgs/s off {serve_imgs['off']:.2f}, on "
+           f"{serve_imgs['on']:.2f} (medians of {2 * iters} batches each, timed off/on/on/off); "
+           f"elementwise kernel ms a batch (of all kernels) {fmt(serve_ew)}. Joint step R-50 + "
+           f"R-101, {n_img}x{train_hw}, G={groups}, first step: float32 metrics within "
+           f"{m32:.3e} relative (limit {FOLD_F32_STEP}; {faults(sf32, 0)}) and momentum within "
+           f"{g32:.3e} in L2 (limit {FOLD_F32_GRAD}; {faults(sf32, 1)}), bf16 metrics "
+           f"{m16:.3e} (limit {FOLD_STEP_REL}; {faults(sf16, 0)}); bf16 imgs/s off "
+           f"{out['train_imgs']['off']:.2f}, on {out['train_imgs']['on']:.2f} (medians of "
+           f"{2 * iters} steps each); elementwise kernel ms a step {fmt(train_ew)} "
+           f"(torch.profiler)", time.perf_counter() - t0)
+    # the checks, after the line that holds every reading
+    if serve["float32"][2] or serve["bfloat16"][2]:
+        raise AssertionError("fold_affine serving: an output level bit-equal, the fold did "
+                             "not run")
+    if not (s32 <= FOLD_F32_TOL and s16 <= FOLD_BF16_TOL and m32 <= FOLD_F32_STEP
+            and g32 <= FOLD_F32_GRAD and m16 <= FOLD_STEP_REL):
+        raise AssertionError("fold_affine: fold against unfold outside a stated limit")
+    missed = [f for f in FOLD_FAULTS if not (f32[f] > FOLD_F32_TOL and sf32[f][0] > FOLD_F32_STEP
+                                             and sf32[f][1] > FOLD_F32_GRAD)]
+    if missed:
+        raise AssertionError(f"fold_affine: planted faults within the float32 limits: {missed}")
+    return out
+
+
+def _softmax_focal64(torch, logits, labels, fg_num, gamma, alpha, scale):
+    """softmax_focal_loss_op.cu's forward (:55-90) and published backward
+    (:96-140) in float64 on the card: the (G,) losses of (G, ..., A, C)
+    logits and their gradient under a unit cotangent."""
+    x = logits.double()
+    p = torch.softmax(x, dim=-1)
+    t = labels.long()
+    np_ = fg_num.double().clamp_min(1.0).view((-1,) + (1,) * (t.dim() - 1))
+    z = torch.where(t == 0, (1 - alpha) / np_, 0.0) + torch.where(t >= 1, alpha / np_, 0.0)
+    pl = torch.gather(p, -1, t.clamp_min(0)[..., None])[..., 0]
+    logp = torch.log(pl.clamp_min(float(np.finfo(np.float32).tiny)))
+    loss = torch.where(t >= 0, -(1 - pl) ** gamma * logp * z, 0.0)
+    buff = torch.where(t >= 0, (-(1 - pl) ** gamma + gamma * (1 - pl) ** (gamma - 1) * pl * logp)
+                       * z, 0.0)
+    onehot = (t[..., None] == torch.arange(x.shape[-1], device=x.device)).double()
+    return scale * loss.flatten(1).sum(1), scale * buff[..., None] * (onehot - p)
+
+
+SOFTMAX_TOL = 1e-5  # float32 against float64: of the levels' loss sum, of the largest gradient
+
+
+def phase_softmax_step(torch, seed, groups, iters, warmup):
+    """A seeded R-50 RetinaNet step with RETINANET.SOFTMAX (81 logits an
+    anchor, the softmax focal loss): each level's loss and the gradient of
+    the step's loss w.r.t. its cls logits against the float64 formula on the
+    card (within SOFTMAX_TOL of the largest across levels), then warm-up + timed steps: finite losses, trainable tensors
+    updated; imgs/s."""
+    from sad_tpu_torch.tools.profile_infer import wall_seconds
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_train_step
+    from sad_tpu_torch.train.train_step import _group_view, _split_anchor_axis
+
+    t0 = time.perf_counter()
+    run = seeded_train_step(os.path.join(REPO, STUDENT_CFG), None, seed=seed, n_groups=groups,
+                            device="cuda",
+                            opts=["MODEL.TYPE", "retinanet", "RETINANET.SOFTMAX", "True"])
+    cfg, step, batch = run.student_cfg, run.step, run.batch
+    s_data, _ = step.inputs(batch)
+    out = step.forward(s_data)
+    total, metrics = step.losses(out, None, batch)
+    levels = cfg.fpn_levels()
+    grads = torch.autograd.grad(total, [out["cls_logits"][l] for l in levels])
+    a = cfg.num_anchors_per_cell()
+    loss_diff, loss_ref, grad_diff, grad_ref = [], [], [], []
+    for lvl, g in zip(levels, grads):
+        x = _split_anchor_axis(out["cls_logits"][lvl].detach(), a)
+        if x.shape[-1] != cfg.MODEL.NUM_CLASSES:
+            raise AssertionError(f"softmax_step: {x.shape[-1]} logits an anchor")
+        ref, dref = _softmax_focal64(torch, _group_view(x, groups),
+                                     _group_view(batch["labels"][lvl], groups), batch["fg_num"],
+                                     cfg.RETINANET.LOSS_GAMMA, cfg.RETINANET.LOSS_ALPHA,
+                                     1.0 / groups)
+        loss_diff.append(abs(float(metrics[f"fl_fpn{lvl}"].detach()) - float(ref.sum())))
+        loss_ref.append(abs(float(ref.sum())))
+        grad_diff.append(float((g.double() - dref.reshape(g.shape)).abs().max()))
+        grad_ref.append(float(dref.abs().max()))
+    # against the largest across levels: a level of well-classified background
+    # (P7) has a loss and gradients 1e5 times smaller, where float32's 1 - p
+    # keeps few digits, in the reference's CUDA op as here
+    loss_err, grad_err = max(loss_diff) / sum(loss_ref), max(grad_diff) / max(grad_ref)
+    if not (loss_err <= SOFTMAX_TOL and grad_err <= SOFTMAX_TOL):
+        raise AssertionError(f"softmax_step: loss {loss_err:.3e} relative, cls-logit grads "
+                             f"{grad_err:.3e} of max from the float64 formula (limit "
+                             f"{SOFTMAX_TOL})")
+    del s_data, out, total, grads
+    params = dict(run.student.named_parameters())
+    snap = {n: params[n].detach().clone() for n in step.names}
+    losses = []
+    times = wall_seconds(lambda: losses.append(step(run.state, batch, BENCH_LR)["loss"]),
+                         iters, warmup)
+    vals = [float(v) for v in losses]
+    if not all(np.isfinite(vals)):
+        raise AssertionError(f"softmax_step: non-finite loss {vals}")
+    still = [n for n in step.names if not bool(run.state.velocity[n].any())]
+    if still:
+        raise AssertionError(f"softmax_step: {len(still)} trainable tensors got no update")
+    moved = sum(not torch.equal(params[n], snap[n]) for n in step.names)
+    med = statistics.median(times)
+    canvas = "x".join(map(str, batch["data_u8"].shape[:3]))
+    _phase("softmax_step", f"R-50 RetinaNet with RETINANET.SOFTMAX, {canvas} uint8, "
+           f"G={groups}, bf16: the 5 levels' softmax focal losses within {loss_err:.2e} of "
+           f"their sum and the cls-logit gradients within {grad_err:.2e} of the largest of "
+           f"the float64 formula (limit {SOFTMAX_TOL}); {iters + warmup} steps, loss {vals[0]:.4f} -> "
+           f"{vals[-1]:.4f}, all {len(step.names)} trainable tensors updated, {moved} changed; "
+           f"{run.n_images / med:.2f} imgs/s ({1000 * med:.3f} ms/step)",
+           time.perf_counter() - t0)
+    return run.n_images / med
+
+
 # phases that can be run alone with --only
 PARTIAL = {
     "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
@@ -1967,6 +2445,20 @@ PARTIAL = {
                                                                              a.loop_data),
     "test_net": lambda torch, a, rng: phase_test_net(torch, a.seed + 7, a.loop_data,
                                                      a.batch_imgs),
+    "cls_loss_kernels_500": lambda torch, a, rng: phase_cls_losses(
+        torch, a.seed, a.batch, a.groups, a.iters, a.warmup, LEVEL_HW_500,
+        "cls_loss_kernels_500", levels_only=True),
+    "label_assign": lambda torch, a, rng: phase_label_assign(torch, a.loop_data),
+    "x101_teacher_infer": lambda torch, a, rng: phase_infer(
+        torch, "x101_teacher_infer", TEACHER_500_CFG, a.seed + 8, a.batch, a.iters, a.warmup,
+        canvas=(512, 896), profile=True),
+    "joint_step_500": lambda torch, a, rng: phase_joint_step(
+        torch, a.seed + 9, a.groups, a.iters, a.warmup, "joint_step_500", STUDENT_500_CFG,
+        TEACHER_500_CFG, LEVEL_HW_500, profile=True),
+    "fold_affine": lambda torch, a, rng: phase_fold_affine(torch, a.seed, a.batch, a.groups,
+                                                           a.iters, a.warmup),
+    "softmax_step": lambda torch, a, rng: phase_softmax_step(torch, a.seed + 10, a.groups,
+                                                             a.iters, a.warmup),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -2008,27 +2500,32 @@ def main(argv=None) -> int:
 
 def _main(torch, args) -> int:
     from sad_tpu_torch.device import nvidia_smi_line, set_tf32
+    from sad_tpu_torch import native
     from sad_tpu_torch.ops import _build, cls_loss_kernel, nms_kernel, roi_align_kernel
 
     t0 = time.perf_counter()
     gpu = nvidia_smi_line()
     tf32 = set_tf32(False)
     lib = _build.load_library()
+    t_host = time.perf_counter()
+    host_lib = native.load()  # g++, before any loader process spawns
+    host_s = time.perf_counter() - t_host
     regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
     _phase("env", f"{gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
            f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; TF32 {tf32}; "
            f"kernels built in {lib.build_seconds:.2f} s ({'cached' if lib.cached else 'nvcc'}, "
-           f"{os.path.relpath(lib.path, REPO)}); ptxas: {regs}", time.perf_counter() - t0)
+           f"{os.path.relpath(lib.path, REPO)}); ptxas: {regs}; host kernels (g++) "
+           f"{host_s:.2f} s ({os.path.basename(host_lib._name)})", time.perf_counter() - t0)
 
     rng = np.random.RandomState(args.seed)
     if args.only:
-        for name in args.only.split(","):
-            out = PARTIAL[name](torch, args, rng)
-            if name == "cls_loss_kernels":
-                cls_stats = out
-        if "cls_loss_kernels" in args.only.split(","):
+        outs = {name: PARTIAL[name](torch, args, rng) for name in args.only.split(",")}
+        if "cls_loss_kernels" in outs:
             phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
-                             cls_stats)
+                             outs["cls_loss_kernels"])
+        if "cls_loss_kernels_500" in outs:
+            phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
+                             outs["cls_loss_kernels_500"], LEVEL_HW_500, "cls_loss_levels_500")
         if ROI_TIMERS:
             phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
         print("partial run: no result")
@@ -2037,13 +2534,14 @@ def _main(torch, args) -> int:
     roi_stats = PARTIAL["roi_align_kernel"](torch, args, rng)
     roi_bwd_stats = PARTIAL["roi_align_bwd_kernel"](torch, args, rng)
     fwd_stats, bwd_stats = PARTIAL["cls_loss_kernels"](torch, args, rng)
+    fwd500, bwd500 = PARTIAL["cls_loss_kernels_500"](torch, args, rng)
 
     # the RetinaNet serving path: every count set to 0 just before it, read just after
     nms_kernel.launches = roi_align_kernel.launches = 0
     cls_loss_kernel.fwd_launches = cls_loss_kernel.bwd_launches = 0
     cls_loss_kernel.fwd_by_rows, cls_loss_kernel.bwd_by_rows = {}, {}
     student_imgs = phase_infer(torch, "student_infer", STUDENT_CFG, args.seed, args.batch,
-                               args.iters, args.warmup)
+                               args.iters, args.warmup)["imgs_per_s"]
     phase_infer(torch, "teacher_infer", TEACHER_CFG, args.seed + 1, args.batch,
                 args.iters, args.warmup)
     nms_launches = nms_kernel.launches
@@ -2077,8 +2575,28 @@ def _main(torch, args) -> int:
     eval_nms = evals["student"]["launches"][0]
     eval_rcnn = evals["mask"]["launches"][0] // 2
     eval_roi = evals["mask"]["launches"][1] // 2
+    # the paper's R-101 <- X-101-64x4d pair at scale 500: the host's label
+    # assignment, then the teacher's serving path and the joint step, each
+    # with every count set to 0 just before it and read just after
+    PARTIAL["label_assign"](torch, args, rng)
+    _reset_counts()
+    x101_nms = PARTIAL["x101_teacher_infer"](torch, args, rng)["nms_launches"]
+    if any(_all_counts()[1:]) or x101_nms < 1:
+        raise AssertionError(f"x101_teacher_infer: launches {_all_counts()}, want NMS only")
+    cls500_launches, cls500_by_level = PARTIAL["joint_step_500"](torch, args, rng)
+    for i, stats in enumerate((fwd500, bwd500)):
+        for lvl in stats["levels"]:
+            lvl["launches"] = cls500_by_level[lvl["level"]][i]
+    # FOLD_AFFINE on against off, and the softmax focal loss's step (no kernel of ours)
+    PARTIAL["fold_affine"](torch, args, rng)
+    _reset_counts()
+    PARTIAL["softmax_step"](torch, args, rng)
+    if any(_all_counts()):
+        raise AssertionError(f"softmax_step launched kernels {_all_counts()}")
     phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
                      (fwd_stats, bwd_stats))
+    phase_cls_levels(torch, args.seed, args.batch, args.groups, args.iters, args.warmup,
+                     (fwd500, bwd500), LEVEL_HW_500, "cls_loss_levels_500")
     phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
     # the forward's device time on the rois the training steps sampled, beside
     # the spread rois' at the same shapes
@@ -2110,6 +2628,10 @@ def _main(torch, args) -> int:
         # RetinaNet decode shape; launches of the two RetinaNet serving runs
         "name": "greedy_nms_sorted", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
         "test_net_launches": eval_nms,
+    }, {
+        # the same decode shape (8 x 5 levels x 1000 -> 100): the X-101 teacher at scale 500
+        "name": "greedy_nms_sorted@decode_500", "launches": x101_nms, **nms_stats["decode"],
+        **nms_entry,
     }, {
         # one launch a batch of each R-CNN serving run, at each of the two shapes
         "name": "greedy_nms_sorted@rpn", "launches": rcnn_batches, **nms_stats["rpn"], **nms_entry,
@@ -2167,6 +2689,19 @@ def _main(torch, args) -> int:
         "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
         "launches": cls_launches[1], "train_loop_launches": sad_loop["launches"][4],
         **bwd_stats, "library_ms": None,
+    }, {
+        # the R-101 <- X-101 joint step at scale 500: P3 at 516,096 rows; "levels" as above
+        "name": "cls_losses_fwd@500",
+        "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:152 (_fwd_kernel) and :284 (_fwd_kernel_aligned)",
+        "launches": cls500_launches[0], **fwd500, "library_ms": None,
+    }, {
+        "name": "cls_losses_bwd@500",
+        "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
+        "launches": cls500_launches[1], **bwd500, "library_ms": None,
     }]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

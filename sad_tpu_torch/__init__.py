@@ -14,6 +14,8 @@ host modules it needs (config, anchors, minibatch, dataset, vis). Ported:
             Faster / Mask R-CNN step; the loop around both (train_net)
 
   sad_tpu_torch.config    config schema, YAML loading, dataset catalog (copies)
+  sad_tpu_torch.native    the host kernels (IoU, the float32 label-assignment
+                          pass, NMS, soft-NMS), C++ built by g++ (a copy)
   sad_tpu_torch.data      anchors, label assignment, minibatch builders, COCO
                           reader, synthetic COCO (copies), the threaded and
                           multi-process loaders, the host -> card prefetcher
@@ -29,8 +31,9 @@ host modules it needs (config, anchors, minibatch, dataset, vis). Ported:
   sad_tpu_torch.tools     train_net and infer_simple CLIs, the profile_* tools
   sad_tpu_torch.utils     stats, timer, logging, model summary, masks, vis
 
-sad_tpu_torch/configs/ holds the flagship YAMLs. See ROADMAP.md for what is
-still to port (test_net and COCO eval, TTA, the rest of the R-CNN families).
+sad_tpu_torch/configs/ holds the flagship YAMLs and the paper's scale-500
+R-101 <- X-101-64x4d pair. See ROADMAP.md for what is still to port
+(multi-GPU, TTA, the rest of the R-CNN families).
 """
 
 __version__ = "0.2.0"

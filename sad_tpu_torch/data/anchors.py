@@ -1,9 +1,13 @@
 """Anchor generation and RetinaNet anchor->label assignment (host side, numpy).
 
-A copy of sad_tpu/data/anchors.py without its calls into sad_tpu.native
-(the optional C++ IoU and fused-assignment kernels): the port keeps the
-float64 numpy path. tests/test_torch_minibatch.py holds the labels, masks
-and fg counts equal to sad_tpu's and the targets within 1e-6.
+A copy of sad_tpu/data/anchors.py on its default path: the IoU and the
+fused anchor->gt pass run in float32 in the port's native C++ kernels
+(sad_tpu_torch/native, a copy of sad_tpu/native), as the reference's
+cython_bbox does. The tie rule compares IoUs for equality, so the precision
+decides which anchors tie; the port has no numpy fallback, and a missing
+g++ raises. tests/test_torch_minibatch.py and tests/test_torch_native.py hold
+the labels, masks and fg counts equal to sad_tpu's and the targets within
+1e-6.
 
 Reimplements (vectorized, no Cython) the semantics of:
 - detectron/lib/modeling/generate_anchors.py (cell anchor enumeration with the
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
 
 
 # --------------------------------------------------------------------------- #
@@ -191,28 +197,10 @@ def all_field_anchors(
 # --------------------------------------------------------------------------- #
 
 
-def _iou_matrix(anchors: np.ndarray, gt: np.ndarray) -> np.ndarray:
-    """Pairwise IoU with the legacy +1 convention (cython_bbox.pyx)."""
-    aw = anchors[:, 2] - anchors[:, 0] + 1.0
-    ah = anchors[:, 3] - anchors[:, 1] + 1.0
-    ga = (gt[:, 2] - gt[:, 0] + 1.0) * (gt[:, 3] - gt[:, 1] + 1.0)
-    iw = (
-        np.minimum(anchors[:, None, 2], gt[None, :, 2])
-        - np.maximum(anchors[:, None, 0], gt[None, :, 0])
-        + 1.0
-    ).clip(min=0.0)
-    ih = (
-        np.minimum(anchors[:, None, 3], gt[None, :, 3])
-        - np.maximum(anchors[:, None, 1], gt[None, :, 1])
-        + 1.0
-    ).clip(min=0.0)
-    inter = iw * ih
-    return inter / ((aw * ah)[:, None] + ga[None, :] - inter)
-
-
 def _assignment_iou(anchors: np.ndarray, gt: np.ndarray) -> np.ndarray:
-    """IoU for label assignment, in float64 (sad_tpu's numpy path)."""
-    return _iou_matrix(anchors.astype(np.float64), gt.astype(np.float64))
+    """IoU for label assignment: the native float32 kernel (the reference's
+    cython_bbox bbox_overlaps hot loop)."""
+    return native.bbox_overlaps(anchors, gt)
 
 
 def _encode_boxes(ex: np.ndarray, gt: np.ndarray) -> np.ndarray:
@@ -265,12 +253,9 @@ def assign_retinanet_labels(
     fg_pre = np.zeros((total,), dtype=bool)
 
     if len(gt_boxes) > 0:
-        iou = _assignment_iou(flat, gt_boxes)
-        a2g_argmax = iou.argmax(axis=1)
-        a2g_max = iou[np.arange(total), a2g_argmax]
-        g2a_max = iou.max(axis=0)
-        # every anchor tied at a gt's max overlap (including ties)
-        tie_mask = (iou == g2a_max[None, :]).any(axis=1)
+        # one native sweep in place of the IoU matrix and 4 numpy reductions:
+        # a2g max / first argmax, and every anchor tied at a gt's max overlap
+        a2g_max, a2g_argmax, tie_mask = native.assign_overlaps(flat, gt_boxes)
         tie_rows = np.where(tie_mask)[0]
         labels[tie_rows] = gt_classes[a2g_argmax[tie_rows]]
         over = a2g_max >= positive_overlap

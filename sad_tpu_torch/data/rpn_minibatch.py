@@ -3,9 +3,9 @@
 A copy of sad_tpu/data/rpn_minibatch.py: ``rpn_anchor_grid``,
 ``assign_rpn_labels``, ``add_rpn_blobs_to_batch`` and
 ``RCNNMinibatchBuilder`` with the gt padding and the gt mask rasters
-(rasterised with this package's utils/segms.py). Not copied: sad_tpu's
-native C++ IoU pass (the numpy IoU in float64 is used), precomputed
-proposals (``pad_proposals``, pure Fast R-CNN) and the keypoint arrays
+(rasterised with this package's utils/segms.py); the IoU is the float32
+native kernel (``anchors._assignment_iou``), as sad_tpu's. Not copied:
+precomputed proposals (``pad_proposals``, pure Fast R-CNN) and the keypoint arrays
 (ROADMAP.md Queue 1 item 8). Added: ``build`` takes the images in memory
 and, with ``device_normalize``, ships one uint8 canvas per image and its
 content extent for the train step to normalise on the device, as

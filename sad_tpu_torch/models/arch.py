@@ -2,8 +2,9 @@
 
 A copy of sad_tpu/models/arch.py (which sits behind a package that imports
 flax); tests/test_torch_models.py holds the two equal field for field.
-REMAT, S2D_STEM and FOLD_AFFINE are carried so the structs stay equal; the
-port's modules ignore them.
+REMAT and S2D_STEM are carried so the structs stay equal; the port's
+modules ignore them. FOLD_AFFINE folds the AffineChannels into the convs
+(models/resnet.py).
 """
 
 from __future__ import annotations

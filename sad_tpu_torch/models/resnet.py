@@ -17,10 +17,22 @@ FREEZE_AT: the output of stage res{FREEZE_AT} is detached, so no gradient
 reaches conv1..res{FREEZE_AT} (sad_tpu's stop_gradient, resnet.py:357-358;
 the reference's StopGradient, ResNet.py:103-122).
 
-Not ported, loadable and ignored: FOLD_AFFINE (the same outputs in f32),
-S2D_STEM (the same outputs; a TPU phrasing of conv1), REMAT_BACKBONE
-(activation rematerialisation), and the grouped-conv phrasings of
-sad_tpu/ops/grouped_conv.py (native ``groups=`` here).
+FOLD_AFFINE (sad_tpu resnet.py:222-260, the stem :307-315): every conv ->
+AffineChannel pair, the stem's included, becomes one ``conv(x, W*s) + b``.
+``W*s`` is formed in float32 on every forward (so a trainable W gets its
+gradient through it) and cast to the compute dtype, and ``b`` goes in as the
+conv's bias; s and b stay frozen and the parameter tree is unchanged, so
+convert.py and the checkpoints are untouched. The per-channel multiply then
+runs over the weights instead of the activations; the bias still costs one
+broadcast pass over the output (PyTorch adds a cuDNN conv's bias after the
+conv, as sad_tpu adds b to the conv's output). At float32 it equals the
+unfolded form up to rounding; at bf16 the product W*s is rounded once more
+(chip_smoke.py ``[fold_affine]`` states the tolerance).
+
+Not ported, loadable and ignored: S2D_STEM (the same outputs; a TPU phrasing
+of conv1), REMAT_BACKBONE (activation rematerialisation), and the
+grouped-conv phrasings of sad_tpu/ops/grouped_conv.py (native ``groups=``
+here).
 """
 
 from __future__ import annotations
@@ -58,6 +70,18 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+def conv_affine(conv: Conv2d, affine: AffineChannel, x: torch.Tensor,
+                fold: bool) -> torch.Tensor:
+    """``affine(conv(x))``, or with ``fold`` (FOLD_AFFINE) the same as one
+    conv with the weight W*s (formed in float32, or float64 for a float64
+    model, then cast to x's dtype) and the bias b."""
+    if not fold:
+        return affine(conv(x))
+    dt = torch.promote_types(conv.weight.dtype, torch.float32)
+    w = conv.weight.to(dt) * affine.s.to(dt).view(-1, 1, 1, 1)
+    return conv._conv_forward(x, w.to(x.dtype), affine.b.to(x.dtype))
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
          groups: int = 1, bias: bool = False) -> Conv2d:
     """Conv with sad_tpu's symmetric ``(k-1)*d//2`` padding (resnet.py:51-68)."""
@@ -72,8 +96,10 @@ class Bottleneck(nn.Module):
     projection shortcut when dims change (ResNet.py:221-278)."""
 
     def __init__(self, prefix: str, dim_in: int, dim_out: int, dim_inner: int,
-                 stride: int, groups: int, dilation: int, stride_1x1: bool):
+                 stride: int, groups: int, dilation: int, stride_1x1: bool,
+                 fold: bool):
         super().__init__()
+        self.fold = fold
         s1, s3 = (stride, 1) if stride_1x1 else (1, stride)
         self.names = [prefix + "_branch2a", prefix + "_branch2b",
                       prefix + "_branch2c"]
@@ -91,7 +117,7 @@ class Bottleneck(nn.Module):
             self.add_module(self.shortcut + "_bn", AffineChannel(dim_out))
 
     def _conv_bn(self, x, name):
-        return getattr(self, name + "_bn")(getattr(self, name)(x))
+        return conv_affine(getattr(self, name), getattr(self, name + "_bn"), x, self.fold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b, c = self.names
@@ -128,7 +154,7 @@ class ResNetBody(nn.Module):
                 name = f"Bottleneck_{k}"
                 self.add_module(name, Bottleneck(
                     f"res{stage_idx}_{i}", dim_in, dim_out, inner, stride,
-                    a.num_groups, dilation, a.stride_1x1,
+                    a.num_groups, dilation, a.stride_1x1, a.fold_affine,
                 ))
                 names.append(name)
                 dim_in = dim_out
@@ -137,7 +163,7 @@ class ResNetBody(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(getattr(torch, self.arch.compute_dtype))
-        p = F.relu(self.res_conv1_bn(self.conv1(x)))
+        p = F.relu(conv_affine(self.conv1, self.res_conv1_bn, x, self.arch.fold_affine))
         p = F.max_pool2d(p, 3, stride=2, padding=1)
         outputs = {}
         for stage_idx, names in enumerate(self.stages, start=2):

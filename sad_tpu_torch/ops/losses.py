@@ -2,14 +2,17 @@
 sad_tpu/ops/losses.py:67-344; caffe2/modules/detectron/*.cu).
 
 - ``sigmoid_focal_loss`` (sigmoid_focal_loss_op.cu:25-110),
+- ``softmax_focal_loss``, RETINANET.SOFTMAX's loss
+  (softmax_focal_loss_op.cu:55-140; sad_tpu/ops/detectron_ops.py:338-422),
 - ``sigmoid_adaptive_distill_loss``, the SAD loss
   (sigmoid_adaptive_distillation_loss_op.cu:28-105),
 - ``pow_sum``, the adaptive normalizer (pow_sum_op.cu:26-43),
 - ``select_smooth_l1_loss``, dense and masked
   (select_smooth_l1_loss_op.cu:23-96).
 
-The first two and the last are ``torch.autograd.Function``s whose backwards
-transcribe the published CUDA backwards, not autograd of the forward: the
+The focal losses, the distillation loss and the select-smooth-L1 are
+``torch.autograd.Function``s whose backwards transcribe the published CUDA
+backwards, not autograd of the forward: the
 distillation backward folds alpha in differently from its forward, and the
 two differ inside the forward's FLT_MIN clamp (tests/test_gradient_checks.py).
 Gradients reach the logits / box predictions only; the teacher probs,
@@ -109,6 +112,60 @@ def sigmoid_focal_loss(logits, labels, normalizer, gamma: float, alpha: float,
                        scale: float) -> torch.Tensor:
     """Ref: sigmoid_focal_loss_op.cu:25-66; wired at retinanet_heads.py:281-291."""
     return SigmoidFocalLoss.apply(logits, labels, normalizer, gamma, alpha, scale)
+
+
+def _softmax_focal_terms(logits, labels, normalizer, alpha: float):
+    """p = softmax over the class axis, p at the label, the labels, the
+    weight z (alpha/Np on fg, (1-alpha)/Np on bg, 0 where ignored) and
+    whether the loss is per group."""
+    p = torch.softmax(logits.float(), dim=-1)
+    t = labels.to(torch.int64)
+    np_, grouped = _group_norm(normalizer, t)
+    z = torch.where(t == 0, (1.0 - alpha) / np_, 0.0) + torch.where(t >= 1, alpha / np_, 0.0)
+    p_label = torch.gather(p, -1, t.clamp_min(0)[..., None])[..., 0]
+    return p, p_label, t, z, grouped
+
+
+class SoftmaxFocalLoss(torch.autograd.Function):
+    """RetinaNet softmax focal loss, summed then scaled; the published
+    backward (softmax_focal_loss_op.cu:96-140)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, normalizer, gamma: float, alpha: float, scale: float):
+        _, p_label, t, z, grouped = _softmax_focal_terms(logits, labels, normalizer, alpha)
+        losses = torch.where(
+            t >= 0,
+            -torch.pow(1.0 - p_label, gamma) * torch.log(torch.clamp_min(p_label, FLT_MIN)) * z,
+            0.0)
+        ctx.save_for_backward(logits, labels, torch.as_tensor(normalizer, device=logits.device))
+        ctx.consts = (gamma, alpha, scale)
+        return scale * _reduce(losses, grouped)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, normalizer = ctx.saved_tensors
+        gamma, alpha, scale = ctx.consts
+        p, p_label, t, z, _ = _softmax_focal_terms(logits, labels, normalizer, alpha)
+        onemp = 1.0 - p_label
+        # buff (cu:96-113), then dX = buff * (onehot(label) - P) * g * scale (cu:118-140)
+        buff = torch.where(
+            t >= 0,
+            (-torch.pow(onemp, gamma) + gamma * torch.pow(onemp, gamma - 1.0) * p_label
+             * torch.log(torch.clamp_min(p_label, FLT_MIN))) * z,
+            0.0)
+        onehot = (t[..., None] == torch.arange(p.shape[-1], device=p.device)).float()
+        dx = buff[..., None] * (onehot - p) * _expand_grad(g, p)
+        return (scale * dx).to(logits.dtype), None, None, None, None, None
+
+
+def softmax_focal_loss(logits, labels, normalizer, gamma: float, alpha: float,
+                       scale: float) -> torch.Tensor:
+    """logits (..., A, C) with background at class 0, labels (..., A) in -1
+    (ignore), 0 (bg), 1..C-1; per anchor
+    -(1 - p_label)^gamma * log(p_label) * z, z = alpha/Np on fg and
+    (1-alpha)/Np on bg, Np = max(normalizer, 1); summed and scaled (ref:
+    softmax_focal_loss_op.cu:55-90, wired at retinanet_heads.py:295-305)."""
+    return SoftmaxFocalLoss.apply(logits, labels, normalizer, gamma, alpha, scale)
 
 
 def _distill_d(x: torch.Tensor, pt: torch.Tensor, beta: float) -> torch.Tensor:

@@ -4,13 +4,18 @@ or with --cfg an R-CNN YAML the Faster / Mask R-CNN step.
     python -m sad_tpu_torch.tools.profile_train [--groups 4] [--iters 10] \
         [--warmup 3] [--seed 0] [--out profile_train.json] \
         [--cfg sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml]
+    python -m sad_tpu_torch.tools.profile_train \
+        --cfg sad_tpu_torch/configs/retinanet_R-101-FPN_student_500.yaml \
+        --teacher_cfg sad_tpu_torch/configs/retinanet_X-101-64x4d-FPN_teacher_500.yaml
 
 The R-50-FPN student and the frozen R-101-FPN teacher of
-sad_tpu_torch/configs/ at full width and depth, random weights from --seed,
-bf16 compute, PIXEL_STD (57.375, 57.12, 58.395) and LR 1e-6 (the settings
-of bench.py, which keep a randomly initialised step finite), and one batch
-of --groups x TRAIN.IMS_PER_BATCH seeded training images with gt boxes,
-built by the port's RetinaNetMinibatchBuilder on the 640x1024 canvas.
+sad_tpu_torch/configs/ (or the --cfg / --teacher_cfg pair, e.g. the paper's
+R-101 <- X-101-64x4d pair at scale 500) at full width and depth, random
+weights from --seed, bf16 compute, PIXEL_STD (57.375, 57.12, 58.395) and LR
+1e-6 (the settings of bench.py, which keep a randomly initialised step
+finite), and one batch of --groups x TRAIN.IMS_PER_BATCH seeded training
+images with gt boxes, built by the port's RetinaNetMinibatchBuilder on the
+student's canvas (640x1024; 512x896 at scale 500).
 Prints, and writes as JSON:
 - imgs/s: median and quartiles of --iters timed steps after --warmup
   (host clock around torch.cuda.synchronize(), profiler off);
@@ -40,7 +45,7 @@ import os
 import statistics
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,29 +98,31 @@ def _category(name: str) -> str:
 @dataclass
 class SeededTrainStep:
     student_cfg: Any
-    teacher_cfg: Any
+    teacher_cfg: Any  # None for a plain RetinaNet step
     student: torch.nn.Module
-    teacher: torch.nn.Module
+    teacher: Optional[torch.nn.Module]
     step: TrainStep
     state: TrainState
     batch: Dict[str, Any]  # tensors on the device
     n_images: int
 
 
-def seeded_train_step(student_yaml: str = STUDENT_CFG, teacher_yaml: str = TEACHER_CFG,
+def seeded_train_step(student_yaml: str = STUDENT_CFG, teacher_yaml: Optional[str] = TEACHER_CFG,
                       seed: int = 0, n_groups: int = 4, device="cuda",
                       opts: Sequence[str] = ()) -> SeededTrainStep:
     """Both models with random float32 weights from ``seed``, the joint SAD
-    step of the student, its zero momentum, and one batch of n_groups x
+    step of the student (its plain RetinaNet step when ``teacher_yaml`` is
+    None), its zero momentum, and one batch of n_groups x
     TRAIN.IMS_PER_BATCH seeded images with gt boxes built by
     RetinaNetMinibatchBuilder.build into one uint8 canvas per image, on
-    ``device``."""
+    ``device``. ``opts`` apply to both configs."""
     dev = get_device(device)
     opts = BENCH_OPTS + ["NUM_GPUS", str(n_groups)] + list(opts)
     scfg = load_cfg(student_yaml, opts)
-    tcfg = load_cfg(teacher_yaml, opts)
+    tcfg = load_cfg(teacher_yaml, opts) if teacher_yaml else None
     student = create_model(scfg, dev, torch.Generator(device=dev).manual_seed(seed))
-    teacher = create_model(tcfg, dev, torch.Generator(device=dev).manual_seed(seed + 1))
+    teacher = (create_model(tcfg, dev, torch.Generator(device=dev).manual_seed(seed + 1))
+               if tcfg is not None else None)
     n_images = n_groups * scfg.TRAIN.IMS_PER_BATCH
     entries, images = random_train_entries(np.random.RandomState(seed), n_images,
                                            max_side=scfg.TRAIN.MAX_SIZE,
@@ -228,19 +235,23 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
-    p.add_argument("--cfg", default=None, help="an R-CNN YAML: profile its training step "
-                   "instead of the joint SAD step")
+    p.add_argument("--cfg", default=None, help="an R-CNN YAML (its training step), or a SAD "
+                   "student YAML with --teacher_cfg (their joint step)")
+    p.add_argument("--teacher_cfg", default=None, help="the teacher YAML of a --cfg student")
     args = p.parse_args(argv)
 
+    rcnn = args.cfg is not None and is_rcnn(load_cfg(args.cfg))
+    if (args.cfg is not None and not rcnn) != (args.teacher_cfg is not None):
+        p.error("--teacher_cfg goes with a SAD student --cfg, and a student --cfg with it; an "
+                "R-CNN --cfg takes none, and without --cfg the flagship pair is profiled")
     set_tf32(False)
     gpu = nvidia_smi_line()
-    rcnn = args.cfg is not None
     if rcnn:
-        if not is_rcnn(load_cfg(args.cfg)):
-            raise ValueError(f"--cfg {args.cfg}: not a generalized_rcnn config; the joint SAD "
-                             "step is profiled without --cfg")
         run = seeded_rcnn_train_step(args.cfg, seed=args.seed, n_groups=args.groups,
                                      device="cuda")
+    elif args.cfg:
+        run = seeded_train_step(args.cfg, args.teacher_cfg, seed=args.seed,
+                                n_groups=args.groups, device="cuda")
     else:
         run = seeded_train_step(seed=args.seed, n_groups=args.groups, device="cuda")
     losses = []
@@ -279,6 +290,7 @@ def main(argv=None):
         "groups": args.groups,
         "canvas": list(run.batch["data_u8"].shape[1:3]),
         "cfg": args.cfg,
+        "teacher_cfg": args.teacher_cfg,
         "compute_dtype": (run.cfg if rcnn else run.student_cfg).COMPUTE_DTYPE,
         "imgs_per_s": run.n_images / med,
         "step_ms": {k: v * 1e3 for k, v in _quartiles(walls).items() if k != "n"},

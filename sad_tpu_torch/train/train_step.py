@@ -43,6 +43,7 @@ from ..ops.fused_losses import fused_cls_losses_raw
 from ..ops.image_norm import content_mask, normalize_u8_on_device
 from ..ops.losses import (
     pow_sum, select_smooth_l1_loss, sigmoid_adaptive_distill_loss, sigmoid_focal_loss,
+    softmax_focal_loss,
 )
 from .optimizer import init_velocity, momentum_sgd_update
 
@@ -97,15 +98,14 @@ def _bbox_loss(cfg, student_out, batch, lvl: int, n_groups: int) -> torch.Tensor
 def retinanet_losses(cfg, outputs, batch, n_groups: int) -> Tuple[torch.Tensor, Metrics]:
     """Focal + select-smooth-L1 over all levels with per-group normalizers
     (ref: retinanet_heads.py:248-311)."""
-    if cfg.RETINANET.SOFTMAX:
-        raise NotImplementedError("RETINANET.SOFTMAX (the softmax focal loss) is not "
-                                  "ported to sad_tpu_torch yet")
     a = cfg.num_anchors_per_cell()
+    # the softmax variant's class axis holds background at 0 (retinanet_heads.py:295-305)
+    focal_loss = softmax_focal_loss if cfg.RETINANET.SOFTMAX else sigmoid_focal_loss
     metrics: Metrics = {}
     total = 0.0
     for lvl in cfg.fpn_levels():
         logits = _split_anchor_axis(outputs["cls_logits"][lvl], a)
-        focal = sigmoid_focal_loss(
+        focal = focal_loss(
             _group_view(logits, n_groups), _group_view(batch["labels"][lvl], n_groups),
             batch["fg_num"], cfg.RETINANET.LOSS_GAMMA, cfg.RETINANET.LOSS_ALPHA, 1.0 / n_groups)
         bbox = _bbox_loss(cfg, outputs, batch, lvl, n_groups)

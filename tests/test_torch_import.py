@@ -52,7 +52,7 @@ def test_chip_smoke_main_path_imports_no_sad_tpu():
         import sad_tpu_torch.train.train_loop, sad_tpu_torch.train.checkpoint
         import sad_tpu_torch.data.loader, sad_tpu_torch.data.mp_loader
         import sad_tpu_torch.data.synth_coco, sad_tpu_torch.tools.train_net
-        import sad_tpu_torch.eval.test_engine
+        import sad_tpu_torch.eval.test_engine, sad_tpu_torch.native.plain
         allowed = set()
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   or (m.split(".")[0] == "sad_tpu" and m not in allowed)]

@@ -5,8 +5,10 @@ uint8 resize (the same bytes on an upscale and a downscale), the COCO
 dataset reader, and the R-CNN-only branches that the copies refuse.
 
 sad_tpu's label assignment takes its native C++ pass when the extension
-builds (float32 IoU); the port has only the float64 numpy pass. The
-assignment tests run sad_tpu both ways and hold the port to each."""
+builds (float32 IoU), its float64 numpy pass otherwise; the port always takes
+its own copy of the native pass. The assignment test runs sad_tpu both ways:
+its seeds reach no tie where the two precisions part
+(tests/test_torch_label_ties.py holds seeds that do)."""
 
 import numpy as np
 import pytest

@@ -179,11 +179,19 @@ def test_full_width_state_dict_matches_flax_tree(path):
 @pytest.mark.parametrize("path", FLAGSHIP, ids=lambda p: Path(p).stem)
 def test_flagship_config_values(path):
     """The flagship YAMLs hold __graft_entry__._distill_cfg's values
-    (__graft_entry__.py:41-70) and make the 640x1024 landscape canvas."""
+    (__graft_entry__.py:41-70) and make the 640x1024 landscape canvas; the
+    scale-500 pair (the paper's R-101 <- X-101 experiment) trains and tests
+    at scale 500, MAX_SIZE 833, on the 512x896 canvas."""
     from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
 
     c = jcfg.load_cfg(path)
     want = graft._distill_cfg(1)
+    canvas = (640, 1024)
+    if path.endswith("_500.yaml"):
+        canvas = (512, 896)
+        want = dataclasses.replace(want, TEST=dataclasses.replace(
+            want.TEST, SCALES=(500,), MAX_SIZE=833))
+        assert (c.TRAIN.SCALES, c.TRAIN.MAX_SIZE) == ((500,), 833) and c.FOLD_AFFINE
     assert c.MODEL.NUM_CLASSES == 81 and c.TEST.NMS == 0.5
     assert c.fpn_levels() == (3, 4, 5, 6, 7) and c.num_anchors_per_cell() == 9
     assert c.FPN.EXTRA_CONV_LEVELS and c.FPN.COARSEST_STRIDE == 128
@@ -192,7 +200,7 @@ def test_flagship_config_values(path):
                           ("TEST", ("SCALES", "MAX_SIZE", "DETECTIONS_PER_IM"))):
         for key in keys:
             assert getattr(getattr(c, section), key) == getattr(getattr(want, section), key), key
-    assert _test_canvas_shapes(c) == ((640, 1024), (1024, 640))
+    assert _test_canvas_shapes(c) == (canvas, canvas[::-1])
     body = "ResNet50" if "R-50" in path else "ResNet101"
     assert c.MODEL.CONV_BODY == f"FPN.add_fpn_{body}_conv5_body"
 

@@ -1,10 +1,10 @@
 """The port's copy of the R-CNN training batches (data/rpn_minibatch.py,
 utils/segms.py) against sad_tpu's originals, array for array, on seeded
 roidb entries with polygon and RLE instances: labels and rasters exactly,
-images and targets within 1e-6. Both read the same image files; sad_tpu's
-IoU may go through its native C++ pass, the port's through numpy in float64,
-so a tie between two gt boxes at the 7th digit could pick another argmax:
-none occurs on these seeds, and none is avoided."""
+images and targets within 1e-6. Both read the same image files, and both
+take the IoU from the same float32 native pass (sad_tpu/native and its copy
+in sad_tpu_torch/native), so ties resolve alike
+(tests/test_torch_label_ties.py)."""
 
 import numpy as np
 import pytest
