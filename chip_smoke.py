@@ -220,8 +220,50 @@ line each (name, what was checked, time):
                  then warm-up + timed steps (finite, every trainable tensor
                  updated, no kernel of ours launched); imgs/s
 
+  ddp_joint_step last, after the device-time phases: data parallelism,
+                 W = max(2, cards) ranks, each a process of its own
+                 (parallel.launch.spawn,
+                 torchrun's environment; NCCL with a card a rank, else the
+                 ranks share cuda:0 over gloo and the line says so): the
+                 R-50 <- R-101 joint step at full width, bs --groups x 2 on
+                 640x1024, float32 with TF32 off and PyTorch's own
+                 convolutions (cuDNN's float32 convolutions do not sum a
+                 batch of 4 as one of 8: tools/profile_ddp's witness), on W
+                 ranks of G / W groups against one process (a
+                 world of 1 over NCCL, the training code's default) from the
+                 same seeded state and batch: after 2 steps every metric
+                 within 1e-5 relative, the worst
+                 parameter tensor within 1e-5 relative L2, parameters and
+                 momenta bit-equal across the ranks, one cls-loss forward
+                 and backward a level a step on each rank at its row count;
+                 then --iters timed steps: each rank's step ms, the gradient
+                 all-reduce's ms (CUDA events) and bytes, host CPU s a step
+  ddp_rcnn_step  the same for the Mask R-CNN R-50-FPN step on 800x1344, each
+                 rank taking its rows of the sampler's global draws: 2 steps,
+                 metrics and parameters held to 1e-5 after the first (at the
+                 second a proposal near a tie flips with the first update's
+                 last bits; printed), ranks bit-equal and every rank's
+                 sampler generator in the one process's state after both;
+                 NMS 1, RoIAlign forward 3 and backward 2 a step on each rank
+  ddp_test_net   test_net --multi-gpu-testing over smoke_val (both
+                 orientations) with the R-50 student's seeded weights, and
+                 --pseudo-out (top 10 an image): the merged bbox_results.json
+                 and pseudo.json hold the one process's detections in its
+                 order (scores within 1e-5, boxes within 1e-3 px, annotation
+                 ids equal), results.json beside; NMS one a batch of each
+                 rank's shard
+  ddp_train_loop train_net on W ranks over smoke_lab and ddp_test_net's
+                 pseudo-labels, bs 8, 8 iterations, a snapshot after 3,
+                 deterministic cuDNN: rank 0's files only, one stats series,
+                 cls-loss launches on every rank at its rows, ranks
+                 bit-equal, and a W-rank run resumed from model_iter3.pkl in
+                 a fresh directory bit-identical; iteration ms and CPU ms by
+                 rank
+
 Then a JSON line with every kernel of the paths (with the loops' launches
-as train_loop_launches and the evaluation's as test_net_launches), the
+as train_loop_launches, the evaluation's as test_net_launches and each
+rank's launches in the data-parallel phases as ddp_launches,
+ddp_train_loop_launches and ddp_test_net_launches), the
 card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure
 raises and the exit code is not 0; without a CUDA card the script exits 2
@@ -2424,6 +2466,360 @@ def phase_softmax_step(torch, seed, groups, iters, warmup):
 
 
 # phases that can be run alone with --only
+# --------------------------------------------------------------------------- #
+# Data parallelism: W ranks, each a process of its own (parallel.launch.spawn)
+# --------------------------------------------------------------------------- #
+
+DDP_TIMEOUT_S = 420.0  # a world's spawn: the ranks' start, builds and steps
+DDP_STEPS = 2  # compared steps (the timed ones follow)
+# of them the steps held to DDP_TOL: the R-CNN step's first, since at its second a proposal
+# near a tie flips with the first update's last bits (PERF.md §6, data parallelism); its
+# second is still held to the sampler's generator state and to ranks bit-equal, and printed
+DDP_HELD = {"ddp_joint_step": 2, "ddp_rcnn_step": 1}
+DDP_TOL = 1e-5  # metrics (relative) and the worst parameter tensor (relative L2)
+DDP_LOOP_WORKERS = 3  # loader processes a rank: two ranks share the host's 8 cores
+
+
+def _ddp_world(torch):
+    """(W, backend, local ranks, what ran): W = max(2, cards), NCCL with a
+    card a rank, else every rank on cuda:0 over gloo."""
+    from sad_tpu_torch.tools.profile_ddp import card_layout
+
+    world = max(2, torch.cuda.device_count())
+    return (world, *card_layout(world))
+
+
+def _ddp_cmp(res):
+    """Raise unless the W ranks match one process and hold equal parameters."""
+    bad = []
+    if res["metric_rel"] > DDP_TOL:
+        bad.append(f"metric {res['metric_key']} {res['metric_rel']:.3e}")
+    if res["param_rel_l2"] > DDP_TOL:
+        bad.append(f"parameter {res['param_key']} {res['param_rel_l2']:.3e}")
+    if res["unequal_across_ranks"]:
+        bad.append(f"not bit-equal across the ranks: {res['unequal_across_ranks'][:3]}")
+    if res["generator_unequal"]:
+        bad.append(f"sampler generator not in the one process's state: "
+                   f"{res['generator_unequal'][:3]}")
+    return bad
+
+
+def _ddp_numbers(s):
+    return (f"{s['layout']}; rank step ms {_fmt(s['rank_step_ms'])} against one process's "
+            f"{s['one_step_ms']:.2f}, gradient all-reduce {_fmt(s['allreduce_ms'])} ms for "
+            f"{s['allreduce_bytes'] / 1e6:.1f} MB of float32 gradients, host CPU s a step "
+            f"{_fmt(s['rank_cpu_s_per_step'], 3)} (one process {s['one_cpu_s_per_step']:.3f})")
+
+
+def _fmt(xs, nd=2):
+    return "[" + ", ".join(f"{x:.{nd}f}" for x in xs) + "]"
+
+
+def phase_ddp_step(torch, name, seed, groups, iters, gpu):
+    """[ddp_joint_step] (the R-50 <- R-101 joint step at full width, bs
+    groups x 2, 640x1024) or [ddp_rcnn_step] (Mask R-CNN R-50-FPN, 800x1344)
+    on W ranks against one process (a world of 1 over NCCL), from the same
+    seeded state and batch, DDP_STEPS steps at float32 with TF32 off and
+    PyTorch's own convolutions (cuDNN's float32 convolutions do not sum a
+    batch of 4 as they sum one of 8: tools/profile_ddp's witness): over the
+    first DDP_HELD[name] steps metrics within DDP_TOL relative and after
+    them the worst parameter tensor within DDP_TOL relative L2; after every
+    step parameters and momenta bit-equal across the ranks and the R-CNN
+    sampler's generator in the one process's state; each rank's kernel
+    launches at its own shapes; then ``iters`` timed steps with cuDNN."""
+    from sad_tpu_torch.tools import profile_ddp, profile_train
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    world, _, _, _ = _ddp_world(torch)
+    kw = {"seed": seed, "n_groups": groups, "device": "cuda", "opts": ["COMPUTE_DTYPE", "float32"]}
+    if name == "ddp_rcnn_step":
+        build = profile_train.seeded_rcnn_train_step
+        kw["cfg_yaml"] = os.path.join(REPO, MASK_CFG)
+    else:
+        build = profile_train.seeded_train_step
+    steps, held = DDP_STEPS, DDP_HELD[name]
+    res = profile_ddp.run_compare(build, kw, world, steps, profile_train.BENCH_LR, iters,
+                                  DDP_TIMEOUT_S, held=held)
+    s = profile_ddp.summary(res)
+    bad = _ddp_cmp(res)
+    per_rank = []
+    for r in res["ranks"]:
+        n, la = r["n_images"], r["launches"]
+        if name == "ddp_rcnn_step":
+            got = (la["nms"], la["roi_align_fwd"], la["roi_align_bwd"], la["cls_fwd"])
+            want = (steps, 3 * steps, 2 * steps, 0)
+        else:
+            rows = sorted(n * h * w * 9 for h, w in LEVEL_HW.values())
+            got = (la["nms"], la["roi_align_fwd"], sorted(la["cls_fwd_by_rows"].items()),
+                   sorted(la["cls_bwd_by_rows"].items()))
+            want = (0, 0, [(x, steps) for x in rows], [(x, steps) for x in rows])
+        if got != want:
+            bad.append(f"rank {r['rank']} launches {got}, want {want}")
+        per_rank.append(la)
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+    later = (f"; not held, step {held + 1}..{steps}: worst metric {res['later_metric_key']} "
+             f"{res['later_metric_rel']:.3e}, parameter {res['later_param_key']} "
+             f"{res['later_param_rel_l2']:.3e}" if steps > held else "")
+    sampler = (", the sampler's generator in the one process's state"
+               if res["one"]["generator"] else "")
+    kernels = ("NMS 1, RoIAlign forward 3 and backward 2 a step" if name == "ddp_rcnn_step"
+               else "one cls-loss forward and backward a level a step at the rank's rows")
+    _phase(name, f"{world} ranks of {s['rank_images'][0]} images ({groups // world} loss "
+           f"groups each, scaled 1/{groups}) against one process of {groups * 2} (NCCL, world "
+           f"1), float32, TF32 off, cuDNN off, {steps} steps, held to {DDP_TOL:g} over the first "
+           f"{held}: worst metric {res['metric_key']} {res['metric_rel']:.3e} relative, worst "
+           f"parameter {res['param_key']} {res['param_rel_l2']:.3e} relative L2 (momentum "
+           f"{res['velocity_key']} {res['velocity_rel_l2']:.3e}){later}; after every step "
+           f"parameters and momenta bit-equal across the ranks{sampler}; launches on each rank: "
+           f"{kernels}; {iters} timed steps: {_ddp_numbers(s)}; {gpu}",
+           time.perf_counter() - t0)
+    return {"summary": s, "launches": per_rank}
+
+
+def _spec(name):
+    from sad_tpu_torch.config import get_dataset_spec
+
+    spec = get_dataset_spec(name)
+    return (name, spec.image_directory, spec.annotation_file, spec.is_pseudo_labeled)
+
+
+def _match_detections(what, got, want, score_tol=1e-5, box_tol=1e-3):
+    """The W-rank detections against one process's: the same images in the
+    same order with as many detections each, and within an image every
+    detection matched to one of the same category, score within score_tol
+    and box within box_tol px (scores that tie within the tolerance may sit
+    in another order: top-k ties are the implementation's). Returns the
+    worst differences and how many matched at another place."""
+    if not want or [d["image_id"] for d in got] != [d["image_id"] for d in want]:
+        raise AssertionError(f"ddp_test_net: {what}: the images of the {len(got)} merged "
+                             f"detections are not the one process's {len(want)} in its order")
+    by_image = {}
+    for i, (x, y) in enumerate(zip(got, want)):
+        by_image.setdefault(x["image_id"], ([], []))
+        by_image[x["image_id"]][0].append(x)
+        by_image[x["image_id"]][1].append(y)
+    worst_s = worst_b = 0.0
+    moved = 0
+    for image, (xs, ys) in by_image.items():
+        free = list(range(len(ys)))
+        for i, x in enumerate(xs):
+            for j in free:
+                y = ys[j]
+                ds, db = abs(x["score"] - y["score"]), float(
+                    np.abs(np.subtract(x["bbox"], y["bbox"])).max())
+                if x["category_id"] == y["category_id"] and ds <= score_tol and db <= box_tol:
+                    worst_s, worst_b = max(worst_s, ds), max(worst_b, db)
+                    moved += j != i
+                    free.remove(j)
+                    break
+            else:
+                near = min(((abs(x["score"] - ys[j]["score"]), float(np.abs(np.subtract(
+                    x["bbox"], ys[j]["bbox"])).max())) for j in free
+                    if ys[j]["category_id"] == x["category_id"]), default=None)
+                raise AssertionError(f"ddp_test_net: {what}: image {image}'s detection {x} has "
+                                     f"no match among the one process's (nearest of its "
+                                     f"category: score, box differences {near})")
+    return {"score": worst_s, "bbox": worst_b, "moved": moved}
+
+
+def phase_ddp_test_net(torch, seed, data_root, state, gpu):
+    """test_net --multi-gpu-testing over the W ranks against one process on
+    the smoke's val split (both orientations), float32 with TF32 off in
+    every process (with bf16 compute and TF32 left on in the ranks, one
+    detection of one image found no match: PERF.md §6): the R-50
+    student's bbox_results.json and results.json, and --pseudo-out
+    (top 10 an image, score threshold 0) whose pseudo.json [ddp_train_loop]
+    trains on. The
+    merged detections must be the one process's in its order (image and
+    category equal, scores within 1e-5, boxes within 1e-3 px); each rank's
+    NMS launches one a batch of its shard."""
+    import tempfile
+
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.data.dataset import CocoDataset
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.parallel.launch import spawn
+    from sad_tpu_torch.tools import profile_ddp, test_net
+    from sad_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    world, backend, local, note = _ddp_world(torch)
+    _smoke_coco(data_root, 0, ("smoke_val",))
+    tmp = tempfile.mkdtemp(prefix="ddp_test_net_", dir=data_root)
+    model = create_model(load_cfg(os.path.join(REPO, STUDENT_CFG)), "cuda",
+                         torch.Generator(device="cuda").manual_seed(seed))
+    pkl = os.path.join(tmp, "student.pkl")
+    save_checkpoint(pkl, model)
+    del model
+    # (flags, config options) of the two runs
+    runs = {"eval": ([], []),
+            "pseudo": (["--pseudo-out", "{}/pseudo.json", "--pseudo-score-thresh", "0.0"],
+                       ["TEST.DETECTIONS_PER_IM", "10"])}
+    out, timing, launches = {}, {}, {}
+    for key, (flags, opts) in runs.items():
+        for n in (1, world):
+            d = os.path.join(tmp, f"{key}{n}")
+            argv = (["--cfg", os.path.join(REPO, STUDENT_CFG), "--weights", pkl]
+                    + [a.format(d) for a in flags] + (["--multi-gpu-testing"] if n > 1 else [])
+                    + ["TEST.DATASETS", "('smoke_val',)", "COMPUTE_DTYPE", "float32", *opts,
+                       "OUTPUT_DIR", d])
+            ts = time.perf_counter()
+            if n == 1:
+                # the one process runs here: its counts set to 0 just before, read just after
+                _reset_counts()
+                test_net.main(argv)
+                one_launches = _all_counts()
+            else:
+                ranks = spawn(profile_ddp.rank_cli, world, ("test_net", argv, [_spec("smoke_val")]),
+                              device="cuda", backend=backend, local_ranks=local,
+                              timeout_s=DDP_TIMEOUT_S, log_prefix=os.path.join(tmp, key))
+                launches[key] = [r["launches"]["nms"] for r in ranks]
+            timing[(key, n)] = time.perf_counter() - ts
+            out[(key, n)] = d
+    sub = os.path.join("test", "smoke_val")
+    got = _read_json(os.path.join(out[("eval", world)], sub, "bbox_results.json"))
+    want = _read_json(os.path.join(out[("eval", 1)], sub, "bbox_results.json"))
+    p_got = _read_json(os.path.join(out[("pseudo", world)], "pseudo.json"))
+    p_want = _read_json(os.path.join(out[("pseudo", 1)], "pseudo.json"))
+    stats = {what: _match_detections(what, x, y) for what, x, y in (
+        ("bbox_results.json", got, want),
+        ("pseudo.json", p_got["annotations"], p_want["annotations"]))}
+    if [a["id"] for a in p_got["annotations"]] != [a["id"] for a in p_want["annotations"]]:
+        raise AssertionError("ddp_test_net: pseudo.json annotation ids differ")
+    roidb = CocoDataset("smoke_val").get_roidb(include_gt=False)
+    per = -(-len(roidb) // world)
+    want_nms = []
+    for r in range(world):
+        shard = roidb[r * per:(r + 1) * per]
+        n_l = sum(e["width"] >= e["height"] for e in shard)
+        want_nms.append(-(-n_l // 8) + -(-(len(shard) - n_l) // 8))
+    if any(launches[k] != want_nms for k in launches):
+        raise AssertionError(f"ddp_test_net: NMS launches by rank {launches}, want {want_nms}")
+    n_l = sum(e["width"] >= e["height"] for e in roidb)
+    want_one = (-(-n_l // 8) + -(-(len(roidb) - n_l) // 8), 0, 0, 0, 0)
+    if one_launches != want_one:
+        raise AssertionError(f"ddp_test_net: the one process launched {one_launches}, want "
+                             f"{want_one} (NMS one a batch)")
+    t_w = _read_json(os.path.join(out[("eval", world)], sub, "timing.json"))
+    res_w = _read_json(os.path.join(out[("eval", world)], sub, "results.json"))
+    res_1 = _read_json(os.path.join(out[("eval", 1)], sub, "results.json"))
+    d_ap = max(abs(res_w[k] - res_1[k]) for k in res_1)
+    state["pseudo"] = os.path.join(out[("pseudo", world)], "pseudo.json")
+    orient = sum(e["width"] >= e["height"] for e in roidb)
+    _phase("ddp_test_net", f"{note}; test_net --multi-gpu-testing over smoke_val ({len(roidb)} "
+           f"images, {orient} landscape, {len(roidb) - orient} portrait; shards of {per}): "
+           f"{len(got)} merged detections, the images in the one process's order "
+           f"({orient} landscape first), each image's matched (worst score "
+           f"difference {stats['bbox_results.json']['score']:.2e}, box "
+           f"{stats['bbox_results.json']['bbox']:.2e} px; "
+           f"{stats['bbox_results.json']['moved']} in another place among score ties), "
+           f"results.json within {d_ap:.2e}; --pseudo-out: {len(p_got['annotations'])} "
+           f"annotations, ids equal, {stats['pseudo.json']['moved']} moved; NMS launches by rank {launches['eval']} (one a batch of the shard); rank "
+           f"walls {_fmt(t_w['rank_wall'])} s for {t_w['rank_images']} images; command seconds "
+           f"one process {timing[('eval', 1)]:.1f}, {world} ranks {timing[('eval', world)]:.1f} "
+           f"(with their start); {gpu}", time.perf_counter() - t0)
+    return {"launches": launches["eval"], "pseudo_launches": launches["pseudo"],
+            "one_launches": one_launches}
+
+
+def phase_ddp_train_loop(torch, data_root, state, gpu):
+    """train_net on W ranks (torchrun's environment, parallel.launch) over
+    smoke_lab and the pseudo-labels [ddp_test_net] wrote, bs 8 (G = 4, two
+    groups a rank), 8 iterations with a snapshot after iteration 3, under
+    deterministic cuDNN; then a W-rank run resumed in a fresh directory from
+    model_iter3.pkl. Only rank 0's files, every rank's cls-loss launches at
+    its rows, the ranks bit-equal, the resumed run bit-equal to the
+    uninterrupted one."""
+    import tempfile
+
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.config.config import cfg_to_yaml
+    from sad_tpu_torch.parallel.launch import spawn
+    from sad_tpu_torch.tools import profile_ddp
+    from sad_tpu_torch.tools.profile_train import BENCH_OPTS
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    world, backend, local, note = _ddp_world(torch)
+    _smoke_coco(data_root, 0)
+    tmp = tempfile.mkdtemp(prefix="ddp_train_loop_", dir=data_root)
+    teacher_yaml = os.path.join(tmp, "teacher.yaml")
+    with open(teacher_yaml, "w") as f:
+        f.write(cfg_to_yaml(load_cfg(os.path.join(REPO, TEACHER_CFG), BENCH_OPTS)))
+    val = _spec("smoke_val")
+    regs = [_spec("smoke_lab"), ("smoke_ddp_pl", val[1], state["pseudo"], True)]
+    max_iter, snap = 8, 3
+
+    def argv(out_dir):
+        return ["--cfg", os.path.join(REPO, STUDENT_CFG), "--teacher_cfg", teacher_yaml,
+                "--skip-test"] + _loop_opts(
+            out_dir, "DISTILLATION.UNLABEL_DISTILLATION", "True",
+            "DISTILLATION.UNLABEL_DATASETS", "('smoke_ddp_pl',)", "SOLVER.MAX_ITER",
+            str(max_iter), "DATA_LOADER.NUM_PROCESSES", str(DDP_LOOP_WORKERS))
+
+    def ranks(out_dir, key):
+        return spawn(profile_ddp.rank_cli, world, ("train_net", argv(out_dir), regs, True),
+                     device="cuda", backend=backend, local_ranks=local, timeout_s=DDP_TIMEOUT_S,
+                     log_prefix=os.path.join(tmp, key))
+
+    ts = time.perf_counter()
+    whole = ranks(os.path.join(tmp, "whole"), "whole")
+    whole_s = time.perf_counter() - ts
+    files = sorted(os.listdir(_run_dir(os.path.join(tmp, "whole"))))
+    want = ["cfg.yaml", "model_final.pkl", f"model_iter{snap}.pkl", "stats.jsonl"]
+    if files != want:
+        raise AssertionError(f"ddp_train_loop: run files {files}, want {want} (rank 0's only)")
+    lines = _check_run_files("ddp_train_loop", os.path.join(tmp, "whole"), (snap,))
+    if [ln["iter"] for ln in lines] != [0, max_iter - 1]:
+        raise AssertionError(f"ddp_train_loop: stats.jsonl iterations {[ln['iter'] for ln in lines]}")
+    resumed_dir = os.path.join(tmp, "resumed")
+    os.makedirs(_run_dir(resumed_dir))
+    shutil.copy(os.path.join(_run_dir(os.path.join(tmp, "whole")), f"model_iter{snap}.pkl"),
+                _run_dir(resumed_dir))
+    resumed = ranks(resumed_dir, "resumed")
+    bad = []
+    n_rank = 8 // world
+    rows = sorted(n_rank * h * w * 9 for h, w in LEVEL_HW.values())
+    for r in whole + resumed:
+        steps = r["iters"]
+        la = r["launches"]
+        got = (la["nms"], la["roi_align_fwd"], sorted(la["cls_fwd_by_rows"].items()),
+               sorted(la["cls_bwd_by_rows"].items()))
+        if got != (0, 0, [(x, steps) for x in rows], [(x, steps) for x in rows]):
+            bad.append(f"rank {r['rank']} launches {got} in {steps} steps")
+    if [(r["start_iter"], r["iters"]) for r in resumed] != [(snap + 1, max_iter - snap - 1)] * world:
+        bad.append(f"resumed at {[(r['start_iter'], r['iters']) for r in resumed]}")
+    for group in (whole, resumed):
+        for r in group[1:]:
+            for tree in ("params", "velocity"):
+                if any(not np.array_equal(v, group[0][tree][k]) for k, v in r[tree].items()):
+                    bad.append(f"rank {r['rank']} {tree} differ from rank 0's")
+    for a, b in zip(whole, resumed):
+        for tree in ("params", "velocity"):
+            differ = [k for k, v in a[tree].items() if not np.array_equal(v, b[tree][k])]
+            if differ:
+                bad.append(f"rank {a['rank']}: resumed {tree} differ, e.g. {differ[:2]}")
+    if bad:
+        raise AssertionError("ddp_train_loop: " + "; ".join(bad))
+    iter_ms = [statistics.median(r["iter_ms"][1:]) for r in whole]
+    cpu_ms = [statistics.median(r["iter_process_cpu_ms"][1:]) for r in whole]
+    _phase("ddp_train_loop", f"{note}; train_net R-50 student + R-101 teacher over smoke_lab "
+           f"and the pseudo-labels of ddp_test_net, bs 8 (G=4, {4 // world} groups and "
+           f"{n_rank} images a rank), {max_iter} iterations, {DDP_LOOP_WORKERS} loader processes "
+           f"a rank, deterministic cuDNN: files {files} (rank 0's only; stats.jsonl one series, "
+           f"loss {lines[0]['loss']:.4f} -> {lines[-1]['loss']:.4f}), one cls-loss forward and "
+           f"backward a level a step on every rank at its rows, the ranks' parameters and momenta "
+           f"bit-equal; a {world}-rank run resumed in a fresh directory from model_iter{snap}.pkl "
+           f"ends bit-identical on every rank; iteration ms by rank {_fmt(iter_ms)} (medians), "
+           f"process CPU ms an iteration {_fmt(cpu_ms, 1)}; the uninterrupted command "
+           f"{whole_s:.1f} s with the ranks' start; {gpu}", time.perf_counter() - t0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": [(r["launches"]["cls_fwd"], r["launches"]["cls_bwd"]) for r in whole]}
+
+
 PARTIAL = {
     "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
     "cls_loss_kernels": lambda torch, a, rng: phase_cls_losses(torch, a.seed, a.batch, a.groups,
@@ -2459,6 +2855,16 @@ PARTIAL = {
                                                            a.iters, a.warmup),
     "softmax_step": lambda torch, a, rng: phase_softmax_step(torch, a.seed + 10, a.groups,
                                                              a.iters, a.warmup),
+    "ddp_joint_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_joint_step", a.seed,
+                                                           a.groups, a.iters, a.gpu),
+    "ddp_rcnn_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_rcnn_step", a.seed + 5,
+                                                          a.groups, a.iters, a.gpu),
+    "ddp_test_net": lambda torch, a, rng: phase_ddp_test_net(torch, a.seed + 7, a.loop_data,
+                                                             a.ddp, a.gpu),
+    # trains on ddp_test_net's pseudo-labels: runs that phase first when it has not run
+    "ddp_train_loop": lambda torch, a, rng: phase_ddp_train_loop(
+        torch, a.loop_data, a.ddp if "pseudo" in a.ddp else (
+            PARTIAL["ddp_test_net"](torch, a, rng) and a.ddp), a.gpu),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -2495,6 +2901,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as loop_data:
         args.loop_data = loop_data
         args.batch_imgs = {}  # the serving phases' imgs/s, printed beside test_net's
+        args.ddp = {}  # ddp_test_net's pseudo-labels, which ddp_train_loop trains on
         return _main(torch, args)
 
 
@@ -2505,6 +2912,7 @@ def _main(torch, args) -> int:
 
     t0 = time.perf_counter()
     gpu = nvidia_smi_line()
+    args.gpu = gpu
     tf32 = set_tf32(False)
     lib = _build.load_library()
     t_host = time.perf_counter()
@@ -2605,6 +3013,23 @@ def _main(torch, args) -> int:
             k.split(":")[1].split(" ")[0]: st["device_ms"] for k, (_, st) in ROI_TIMERS.items()
             if k.startswith(f"{key}_train:")}
     train_steps = faster_t["steps"] + mask_t["steps"]
+    # data parallelism, last: W ranks, processes of their own, each setting
+    # its counts to 0 just before its run and reading them just after; in
+    # this process only ddp_test_net's one-process references launch (its
+    # last one read last)
+    _reset_counts()
+    ddp_joint = PARTIAL["ddp_joint_step"](torch, args, rng)
+    ddp_rcnn = PARTIAL["ddp_rcnn_step"](torch, args, rng)
+    if any(_all_counts()):
+        raise AssertionError(f"the data-parallel steps launched kernels in the main process "
+                             f"{_all_counts()}")
+    ddp_eval = PARTIAL["ddp_test_net"](torch, args, rng)
+    ddp_loop = PARTIAL["ddp_train_loop"](torch, args, rng)
+    if _all_counts() != ddp_eval["one_launches"]:
+        raise AssertionError(f"the data-parallel phases launched kernels in the main process "
+                             f"{_all_counts()} beside the one-process test_net's "
+                             f"{ddp_eval['one_launches']}")
+    ddp_rows = ddp_rcnn["launches"]
 
     nms_entry = {
         "route": "cuda",
@@ -2627,7 +3052,7 @@ def _main(torch, args) -> int:
     print(json.dumps({"kernels": [{
         # RetinaNet decode shape; launches of the two RetinaNet serving runs
         "name": "greedy_nms_sorted", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
-        "test_net_launches": eval_nms,
+        "test_net_launches": eval_nms, "ddp_test_net_launches": ddp_eval["launches"],
     }, {
         # the same decode shape (8 x 5 levels x 1000 -> 100): the X-101 teacher at scale 500
         "name": "greedy_nms_sorted@decode_500", "launches": x101_nms, **nms_stats["decode"],
@@ -2652,26 +3077,32 @@ def _main(torch, args) -> int:
         # mask pair and the mask target crop (forward only) a step of Mask R-CNN
         "name": "greedy_nms_sorted@rpn_train", "launches": train_steps,
         "train_loop_launches": mask_loop["launches"][0],
+        "ddp_launches": [la["nms"] for la in ddp_rows],
         **nms_stats["rpn_train"], **nms_entry,
     }, {
         "name": "roi_align_fwd@box_train", "launches": train_steps,
         "train_loop_launches": mask_loop["launches"][1] // 3,
+        "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
         **roi_bwd_stats["fwd_box"], **roi_entry,
     }, {
         "name": "roi_align_fwd@mask_train", "launches": mask_t["steps"],
         "train_loop_launches": mask_loop["launches"][1] // 3,
+        "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
         **roi_bwd_stats["fwd_mask"], **roi_entry,
     }, {
         "name": "roi_align_fwd@mask_targets", "launches": mask_t["steps"],
         "train_loop_launches": mask_loop["launches"][1] // 3,
+        "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
         **mask_t["target_stats"], **roi_entry,
     }, {
         "name": "roi_align_bwd_gather@box", "launches": train_steps,
         "train_loop_launches": mask_loop["launches"][2] // 2,
+        "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
         **roi_bwd_stats["box"], **roi_bwd_entry,
     }, {
         "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"],
         "train_loop_launches": mask_loop["launches"][2] // 2,
+        "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
         # P3's shape; "levels" holds every level's device time, bound and the launches
@@ -2681,6 +3112,8 @@ def _main(torch, args) -> int:
         "source": "sad_tpu_torch/csrc/cls_losses.cu",
         "replaces": "sad_tpu/ops/pallas_losses.py:152 (_fwd_kernel) and :284 (_fwd_kernel_aligned)",
         "launches": cls_launches[0], "train_loop_launches": sad_loop["launches"][3],
+        "ddp_launches": [la["cls_fwd"] for la in ddp_joint["launches"]],
+        "ddp_train_loop_launches": [f for f, _ in ddp_loop["launches"]],
         **fwd_stats, "library_ms": None,
     }, {
         "name": "cls_losses_bwd",
@@ -2688,6 +3121,8 @@ def _main(torch, args) -> int:
         "source": "sad_tpu_torch/csrc/cls_losses.cu",
         "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
         "launches": cls_launches[1], "train_loop_launches": sad_loop["launches"][4],
+        "ddp_launches": [la["cls_bwd"] for la in ddp_joint["launches"]],
+        "ddp_train_loop_launches": [b for _, b in ddp_loop["launches"]],
         **bwd_stats, "library_ms": None,
     }, {
         # the R-101 <- X-101 joint step at scale 500: P3 at 516,096 rows; "levels" as above

@@ -11,7 +11,8 @@ host modules it needs (config, anchors, minibatch, dataset, vis). Ported:
             teacher's forward, the student's forward and backward, focal +
             adaptive distillation + PowSum in two CUDA kernels
             (csrc/cls_losses.cu), select-smooth-L1, Caffe2 momentum SGD; the
-            Faster / Mask R-CNN step; the loop around both (train_net)
+            Faster / Mask R-CNN step; the loop around both (train_net), over
+            W ranks with torchrun (gradients summed over the ranks)
 
   sad_tpu_torch.config    config schema, YAML loading, dataset catalog (copies)
   sad_tpu_torch.native    the host kernels (IoU, the float32 label-assignment
@@ -25,6 +26,8 @@ host modules it needs (config, anchors, minibatch, dataset, vis). Ported:
   sad_tpu_torch.convert   sad_tpu param trees <-> state_dict
   sad_tpu_torch.ops       image normalisation, box decode, NMS, RoIAlign, the
                           loss ops and the fused cls losses, with their kernels
+  sad_tpu_torch.parallel  data parallelism over GPUs (torch.distributed: NCCL,
+                          gloo on the CPU), per-rank shards, the rank launcher
   sad_tpu_torch.train     the train steps, momentum SGD, LR schedule, the
                           train loop, checkpoints (sad_tpu's native format)
   sad_tpu_torch.eval      batched inference, dataset inference, pseudo-labels
@@ -33,7 +36,18 @@ host modules it needs (config, anchors, minibatch, dataset, vis). Ported:
 
 sad_tpu_torch/configs/ holds the flagship YAMLs and the paper's scale-500
 R-101 <- X-101-64x4d pair. See ROADMAP.md for what is still to port
-(multi-GPU, TTA, the rest of the R-CNN families).
+(TTA, the rest of the R-CNN families).
 """
 
 __version__ = "0.2.0"
+__all__ = ["parallel"]
+
+
+def __getattr__(name):
+    # sad_tpu_torch.parallel imports torch.distributed: loaded on first use,
+    # so that the loader's worker processes (numpy only) do not import torch
+    if name == "parallel":
+        import importlib
+
+        return importlib.import_module(".parallel", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

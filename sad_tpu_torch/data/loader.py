@@ -14,6 +14,10 @@ CUDA. Capability-equivalent to detectron/lib/roi_data/loader.py
   and loader threads fill whichever stream is behind (loader.py:109-115),
 - coordinator-style shutdown that drains threads on error or exit
   (lib/utils/coordinator.py:32-66),
+- data parallelism: with ``rank`` / ``world``, every rank draws the same
+  global schedule (seeds, reshuffles, stream parity, fast-forward) and
+  builds only its contiguous block of each batch's images (``RankShard``):
+  the ranks' blocks concatenate to the one-rank batch,
 - ``DevicePrefetcher`` (the BlobsQueue analogue): a thread copies the next
   batch into pinned host memory and onto the card with ``non_blocking``
   copies on a side CUDA stream, while the current step runs.
@@ -113,6 +117,33 @@ class _Stream:
             self.next_batch_indices_seeded()
 
 
+class RankShard:
+    """A minibatch builder that builds only rank ``rank``'s contiguous block
+    of each batch (``rows`` of the wrapped builder's ``build``): the
+    batch's seed and its per-image draws stay the whole batch's."""
+
+    def __init__(self, builder, rank: int, world: int):
+        self.builder, self.rank, self.world = builder, rank, world
+
+    def canvas_for(self, entry: dict):
+        return self.builder.canvas_for(entry)
+
+    def build(self, entries: List[dict], seed: int = 0, **kwargs):
+        k = len(entries) // self.world
+        return self.builder.build(entries, seed=seed,
+                                  rows=(self.rank * k, (self.rank + 1) * k), **kwargs)
+
+
+def rank_builder(builder, batch_images: int, rank: int, world: int):
+    """``builder`` itself at world 1, else its RankShard; the batch must
+    split into whole blocks."""
+    if world == 1:
+        return builder
+    if batch_images % world:
+        raise ValueError(f"a batch of {batch_images} images does not split over {world} ranks")
+    return RankShard(builder, rank, world)
+
+
 def fast_forward_streams(labeled, unlabeled, skip_batches: int) -> None:
     """Advance stream draws to position `skip_batches` of the CONSUMED
     sequence (resume support). With an unlabeled stream the consumer
@@ -134,7 +165,9 @@ def stream_for_batch(parity: int, two_streams: bool) -> str:
 class TrainingLoader:
     """Prefetching loader; get_next_batch() yields host batches (dicts of
     numpy arrays). ``build_seconds`` holds (stream, host seconds) of every
-    batch built, ``served`` the stream of every batch handed out."""
+    batch built, ``served`` the stream of every batch handed out. With
+    ``world`` > 1 each batch holds rank ``rank``'s block of
+    ``batch_images`` / world images."""
 
     def __init__(
         self,
@@ -148,13 +181,16 @@ class TrainingLoader:
         seed: int = 3,
         builder=None,
         skip_batches: int = 0,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.cfg = cfg
+        self.batch_images = batch_images or (cfg.TRAIN.IMS_PER_BATCH * cfg.NUM_GPUS)
         # builder: any object with canvas_for(entry) + build(entries) —
         # RetinaNetMinibatchBuilder by default; RCNNMinibatchBuilder for the
         # Faster/Mask R-CNN path (data/rpn_minibatch.py)
-        self.builder = builder or RetinaNetMinibatchBuilder(cfg, teacher_cfg)
-        self.batch_images = batch_images or (cfg.TRAIN.IMS_PER_BATCH * cfg.NUM_GPUS)
+        self.builder = rank_builder(builder or RetinaNetMinibatchBuilder(cfg, teacher_cfg),
+                                    self.batch_images, rank, world)
         self.labeled = _Stream(roidb, self.batch_images, seed)
         self.unlabeled = (
             _Stream(unlabeled_roidb, self.batch_images, seed + 1)

@@ -293,13 +293,20 @@ class RetinaNetMinibatchBuilder:
         entries: List[dict],
         images_bgr: Optional[List[np.ndarray]] = None,
         seed: int = 0,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> RetinaNetBatch:
-        """entries must share one canvas orientation (aspect grouping)."""
+        """entries must share one canvas orientation (aspect grouping).
+        ``rows`` = (start, stop): build only those images of the batch (a
+        rank's share), as the whole batch's build would make them."""
         cfg = self.cfg
         # per-image random scale index (ref: roi_data/minibatch.py:48-53
         # _get_image_blob samples scale_inds per image)
         rng = np.random.RandomState(seed)
         scale_inds = rng.randint(0, len(cfg.TRAIN.SCALES), size=len(entries))
+        if rows is not None:
+            entries, scale_inds = entries[rows[0]:rows[1]], scale_inds[rows[0]:rows[1]]
+            if images_bgr is not None:
+                images_bgr = images_bgr[rows[0]:rows[1]]
         canvas = self.canvas_for(entries[0])
         assert all(self.canvas_for(e) == canvas for e in entries), (
             "batch mixes canvas orientations; aspect-group upstream"

@@ -14,10 +14,11 @@ from the SAME epoch-shuffled, aspect-grouped streams as the threaded loader
 (loader._Stream) and assigns the SAME deterministic per-batch seeds; the
 collector restores DISPATCH order with per-stream sequence numbers, so the
 surfaced batch stream is identical to a 1-thread TrainingLoader for ANY
-num_workers. Each built batch (a dict of numpy arrays) is written by its
-worker into one file of a spool directory and read back by the collector in
-one read, into per-stream host queues; the consumer-facing
-surface (get_next_batch with strict labeled/unlabeled parity alternation,
+num_workers. With ``rank`` / ``world`` the workers build only the rank's
+block of each batch (loader.RankShard). Each built batch (a dict of numpy
+arrays) is written by its worker into one file of a spool directory and
+read back by the collector in one read, into per-stream host queues; the
+consumer-facing surface (get_next_batch with strict labeled/unlabeled parity alternation,
 queue_depth, shutdown, context manager, build_seconds, served) matches
 TrainingLoader, so DevicePrefetcher and the train loop are oblivious.
 
@@ -51,7 +52,7 @@ import numpy as np
 from ..config import Config
 from .loader import (
     _SHUTDOWN_JOIN_S, GET_TIMEOUT_S, _check_deadline, _drain, _Stream, _wait_until,
-    fast_forward_streams, stream_for_batch,
+    fast_forward_streams, rank_builder, stream_for_batch,
 )
 from .minibatch import RetinaNetMinibatchBuilder
 
@@ -168,12 +169,15 @@ class MultiprocessTrainingLoader:
         seed: int = 3,
         builder=None,
         skip_batches: int = 0,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.cfg = cfg
-        self.builder = builder or RetinaNetMinibatchBuilder(cfg, teacher_cfg)
         self.batch_images = batch_images or (
             cfg.TRAIN.IMS_PER_BATCH * cfg.NUM_GPUS
         )
+        self.builder = rank_builder(builder or RetinaNetMinibatchBuilder(cfg, teacher_cfg),
+                                    self.batch_images, rank, world)
         self.num_workers = num_workers or max(1, (os.cpu_count() or 2) - 1)
         self._capacity = queue_capacity
         self._seed = seed

@@ -28,7 +28,7 @@ _get_rpn_blobs (FPN path):
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -185,7 +185,12 @@ class RCNNMinibatchBuilder:
         return self.landscape if entry["width"] >= entry["height"] else self.portrait
 
     def build(self, entries: List[dict], seed: int = 0,
-              images_bgr: Optional[List[np.ndarray]] = None) -> Dict:
+              images_bgr: Optional[List[np.ndarray]] = None,
+              rows: Optional[Tuple[int, int]] = None) -> Dict:
+        """``rows`` = (start, stop): build only those images of the batch (a
+        rank's share), as the whole batch's build would make them: the
+        scale draws are the whole batch's, and the RPN label sampling's
+        generator first replays the draws of the images before ``start``."""
         from ..utils.segms import polys_to_mask, rle_to_mask
         from .minibatch import (
             compute_im_scale, load_image_bgr, prep_image, resize_bgr_u8,
@@ -194,6 +199,17 @@ class RCNNMinibatchBuilder:
         cfg = self.cfg
         canvas = self.canvas_for(entries[0])
         ch, cw = canvas
+        # per-image random scale index (ref: roi_data/minibatch.py:48-53)
+        scale_rng = np.random.RandomState(seed ^ 0x5BD1E995)
+        scale_inds = scale_rng.randint(0, len(cfg.TRAIN.SCALES), size=len(entries))
+        replay = []
+        if rows is not None:
+            replay = [(e, np.float32(compute_im_scale(e["height"], e["width"],
+                                                      cfg.TRAIN.SCALES[si], cfg.TRAIN.MAX_SIZE)))
+                      for e, si in zip(entries[:rows[0]], scale_inds[:rows[0]])]
+            entries, scale_inds = entries[rows[0]:rows[1]], scale_inds[rows[0]:rows[1]]
+            if images_bgr is not None:
+                images_bgr = images_bgr[rows[0]:rows[1]]
         n = len(entries)
         batch: Dict = {"im_hw": np.zeros((n, 2), np.float32)}
         if self.device_normalize:
@@ -201,9 +217,6 @@ class RCNNMinibatchBuilder:
         else:
             batch["data"] = np.zeros((n, ch, cw, 3), np.float32)
         scales = np.zeros((n,), np.float32)
-        # per-image random scale index (ref: roi_data/minibatch.py:48-53)
-        scale_rng = np.random.RandomState(seed ^ 0x5BD1E995)
-        scale_inds = scale_rng.randint(0, len(cfg.TRAIN.SCALES), size=n)
         for i, e in enumerate(entries):
             im_bgr = (images_bgr[i] if images_bgr is not None
                       else load_image_bgr(e["image"], e.get("flipped", False)))
@@ -225,7 +238,7 @@ class RCNNMinibatchBuilder:
             scales[i] = scale
         if self.device_normalize:
             batch["content_hw"] = batch["im_hw"].copy()
-        add_rpn_blobs_to_batch(cfg, batch, entries, canvas, scales, seed=seed)
+        add_rpn_blobs_to_batch(cfg, batch, entries, canvas, scales, seed=seed, replay=replay)
         # repad gt arrays to a fixed max (stable shapes across batches)
         g = batch["gt_boxes"].shape[1]
         if g < self.max_gt:
@@ -281,14 +294,20 @@ def add_rpn_blobs_to_batch(
     canvas: Tuple[int, int],
     im_scales: np.ndarray,
     seed: int = 0,
+    replay: Sequence[Tuple[dict, float]] = (),
 ) -> None:
     """Fill batch['rpn_labels'/'rpn_bbox_targets'/'rpn_bbox_inside_weights'/
     'rpn_bbox_outside_weights'] per FPN level, plus padded gt arrays for the
-    on-device proposal-label sampling."""
+    on-device proposal-label sampling. ``replay``: the (entry, scale) of the
+    batch's images before ``entries``, whose label sampling advances the
+    generator first and is thrown away."""
     ch, cw = canvas
     n = len(entries)
     rng = np.random.RandomState(seed)
     grid = rpn_anchor_grid(cfg, ch, cw)
+    for e, scale in replay:
+        keep = (e["gt_classes"] > 0) & (~e["is_crowd"])
+        assign_rpn_labels(cfg, grid, e["boxes"][keep] * scale, ch, cw, rng)
     levels = grid.levels
     A = grid.num_anchors
     batch["rpn_labels"] = {

@@ -2,7 +2,9 @@
 
 The port never falls back from the card to the CPU on its own: asking for
 ``cuda`` on a host without one raises. The CPU is used only when a caller
-asks for it (the parity tests do).
+asks for it (the parity tests do). Over W ranks the rule holds per rank:
+each asks for its own card, ``cuda:LOCAL_RANK`` (parallel.rank_device),
+and a rank whose card does not exist raises.
 """
 
 from __future__ import annotations

@@ -11,6 +11,13 @@ the COCO evaluator (bbox, and segm under MODEL.MASK_ON), writes
 bbox_results.json, results.json and timing.json (the host split of the
 loop), and with cfg.VIS renders each image with its boxes and masks.
 
+Over the torchrun world (``multi_gpu``, test_net --multi-gpu-testing) each
+rank serves a contiguous shard of the roidb, the counterpart of the
+reference's --range subprocesses (test_engine.py:115-153) and of sad_tpu's
+mesh batch sharding (sad_tpu/eval/test_engine.py:195-212); rank 0 merges
+the detections in the one-process order (the landscape images in roidb
+order, then the portrait ones), evaluates and writes the files.
+
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item when a config asks for them: test-time augmentation, soft-NMS, box
 voting and proposals from files (Queue 1 item 8; sad_tpu's RetinaNet branch
@@ -35,6 +42,9 @@ import torch
 from ..config.config import get_output_dir
 from ..data.dataset import CocoDataset
 from ..data.minibatch import compute_im_scale, load_image_bgr, resize_bgr_u8
+from ..parallel.distributed import (
+    barrier, broadcast_object, current, gather_objects, world_size,
+)
 from ..utils.segms import mask_to_rle, paste_mask_into_image
 from .coco_eval import COCOEvaluator
 from .inference import make_inference_fn
@@ -207,6 +217,47 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
     return detections
 
 
+def _served_order(roidb: List[dict]) -> List[dict]:
+    """The order run_inference_on_roidb serves images in: the landscape
+    ones (the _test_canvas_shapes grouping), then the portrait ones, each
+    in roidb order."""
+    return ([e for e in roidb if e["width"] >= e["height"]]
+            + [e for e in roidb if e["width"] < e["height"]])
+
+
+def run_inference_sharded(cfg, model, roidb: List[dict], contiguous_to_json: Dict[int, int],
+                          batch_size: int = 8, vis_dir: Optional[str] = None,
+                          timing: Optional[Dict[str, float]] = None) -> Optional[List[Dict]]:
+    """run_inference_on_roidb over the ranks: rank r serves the r-th of W
+    contiguous shards of roidb (ceil(N / W) images each, the last fewer),
+    and rank 0 gets every detection in the order one process gives them;
+    the other ranks get None. ``timing`` on rank 0 holds its own split, the
+    slowest rank's wall seconds and every rank's wall seconds and images."""
+    info = current()
+    if info.world == 1:
+        return run_inference_on_roidb(cfg, model, roidb, contiguous_to_json, batch_size,
+                                      vis_dir=vis_dir, timing=timing)
+    if len({e["id"] for e in roidb}) != len(roidb):
+        raise ValueError("a sharded roidb needs unique image ids: the merge keys on them")
+    per = -(-len(roidb) // info.world)
+    mine: Dict[str, float] = {}
+    dets = run_inference_on_roidb(cfg, model, roidb[info.rank * per:(info.rank + 1) * per],
+                                  contiguous_to_json, batch_size, vis_dir=vis_dir, timing=mine)
+    parts = gather_objects((dets, mine))
+    if parts is None:
+        return None
+    by_image: Dict[int, List[Dict]] = {}
+    for part, _ in parts:
+        for d in part:
+            by_image.setdefault(d["image_id"], []).append(d)
+    if timing is not None:
+        timing.update(parts[0][1], wall=max(t["wall"] for _, t in parts),
+                      images=len(roidb), ranks=info.world,
+                      rank_wall=[t["wall"] for _, t in parts],
+                      rank_images=[t["images"] for _, t in parts])
+    return [d for e in _served_order(roidb) for d in by_image.get(e["id"], [])]
+
+
 def _vis_image(cfg, entry, vis_dir, boxes, scores, classes, valid, segms) -> None:
     """One image's detection render, with mask overlays (ref:
     test_engine.py:231-244 cfg.VIS dumps -> vis.py vis_one_image; threshold
@@ -248,7 +299,8 @@ def _refuse_unported_evaluator(cfg, name: str) -> None:
 
 def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_size: int = 8,
                         output_dir: Optional[str] = None,
-                        im_range: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
+                        im_range: Optional[Tuple[int, int]] = None,
+                        multi_gpu: bool = False) -> Dict[str, float]:
     """Run inference + COCO evaluation on cfg.TEST.DATASETS[0] (or
     ``dataset_name``): the 12 bbox metrics, and under MODEL.MASK_ON the 12
     segm ones with the ``segm_`` prefix. Writes bbox_results.json,
@@ -257,7 +309,10 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
     ``output_dir`` when one is given.
 
     im_range=(start, end) evaluates only that slice of the dataset's images
-    (ref test_net.py --range, the reference's subprocess-sharding unit)."""
+    (ref test_net.py --range, the reference's subprocess-sharding unit).
+    ``multi_gpu`` under torchrun: the slice is served sharded over the
+    ranks (run_inference_sharded); rank 0 evaluates and writes, and every
+    rank returns its results."""
     name = dataset_name or cfg.TEST.DATASETS[0]
     _refuse_unported_inference(cfg)
     _refuse_unported_evaluator(cfg, name)
@@ -273,8 +328,15 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
     vis_dir = (os.path.join(output_dir or get_output_dir(cfg, training=False), "vis")
                if cfg.VIS else None)
     timing: Dict[str, float] = {}
-    dets = run_inference_on_roidb(cfg, model, roidb, ds.contiguous_to_json, batch_size,
-                                  vis_dir=vis_dir, timing=timing)
+    sharded = multi_gpu and world_size() > 1
+    if sharded:
+        dets = run_inference_sharded(cfg, model, roidb, ds.contiguous_to_json, batch_size,
+                                     vis_dir=vis_dir, timing=timing)
+        if dets is None:
+            return broadcast_object(None)
+    else:
+        dets = run_inference_on_roidb(cfg, model, roidb, ds.contiguous_to_json, batch_size,
+                                      vis_dir=vis_dir, timing=timing)
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
         with open(os.path.join(output_dir, "bbox_results.json"), "w") as f:
@@ -291,17 +353,32 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
     if output_dir:
         with open(os.path.join(output_dir, "timing.json"), "w") as f:
             json.dump(timing, f, indent=1)
-    return results
+    return broadcast_object(results) if sharded else results
 
 
 def generate_pseudo_labels(cfg, model, dataset_name: str, out_json: str,
-                           score_thresh: float = 0.5, batch_size: int = 8) -> str:
+                           score_thresh: float = 0.5, batch_size: int = 8,
+                           multi_gpu: bool = False) -> str:
     """The teacher's pseudo-label writer: a COCO-format annotation json over
     an unlabeled dataset (the reference's semi-supervised flow, SURVEY.md
-    §3.4), usable as a catalog entry for DISTILLATION.UNLABEL_DATASETS."""
+    §3.4), usable as a catalog entry for DISTILLATION.UNLABEL_DATASETS.
+    ``multi_gpu`` under torchrun: served sharded over the ranks; rank 0
+    writes the merged set (annotation ids follow the one-process order) and
+    every rank returns once it is written."""
     ds = CocoDataset(dataset_name)
     roidb = ds.get_roidb(include_gt=False)
+    if multi_gpu and world_size() > 1:
+        dets = run_inference_sharded(cfg, model, roidb, ds.contiguous_to_json, batch_size)
+        if dets is not None:
+            _write_pseudo_labels(ds, dets, out_json, score_thresh)
+        barrier()
+        return out_json
     dets = run_inference_on_roidb(cfg, model, roidb, ds.contiguous_to_json, batch_size)
+    _write_pseudo_labels(ds, dets, out_json, score_thresh)
+    return out_json
+
+
+def _write_pseudo_labels(ds, dets: List[Dict], out_json: str, score_thresh: float) -> None:
     anns = []
     for i, d in enumerate(dets):
         if d["score"] < score_thresh:
@@ -326,4 +403,3 @@ def generate_pseudo_labels(cfg, model, dataset_name: str, out_json: str,
         json.dump(out, f)
     logger.info("Wrote %d pseudo annotations for %d images -> %s",
                 len(anns), len(ds.dataset["images"]), out_json)
-    return out_json

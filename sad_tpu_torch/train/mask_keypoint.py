@@ -21,7 +21,7 @@ The keypoint targets and loss of that file are not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,11 +62,13 @@ def mask_loss(
     roi_labels: torch.Tensor,  # (R,) class of each roi (0 bg)
     is_fg: torch.Tensor,  # (R,)
     n_groups: int,
+    total_groups: Optional[int] = None,
 ) -> torch.Tensor:
     """Sigmoid cross-entropy on the gt-class channel at fg rois, the mean
     over fg mask elements per group of consecutive rows, averaged over the
     groups (the reference's per-GPU means scaled by 1 / NUM_GPUS and summed
-    by the gradient allreduce), times MRCNN.WEIGHT_LOSS_MASK."""
+    by the gradient allreduce), times MRCNN.WEIGHT_LOSS_MASK; divided by
+    ``total_groups`` (the groups of every rank; ``n_groups`` by default)."""
     if cfg.MRCNN.CLS_SPECIFIC_MASK:
         idx = roi_labels.long().clamp_min(0)[:, None, None, None]
         sel = torch.gather(mask_logits, 3, idx.expand(-1, *mask_logits.shape[1:3], 1))[..., 0]
@@ -79,7 +81,7 @@ def mask_loss(
     sum_g = (ce * w).reshape(n_groups, -1).sum(dim=1)
     count_g = torch.clamp_min(w.reshape(n_groups, -1).sum(dim=1) * sel.shape[1] * sel.shape[2],
                               1.0)
-    return cfg.MRCNN.WEIGHT_LOSS_MASK * (sum_g / count_g).sum() / n_groups
+    return cfg.MRCNN.WEIGHT_LOSS_MASK * (sum_g / count_g).sum() / (total_groups or n_groups)
 
 
 def keypoint_targets_on_device(*args, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:

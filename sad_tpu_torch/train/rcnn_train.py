@@ -23,6 +23,11 @@ TRAIN.IMS_PER_BATCH consecutive images):
 - box head: softmax-CE as a per-group mean over sampled rois, smooth-L1 with
   class-specific weights (fast_rcnn_heads.py add_fast_rcnn_losses),
 - mask: train/mask_keypoint.py.
+Over W ranks (parallel/distributed.py) each rank holds B / W images and
+G / W groups; every denominator above stays the global one (images, rows,
+groups times W), the box head's accuracy divides by the live rois of all
+ranks, the sampler draws the global (B, P + G) priorities and takes the
+rank's rows, and the gradients are summed over the ranks before the update.
 
 Not ported yet, each raising NotImplementedError (ROADMAP.md Queue 1 item 8):
 keypoints, the single-scale (C4) and R-FCN branches, training from
@@ -51,6 +56,7 @@ from ..ops.losses import smooth_l1_loss
 from ..ops.proposals import (
     map_rois_to_fpn_levels, multilevel_roi_align, sample_proposal_labels, sampled_fg_cap,
 )
+from ..parallel.distributed import all_reduce_grads, all_reduce_sum, shard_rows
 from .mask_keypoint import mask_loss, mask_targets_on_device
 from .optimizer import momentum_sgd_update
 from .train_step import Metrics, TrainState
@@ -59,10 +65,12 @@ _LATER = " is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)"
 
 
 def rpn_losses(cfg, logits: Dict[int, torch.Tensor], deltas: Dict[int, torch.Tensor],
-               batch: Dict[str, Any]) -> Tuple[torch.Tensor, Metrics]:
+               batch: Dict[str, Any], total_images: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Metrics]:
     """Per-level RPN losses (FPN.py:391-431). Both denominators are static
-    (RPN_BATCH_SIZE_PER_IM * B and B, B the total images), so the
-    batch-global forms are exact for any grouping."""
+    (RPN_BATCH_SIZE_PER_IM * B and B, B = ``total_images``: the images of
+    every rank, this batch's by default), so the batch-global forms are
+    exact for any grouping."""
     metrics: Metrics = {}
     total = 0.0
     for lvl in sorted(logits):
@@ -72,11 +80,13 @@ def rpn_losses(cfg, logits: Dict[int, torch.Tensor], deltas: Dict[int, torch.Ten
         ge = (x >= 0).float()
         ce = -x * (t.float() - ge) + torch.log(1.0 + torch.exp(x - 2.0 * x * ge))
         ce = torch.where(t == -1, 0.0, ce)
-        cls = ce.sum() / (cfg.TRAIN.RPN_BATCH_SIZE_PER_IM * x.shape[0])
+        n = total_images or x.shape[0]
+        cls = ce.sum() / (cfg.TRAIN.RPN_BATCH_SIZE_PER_IM * n)
         d = deltas[lvl].reshape(tuple(deltas[lvl].shape[:-1]) + (t.shape[-1], 4))
-        bbox = smooth_l1_loss(
+        bbox = smooth_l1_loss(  # its denominator is this batch's images
             d, batch["rpn_bbox_targets"][lvl], batch["rpn_bbox_inside_weights"][lvl],
-            batch["rpn_bbox_outside_weights"][lvl], beta=1.0 / 9.0, scale=1.0)
+            batch["rpn_bbox_outside_weights"][lvl], beta=1.0 / 9.0,
+            scale=1.0 / (n // x.shape[0]))
         metrics[f"loss_rpn_cls_fpn{lvl}"] = cls
         metrics[f"loss_rpn_bbox_fpn{lvl}"] = bbox
         total = total + cls + bbox
@@ -84,11 +94,15 @@ def rpn_losses(cfg, logits: Dict[int, torch.Tensor], deltas: Dict[int, torch.Ten
 
 
 def fast_rcnn_losses(cfg, cls_score, labels, bbox_pred, bbox_targets, inside_w, outside_w,
-                     valid, n_groups: int) -> Tuple[torch.Tensor, Metrics]:
+                     valid, n_groups: int, total_groups: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Metrics]:
     """Box-head losses (fast_rcnn_heads.py add_fast_rcnn_losses):
     SoftmaxWithLoss as the average of per-group means over the live rois
     (rows are n_groups consecutive blocks) and SmoothL1Loss, whose
-    denominator is its static dim 0, scaled by MODEL.BBOX_REG_WEIGHT_SCALE."""
+    denominator is its static dim 0, scaled by MODEL.BBOX_REG_WEIGHT_SCALE.
+    With ``total_groups`` (the groups of every rank) above ``n_groups``, the
+    groups and rows of all ranks, and the accuracy over their live rois."""
+    ranks = (total_groups or n_groups) // n_groups
     if cfg.TRAIN.OHEM:
         raise NotImplementedError("TRAIN.OHEM" + _LATER)
     logp = torch.log_softmax(cls_score.float(), dim=-1)
@@ -98,11 +112,13 @@ def fast_rcnn_losses(cfg, cls_score, labels, bbox_pred, bbox_targets, inside_w, 
     live_f = live.float()
     sum_g = nll.reshape(n_groups, -1).sum(dim=1)
     cnt_g = torch.clamp_min(live_f.reshape(n_groups, -1).sum(dim=1), 1.0)
-    cls_loss = (sum_g / cnt_g).sum() / n_groups
+    cls_loss = (sum_g / cnt_g).sum() / (n_groups * ranks)
     bbox_loss = smooth_l1_loss(bbox_pred, bbox_targets, inside_w, outside_w, beta=1.0,
-                               scale=cfg.MODEL.BBOX_REG_WEIGHT_SCALE)
+                               scale=cfg.MODEL.BBOX_REG_WEIGHT_SCALE / ranks)
     hit = (cls_score.argmax(dim=-1) == labels) & valid
-    accuracy = hit.float().sum() / torch.clamp_min(live_f.sum(), 1.0)
+    # the live rois of every rank: the ranks' accuracies then sum to the batch's
+    live_n = all_reduce_sum(live_f.sum().detach()) if ranks > 1 else live_f.sum()
+    accuracy = hit.float().sum() / torch.clamp_min(live_n, 1.0)
     return cls_loss + bbox_loss, {"loss_cls": cls_loss, "loss_bbox": bbox_loss,
                                   "accuracy_cls": accuracy}
 
@@ -117,10 +133,12 @@ class RCNNTrainStep:
 
     The sampler's random priorities come from ``generator`` (a
     torch.Generator on the model's device), or are handed to the step as
-    ``uniforms`` = two (B, P + G) tensors."""
+    ``uniforms`` = two (B, P + G) tensors. ``rank`` of ``world`` > 1: the step
+    of one rank, which holds ``n_groups`` of the batch's groups; it draws
+    the whole batch's priorities from ``generator`` and takes its rows."""
 
     def __init__(self, cfg, model: nn.Module, n_groups: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, rank: int = 0, world: int = 1):
         if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN and cfg.FPN.MULTILEVEL_ROIS):
             raise NotImplementedError("the single-scale (C4 / R-FCN) R-CNN training step"
                                       + _LATER)
@@ -135,6 +153,7 @@ class RCNNTrainStep:
         self.model = model
         self.n_groups = n_groups or cfg.NUM_GPUS
         self.generator = generator
+        self.rank, self.world = rank, world
         t_mask = trainable_mask(model, cfg.TRAIN.FREEZE_AT, cfg.TRAIN.FREEZE_CONV_BODY)
         b_mask = bias_mask(model)
         named = dict(model.named_parameters())
@@ -160,7 +179,8 @@ class RCNNTrainStep:
     def rpn(self, nchw, batch):
         """RPN head and losses: (logits, deltas, total, metrics)."""
         logits, deltas = self.model.rpn_outputs(nchw)
-        total, metrics = rpn_losses(self.cfg, logits, deltas, batch)
+        images = next(iter(logits.values())).shape[0] * self.world
+        total, metrics = rpn_losses(self.cfg, logits, deltas, batch, images)
         return logits, deltas, total, metrics
 
     @torch.no_grad()
@@ -173,6 +193,12 @@ class RCNNTrainStep:
     @torch.no_grad()
     def sample(self, boxes, valid, batch, uniforms=None) -> Dict[str, torch.Tensor]:
         t, m = self.cfg.TRAIN, self.cfg.MODEL
+        if uniforms is None and self.world > 1:
+            # the whole batch's draws, in the order one process makes them
+            shape = (boxes.shape[0] * self.world, boxes.shape[1] + batch["gt_boxes"].shape[1])
+            uniforms = tuple(
+                shard_rows(torch.rand(shape, generator=self.generator, device=boxes.device),
+                           self.rank, self.world) for _ in range(2))
         return sample_proposal_labels(
             boxes, valid, batch["gt_boxes"], batch["gt_classes"], t.BATCH_SIZE_PER_IM,
             t.FG_FRACTION, t.FG_THRESH, t.BG_THRESH_HI, t.BG_THRESH_LO, m.NUM_CLASSES,
@@ -198,7 +224,7 @@ class RCNNTrainStep:
             sampled["bbox_targets"].reshape(n, -1),
             sampled["bbox_inside_weights"].reshape(n, -1),
             sampled["bbox_outside_weights"].reshape(n, -1),
-            sampled["valid"].reshape(-1), self.n_groups)
+            sampled["valid"].reshape(-1), self.n_groups, self.n_groups * self.world)
 
     def mask_cap(self) -> int:
         """Mask-branch slots an image: the fg prefix of the sampler's
@@ -225,7 +251,8 @@ class RCNNTrainStep:
         targets = mask_targets_on_device(
             batch["gt_mask_rasters"], rois, sampled["matched_gt"][:, :cap],
             cfg.MRCNN.RESOLUTION, float(batch["gt_mask_stride"]))
-        return mask_loss(cfg, mlogits, targets, labels, is_fg, self.n_groups)
+        return mask_loss(cfg, mlogits, targets, labels, is_fg, self.n_groups,
+                         self.n_groups * self.world)
 
     def losses(self, batch, uniforms=None) -> Tuple[torch.Tensor, Metrics]:
         """Forward and every loss: (total, metrics)."""
@@ -250,6 +277,10 @@ class RCNNTrainStep:
         got = torch.autograd.grad(total, self.params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, got)]
 
+    def reduce(self, grads):
+        """The gradients summed over the ranks (none to sum over at world 1)."""
+        return all_reduce_grads(grads) if self.world > 1 else grads
+
     def apply(self, state: TrainState, grads, lr: float) -> None:
         solver = self.cfg.SOLVER
         momentum_sgd_update(self.params, grads, [state.velocity[n] for n in self.names],
@@ -259,12 +290,14 @@ class RCNNTrainStep:
     def __call__(self, state: TrainState, batch: Dict[str, Any], lr: float,
                  uniforms=None) -> Metrics:
         total, metrics = self.losses(batch, uniforms)
-        self.apply(state, self.grads(total), lr)
+        self.apply(state, self.reduce(self.grads(total)), lr)
         return {k: v.detach() for k, v in metrics.items()}
 
 
 def make_rcnn_train_step(cfg, model: nn.Module, n_groups: Optional[int] = None,
-                         generator: Optional[torch.Generator] = None) -> RCNNTrainStep:
+                         generator: Optional[torch.Generator] = None, rank: int = 0,
+                         world: int = 1) -> RCNNTrainStep:
     """The training step of a Faster / Mask R-CNN ``model`` (ref: sad_tpu
-    make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS."""
-    return RCNNTrainStep(cfg, model, n_groups, generator)
+    make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS; over
+    ``world`` ranks it is the rank's own count."""
+    return RCNNTrainStep(cfg, model, n_groups, generator, rank, world)

@@ -17,10 +17,18 @@ sad_tpu/train/train_loop.py; detectron/tools/train_net.py:104-266).
   alternates with the labeled one by batch parity, behind DevicePrefetcher's
   pinned ``non_blocking`` copies.
 
-One device, from ``device.get_device``: sad_tpu's mesh block (data
-parallelism over chips) has no counterpart yet; NUM_GPUS is the number of
-loss groups. TRAIN.CHECKPOINT_BACKEND 'orbax' wraps a JAX library and
-raises.
+Data parallelism (sad_tpu's mesh block, train_loop.py:199-234): launched
+by ``torchrun --nproc_per_node W``, each rank trains on its card
+(``parallel.rank_device``) with G / W of the NUM_GPUS loss groups (W must
+divide NUM_GPUS), builds only its block of each batch from the shared
+schedule, sums the gradients over the ranks, and all-reduces the packed
+metrics, so every rank reads the same loss and a NaN aborts all of them at
+the same iteration; parameters and momentum are broadcast from rank 0 after
+the resume scan and TRAIN.WEIGHTS; rank 0 alone writes stats.jsonl,
+cfg.yaml, the snapshots, model_final.pkl, model_nan_abort.pkl and the
+profiler's trace. Without torchrun there is one process on
+``device.get_device``'s device and no collective. TRAIN.CHECKPOINT_BACKEND
+'orbax' wraps a JAX library and raises.
 
 Nothing in the loop waits for the card but the metrics: each step's metrics
 are packed on the device into one float32 vector, copied with
@@ -48,8 +56,11 @@ from ..config import Config
 from ..config.config import cfg_to_yaml, get_output_dir
 from ..data.dataset import combined_roidb_for_training
 from ..data.loader import DevicePrefetcher, TrainingLoader
-from ..device import get_device
 from ..models import create_model, trainable_mask
+from ..parallel.distributed import (
+    all_reduce_metrics, barrier, broadcast_module, broadcast_tensors, check_group_layout,
+    init_distributed, rank_device,
+)
 from ..utils.net_info import print_model_summary
 from ..utils.stats import TrainingStats
 from .checkpoint import (
@@ -180,7 +191,8 @@ class _Profiler:
         return summary
 
 
-def _make_loader(cfg, teacher_cfg, distill: bool, is_rcnn: bool, start_iter: int):
+def _make_loader(cfg, teacher_cfg, distill: bool, is_rcnn: bool, start_iter: int,
+                 rank: int = 0, world: int = 1):
     roidb = combined_roidb_for_training(
         cfg.TRAIN.DATASETS, cfg.TRAIN.USE_FLIPPED,
         gt_min_area=cfg.TRAIN.GT_MIN_AREA,
@@ -205,11 +217,13 @@ def _make_loader(cfg, teacher_cfg, distill: bool, is_rcnn: bool, start_iter: int
         n_procs = cfg.DATA_LOADER.NUM_PROCESSES
         loader = MultiprocessTrainingLoader(
             cfg, roidb, teacher_cfg if distill else None, unlabeled, builder=builder,
-            num_workers=None if n_procs < 0 else n_procs, skip_batches=start_iter)
+            num_workers=None if n_procs < 0 else n_procs, skip_batches=start_iter,
+            rank=rank, world=world)
     else:
         loader = TrainingLoader(
             cfg, roidb, teacher_cfg if distill else None, unlabeled, builder=builder,
-            num_threads=cfg.DATA_LOADER.NUM_THREADS, skip_batches=start_iter)
+            num_threads=cfg.DATA_LOADER.NUM_THREADS, skip_batches=start_iter,
+            rank=rank, world=world)
     try:
         return loader.start(prefill=True)
     except BaseException:
@@ -225,19 +239,23 @@ def train_model(
     device="cuda",
 ) -> TrainResult:
     """Run the training loop on ``device`` (the card unless the caller asks
-    for the CPU); returns the final student, momentum and the loop's
-    measurements."""
+    for the CPU; under torchrun this rank's card, or the CPU for 'cpu');
+    returns the final student, momentum and the loop's measurements."""
+    dist_info = init_distributed(device=device)
+    check_group_layout(cfg, dist_info.world)
+    main = dist_info.is_main
     distill = cfg.DISTILLATION.DISTILLATION_ON and teacher_cfg is not None
     is_rcnn = cfg.MODEL.TYPE in RCNN_TYPES
     output_dir = output_dir or get_output_dir(cfg, training=True)
     os.makedirs(output_dir, exist_ok=True)
     max_iters = max_iters or cfg.SOLVER.MAX_ITER
-    dev = get_device(device)
+    dev = rank_device(device)
     # embed the active config in checkpoints (ref: net.py:149-182 stores
     # 'cfg' yaml in every weights pkl) and in the run dir
     cfg_yaml = cfg_to_yaml(cfg)
-    with open(os.path.join(output_dir, "cfg.yaml"), "w") as f:
-        f.write(cfg_yaml)
+    if main:
+        with open(os.path.join(output_dir, "cfg.yaml"), "w") as f:
+            f.write(cfg_yaml)
 
     if cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
         raise NotImplementedError(
@@ -279,27 +297,36 @@ def train_model(
     if start_iter == 0 and cfg.TRAIN.WEIGHTS:
         load_reference_or_native(cfg.TRAIN.WEIGHTS, student, cfg)
         logger.info("Initialized student from %s", cfg.TRAIN.WEIGHTS)
+    if dist_info.world > 1:
+        # every rank has scanned the directory before rank 0 writes to it;
+        # then rank 0's parameters and momentum on all (net.py:185-208)
+        barrier()
+        broadcast_module(student)
+        broadcast_tensors(state.velocity.values())
     result = TrainResult(student, state, start_iter, max_iters)
     if start_iter >= max_iters:
         logger.info("Training already complete at iter %d: nothing to do", start_iter)
         return result
 
-    # ----- step
-    n_groups = cfg.NUM_GPUS
+    # ----- step: the rank's share of the loss groups, the loss scaled by 1 / NUM_GPUS
+    n_groups = cfg.NUM_GPUS // dist_info.world
     if is_rcnn:
-        step = make_rcnn_train_step(cfg, student, n_groups=n_groups)
+        step = make_rcnn_train_step(cfg, student, n_groups=n_groups, rank=dist_info.rank,
+                                    world=dist_info.world)
     else:
-        step = make_train_step(cfg, student, teacher, n_groups=n_groups, teacher_cfg=teacher_cfg)
+        step = make_train_step(cfg, student, teacher, n_groups=n_groups, teacher_cfg=teacher_cfg,
+                               world=dist_info.world)
     trainable = trainable_mask(student, cfg.TRAIN.FREEZE_AT, cfg.TRAIN.FREEZE_CONV_BODY)
-    logger.info("Model parameter summary (net.py:224 print_net analogue):")
-    print_model_summary(student.state_dict(), max_rows=12)
+    if main:
+        logger.info("Model parameter summary (net.py:224 print_net analogue):")
+        print_model_summary(student.state_dict(), max_rows=12)
 
     stats_path = os.path.join(output_dir, "stats.jsonl")
-    if start_iter == 0 and os.path.exists(stats_path):
+    if main and start_iter == 0 and os.path.exists(stats_path):
         # fresh run into a reused dir: truncate, don't concatenate runs
         # (a resume appends, keeping one continuous series)
         os.remove(stats_path)
-    stats = TrainingStats(max_iters, log_file=stats_path)
+    stats = TrainingStats(max_iters, log_file=stats_path if main else None)
     snapshot_period = max(1, cfg.TRAIN.SNAPSHOT_ITERS // max(cfg.NUM_GPUS, 1))
     cur_lr = get_lr_at_iter(cfg.SOLVER, max(start_iter - 1, 0))
     if dev.type == "cuda":
@@ -308,11 +335,13 @@ def train_model(
     metric_names: List[str] = []
 
     def _pack(m: Dict[str, torch.Tensor]):
-        """One float32 vector of the metrics, on its way to pinned host
-        memory behind an event (CUDA), or the vector itself (CPU)."""
+        """One float32 vector of the metrics, reduced over the ranks, on its
+        way to pinned host memory behind an event (CUDA), or the vector
+        itself (CPU)."""
         if not metric_names:
             metric_names.extend(sorted(m))
-        vec = torch.stack([m[k].float() for k in metric_names])
+        vec = all_reduce_metrics(torch.stack([m[k].float() for k in metric_names]),
+                                 metric_names)
         if dev.type != "cuda":
             return vec, None
         host = torch.empty(vec.shape, dtype=torch.float32, pin_memory=True)
@@ -321,7 +350,8 @@ def train_model(
         event.record()
         return host, event
 
-    loader = _make_loader(cfg, teacher_cfg, distill, is_rcnn, start_iter)
+    loader = _make_loader(cfg, teacher_cfg, distill, is_rcnn, start_iter, dist_info.rank,
+                          dist_info.world)
     feed = DevicePrefetcher(loader, dev)
 
     def _consume_metrics(p_it, p_lr, packed):
@@ -332,15 +362,18 @@ def train_model(
         metrics = dict(zip(metric_names, (float(v) for v in vals)))
         stats.iter_toc()
         stats.update_iter_stats(p_it, metrics)
-        will_log = p_it % stats.log_period == 0 or p_it == stats.max_iter - 1
-        stats.log_iter_stats(
-            p_it, p_lr,
-            extra=({"queue": feed.queue_depth(), **device_memory_stats(dev),
-                    "host_rss_mb": host_rss_mb()} if will_log else None),
-        )
+        will_log = main and (p_it % stats.log_period == 0 or p_it == stats.max_iter - 1)
+        if main:
+            stats.log_iter_stats(
+                p_it, p_lr,
+                extra=({"queue": feed.queue_depth(), **device_memory_stats(dev),
+                        "host_rss_mb": host_rss_mb()} if will_log else None),
+            )
+        # the loss is the ranks' sum: every rank aborts at this iteration
         if not np.isfinite(metrics["loss"]):
-            save_checkpoint(os.path.join(output_dir, "model_nan_abort.pkl"), student,
-                            state.velocity, p_it, cfg_yaml=cfg_yaml)
+            if main:
+                save_checkpoint(os.path.join(output_dir, "model_nan_abort.pkl"), student,
+                                state.velocity, p_it, cfg_yaml=cfg_yaml)
             raise FloatingPointError(
                 f"Loss is {metrics['loss']} at iter {p_it}; aborting (train_net.py:186-189)")
 
@@ -353,7 +386,7 @@ def train_model(
     try:
         for it in range(start_iter, max_iters):
             marks.append((time.perf_counter(), time.thread_time(), time.process_time()))
-            if cfg.PROFILE_DIR and it == cfg.PROFILE_START_ITER:
+            if main and cfg.PROFILE_DIR and it == cfg.PROFILE_START_ITER:
                 profiler = _Profiler(cfg.PROFILE_DIR, dev)
                 logger.info("profiler trace started -> %s", cfg.PROFILE_DIR)
             stats.iter_tic()
@@ -384,14 +417,16 @@ def train_model(
                     logger.info("profiler trace stopped: %s", profiler.stop())
                     profiler = None
 
-            if (it + 1) % snapshot_period == 0 and it + 1 < max_iters:
+            if main and (it + 1) % snapshot_period == 0 and it + 1 < max_iters:
                 save_checkpoint(os.path.join(output_dir, f"model_iter{it}.pkl"), student,
                                 state.velocity, it + 1, cfg_yaml=cfg_yaml)
         if pending is not None:
             _consume_metrics(*pending)
         marks.append((time.perf_counter(), time.thread_time(), time.process_time()))
-        save_checkpoint(os.path.join(output_dir, "model_final.pkl"), student,
-                        state.velocity, max_iters, cfg_yaml=cfg_yaml)
+        if main:
+            save_checkpoint(os.path.join(output_dir, "model_final.pkl"), student,
+                            state.velocity, max_iters, cfg_yaml=cfg_yaml)
+        barrier()
     finally:
         if profiler is not None:
             profiler.prof.stop()

@@ -4,6 +4,11 @@
 - Loss normalizers are per group of TRAIN.IMS_PER_BATCH images, as the
   reference computes them per GPU over its 2-image minibatch; every loss is
   scaled by 1/G (detector.py:650-655).
+- Over W ranks (parallel/distributed.py) a step holds the rank's G / W
+  groups (``n_groups`` is that local count), scales its losses by 1 / G all
+  the same (the loss functions' ``total_groups``), and sums the gradients
+  over the ranks before the update; the per-group normalizers (fg_num, PowSum) are never reduced
+  across ranks.
 - The frozen teacher runs under ``torch.no_grad()`` on its own pixel
   normalisation of the same uint8 canvas (minibatch.py:74-82); its probs
   come from its float32 logits.
@@ -45,6 +50,7 @@ from ..ops.losses import (
     pow_sum, select_smooth_l1_loss, sigmoid_adaptive_distill_loss, sigmoid_focal_loss,
     softmax_focal_loss,
 )
+from ..parallel.distributed import all_reduce_grads
 from .optimizer import init_velocity, momentum_sgd_update
 
 Metrics = Dict[str, torch.Tensor]
@@ -85,19 +91,24 @@ def _split_anchor_axis(x: torch.Tensor, num_anchors: int) -> torch.Tensor:
     return x.reshape(tuple(x.shape[:-1]) + (num_anchors, x.shape[-1] // num_anchors))
 
 
-def _bbox_loss(cfg, student_out, batch, lvl: int, n_groups: int) -> torch.Tensor:
-    """(G,) select-smooth-L1 losses of one level."""
+def _bbox_loss(cfg, student_out, batch, lvl: int, n_groups: int, total_groups: int
+               ) -> torch.Tensor:
+    """(G,) select-smooth-L1 losses of one level, scaled by
+    1 / ``total_groups`` (the groups of every rank)."""
     r = cfg.RETINANET
     pred = _split_anchor_axis(student_out["bbox_pred"][lvl], cfg.num_anchors_per_cell())
     return select_smooth_l1_loss(
         _group_view(pred, n_groups), _group_view(batch["bbox_targets"][lvl], n_groups),
         _group_view(batch["fg_mask"][lvl], n_groups), batch["fg_num"],
-        r.BBOX_REG_BETA, (1.0 / n_groups) * r.BBOX_REG_WEIGHT)
+        r.BBOX_REG_BETA, (1.0 / total_groups) * r.BBOX_REG_WEIGHT)
 
 
-def retinanet_losses(cfg, outputs, batch, n_groups: int) -> Tuple[torch.Tensor, Metrics]:
+def retinanet_losses(cfg, outputs, batch, n_groups: int, total_groups: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Metrics]:
     """Focal + select-smooth-L1 over all levels with per-group normalizers
-    (ref: retinanet_heads.py:248-311)."""
+    (ref: retinanet_heads.py:248-311), scaled by 1 / ``total_groups`` (the
+    groups of every rank; ``n_groups`` by default)."""
+    total_groups = total_groups or n_groups
     a = cfg.num_anchors_per_cell()
     # the softmax variant's class axis holds background at 0 (retinanet_heads.py:295-305)
     focal_loss = softmax_focal_loss if cfg.RETINANET.SOFTMAX else sigmoid_focal_loss
@@ -107,8 +118,9 @@ def retinanet_losses(cfg, outputs, batch, n_groups: int) -> Tuple[torch.Tensor, 
         logits = _split_anchor_axis(outputs["cls_logits"][lvl], a)
         focal = focal_loss(
             _group_view(logits, n_groups), _group_view(batch["labels"][lvl], n_groups),
-            batch["fg_num"], cfg.RETINANET.LOSS_GAMMA, cfg.RETINANET.LOSS_ALPHA, 1.0 / n_groups)
-        bbox = _bbox_loss(cfg, outputs, batch, lvl, n_groups)
+            batch["fg_num"], cfg.RETINANET.LOSS_GAMMA, cfg.RETINANET.LOSS_ALPHA,
+            1.0 / total_groups)
+        bbox = _bbox_loss(cfg, outputs, batch, lvl, n_groups, total_groups)
         metrics[f"fl_fpn{lvl}"] = focal.sum()
         metrics[f"retnet_loss_bbox_fpn{lvl}"] = bbox.sum()
         total = total + focal.sum() + bbox.sum()
@@ -149,14 +161,16 @@ def cls_loss_params(cfg) -> ClsLossParams:
 
 
 def fused_distill_losses(cfg, student_out, teacher_probs, batch, n_groups: int,
-                         cls_losses: Callable = fused_cls_losses_raw
-                         ) -> Tuple[torch.Tensor, Metrics]:
+                         cls_losses: Callable = fused_cls_losses_raw,
+                         total_groups: Optional[int] = None) -> Tuple[torch.Tensor, Metrics]:
     """Focal + adaptive distillation + PowSum per level in one pass of
     ``cls_losses`` (the fused kernels), the 1/Np of each group applied on
-    (G,) scalars afterwards; plus the bbox loss."""
+    (G,) scalars afterwards; plus the bbox loss. Scaled by 1 /
+    ``total_groups`` (the groups of every rank; ``n_groups`` by default)."""
+    total_groups = total_groups or n_groups
     d = cfg.DISTILLATION
     a = cfg.num_anchors_per_cell()
-    loss_scale = 1.0 / n_groups
+    loss_scale = 1.0 / total_groups
     distill_scale = loss_scale * d.TEMPERATURE * d.TEMPERATURE
     p = cls_loss_params(cfg)
     metrics: Metrics = {}
@@ -179,7 +193,7 @@ def fused_distill_losses(cfg, student_out, teacher_probs, batch, n_groups: int,
         focal_raw, distill_raw, _ = raw[lvl]
         focal = loss_scale * (focal_raw / fg_np).sum()
         distill = distill_scale * (distill_raw / dn_np).sum()
-        bbox = _bbox_loss(cfg, student_out, batch, lvl, n_groups).sum()
+        bbox = _bbox_loss(cfg, student_out, batch, lvl, n_groups, total_groups).sum()
         metrics[f"fl_fpn{lvl}"] = focal
         metrics[f"fl_distill_fpn{lvl}"] = distill
         metrics[f"retnet_loss_bbox_fpn{lvl}"] = bbox
@@ -192,17 +206,20 @@ class TrainStep:
     updates the student's parameters and ``state.velocity`` in place and
     returns the metrics as 0-d tensors on the device (nothing waits for the
     card). Its stages are methods, so that a profiler can time each one:
-    inputs -> teacher_probs -> forward -> losses -> grads -> apply."""
+    inputs -> teacher_probs -> forward -> losses -> grads -> reduce -> apply.
+    ``world`` > 1: the step of one of that many ranks, which holds
+    ``n_groups`` of the batch's groups."""
 
     def __init__(self, cfg, student: nn.Module, teacher: Optional[nn.Module] = None,
                  n_groups: Optional[int] = None, teacher_cfg=None,
-                 cls_losses: Callable = fused_cls_losses_raw):
+                 cls_losses: Callable = fused_cls_losses_raw, world: int = 1):
         self.cfg = cfg
         self.tcfg = teacher_cfg if teacher_cfg is not None else cfg
         self.student = student
         self.teacher = teacher
         self.n_groups = n_groups
         self.cls_losses = cls_losses
+        self.world = world
         t_mask = trainable_mask(student, cfg.TRAIN.FREEZE_AT, cfg.TRAIN.FREEZE_CONV_BODY)
         b_mask = bias_mask(student)
         named = dict(student.named_parameters())
@@ -237,16 +254,20 @@ class TrainStep:
     def losses(self, out, teacher_probs, batch) -> Tuple[torch.Tensor, Metrics]:
         groups = self.n_groups if self.n_groups is not None else batch["fg_num"].shape[0]
         if teacher_probs is None:
-            total, metrics = retinanet_losses(self.cfg, out, batch, groups)
+            total, metrics = retinanet_losses(self.cfg, out, batch, groups, groups * self.world)
         else:
             total, metrics = fused_distill_losses(self.cfg, out, teacher_probs, batch, groups,
-                                                  self.cls_losses)
+                                                  self.cls_losses, groups * self.world)
         metrics["loss"] = total
         metrics["retnet_fg_num"] = batch["fg_num"].sum()
         return total, metrics
 
     def grads(self, total: torch.Tensor):
         return torch.autograd.grad(total, self.params)
+
+    def reduce(self, grads):
+        """The gradients summed over the ranks (none to sum over at world 1)."""
+        return all_reduce_grads(grads) if self.world > 1 else grads
 
     def apply(self, state: TrainState, grads, lr: float) -> None:
         solver = self.cfg.SOLVER
@@ -258,16 +279,17 @@ class TrainStep:
         s_data, t_data = self.inputs(batch)
         probs = self.teacher_probs(t_data)
         total, metrics = self.losses(self.forward(s_data), probs, batch)
-        self.apply(state, self.grads(total), lr)
+        self.apply(state, self.reduce(self.grads(total)), lr)
         return {k: v.detach() for k, v in metrics.items()}
 
 
 def make_train_step(cfg, student: nn.Module, teacher: Optional[nn.Module] = None,
                     n_groups: Optional[int] = None, teacher_cfg=None,
-                    cls_losses: Callable = fused_cls_losses_raw) -> TrainStep:
+                    cls_losses: Callable = fused_cls_losses_raw, world: int = 1) -> TrainStep:
     """The train step of ``student`` (ref: sad_tpu make_train_step).
     Distillation is on iff ``teacher`` is given; ``teacher_cfg`` supplies the
     teacher's pixel normalisation of a uint8 batch. ``cls_losses`` is the
     fused cls-loss function of the distillation step (the plain twin,
-    ``fused_cls_losses_raw_plain``, to hold the kernels against it)."""
-    return TrainStep(cfg, student, teacher, n_groups, teacher_cfg, cls_losses)
+    ``fused_cls_losses_raw_plain``, to hold the kernels against it). Over
+    ``world`` ranks, ``n_groups`` is the rank's own count."""
+    return TrainStep(cfg, student, teacher, n_groups, teacher_cfg, cls_losses, world)

@@ -514,3 +514,32 @@ def test_mask_class_gather_and_paste_on_the_card_equal_the_cpus(cuda):
             a = paste_mask_into_image(got[j, k].numpy(), box, 600, 800, 0.5)
             b = paste_mask_into_image(want[j, k].numpy(), box, 600, 800, 0.5)
             assert np.array_equal(a, b) and mask_to_rle(a) == mask_to_rle(b)
+
+
+def test_init_distributed_world_one_on_nccl(cuda, tmp_path):
+    """The training code's default on the card: a world of 1 over NCCL on
+    cuda:LOCAL_RANK; the gradient all-reduce returns its input at once and
+    the metrics all-reduce is the identity."""
+    from sad_tpu_torch.parallel import distributed as pd
+
+    info = pd.init_distributed(0, 1, 0, init_method="file://" + str(tmp_path / "store"))
+    try:
+        assert (info.rank, info.world, info.backend) == (0, 1, "nccl")
+        assert pd.rank_device("cuda") == torch.device("cuda", 0)
+        grads = [torch.ones(3, device=cuda)]
+        assert pd.all_reduce_grads(grads)[0] is grads[0]
+        vec = torch.tensor([1.0, 2.0], device=cuda)
+        assert torch.equal(pd.all_reduce_metrics(vec, ["loss", "distill_normalizer"]), vec)
+        pd.barrier()
+    finally:
+        pd.destroy()
+    assert pd.current().world == 1
+
+
+def test_a_named_backend_that_is_missing_raises_on_the_card(cuda, tmp_path):
+    from sad_tpu_torch.parallel import distributed as pd
+
+    with pytest.raises(RuntimeError, match="not available"):
+        pd.init_distributed(0, 1, 0, backend="no_such_backend",
+                            init_method="file://" + str(tmp_path / "store"))
+    assert pd.current().world == 1

@@ -53,6 +53,8 @@ def test_chip_smoke_main_path_imports_no_sad_tpu():
         import sad_tpu_torch.data.loader, sad_tpu_torch.data.mp_loader
         import sad_tpu_torch.data.synth_coco, sad_tpu_torch.tools.train_net
         import sad_tpu_torch.eval.test_engine, sad_tpu_torch.native.plain
+        import sad_tpu_torch.parallel, sad_tpu_torch.parallel.launch
+        import sad_tpu_torch.tools.profile_ddp, sad_tpu_torch.tools.test_net
         allowed = set()
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   or (m.split(".")[0] == "sad_tpu" and m not in allowed)]
@@ -78,13 +80,18 @@ def _sad_tpu_imports(path: Path):
 
 
 def test_no_source_of_the_port_imports_sad_tpu():
-    """Static check: no file of sad_tpu_torch/ and not chip_smoke.py has an
-    `import sad_tpu...` or `from sad_tpu... import`, wherever it stands
-    (inside functions too). The gitignored build directory holds no source."""
+    """Static check: no file of sad_tpu_torch/ (parallel/ included) and not
+    chip_smoke.py has an `import sad_tpu...` or `from sad_tpu... import`,
+    wherever it stands (inside functions too). The gitignored build
+    directory holds no source."""
     pkg = REPO / "sad_tpu_torch"
     files = sorted(f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 30
+    # the data-parallel layer and its rank functions are walked too
+    for f in ("parallel/__init__.py", "parallel/distributed.py", "parallel/launch.py",
+              "tools/profile_ddp.py"):
+        assert pkg / f in files, f
     bad = {str(f.relative_to(REPO)): hits for f in files if (hits := _sad_tpu_imports(f))}
     assert not bad, bad
 
