@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
 against its plain PyTorch version, and drive the RetinaNet serving path, the
-joint SAD training step, Faster / Mask R-CNN serving, the Faster / Mask
-R-CNN training step, the training workflow (pseudo-labels, train_net,
+joint SAD training step, Faster / Mask / Keypoint R-CNN serving, the Faster /
+Mask / Keypoint R-CNN training step, the training workflow (pseudo-labels, train_net,
 checkpoints, resume), the evaluation path (test_net, the COCO evaluator) and
 the paper's R-101 <- X-101-64x4d pair at scale 500 end to end.
 
@@ -132,6 +132,24 @@ line each (name, what was checked, time):
                  forward 1 (Faster) or 3 (Mask: box, mask, and the mask
                  target crop, which carries no gradient), backward 1 or 2;
                  imgs/s, peak memory
+  keypoint_rcnn_infer
+                 after mask_rcnn_infer: Keypoint R-CNN R-50-FPN
+                 (e2e_keypoint_rcnn_R-50-FPN.yaml, one foreground class, the
+                 8 x 3x3 conv tower at 512) with the checks of
+                 mask_rcnn_infer, kps_heatmaps (B, 100, 56, 56, 17) finite and
+                 within one bf16 ulp of the plain-twin run, 2 NMS and 2
+                 RoIAlign (box, keypoint) launches a batch; imgs/s, each
+                 stage's device ms (CUDA events: RoIAlign and the keypoint
+                 head apart), and the detection NMS at its own shape (8 x
+                 1000 -> 100) on the batch's candidates: kernel against the
+                 plain NMS, both timed, and the bound
+  keypoint_rcnn_train
+                 after mask_rcnn_train: the checks of mask_rcnn_train for
+                 Keypoint R-CNN (loss_kps; the keypoint RoIAlign backward's
+                 FPN-output gradients held to the plain one; the backward
+                 timed on the step's own keypoint rois, res 14), launches NMS
+                 1, RoIAlign forward 2 and backward 2 a step; each stage's
+                 device ms (profile_train.rcnn_stage_ms)
 
   sad_train_loop after the R-CNN training step, in a temporary directory:
                  a synthetic COCO (48 labeled, 48 unlabeled images, sides
@@ -181,6 +199,16 @@ line each (name, what was checked, time):
                  evaluations' seconds, and the device's idle share over the
                  inference loop (torch.profiler kernel time of a second,
                  profiled loop over the unprofiled wall)
+  keypoint_test_net
+                 after test_net: a synthetic keypoint split (16 images, one
+                 category, 5 keypoints with a flip map); test_net with the
+                 keypoint config (output layers spread, --range 0 8): results
+                 with the 10 keypoints_ metrics, finite, bbox_results.json
+                 (with keypoint triplets) and results.json byte-identical to
+                 the plain-twin run, NMS 2 and RoIAlign 2 a batch, the host
+                 split with the heatmap copy and the host decode in ms a
+                 batch; then train_net 8 iterations on the split (snapshot
+                 at 3, loss_kps in stats.jsonl, NMS 1, RoIAlign 2 + 2 a step)
 
   cls_loss_kernels_500
                  with the kernel checks: the cls-loss kernels against their
@@ -261,7 +289,9 @@ line each (name, what was checked, time):
                  rank
 
 Then a JSON line with every kernel of the paths (with the loops' launches
-as train_loop_launches, the evaluation's as test_net_launches and each
+as train_loop_launches, the evaluation's as test_net_launches, Keypoint
+R-CNN's share as keypoint_launches, keypoint_test_net_launches and
+keypoint_train_loop_launches, and each
 rank's launches in the data-parallel phases as ddp_launches,
 ddp_train_loop_launches and ddp_test_net_launches), the
 card's name and power limit, and as the last
@@ -291,6 +321,7 @@ STUDENT_500_CFG = "sad_tpu_torch/configs/retinanet_R-101-FPN_student_500.yaml"
 TEACHER_500_CFG = "sad_tpu_torch/configs/retinanet_X-101-64x4d-FPN_teacher_500.yaml"
 FASTER_CFG = "sad_tpu_torch/configs/e2e_faster_rcnn_R-50-FPN.yaml"
 MASK_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml"
+KEYPOINT_CFG = "sad_tpu_torch/configs/e2e_keypoint_rcnn_R-50-FPN.yaml"
 # N problems, K candidates, max_out, threshold
 DECODE_SHAPE = (8, 5000, 100, 0.5)  # RetinaNet decode: 8 images, 5 levels x 1000
 RPN_SHAPE = (40, 1000, 1000, 0.7)  # R-CNN proposals: 5 levels x 8 images
@@ -1319,6 +1350,13 @@ def phase_rcnn_infer(torch, name, cfg_path, seed, batch, iters, warmup):
         if tuple(mp.shape) != (batch, max_out, m, m, cfg.MODEL.NUM_CLASSES) or not bool(
                 ((mp >= 0) & (mp <= 1)).all()):
             raise AssertionError(f"{name}: mask_prob shape {tuple(mp.shape)} or values outside [0, 1]")
+    kps_on = bool(cfg.MODEL.KEYPOINTS_ON)
+    if kps_on:
+        hm = dets["kps_heatmaps"]
+        s_hm = 4 * cfg.KRCNN.ROI_XFORM_RESOLUTION
+        if tuple(hm.shape) != (batch, max_out, s_hm, s_hm, cfg.KRCNN.NUM_KEYPOINTS) or not bool(
+                torch.isfinite(hm).all()):
+            raise AssertionError(f"{name}: kps_heatmaps shape {tuple(hm.shape)} or not finite")
 
     # the same model and batch with the plain NMS and plain RoIAlign
     counts = nms_kernel.launches, roi_align_kernel.launches
@@ -1332,6 +1370,17 @@ def phase_rcnn_infer(torch, name, cfg_path, seed, batch, iters, warmup):
             diff = (dets[key].float() - ref[key].float()).abs()
             raise AssertionError(f"{name}: {key} differs from the plain-twin run: "
                                  f"{int((diff > 0).sum())} entries, max {float(diff.max()):.3e}")
+    hm_err = None
+    if kps_on:
+        # the heatmaps of the same kept boxes: within one bf16 ulp of the larger
+        # magnitude (the RoIAlign forward is bit-equal to its twin, so the head
+        # sees the same inputs; the bound holds whatever cuDNN picks)
+        a, b = dets["kps_heatmaps"].float(), ref["kps_heatmaps"].float()
+        hm_err = float((a - b).abs().max())
+        bad = int(((a - b).abs() > 2.0 ** -7 * torch.maximum(a.abs(), b.abs())).sum())
+        if bad:
+            raise AssertionError(f"{name}: {bad} kps_heatmaps entries beyond one bf16 ulp of "
+                                 f"the plain-twin run's (max abs diff {hm_err:.3e})")
     del ref
 
     # the main path: counts set to 0 just before, read just after
@@ -1339,21 +1388,75 @@ def phase_rcnn_infer(torch, name, cfg_path, seed, batch, iters, warmup):
     times = wall_seconds(lambda: infer(*args), iters, warmup)
     launches = nms_kernel.launches, roi_align_kernel.launches
     n_batches = iters + warmup
-    want = (2 * n_batches, (2 if cfg.MODEL.MASK_ON else 1) * n_batches)
+    want = (2 * n_batches, (2 if cfg.MODEL.MASK_ON or kps_on else 1) * n_batches)
     if launches != want:
         raise AssertionError(f"{name}: {launches} NMS / RoIAlign launches in {n_batches} "
                              f"batches, want {want}")
     med = statistics.median(times)
+    extra = _keypoint_serving(torch, cfg, model, args, iters, warmup) if kps_on else {}
     _phase(name, f"{cfg_path}: {batch}x{RCNN_CANVAS[0]}x{RCNN_CANVAS[1]} uint8, bf16; RPN filled "
            f"all {cfg.TEST.RPN_POST_NMS_TOP_N} slots (rois per level P2..P5 {roi_levels}), "
            f"detections per image {per_im}, classes in 1..{n_fg}, finite"
            + (", mask_prob in [0, 1]" if cfg.MODEL.MASK_ON else "")
-           + f"; {', '.join(keys)} equal to the plain-twin run; {launches[0]} NMS and "
+           + (", kps_heatmaps finite" if kps_on else "")
+           + f"; {', '.join(keys)} equal to the plain-twin run"
+           + (f", kps_heatmaps within one bf16 ulp of it (max abs diff {hm_err:.3e})"
+              if kps_on else "")
+           + f"; {launches[0]} NMS and "
            f"{launches[1]} RoIAlign launches in {n_batches} batches; {batch / med:.2f} imgs/s, "
-           f"{1000 * med / batch:.3f} ms/img (median of {iters} after {warmup} warm-up)",
+           f"{1000 * med / batch:.3f} ms/img (median of {iters} after {warmup} warm-up)"
+           + (f"; {extra['said']}" if kps_on else ""),
            time.perf_counter() - t0)
     return {"imgs_per_s": batch / med, "nms_launches": launches[0],
-            "roi_align_launches": launches[1], "mask": bool(cfg.MODEL.MASK_ON)}
+            "roi_align_launches": launches[1], "mask": bool(cfg.MODEL.MASK_ON), **extra}
+
+
+def _keypoint_serving(torch, cfg, model, args, iters, warmup):
+    """Keypoint R-CNN serving beside the main path (no count is read here):
+    the device ms of each stage of a batch (CUDA events, medians), and the
+    detection NMS at its own shape, one foreground class (8 x 1000 -> 100),
+    on this batch's candidates: the kernel against the plain NMS (idx and
+    valid exactly equal), both timed, and the bound of this run's data."""
+    from sad_tpu_torch.eval.inference import device_normalize
+    from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_candidates
+    from sad_tpu_torch.ops import nms, nms_kernel
+    from sad_tpu_torch.tools.profile_infer import _event_ms, rcnn_stages
+
+    stages = rcnn_stages(cfg, model, args)
+    per = {n: [] for n, _ in stages}
+    with torch.inference_mode():
+        for i in range(iters + warmup):
+            _, ms = _event_ms([fn for _, fn in stages])
+            if i >= warmup:
+                for (n, _), t in zip(stages, ms):
+                    per[n].append(t)
+        out = model(device_normalize(cfg, args[0], args[3]), args[1])
+        cands = decode_rcnn_candidates(cfg, out["rois"], out["roi_valid"], out["cls_prob"],
+                                       out["bbox_pred"], args[1], args[2])
+        del out
+        boxes, scores = nms.offset_by_class(*cands)
+        boxes, scores = boxes.float().contiguous(), scores.float().contiguous()
+    thr, max_out = cfg.TEST.NMS, cfg.TEST.DETECTIONS_PER_IM
+    ik, vk = nms_kernel.nms_cuda(boxes, scores, thr, max_out)
+    ip, vp = nms.nms_multi_plain(boxes, scores, thr, max_out)
+    if not torch.equal(ik, ip) or not torch.equal(vk, vp):
+        raise AssertionError(f"keypoint decode NMS: kernel != plain on the batch's candidates "
+                             f"({int((ik != ip).sum()) + int((vk != vp).sum())} entries)")
+    ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, thr, max_out),
+                    iters * 5, warmup)
+    plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr, max_out),
+                          iters, 1)
+    b = _nms_bound(*scores.shape, max_out, vk)
+    n_cand = int((scores > -1e29).sum())
+    stage_ms = {n: statistics.median(v) for n, v in per.items() if n != "count"}
+    said = (f"stage device ms (CUDA events, median of {iters}): "
+            + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items())
+            + f"; detection NMS N={scores.shape[0]} K={scores.shape[1]} ({n_cand} valid) -> "
+            f"{max_out}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+            f"ms by {b['bound_by']}, {int(vk.sum())} kept, idx and valid equal to the plain NMS")
+    return {"stage_ms": stage_ms, "said": said,
+            "nms_decode": {"max_abs_err": float((ik - ip).abs().max()), "ms": ms,
+                           "plain_ms": plain_ms, **b}}
 
 
 def _kernel_counts():
@@ -1363,15 +1466,17 @@ def _kernel_counts():
 
 
 def _roi_branch_grads(torch, step, run, nchw, sampled):
-    """The gradients of the box loss and, for Mask R-CNN, of the mask loss
-    w.r.t. detached NHWC RoI levels: what each RoIAlign backward alone
-    produces (their sum would round a second time in bf16)."""
+    """The gradients of the box loss and, for Mask / Keypoint R-CNN, of the
+    mask / keypoint loss w.r.t. detached NHWC RoI levels: what each RoIAlign
+    backward alone produces (their sum would round a second time in bf16)."""
     leaves = run.model.roi_features(
         {l: f.detach().permute(0, 2, 3, 1).requires_grad_(True) for l, f in nchw.items()})
     wrt = [leaves[l] for l in sorted(leaves)]
     grads = list(torch.autograd.grad(step.box_branch(leaves, sampled)[0], wrt))
     if run.cfg.MODEL.MASK_ON:
         grads += torch.autograd.grad(step.mask_branch(leaves, sampled, run.batch), wrt)
+    if run.cfg.MODEL.KEYPOINTS_ON:
+        grads += torch.autograd.grad(step.keypoint_branch(leaves, sampled, run.batch), wrt)
     return grads
 
 
@@ -1387,7 +1492,7 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     run = seeded_rcnn_train_step(os.path.join(REPO, cfg_path), seed=seed, n_groups=groups,
                                  device="cuda")
     cfg, step, batch = run.cfg, run.step, run.batch
-    mask_on = bool(cfg.MODEL.MASK_ON)
+    mask_on, kps_on = bool(cfg.MODEL.MASK_ON), bool(cfg.MODEL.KEYPOINTS_ON)
     n = run.n_images
     if tuple(batch["data_u8"].shape) != (n, *RCNN_CANVAS, 3):
         raise AssertionError(f"{name}: canvas {tuple(batch['data_u8'].shape)}")
@@ -1421,8 +1526,9 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     if sorted(m_kernel) != sorted(m_plain) or not worst <= 1e-4:
         raise AssertionError(f"{name}: metrics of the kernel step vs the plain step: worst "
                              f"rel err {worst:.3e} (limit 1e-4)")
-    if mask_on != ("loss_mask" in m_kernel):
-        raise AssertionError(f"{name}: loss_mask {'missing' if mask_on else 'present'}")
+    if mask_on != ("loss_mask" in m_kernel) or kps_on != ("loss_kps" in m_kernel):
+        raise AssertionError(f"{name}: metrics {sorted(m_kernel)} (MASK_ON {mask_on}, "
+                             f"KEYPOINTS_ON {kps_on})")
 
     # the gradients that the RoIAlign backward hands to the FPN outputs
     with torch.no_grad():
@@ -1463,13 +1569,19 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     if mask_on:
         shapes.append(("mask", flat_rois(sampled["rois"][:, :cap]),
                        sampled["is_fg"][:, :cap].reshape(-1), cfg.MRCNN.ROI_XFORM_RESOLUTION))
+    if kps_on:
+        # the keypoint branch pools the mask row's shape (res 14) from its own prefix
+        kcap = step.kps_cap()
+        shapes.append(("mask", flat_rois(sampled["rois"][:, :kcap]),
+                       sampled["is_fg"][:, :kcap].reshape(-1), cfg.KRCNN.ROI_XFORM_RESOLUTION))
     for key, r5, ok, res in shapes:
         r5 = r5.contiguous()
         lv = step._roi_levels(r5)
         g = torch.randn((r5.shape[0], res, res, c), generator=gen, device="cuda").to(dtype)
         ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
             g, dims, 2, n, r5, lv, ok, 2), iters * 2, warmup)
-        own.append(f"{key} R={r5.shape[0]} ({int(ok.sum())} live) {ms:.4f} ms")
+        own.append(f"{'keypoint' if key == 'mask' and kps_on else key} R={r5.shape[0]} "
+                   f"({int(ok.sum())} live) {ms:.4f} ms")
         # the forward on the same rois, timed on the device after the main paths
         own_feats = {l: nchw[l].permute(0, 2, 3, 1).contiguous() for l in range(2, 6)}
         timers[f"{key}_train:{name} own rois"] = (
@@ -1501,6 +1613,13 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
                    f"kernel {ms:.4f} ms (event median), plain {plain_ms:.4f} ms, bound "
                    f"{b_['bound_ms']:.4f} ms")
     del nchw, logits, deltas, g_kernel, g_plain, sampled
+    stage_ms = {}
+    if kps_on:
+        # each stage's device time, before the main path (these steps launch too)
+        from sad_tpu_torch.tools.profile_train import rcnn_stage_ms
+
+        per = [rcnn_stage_ms(run, BENCH_LR) for _ in range(iters)]
+        stage_ms = {k: statistics.median(p[k] for p in per) for k in per[0]}
 
     # the main path: counts set to 0 just before, read just after
     frozen = {k: snap[k] for k in params if k not in set(step.names)}
@@ -1511,7 +1630,7 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     torch.cuda.synchronize()
     launches = _kernel_counts()
     n_steps = iters + warmup
-    want = (n_steps, (3 if mask_on else 1) * n_steps, (2 if mask_on else 1) * n_steps)
+    want = (n_steps, (1 + 2 * mask_on + kps_on) * n_steps, (1 + mask_on + kps_on) * n_steps)
     if launches != want:
         raise AssertionError(f"{name}: NMS / RoIAlign forward / backward launches {launches} in "
                              f"{n_steps} steps, want {want}")
@@ -1539,15 +1658,21 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
            f"kernel on the step's own rois: " + "; ".join(own) + f"; {n_steps} steps, loss "
            f"{vals['loss'][0]:.4f} -> {vals['loss'][-1]:.4f}"
            + (f", loss_mask {vals['loss_mask'][-1]:.4f}" if mask_on else "")
+           + (f", loss_kps {vals['loss_kps'][0]:.4f} -> {vals['loss_kps'][-1]:.4f}"
+              if kps_on else "")
            + f", all {len(step.names)} trainable tensors updated and "
            f"{len(step.names) - len(unchanged)} changed, {len(frozen)} frozen bit-identical; "
            f"launches NMS {launches[0]}, RoIAlign forward {launches[1]}"
            + (" (box, mask and the target crop)" if mask_on else "")
+           + (" (box and keypoint)" if kps_on else "")
            + f", backward {launches[2]}; {n / med:.2f} imgs/s, {1000 * med:.3f} ms/step "
-           f"(median of {iters} after {warmup} warm-up), peak {peak:.2f} GiB",
+           f"(median of {iters} after {warmup} warm-up), peak {peak:.2f} GiB"
+           + ("; stage device ms (CUDA events, median of "
+              f"{iters}): " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+              if stage_ms else ""),
            time.perf_counter() - t0)
     return {"imgs_per_s": n / med, "launches": launches, "steps": n_steps,
-            "target_stats": target_stats}
+            "target_stats": target_stats, "stage_ms": stage_ms}
 
 
 LOOP_WORKERS = 6  # DATA_LOADER.NUM_PROCESSES: the card's host has 8 cores
@@ -1582,17 +1707,17 @@ def _deterministic(torch):
         torch.use_deterministic_algorithms(prior[2])
 
 
-def _run_dir(out_dir):
-    return os.path.join(out_dir, "train", "smoke_lab")
+def _run_dir(out_dir, dataset="smoke_lab"):
+    return os.path.join(out_dir, "train", dataset)
 
 
-def _check_run_files(name, out_dir, snapshots):
-    files = sorted(os.listdir(_run_dir(out_dir)))
+def _check_run_files(name, out_dir, snapshots, dataset="smoke_lab"):
+    files = sorted(os.listdir(_run_dir(out_dir, dataset)))
     want = sorted(["cfg.yaml", "model_final.pkl", "stats.jsonl"]
                   + [f"model_iter{i}.pkl" for i in snapshots])
     if files != want:
         raise AssertionError(f"{name}: run files {files}, want {want}")
-    with open(os.path.join(_run_dir(out_dir), "stats.jsonl")) as f:
+    with open(os.path.join(_run_dir(out_dir, dataset), "stats.jsonl")) as f:
         lines = [json.loads(ln) for ln in f]
     if not lines or not all(np.isfinite(ln["loss"]) for ln in lines):
         raise AssertionError(f"{name}: stats.jsonl losses {[ln['loss'] for ln in lines]}")
@@ -1933,9 +2058,9 @@ def _read_json(path):
         return json.load(f)
 
 
-def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None):
+def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smoke_val"):
     """test_net.main on ``model`` (saved as a native pickle, loaded through
-    --weights) over smoke_val or its ``im_range``, with the kernels and then
+    --weights) over ``dataset`` or its ``im_range``, with the kernels and then
     with their plain twins: the kernel run's launches, results, detections'
     bytes and timing, and the device's kernel ms over the same inference
     loop, profiled."""
@@ -1954,9 +2079,9 @@ def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None):
 
     def run(out_dir):
         argv = ["--cfg", os.path.join(REPO, cfg_path), "--weights", pkl, *extra,
-                "TEST.DATASETS", "('smoke_val',)", "OUTPUT_DIR", out_dir]
+                "TEST.DATASETS", f"('{dataset}',)", "OUTPUT_DIR", out_dir]
         test_net.main(argv)
-        return os.path.join(out_dir, "test", "smoke_val")
+        return os.path.join(out_dir, "test", dataset)
 
     # the main path: the counts set to 0 just before, read just after
     _reset_counts()
@@ -1975,8 +2100,8 @@ def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None):
                 raise AssertionError(f"test_net {name}: {fname} differs from the plain-twin run")
     timing = _read_json(os.path.join(got_dir, "timing.json"))
     # the device's kernel time over the same loop, beside the unprofiled wall
-    cfg = load_cfg(os.path.join(REPO, cfg_path), ["TEST.DATASETS", "('smoke_val',)"])
-    ds = CocoDataset("smoke_val")
+    cfg = load_cfg(os.path.join(REPO, cfg_path), ["TEST.DATASETS", f"('{dataset}',)"])
+    ds = CocoDataset(dataset)
     roidb = ds.get_roidb(include_gt=False)[slice(*(im_range or (None,)))]
     model.to(compute_dtype(cfg))
     kernel_ms = sum(device_ms(lambda: test_engine.run_inference_on_roidb(
@@ -2094,6 +2219,96 @@ def _test_net(torch, seed, data_root, tmp, batch_imgs):
            f"byte-identical to the plain-twin runs, every metric finite, the EXPECTED_RESULTS "
            f"gate raising on AP 0.99; " + "; ".join(lines), time.perf_counter() - t0)
     return runs
+
+
+KPS_IMAGES = 16  # the keypoint split: test_net serves the first 8, train_net trains on all
+
+
+def phase_keypoint_test_net(torch, seed, data_root):
+    """Keypoint R-CNN through its entry points: test_net on a synthetic
+    keypoint split (--range 0 8), the keypoint task of the COCO evaluator,
+    then train_net for 8 iterations on the same split. Runs go to a
+    temporary directory under ``data_root``, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="keypoint_test_net_", dir=data_root) as tmp:
+        return _keypoint_test_net(torch, seed, data_root, tmp)
+
+
+def _keypoint_test_net(torch, seed, data_root, tmp):
+    from sad_tpu_torch.config import load_cfg, register_dataset
+    from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.tools import train_net
+    from sad_tpu_torch.tools.profile_infer import spread_rcnn_outputs
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, BENCH_OPTS
+
+    t0 = time.perf_counter()
+    # one category (the config's person) with 5 named keypoints and a flip map;
+    # the 17-channel head trains on the first 5, the rest unlabeled
+    img_dir, js = generate_synthetic_coco(data_root, "kps", KPS_IMAGES, seed=seed, n_categories=1,
+                                          size_range=(480, 800), with_keypoints=True)
+    register_dataset("smoke_kps", img_dir, js, allow_override=True)
+    cfg = load_cfg(os.path.join(REPO, KEYPOINT_CFG))
+    model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+    b = random_canvases(np.random.RandomState(seed), 8, _test_canvas_shapes(cfg)[0], "cuda")
+    spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+    del b
+    r = _test_net_run(torch, "keypoint", KEYPOINT_CFG, model, tmp, (0, 8), dataset="smoke_kps")
+    del model
+    torch.cuda.empty_cache()
+    res, t = r["results"], r["timing"]
+    kp_keys = [k for k in res if k.startswith("keypoints_")]
+    if len(kp_keys) < 10 or "AP" not in res or not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"keypoint_test_net: results.json {res}")
+    want_l = (2 * t["batches"], 2 * t["batches"])
+    if r["launches"] != want_l:
+        raise AssertionError(f"keypoint_test_net: {r['launches']} NMS / RoIAlign launches in "
+                             f"{t['batches']} batches, want {want_l}")
+    n = t["batches"]
+
+    # train_net on the same split: every count at 0 just before, read just after
+    max_iter, snap = 8, 3
+    out = os.path.join(tmp, "train")
+    argv = ["--cfg", os.path.join(REPO, KEYPOINT_CFG), "--skip-test"] + BENCH_OPTS + [
+        "NUM_GPUS", "4", "OUTPUT_DIR", out, "TRAIN.DATASETS", "('smoke_kps',)",
+        "SOLVER.BASE_LR", str(BENCH_LR), "SOLVER.MAX_ITER", str(max_iter),
+        "TRAIN.SNAPSHOT_ITERS", "16", "DATA_LOADER.NUM_PROCESSES", str(LOOP_WORKERS)]
+    _reset_counts()
+    result = train_net.main(argv)
+    loop_launches = _all_counts()
+    want = (max_iter, 2 * max_iter, 2 * max_iter, 0, 0)
+    if loop_launches != want:
+        raise AssertionError(f"keypoint_test_net: train_net launches (NMS, RoIAlign fwd, bwd, "
+                             f"cls fwd, bwd) {loop_launches} in {max_iter} steps, want {want}")
+    lines = _check_run_files("keypoint_test_net", out, (snap,), dataset="smoke_kps")
+    if "loss_kps" not in lines[-1]:
+        raise AssertionError("keypoint_test_net: no loss_kps in stats.jsonl")
+    iter_ms = 1e3 * statistics.median(result.iter_seconds[LOOP_WARMUP:])
+    del result
+    _phase("keypoint_test_net", f"synthetic keypoint split smoke_kps ({KPS_IMAGES} images, "
+           f"sides 480-800, 1 category, 5 keypoints with a left/right flip map); test_net "
+           f"{KEYPOINT_CFG} --range 0 8 --weights (a native pickle of seeded random weights, "
+           f"output layers spread): bbox_results.json (with COCO keypoint triplets) and "
+           f"results.json byte-identical to the plain-twin run, {r['n_dets']} detections, "
+           f"{len(res)} metrics all finite, AP {res['AP']:.4f}, keypoints_AP "
+           f"{res['keypoints_AP']:.4f}, keypoints_AR {res.get('keypoints_AR', float('nan')):.4f}; "
+           f"launches NMS {r['launches'][0]}, RoIAlign {r['launches'][1]} in {n} batches; ms a "
+           f"batch: load + resize {1e3 * t['load_resize'] / n:.1f}, device "
+           f"{1e3 * t['device'] / n:.1f}, heatmap copy {1e3 * t['kps_copy'] / n:.1f}, keypoint "
+           f"decode (host) {1e3 * t['kps_decode'] / n:.1f}, dicts {1e3 * t['dicts'] / n:.1f}; "
+           f"eval bbox {t['eval_bbox']:.2f} s, keypoints {t['eval_keypoints']:.2f} s; dataset "
+           f"{t['images'] / t['wall']:.2f} imgs/s; device idle {r['idle']:.4f}; train_net "
+           f"{max_iter} iterations (bs 8, G=4, {LOOP_WORKERS} loader processes): "
+           f"model_iter{snap}, model_final, stats.jsonl (loss {lines[0]['loss']:.4f} -> "
+           f"{lines[-1]['loss']:.4f}, loss_kps {lines[-1]['loss_kps']:.4f}), cfg.yaml; launches "
+           f"NMS {loop_launches[0]}, RoIAlign forward {loop_launches[1]}, backward "
+           f"{loop_launches[2]}; median iteration after {LOOP_WARMUP} {iter_ms:.1f} ms",
+           time.perf_counter() - t0)
+    return {"launches": r["launches"], "loop_launches": loop_launches, "timing": t,
+            "results": res}
 
 
 def phase_label_assign(torch, data_root):
@@ -2835,6 +3050,13 @@ PARTIAL = {
         ROI_TIMERS),
     "mask_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
         torch, "mask_rcnn_train", MASK_CFG, a.seed + 5, a.groups, a.iters, a.warmup, ROI_TIMERS),
+    "keypoint_rcnn_infer": lambda torch, a, rng: phase_rcnn_infer(
+        torch, "keypoint_rcnn_infer", KEYPOINT_CFG, a.seed + 11, a.batch, a.iters, a.warmup),
+    "keypoint_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
+        torch, "keypoint_rcnn_train", KEYPOINT_CFG, a.seed + 12, a.groups, a.iters, a.warmup,
+        ROI_TIMERS),
+    "keypoint_test_net": lambda torch, a, rng: phase_keypoint_test_net(torch, a.seed + 13,
+                                                                       a.loop_data),
     "sad_train_loop": lambda torch, a, rng: phase_sad_train_loop(torch, a.seed + 6, a.iters,
                                                                  a.warmup, a.loop_data),
     "mask_rcnn_train_loop": lambda torch, a, rng: phase_mask_rcnn_train_loop(torch,
@@ -2966,6 +3188,9 @@ def _main(torch, args) -> int:
     if nms_kernel.launches != mask["nms_launches"] or (
             roi_align_kernel.launches != mask["roi_align_launches"]):
         raise AssertionError("a kernel was launched after the R-CNN serving runs")
+    # Keypoint R-CNN serving: the counts are set to 0 inside, after the comparisons
+    kps = PARTIAL["keypoint_rcnn_infer"](torch, args, rng)
+    kps_batches = kps["nms_launches"] // 2
     rcnn_batches = (faster["nms_launches"] + mask["nms_launches"]) // 2
     args.batch_imgs = {"student": student_imgs, "mask": mask["imgs_per_s"]}
     # the R-CNN training steps: the counts are set to 0 inside, after the comparisons
@@ -2973,6 +3198,9 @@ def _main(torch, args) -> int:
     mask_t = PARTIAL["mask_rcnn_train"](torch, args, rng)
     if _kernel_counts() != mask_t["launches"]:
         raise AssertionError("a kernel was launched after the R-CNN training runs")
+    kps_t = PARTIAL["keypoint_rcnn_train"](torch, args, rng)
+    if _kernel_counts() != kps_t["launches"]:
+        raise AssertionError("a kernel was launched after the keypoint training run")
     # the training workflow: the counts are set to 0 inside, just before each train_net
     # run, and read just after it (the resume checks that follow launch more)
     sad_loop = PARTIAL["sad_train_loop"](torch, args, rng)
@@ -2983,6 +3211,11 @@ def _main(torch, args) -> int:
     eval_nms = evals["student"]["launches"][0]
     eval_rcnn = evals["mask"]["launches"][0] // 2
     eval_roi = evals["mask"]["launches"][1] // 2
+    # Keypoint R-CNN's test_net and train_net: the counts set to 0 inside, just
+    # before each run with the kernels, and read just after it
+    kps_eval = PARTIAL["keypoint_test_net"](torch, args, rng)
+    kps_eval_batches = kps_eval["launches"][0] // 2
+    kps_loop = kps_eval["loop_launches"]
     # the paper's R-101 <- X-101-64x4d pair at scale 500: the host's label
     # assignment, then the teacher's serving path and the joint step, each
     # with every count set to 0 just before it and read just after
@@ -3008,7 +3241,7 @@ def _main(torch, args) -> int:
     phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
     # the forward's device time on the rois the training steps sampled, beside
     # the spread rois' at the same shapes
-    for key in ("box", "mask"):
+    for key in ("box", "mask"):  # the keypoint step's res-14 rois are the mask row's shape
         roi_bwd_stats[f"fwd_{key}"]["device_ms_own_rois"] = {
             k.split(":")[1].split(" ")[0]: st["device_ms"] for k, (_, st) in ROI_TIMERS.items()
             if k.startswith(f"{key}_train:")}
@@ -3058,35 +3291,55 @@ def _main(torch, args) -> int:
         "name": "greedy_nms_sorted@decode_500", "launches": x101_nms, **nms_stats["decode"],
         **nms_entry,
     }, {
-        # one launch a batch of each R-CNN serving run, at each of the two shapes
-        "name": "greedy_nms_sorted@rpn", "launches": rcnn_batches, **nms_stats["rpn"], **nms_entry,
-        "test_net_launches": eval_rcnn,
+        # one launch a batch of each R-CNN serving run (Faster, Mask, Keypoint), at the
+        # RPN shape; keypoint_launches: the Keypoint R-CNN run's share
+        "name": "greedy_nms_sorted@rpn", "launches": rcnn_batches + kps_batches,
+        **nms_stats["rpn"], **nms_entry, "keypoint_launches": kps_batches,
+        "test_net_launches": eval_rcnn + kps_eval_batches,
+        "keypoint_test_net_launches": kps_eval_batches,
     }, {
         "name": "greedy_nms_sorted@rcnn_decode", "launches": rcnn_batches,
         **nms_stats["rcnn_decode"], **nms_entry, "test_net_launches": eval_rcnn,
     }, {
-        # box RoIAlign: one launch a batch of both R-CNN runs; mask: of the Mask R-CNN run
+        # Keypoint R-CNN's detection NMS: one foreground class, 8 x 1000 -> 100, timed
+        # on the serving batch's own candidates
+        "name": "greedy_nms_sorted@kps_decode", "launches": kps_batches,
+        **kps["nms_decode"], **nms_entry, "test_net_launches": kps_eval_batches,
+    }, {
+        # box RoIAlign: one launch a batch of the three R-CNN runs; mask: of the Mask R-CNN
+        # run and, at the same shape (R=800, res 14), the keypoint RoIAlign of Keypoint R-CNN
         "name": "roi_align_fwd@box", **roi_stats["box"], **roi_entry,
-        "launches": faster["roi_align_launches"] + mask["roi_align_launches"] // 2,
-        "test_net_launches": eval_roi,
+        "launches": faster["roi_align_launches"] + mask["roi_align_launches"] // 2
+        + kps_batches, "keypoint_launches": kps_batches,
+        "test_net_launches": eval_roi + kps_eval_batches,
+        "keypoint_test_net_launches": kps_eval_batches,
     }, {
         "name": "roi_align_fwd@mask", **roi_stats["mask"], **roi_entry,
-        "launches": mask["roi_align_launches"] // 2, "test_net_launches": eval_roi,
+        "launches": mask["roi_align_launches"] // 2 + kps_batches,
+        "keypoint_launches": kps_batches, "test_net_launches": eval_roi + kps_eval_batches,
+        "keypoint_test_net_launches": kps_eval_batches,
     }, {
-        # the training steps: one NMS, one box RoIAlign pair a step of both families; the
-        # mask pair and the mask target crop (forward only) a step of Mask R-CNN
-        "name": "greedy_nms_sorted@rpn_train", "launches": train_steps,
+        # the training steps: one NMS, one box RoIAlign pair a step of the three families;
+        # the mask pair and the mask target crop (forward only) a step of Mask R-CNN; the
+        # keypoint pair (res 14, the mask rows' shape) a step of Keypoint R-CNN
+        "name": "greedy_nms_sorted@rpn_train", "launches": train_steps + kps_t["steps"],
+        "keypoint_launches": kps_t["steps"],
         "train_loop_launches": mask_loop["launches"][0],
+        "keypoint_train_loop_launches": kps_loop[0],
         "ddp_launches": [la["nms"] for la in ddp_rows],
         **nms_stats["rpn_train"], **nms_entry,
     }, {
-        "name": "roi_align_fwd@box_train", "launches": train_steps,
+        "name": "roi_align_fwd@box_train", "launches": train_steps + kps_t["steps"],
+        "keypoint_launches": kps_t["steps"],
         "train_loop_launches": mask_loop["launches"][1] // 3,
+        "keypoint_train_loop_launches": kps_loop[1] // 2,
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
         **roi_bwd_stats["fwd_box"], **roi_entry,
     }, {
-        "name": "roi_align_fwd@mask_train", "launches": mask_t["steps"],
+        "name": "roi_align_fwd@mask_train", "launches": mask_t["steps"] + kps_t["steps"],
+        "keypoint_launches": kps_t["steps"],
         "train_loop_launches": mask_loop["launches"][1] // 3,
+        "keypoint_train_loop_launches": kps_loop[1] // 2,
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
         **roi_bwd_stats["fwd_mask"], **roi_entry,
     }, {
@@ -3095,13 +3348,17 @@ def _main(torch, args) -> int:
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
         **mask_t["target_stats"], **roi_entry,
     }, {
-        "name": "roi_align_bwd_gather@box", "launches": train_steps,
+        "name": "roi_align_bwd_gather@box", "launches": train_steps + kps_t["steps"],
+        "keypoint_launches": kps_t["steps"],
         "train_loop_launches": mask_loop["launches"][2] // 2,
+        "keypoint_train_loop_launches": kps_loop[2] // 2,
         "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
         **roi_bwd_stats["box"], **roi_bwd_entry,
     }, {
-        "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"],
+        "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"] + kps_t["steps"],
+        "keypoint_launches": kps_t["steps"],
         "train_loop_launches": mask_loop["launches"][2] // 2,
+        "keypoint_train_loop_launches": kps_loop[2] // 2,
         "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {

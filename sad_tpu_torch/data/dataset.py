@@ -1,10 +1,9 @@
 """COCO-JSON dataset layer (self-contained; no pycocotools).
 
 A copy of sad_tpu/data/dataset.py. Segmentations are kept and flipped for
-Mask R-CNN training (utils/segms.py). The keypoint branches serve Keypoint
-R-CNN, which the port does not have yet: a dataset with keypoint categories
-and a flip of an entry that carries keypoints raise NotImplementedError
-(ROADMAP.md Queue 1 item 8).
+Mask R-CNN training (utils/segms.py); keypoints are kept, and flipped with
+the left/right channel swap of the category's keypoint names, for Keypoint
+R-CNN training (utils/keypoints.py).
 
 Capability-equivalent to detectron/lib/datasets/json_dataset.py +
 roidb.py, parsing the COCO instance json directly:
@@ -35,10 +34,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from ..config.catalog import DatasetSpec, get_dataset_spec
-
-_RCNN_ONLY = ("{} serve Keypoint R-CNN, which sad_tpu_torch does not port yet "
-              "(ROADMAP.md Queue 1 item 8)")
-
+from ..utils.keypoints import flip_idx_for_names, flip_keypoint_channels
 
 class CocoDataset:
     def __init__(self, spec_or_name):
@@ -68,7 +64,9 @@ class CocoDataset:
         self.keypoint_flip_idx = None
         for c in cats:
             if c.get("keypoints"):
-                raise NotImplementedError(_RCNN_ONLY.format("keypoint categories"))
+                self.keypoints = list(c["keypoints"])
+                self.keypoint_flip_idx = flip_idx_for_names(self.keypoints)
+                break
 
         self._images = {im["id"]: im for im in self.dataset.get("images", [])}
         self._anns_by_image: Dict[int, List[dict]] = {}
@@ -173,7 +171,16 @@ def flip_entry(entry: dict) -> dict:
         out["segms"] = [flip_segm(s, w) for s in entry["segms"]]
     kp = entry.get("gt_keypoints")
     if kp is not None and len(kp):
-        raise NotImplementedError(_RCNN_ONLY.format("flipped keypoints"))
+        # left/right channels swap under a horizontal flip (ref:
+        # keypoints.py:71-86 flip_keypoints via the dataset flip map,
+        # applied per flipped roidb entry in roidb.py)
+        idx = entry.get("kp_flip_idx")
+        if idx is None and kp.shape[1] == 17:
+            idx = flip_keypoint_channels()
+        kp = kp[:, idx].copy() if idx is not None else kp.copy()
+        vis = kp[..., 2] > 0
+        kp[..., 0] = np.where(vis, w - kp[..., 0] - 1, 0.0)
+        out["gt_keypoints"] = kp
     return out
 
 

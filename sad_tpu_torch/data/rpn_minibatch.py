@@ -2,11 +2,11 @@
 
 A copy of sad_tpu/data/rpn_minibatch.py: ``rpn_anchor_grid``,
 ``assign_rpn_labels``, ``add_rpn_blobs_to_batch`` and
-``RCNNMinibatchBuilder`` with the gt padding and the gt mask rasters
-(rasterised with this package's utils/segms.py); the IoU is the float32
-native kernel (``anchors._assignment_iou``), as sad_tpu's. Not copied:
-precomputed proposals (``pad_proposals``, pure Fast R-CNN) and the keypoint arrays
-(ROADMAP.md Queue 1 item 8). Added: ``build`` takes the images in memory
+``RCNNMinibatchBuilder`` with the gt padding, the gt mask rasters
+(rasterised with this package's utils/segms.py) and the gt keypoints; the
+IoU is the float32 native kernel (``anchors._assignment_iou``), as
+sad_tpu's. Not copied: precomputed proposals (``pad_proposals``, pure Fast
+R-CNN; ROADMAP.md Queue 1 item 8). Added: ``build`` takes the images in memory
 and, with ``device_normalize``, ships one uint8 canvas per image and its
 content extent for the train step to normalise on the device, as
 RetinaNetMinibatchBuilder does.
@@ -158,18 +158,16 @@ def assign_rpn_labels(
 
 
 class RCNNMinibatchBuilder:
-    """Static-shape training batches for the Faster/Mask R-CNN path
-    (images + RPN targets + padded gt; optional gt mask rasters). The RoI
-    sampling itself happens on the device (train/rcnn_train.py)."""
+    """Static-shape training batches for the Faster / Mask / Keypoint R-CNN
+    path (images + RPN targets + padded gt; optional gt mask rasters and gt
+    keypoints (B, max_gt, NUM_KEYPOINTS, 3) [x, y, visibility] in network
+    input coordinates). The RoI sampling itself happens on the device
+    (train/rcnn_train.py)."""
 
     def __init__(self, cfg: Config, mask_on: bool = None, mask_stride: int = 4,
                  max_gt: int = 50, device_normalize: bool = False):
         from .minibatch import canvas_shapes
 
-        if cfg.MODEL.KEYPOINTS_ON:
-            raise NotImplementedError(
-                "MODEL.KEYPOINTS_ON: keypoint training batches are not ported to "
-                "sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
         if not cfg.MODEL.FASTER_RCNN and cfg.MODEL.TYPE == "generalized_rcnn":
             raise NotImplementedError(
                 "MODEL.FASTER_RCNN False: training from precomputed proposals is not "
@@ -177,6 +175,7 @@ class RCNNMinibatchBuilder:
         self.cfg = cfg
         self.landscape, self.portrait = canvas_shapes(cfg)
         self.mask_on = cfg.MODEL.MASK_ON if mask_on is None else mask_on
+        self.kps_on = cfg.MODEL.KEYPOINTS_ON
         self.mask_stride = mask_stride
         self.max_gt = max_gt
         self.device_normalize = device_normalize
@@ -284,6 +283,20 @@ class RCNNMinibatchBuilder:
                     rasters[i, j] = polys_to_mask(scaled, hm, wm)
             batch["gt_mask_rasters"] = rasters
             batch["gt_mask_stride"] = float(s)
+        if self.kps_on:
+            nk = self.cfg.KRCNN.NUM_KEYPOINTS
+            kps = np.zeros((n, self.max_gt, nk, 3), np.float32)
+            for i, e in enumerate(entries):
+                gk = e.get("gt_keypoints")
+                if gk is None or not len(gk):
+                    continue
+                keep = np.where((e["gt_classes"] > 0) & (~e["is_crowd"]))[0]
+                for j, gi in enumerate(keep[: self.max_gt]):
+                    if gi < len(gk):
+                        k = gk[gi][:nk].copy()
+                        k[:, :2] *= scales[i]
+                        kps[i, j, : len(k)] = k
+            batch["gt_keypoints"] = kps
         return batch
 
 

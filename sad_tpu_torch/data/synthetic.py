@@ -29,15 +29,18 @@ def random_canvases(rng: np.random.RandomState, batch: int, canvas: Tuple[int, i
 
 
 def random_train_entries(rng: np.random.RandomState, n: int, max_side: int = 1000,
-                         num_classes: int = 81, max_boxes: int = 8, polygons: bool = False
-                         ) -> Tuple[List[dict], List[np.ndarray]]:
+                         num_classes: int = 81, max_boxes: int = 8, polygons: bool = False,
+                         keypoints: int = 0) -> Tuple[List[dict], List[np.ndarray]]:
     """``n`` landscape roidb entries with 1..max_boxes gt boxes each, and
     their uint8 BGR images of random pixels: the inputs of
     RetinaNetMinibatchBuilder.build and RCNNMinibatchBuilder.build. Sizes are
     drawn so that some images are upscaled to the training scale and some
     downscaled (short sides of 360..800 px, long sides up to ``max_side``).
     With ``polygons`` every box carries one segmentation polygon, a 12-gon
-    inscribed in it (``segms``, as the dataset layer keeps them)."""
+    inscribed in it (``segms``, as the dataset layer keeps them). With
+    ``keypoints`` = K every box carries K keypoints drawn inside it, each
+    labeled (visibility 2) with probability 0.8 and else (0, 0, 0)
+    (``gt_keypoints`` (k, K, 3), as the dataset layer keeps them)."""
     entries, images = [], []
     for _ in range(n):
         h = int(rng.randint(360, 801))
@@ -59,5 +62,13 @@ def random_train_entries(rng: np.random.RandomState, n: int, max_side: int = 100
             entries[-1]["segms"] = [
                 [np.stack([cx[j] + rx[j] * np.cos(t), cy[j] + ry[j] * np.sin(t)],
                           axis=1).reshape(-1).tolist()] for j in range(k)]
+        if keypoints:
+            u = rng.uniform(0.0, 1.0, (k, keypoints, 2))
+            labeled = rng.uniform(0.0, 1.0, (k, keypoints)) < 0.8
+            kp = np.zeros((k, keypoints, 3), np.float32)
+            kp[..., 0] = np.where(labeled, x1[:, None] + u[..., 0] * (x2 - x1)[:, None], 0.0)
+            kp[..., 1] = np.where(labeled, y1[:, None] + u[..., 1] * (y2 - y1)[:, None], 0.0)
+            kp[..., 2] = np.where(labeled, 2.0, 0.0)
+            entries[-1]["gt_keypoints"] = kp
         images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
     return entries, images

@@ -1,17 +1,19 @@
-"""Faster / Mask R-CNN inference decode, batched and on the device (ref:
+"""Faster / Mask / Keypoint R-CNN inference decode, batched and on the device (ref:
 sad_tpu/eval/rcnn_inference.py; detectron/lib/core/test.py im_detect_bbox +
 box_results_with_nms_and_limit, test.py:52-193).
 
 Softmax class scores, per-class delta decode with MODEL.BBOX_REG_WEIGHTS,
 score threshold, class-wise greedy NMS (one call for the whole batch), top
-DETECTIONS_PER_IM; with MODEL.MASK_ON the mask head then runs on the kept
-boxes (the reference's cascaded inference). Every shape is static and no step
-reads a value back to the host.
+DETECTIONS_PER_IM; with MODEL.MASK_ON the mask head and with
+MODEL.KEYPOINTS_ON the keypoint head then run on the kept boxes (the
+reference's cascaded inference). Every shape is static and no step reads a
+value back to the host; the keypoint heatmaps are decoded on the host
+(eval/test_engine.py, utils/keypoints.heatmaps_to_keypoints).
 
 Not ported yet (ROADMAP.md Queue 1): precomputed proposals
-(MODEL.FASTER_RCNN False), the single-scale (C4) cascaded mask branch,
-keypoints, and ``make_aux_on_boxes_fn`` (the heads on fixed boxes that
-test-time augmentation re-runs). They raise NotImplementedError.
+(MODEL.FASTER_RCNN False), the single-scale (C4) cascaded mask branch, and
+``make_aux_on_boxes_fn`` (the heads on fixed boxes that test-time
+augmentation re-runs). They raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -84,22 +86,38 @@ def rcnn_gather_detections(cands, keep_idx, keep_valid) -> Dict[str, torch.Tenso
     return dets
 
 
-def mask_roi_features(cfg, model, features, boxes, valid, im_scale) -> torch.Tensor:
-    """RoIAlign of the kept (B, K, 4) detection boxes for the mask head, from
-    the model's NHWC ``features``: (B*K, res, res, C)."""
-    # kept boxes back to network-input coords
+def kept_box_rois(cfg, boxes, im_scale):
+    """The kept (B, K, 4) detection boxes back in network-input coordinates,
+    as (B*K, 5) image-major rois and their (B*K,) RoI levels."""
     net_boxes = boxes * im_scale.float()[:, None, None]
     lvls = map_rois_to_fpn_levels(
         net_boxes, cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL,
         cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL)
+    return flat_rois(net_boxes), lvls.reshape(-1)
+
+
+def mask_roi_features(cfg, model, features, boxes, valid, im_scale) -> torch.Tensor:
+    """RoIAlign of the kept (B, K, 4) detection boxes for the mask head, from
+    the model's NHWC ``features``: (B*K, res, res, C)."""
+    rois5, lvls = kept_box_rois(cfg, boxes, im_scale)
     return multilevel_roi_align(
-        model.roi_features(features), flat_rois(net_boxes), lvls.reshape(-1),
-        valid.reshape(-1), cfg.MRCNN.ROI_XFORM_RESOLUTION, cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
+        model.roi_features(features), rois5, lvls, valid.reshape(-1),
+        cfg.MRCNN.ROI_XFORM_RESOLUTION, cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
+
+
+def keypoint_roi_features(cfg, model, features, boxes, valid, im_scale) -> torch.Tensor:
+    """RoIAlign of the kept (B, K, 4) detection boxes for the keypoint head
+    (KRCNN.ROI_XFORM_RESOLUTION): (B*K, res, res, C)."""
+    rois5, lvls = kept_box_rois(cfg, boxes, im_scale)
+    return multilevel_roi_align(
+        model.roi_features(features), rois5, lvls, valid.reshape(-1),
+        cfg.KRCNN.ROI_XFORM_RESOLUTION, cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO)
 
 
 def make_rcnn_inference_fn(cfg, model) -> Callable:
     """Faster R-CNN end to end: images -> detections, plus 'mask_prob' (B, K,
-    m, m, C) on the kept boxes with MODEL.MASK_ON.
+    m, m, C) on the kept boxes with MODEL.MASK_ON and 'kps_heatmaps' (B, K,
+    S, S, NUM_KEYPOINTS) float32 logits with MODEL.KEYPOINTS_ON.
 
     fn(images (B,H,W,3), im_hw (B,2), im_scale (B,), content_hw=None) ->
     dict. All tensors on the model's device; uint8 canvases are normalised
@@ -108,10 +126,6 @@ def make_rcnn_inference_fn(cfg, model) -> Callable:
         raise NotImplementedError(
             "MODEL.FASTER_RCNN False (Fast R-CNN on precomputed proposals) is not ported "
             "to sad_tpu_torch yet (ROADMAP.md Queue 1)")
-    if cfg.MODEL.KEYPOINTS_ON:
-        raise NotImplementedError(
-            "MODEL.KEYPOINTS_ON inference is not ported to sad_tpu_torch yet "
-            "(ROADMAP.md Queue 1)")
     if not cfg.FPN.FPN_ON:
         raise NotImplementedError(
             "single-scale (C4) R-CNN inference, with its cascaded mask branch, is not "
@@ -123,11 +137,15 @@ def make_rcnn_inference_fn(cfg, model) -> Callable:
         out = model(images, im_hw)
         dets = decode_rcnn_detections(cfg, out["rois"], out["roi_valid"], out["cls_prob"],
                                       out["bbox_pred"], im_hw, im_scale)
+        b, k = dets["boxes"].shape[:2]
         if cfg.MODEL.MASK_ON:
-            b, k = dets["boxes"].shape[:2]
             logits = model.mask_heads(mask_roi_features(
                 cfg, model, out["features"], dets["boxes"], dets["valid"], im_scale))
             dets["mask_prob"] = torch.sigmoid(logits).reshape((b, k) + logits.shape[1:])
+        if cfg.MODEL.KEYPOINTS_ON:
+            hm = model.keypoint_heads(keypoint_roi_features(
+                cfg, model, out["features"], dets["boxes"], dets["valid"], im_scale))
+            dets["kps_heatmaps"] = hm.reshape((b, k) + hm.shape[1:])
         return dets
 
     return infer

@@ -4,12 +4,16 @@ sad_tpu/eval/test_engine.py; detectron/lib/core/test_engine.py).
 Images are batched onto the static test canvases as uint8 with their
 content extents, normalised and decoded on the device, and the (N, 100)
 results come back as COCO-format detection dicts: for RetinaNet, and for
-Faster / Mask R-CNN (generalized_rcnn with FPN). Mask R-CNN's kept masks are
-gathered to each detection's own class on the card, pasted into the image
-frame and RLE-encoded on the host. ``test_net_on_dataset`` scores them with
-the COCO evaluator (bbox, and segm under MODEL.MASK_ON), writes
-bbox_results.json, results.json and timing.json (the host split of the
-loop), and with cfg.VIS renders each image with its boxes and masks.
+Faster / Mask / Keypoint R-CNN (generalized_rcnn with FPN). Mask R-CNN's
+kept masks are gathered to each detection's own class on the card, pasted
+into the image frame and RLE-encoded on the host. Keypoint R-CNN's kept
+heatmaps are decoded on the host (utils/keypoints.heatmaps_to_keypoints,
+optionally OKS-NMS under KRCNN.NMS_OKS) into COCO keypoint triplets, with a
+keypoint score by KRCNN.KEYPOINT_CONFIDENCE. ``test_net_on_dataset`` scores
+them with the COCO evaluator (bbox, segm under MODEL.MASK_ON, keypoints
+under MODEL.KEYPOINTS_ON), writes bbox_results.json, results.json and
+timing.json (the host split of the loop), and with cfg.VIS renders each
+image with its boxes, masks and keypoint skeletons.
 
 Over the torchrun world (``multi_gpu``, test_net --multi-gpu-testing) each
 rank serves a contiguous shard of the roidb, the counterpart of the
@@ -19,11 +23,11 @@ the detections in the one-process order (the landscape images in roidb
 order, then the portrait ones), evaluates and writes the files.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item when a config asks for them: test-time augmentation, soft-NMS, box
-voting and proposals from files (Queue 1 item 8; sad_tpu's RetinaNet branch
-ignores TEST.BBOX_AUG, TEST.SOFT_NMS and TEST.BBOX_VOTE,
-sad_tpu/eval/test_engine.py:160, and so does the port's), keypoints (item
-8), and the VOC, Cityscapes-mask and VID evaluators (item 9).
+item when a config asks for them: test-time augmentation (box, mask and
+keypoint), soft-NMS, box voting and proposals from files (Queue 1 item 8;
+sad_tpu's RetinaNet branch ignores TEST.BBOX_AUG, TEST.SOFT_NMS and
+TEST.BBOX_VOTE, sad_tpu/eval/test_engine.py:160, and so does the port's),
+and the VOC, Cityscapes-mask and VID evaluators (item 9).
 
 Dataset I/O is the port's copy of sad_tpu's host modules (sad_tpu_torch.data).
 """
@@ -45,6 +49,7 @@ from ..data.minibatch import compute_im_scale, load_image_bgr, resize_bgr_u8
 from ..parallel.distributed import (
     barrier, broadcast_object, current, gather_objects, world_size,
 )
+from ..utils.keypoints import heatmaps_to_keypoints, nms_oks
 from ..utils.segms import mask_to_rle, paste_mask_into_image
 from .coco_eval import COCOEvaluator
 from .inference import make_inference_fn
@@ -53,7 +58,8 @@ from .rcnn_inference import make_rcnn_inference_fn
 logger = logging.getLogger(__name__)
 
 # the host split of run_inference_on_roidb, in the order of a batch
-SPLIT_KEYS = ("load_resize", "device", "mask_gather", "paste", "rle", "dicts", "vis")
+SPLIT_KEYS = ("load_resize", "device", "mask_gather", "kps_copy", "kps_decode", "paste", "rle",
+              "dicts", "vis")
 
 
 def _test_canvas_shapes(cfg):
@@ -100,6 +106,7 @@ def _refuse_unported_inference(cfg) -> None:
     unported = [name for name, on in (
         ("TEST.BBOX_AUG", cfg.TEST.BBOX_AUG.ENABLED),
         ("TEST.MASK_AUG", cfg.MODEL.MASK_ON and cfg.TEST.MASK_AUG.ENABLED),
+        ("TEST.KPS_AUG", cfg.MODEL.KEYPOINTS_ON and cfg.TEST.KPS_AUG.ENABLED),
         ("TEST.SOFT_NMS", cfg.TEST.SOFT_NMS.ENABLED),
         ("TEST.BBOX_VOTE", cfg.TEST.BBOX_VOTE.ENABLED),
         ("TEST.PROPOSAL_FILES", bool(cfg.TEST.PROPOSAL_FILES)),
@@ -111,6 +118,10 @@ def _refuse_unported_inference(cfg) -> None:
 
 
 def _make_infer_fn(cfg, model):
+    if cfg.KRCNN.KEYPOINT_CONFIDENCE not in ("bbox", "logit", "prob"):
+        # fail before inference, not on the first emitted detection
+        raise ValueError("KRCNN.KEYPOINT_CONFIDENCE must be 'logit', 'prob', or 'bbox'; got "
+                         f"{cfg.KRCNN.KEYPOINT_CONFIDENCE!r}")
     _refuse_unported_inference(cfg)
     if cfg.MODEL.TYPE == "generalized_rcnn":
         return make_rcnn_inference_fn(cfg, model)
@@ -133,8 +144,10 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
                            vis_dir: Optional[str] = None,
                            timing: Optional[Dict[str, float]] = None) -> List[Dict]:
     """COCO-format detection dicts for every image of roidb; with MODEL.MASK_ON
-    each carries its mask as uncompressed RLE in 'segmentation'. With
-    ``vis_dir`` each image is rendered there with its boxes and masks.
+    each carries its mask as uncompressed RLE in 'segmentation', with
+    MODEL.KEYPOINTS_ON its keypoints as COCO triplets in 'keypoints' and
+    their score in 'kps_score'. With ``vis_dir`` each image is rendered
+    there with its boxes, masks and keypoints.
     ``timing``, when given, receives the loop's wall seconds, its batches
     and images, and the seconds of each stage of SPLIT_KEYS."""
     infer = _make_infer_fn(cfg, model)
@@ -163,15 +176,31 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
             boxes, scores, classes, valid = (
                 out[k].cpu().numpy() for k in ("boxes", "scores", "classes", "valid"))
             t2 = clock()
-            masks = None
+            masks = heatmaps = None
             if "mask_prob" in out:
                 masks = gather_class_masks(out["mask_prob"], out["classes"]).cpu().numpy()
             t3 = clock()
-            paste_s = rle_s = vis_s = 0.0
+            if "kps_heatmaps" in out:
+                heatmaps = out["kps_heatmaps"].cpu().numpy()
+            t4 = clock()
+            paste_s = rle_s = vis_s = decode_s = 0.0
             for j, e in enumerate(chunk):
                 vis_segms = [None] * len(boxes[j])
+                vis_kps = [None] * len(boxes[j])
+                kp_xy, kp_keep = {}, None
+                vidx = [k for k, v in enumerate(valid[j]) if v]
+                if heatmaps is not None and vidx:
+                    # decode every kept roi at once; optionally OKS-NMS over
+                    # them (test.py keypoint_results + KRCNN.NMS_OKS)
+                    td = clock()
+                    xy_all = heatmaps_to_keypoints(heatmaps[j][vidx], boxes[j][vidx],
+                                                   min_size=cfg.KRCNN.INFERENCE_MIN_SIZE)
+                    kp_xy = dict(zip(vidx, xy_all))
+                    if cfg.KRCNN.NMS_OKS:
+                        kp_keep = {vidx[q] for q in nms_oks(xy_all, boxes[j][vidx], 0.3)}
+                    decode_s += clock() - td
                 for k, (b, s, c, v) in enumerate(zip(boxes[j], scores[j], classes[j], valid[j])):
-                    if not v:
+                    if not v or (kp_keep is not None and k not in kp_keep):
                         continue
                     x1, y1, x2, y2 = (float(x) for x in b)
                     det = {
@@ -181,6 +210,17 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
                         "bbox": [x1, y1, x2 - x1 + 1.0, y2 - y1 + 1.0],
                         "score": float(s),
                     }
+                    if heatmaps is not None:
+                        # COCO keypoint triplets, and the keypoint task's score kept
+                        # apart from the box score (json_dataset_evaluator
+                        # _coco_kp_results_one_category:376-409)
+                        xy = kp_xy[k]
+                        det["keypoints"] = [v_ for ki in range(xy.shape[1])
+                                            for v_ in (float(xy[0, ki]), float(xy[1, ki]), 1)]
+                        conf = cfg.KRCNN.KEYPOINT_CONFIDENCE
+                        det["kps_score"] = (float(xy[2].mean()) if conf == "logit" else
+                                            float(xy[3].mean()) if conf == "prob" else float(s))
+                        vis_kps[k] = xy  # the (4, K) rows: vis thresholds the logit row
                     if masks is not None:
                         # the roi-frame mask pasted into the image frame, as
                         # RLE (segm_results, test.py + segms utils)
@@ -197,13 +237,16 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
                 if vis_dir is not None:
                     tv = clock()
                     _vis_image(cfg, e, vis_dir, boxes[j], scores[j], classes[j], valid[j],
-                               vis_segms if masks is not None else None)
+                               vis_segms if masks is not None else None,
+                               vis_kps if heatmaps is not None else None)
                     vis_s += clock() - tv
-            t4 = clock()
+            t5 = clock()
             batches += 1
             for name, sec in (("load_resize", t1 - t0), ("device", t2 - t1),
-                              ("mask_gather", t3 - t2), ("paste", paste_s), ("rle", rle_s),
-                              ("dicts", t4 - t3 - paste_s - rle_s - vis_s), ("vis", vis_s)):
+                              ("mask_gather", t3 - t2), ("kps_copy", t4 - t3),
+                              ("kps_decode", decode_s), ("paste", paste_s), ("rle", rle_s),
+                              ("dicts", t5 - t4 - decode_s - paste_s - rle_s - vis_s),
+                              ("vis", vis_s)):
                 split[name] += sec
             if (i // batch_size) % 10 == 0:
                 logger.info("inference %s: %d/%d (avg %.3fs/batch)", key, i + len(chunk),
@@ -258,8 +301,9 @@ def run_inference_sharded(cfg, model, roidb: List[dict], contiguous_to_json: Dic
     return [d for e in _served_order(roidb) for d in by_image.get(e["id"], [])]
 
 
-def _vis_image(cfg, entry, vis_dir, boxes, scores, classes, valid, segms) -> None:
-    """One image's detection render, with mask overlays (ref:
+def _vis_image(cfg, entry, vis_dir, boxes, scores, classes, valid, segms,
+               keypoints=None) -> None:
+    """One image's detection render, with mask overlays and keypoint skeletons (ref:
     test_engine.py:231-244 cfg.VIS dumps -> vis.py vis_one_image; threshold
     cfg.VIS_TH)."""
     from ..utils.vis import vis_one_image
@@ -268,7 +312,7 @@ def _vis_image(cfg, entry, vis_dir, boxes, scores, classes, valid, segms) -> Non
     base = os.path.splitext(os.path.basename(entry["image"]))[0]
     os.makedirs(vis_dir, exist_ok=True)
     vis_one_image(im_bgr[:, :, ::-1], boxes, scores, classes, valid, thresh=cfg.VIS_TH,
-                  out_path=os.path.join(vis_dir, base + ".png"), segms=segms)
+                  out_path=os.path.join(vis_dir, base + ".png"), segms=segms, keypoints=keypoints)
 
 
 def _dump_results_json(output_dir, results):
@@ -302,11 +346,13 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
                         im_range: Optional[Tuple[int, int]] = None,
                         multi_gpu: bool = False) -> Dict[str, float]:
     """Run inference + COCO evaluation on cfg.TEST.DATASETS[0] (or
-    ``dataset_name``): the 12 bbox metrics, and under MODEL.MASK_ON the 12
-    segm ones with the ``segm_`` prefix. Writes bbox_results.json,
-    results.json and timing.json (run_inference_on_roidb's split and the
-    seconds of each evaluation, 'eval_bbox' and 'eval_segm') into
-    ``output_dir`` when one is given.
+    ``dataset_name``): the 12 bbox metrics, under MODEL.MASK_ON the 12 segm
+    ones with the ``segm_`` prefix and under MODEL.KEYPOINTS_ON the 10
+    keypoint ones with the ``keypoints_`` prefix (ranked by 'kps_score').
+    Writes bbox_results.json, results.json and timing.json
+    (run_inference_on_roidb's split and the seconds of each evaluation,
+    'eval_bbox', 'eval_segm', 'eval_keypoints') into ``output_dir`` when one
+    is given.
 
     im_range=(start, end) evaluates only that slice of the dataset's images
     (ref test_net.py --range, the reference's subprocess-sharding unit).
@@ -349,6 +395,15 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
         segm = COCOEvaluator(ds.dataset, iou_type="segm").evaluate(dets, verbose=True)
         timing["eval_segm"] = time.perf_counter() - t0
         results.update({f"segm_{k}": v for k, v in segm.items()})
+    if cfg.MODEL.KEYPOINTS_ON and any("keypoints" in d for d in dets):
+        # the keypoint task ranked by the keypoint score (json_dataset_evaluator
+        # _do_keypoint_eval and the per-result score of :376-409)
+        t0 = time.perf_counter()
+        kp_dets = [dict(d, score=d.get("kps_score", d["score"])) for d in dets
+                   if "keypoints" in d]
+        kps = COCOEvaluator(ds.dataset, iou_type="keypoints").evaluate(kp_dets, verbose=True)
+        timing["eval_keypoints"] = time.perf_counter() - t0
+        results.update({f"keypoints_{k}": v for k, v in kps.items()})
     _dump_results_json(output_dir, results)
     if output_dir:
         with open(os.path.join(output_dir, "timing.json"), "w") as f:

@@ -4,9 +4,9 @@ sad_tpu/models/model_builder.py:139-182).
 
 'retinanet' and 'distillation' both build a RetinaNet: for distillation,
 call create_model once with the teacher config and once with the student
-config. 'generalized_rcnn' with FPN builds a GeneralizedRCNN (Faster / Mask
-R-CNN). RPN-only models, the single-scale (C4) and VGG bodies, R-FCN and the
-keypoint head are not ported yet.
+config. 'generalized_rcnn' with FPN builds a GeneralizedRCNN (Faster / Mask /
+Keypoint R-CNN). RPN-only models, the single-scale (C4) and VGG bodies and
+R-FCN are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,11 +59,14 @@ def _check_head_strings_fpn(cfg) -> None:
     ):
         raise NotImplementedError(f"FPN box head {cfg.FAST_RCNN.ROI_BOX_HEAD!r}")
     if cfg.FAST_RCNN.ROI_XFORM_METHOD != "RoIAlign" or (
-            cfg.MODEL.MASK_ON and cfg.MRCNN.ROI_XFORM_METHOD != "RoIAlign"):
+            cfg.MODEL.MASK_ON and cfg.MRCNN.ROI_XFORM_METHOD != "RoIAlign") or (
+            cfg.MODEL.KEYPOINTS_ON and cfg.KRCNN.ROI_XFORM_METHOD != "RoIAlign"):
         raise NotImplementedError("only ROI_XFORM_METHOD RoIAlign is ported")
     if cfg.MODEL.MASK_ON and "v1up" not in cfg.MRCNN.ROI_MASK_HEAD:
         raise NotImplementedError(
             f"FPN mask head {cfg.MRCNN.ROI_MASK_HEAD!r} (v0up/v0upshare are C4 heads)")
+    if cfg.MODEL.KEYPOINTS_ON and "v1convX" not in cfg.KRCNN.ROI_KEYPOINTS_HEAD:
+        raise NotImplementedError(f"keypoint head {cfg.KRCNN.ROI_KEYPOINTS_HEAD!r}")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -104,6 +107,19 @@ def _init_mask_weight(cfg, w: torch.Tensor, leaf: str, generator) -> None:
                           transposed=leaf == "conv5_mask")
 
 
+def _init_keypoint_weight(cfg, w: torch.Tensor, leaf: str, generator) -> None:
+    """KRCNN.CONV_INIT (sad_tpu/models/rcnn.py KeypointHead): GaussianFill is
+    N(0, 0.01) on the convs and N(0, 0.001) on the deconv output; MSRAFill
+    is normal with std sqrt(2 / fan_out) on both."""
+    if cfg.KRCNN.CONV_INIT == "GaussianFill":
+        w.normal_(0.0, 0.001 if leaf == "kps_score_lowres" else 0.01, generator=generator)
+    elif cfg.KRCNN.CONV_INIT == "MSRAFill":
+        _variance_scaling(w, 2.0, "fan_out", "normal", generator,
+                          transposed=leaf == "kps_score_lowres")
+    else:
+        raise ValueError(f"Unknown KRCNN.CONV_INIT: {cfg.KRCNN.CONV_INIT!r}")
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
     """Per-module initialisers of sad_tpu's models: he-normal backbone
@@ -112,7 +128,7 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
     convs, zero biases, the prior-prob cls bias, AffineChannel s=1/b=0; for
     the R-CNN heads Flax's Dense default (lecun normal) on fc6/fc7, N(0,
     0.01) on cls_score, N(0, 0.001) on bbox_pred, MRCNN.CONV_INIT on the
-    mask head."""
+    mask head, KRCNN.CONV_INIT on the keypoint head."""
     a = model.arch
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
@@ -120,6 +136,8 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
         leaf = name.rsplit(".", 1)[-1]
         if name.startswith("mask_head."):
             _init_mask_weight(model.cfg, m.weight, leaf, generator)
+        elif name.startswith("kps_head."):
+            _init_keypoint_weight(model.cfg, m.weight, leaf, generator)
         elif name.startswith("box_head."):
             if leaf in ("fc6", "fc7"):
                 _variance_scaling(m.weight, 1.0, "fan_in", "truncated_normal", generator)

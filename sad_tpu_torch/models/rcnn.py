@@ -1,12 +1,13 @@
-"""Faster/Mask R-CNN on an FPN backbone (ref: sad_tpu/models/rcnn.py;
-detectron/lib/modeling/{rpn_heads, fast_rcnn_heads, mask_rcnn_heads}.py and
-the generalized_rcnn builder, model_builder.py:74-92).
+"""Faster / Mask / Keypoint R-CNN on an FPN backbone (ref:
+sad_tpu/models/rcnn.py; detectron/lib/modeling/{rpn_heads, fast_rcnn_heads,
+mask_rcnn_heads, keypoint_rcnn_heads}.py and the generalized_rcnn builder,
+model_builder.py:74-92).
 
 Proposals are made on the device with static shapes (ops/proposals.py) and
 every RoI stage is a fixed-R batched tensor program. Module and parameter
 names are those of the Flax tree (``rpn.conv_rpn_fpn2``, ``box_head.fc6``,
-``mask_head._[mask]_fcn1``, ``mask_head.conv5_mask``), themselves the
-reference's blob names, so sad_tpu_torch/convert.py maps a path by joining
+``mask_head._[mask]_fcn1``, ``mask_head.conv5_mask``, ``kps_head.conv_fcn1``,
+``kps_head.kps_score_lowres``), themselves the reference's blob names, so sad_tpu_torch/convert.py maps a path by joining
 with '.'.
 
 Layouts: convolutions run NCHW inside; what the public methods take and
@@ -15,13 +16,12 @@ return is NHWC, as in sad_tpu: images (B, H, W, 3), feature maps
 channels-last), roi features (R, res, res, C). The box head flattens the
 (R, res, res, C) RoIAlign output as it is, (y, x, c) order, which is the
 order of fc6's converted columns.
-
-The keypoint head is not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -152,12 +152,36 @@ class MaskHead(nn.Module):
 
 
 class KeypointHead(nn.Module):
-    """The keypoint head (sad_tpu/models/rcnn.py KeypointHead;
-    keypoint_rcnn_heads.py): not ported yet."""
+    """add_roi_pose_head_v1convX and the deconv output (keypoint_rcnn_heads.py;
+    sad_tpu/models/rcnn.py KeypointHead): num_convs x (conv kernel x kernel +
+    ReLU), the 4x4 stride-2 deconv ``kps_score_lowres`` (Flax's 'SAME'
+    transpose conv: PyTorch padding 1), then with use_deconv_output a
+    nearest 2x upsample log2(up_scale) times, as sad_tpu does it
+    (fpn.upsample_nearest_2x)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "KeypointHead is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1)")
+    def __init__(self, dim_in: int, dim: int, num_keypoints: int, num_convs: int = 8,
+                 up_scale: int = 2, use_deconv_output: bool = True, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.convs = [f"conv_fcn{i + 1}" for i in range(num_convs)]
+        cin = dim_in
+        for name in self.convs:
+            self.add_module(name, conv(cin, dim, kernel, bias=True))
+            cin = dim
+        self.kps_score_lowres = ConvTranspose2d(cin, num_keypoints, 4, stride=2, padding=1)
+        self.upsamples = int(math.log2(up_scale)) if use_deconv_output and up_scale > 1 else 0
+
+    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        """(R, res, res, C) -> float32 heatmap logits (R, S, S, K),
+        S = 2 * res * 2^upsamples."""
+        x = roi_feats.to(self.dtype).permute(0, 3, 1, 2)
+        for name in self.convs:
+            x = F.relu(getattr(self, name)(x))
+        x = self.kps_score_lowres(x)
+        for _ in range(self.upsamples):
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return _nhwc_f32(x)
 
 
 def mask_num_convs(head_name: str) -> int:
@@ -168,20 +192,17 @@ def mask_num_convs(head_name: str) -> int:
 
 
 class GeneralizedRCNN(nn.Module):
-    """FPN backbone + RPN + box and mask RoI heads.
+    """FPN backbone + RPN + box, mask and keypoint RoI heads.
 
     forward(images, im_hw) runs backbone, RPN, proposal generation and the
     box head with the TEST settings: the Faster R-CNN inference path. The
-    mask head runs through ``mask_heads`` on chosen rois, as the reference's
-    cascaded inference does.
+    mask and keypoint heads run through ``mask_heads`` and
+    ``keypoint_heads`` on chosen rois, as the reference's cascaded inference
+    does.
     """
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.MODEL.KEYPOINTS_ON:
-            raise NotImplementedError(
-                "MODEL.KEYPOINTS_ON: the keypoint head is not ported to sad_tpu_torch "
-                "yet (ROADMAP.md Queue 1)")
         self.cfg = cfg
         self.arch = a = arch_from_config(cfg)
         dtype = getattr(torch, a.compute_dtype)
@@ -197,6 +218,11 @@ class GeneralizedRCNN(nn.Module):
                 cfg.MRCNN.CLS_SPECIFIC_MASK, mask_num_convs(cfg.MRCNN.ROI_MASK_HEAD),
                 cfg.MRCNN.USE_FC_OUTPUT, cfg.MRCNN.RESOLUTION,
                 cfg.MRCNN.ROI_XFORM_RESOLUTION, dtype)
+        if cfg.MODEL.KEYPOINTS_ON:
+            k = cfg.KRCNN
+            self.kps_head = KeypointHead(
+                a.fpn_dim, k.CONV_HEAD_DIM, k.NUM_KEYPOINTS, k.NUM_STACKED_CONVS, k.UP_SCALE,
+                k.USE_DECONV_OUTPUT, k.CONV_HEAD_KERNEL, dtype)
 
     def _features(self, images: torch.Tensor) -> Dict[int, torch.Tensor]:
         return self.fpn(images.permute(0, 3, 1, 2))  # NHWC images, as sad_tpu takes them
@@ -292,6 +318,9 @@ class GeneralizedRCNN(nn.Module):
 
     def mask_heads(self, roi_feats: torch.Tensor) -> torch.Tensor:
         return self.mask_head(roi_feats)
+
+    def keypoint_heads(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        return self.kps_head(roi_feats)
 
 
 def flat_rois(boxes: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,9 @@
     python -m sad_tpu_torch.tools.profile_infer --cfg sad_tpu_torch/configs/retinanet_R-50-FPN_student.yaml \
         [--batch 8] [--iters 20] [--seed 0] [--out profile_student.json]
 
-``--cfg`` takes the RetinaNet configs and the two R-CNN ones
-(``e2e_faster_rcnn_R-50-FPN.yaml``, ``e2e_mask_rcnn_R-50-FPN.yaml``). Seeded
+``--cfg`` takes the RetinaNet configs and the three R-CNN ones
+(``e2e_faster_rcnn_R-50-FPN.yaml``, ``e2e_mask_rcnn_R-50-FPN.yaml``,
+``e2e_keypoint_rcnn_R-50-FPN.yaml``). Seeded
 random weights in the config's compute dtype and seeded uint8 canvases of the
 config's landscape test canvas. Prints, and writes as JSON:
 - imgs/s: median and quartiles of --iters timed batches (host clock around
@@ -12,7 +13,8 @@ config's landscape test canvas. Prints, and writes as JSON:
 - per-stage device ms (CUDA events, medians). RetinaNet: normalise, forward,
   decode before NMS, NMS, gather. R-CNN: normalise, backbone+FPN, RPN head,
   candidates, RPN NMS, collect, RoIAlign, box head, decode, detection NMS,
-  gather, and with MODEL.MASK_ON mask RoIAlign and mask head;
+  gather, with MODEL.MASK_ON mask RoIAlign and mask head, and with
+  MODEL.KEYPOINTS_ON keypoint RoIAlign and keypoint head;
 - peak device memory of the timed batches (torch.cuda.max_memory_allocated);
 - from a torch.profiler run of 5 batches: kernel time by category (conv,
   matmul, elementwise, top-k/sort, NMS kernel, RoIAlign kernel, other), the
@@ -25,8 +27,10 @@ runs with ``seeded_inference`` and times them with ``wall_seconds``.
 Random R-CNN weights give an empty decode: N(0, 0.01) output layers put every
 class near 1/81, under TEST.SCORE_THRESH, and every objectness near 0.5. So
 ``seeded_inference`` rescales the four output layers of an R-CNN model once
-(``spread_rcnn_outputs``): the detection NMS and the mask branch then work
-on thousands of candidates an image, as they do with trained weights.
+(``spread_rcnn_outputs``): the detection NMS and the mask and keypoint
+branches then work on thousands of candidates an image (a thousand with the
+one foreground class of the keypoint config), as they do with trained
+weights.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ from sad_tpu_torch.eval.inference import (
     decode_candidates, device_normalize, gather_detections, make_inference_fn,
 )
 from sad_tpu_torch.eval.rcnn_inference import (
-    decode_rcnn_candidates, make_rcnn_inference_fn, mask_roi_features, rcnn_gather_detections,
+    decode_rcnn_candidates, keypoint_roi_features, make_rcnn_inference_fn, mask_roi_features,
+    rcnn_gather_detections,
 )
 from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
 from sad_tpu_torch.models import compute_dtype, create_model
@@ -224,6 +229,12 @@ def rcnn_stages(cfg, model, x):
             ("mask_roi_align", lambda d: mask_roi_features(cfg, model, st["nhwc"], d["boxes"],
                                                            d["valid"], im_scale)),
             ("mask_head", lambda mf: torch.sigmoid(model.mask_heads(mf))),
+        ]
+    if cfg.MODEL.KEYPOINTS_ON:
+        stages += [
+            ("kps_roi_align", lambda _: keypoint_roi_features(
+                cfg, model, st["nhwc"], st["dets"]["boxes"], st["dets"]["valid"], im_scale)),
+            ("kps_head", lambda kf: model.keypoint_heads(kf)),
         ]
     stages.append(("count", lambda _: st["cands"][3].sum()))
     return stages

@@ -1,5 +1,5 @@
 """Where the time of a training step goes, on the card: the joint SAD step,
-or with --cfg an R-CNN YAML the Faster / Mask R-CNN step.
+or with --cfg an R-CNN YAML the Faster / Mask / Keypoint R-CNN step.
 
     python -m sad_tpu_torch.tools.profile_train [--groups 4] [--iters 10] \
         [--warmup 3] [--seed 0] [--out profile_train.json] \
@@ -25,13 +25,14 @@ Prints, and writes as JSON:
   cls-loss kernels, optimizer, elementwise, other), the top kernels by name,
   and the device idle share = 1 - kernel time / wall time;
 - the peak device memory of a step.
-With --cfg sad_tpu_torch/configs/e2e_{faster,mask}_rcnn_R-50-FPN.yaml: the
-R-50-FPN R-CNN at full width and depth with the same overrides, --groups x
-TRAIN.IMS_PER_BATCH seeded images with 1-8 gt boxes and a polygon each on
-the 800x1344 canvas, built by the port's RCNNMinibatchBuilder, the output
-layers rescaled by profile_infer.spread_rcnn_outputs so that the RPN fills
-its slots; stages: normalise, backbone+FPN, RPN head + losses, proposals,
-sampling, RoIAlign + box head + losses, mask branch, backward, SGD.
+With --cfg sad_tpu_torch/configs/e2e_{faster,mask,keypoint}_rcnn_R-50-FPN.yaml:
+the R-50-FPN R-CNN at full width and depth with the same overrides, --groups
+x TRAIN.IMS_PER_BATCH seeded images with 1-8 gt boxes and a polygon (Mask)
+or NUM_KEYPOINTS keypoints (Keypoint) each on the 800x1344 canvas, built by
+the port's RCNNMinibatchBuilder, the output layers rescaled by
+profile_infer.spread_rcnn_outputs so that the RPN fills its slots; stages:
+normalise, backbone+FPN, RPN head + losses, proposals, sampling, RoIAlign +
+box head + losses, mask branch, keypoint branch, backward, SGD.
 
 Needs a CUDA card; raises without one. chip_smoke.py builds its training
 runs with ``seeded_train_step`` and ``seeded_rcnn_train_step``.
@@ -160,7 +161,8 @@ def seeded_rcnn_train_step(cfg_yaml: str, seed: int = 0, n_groups: int = 4, devi
     n_images = n_groups * cfg.TRAIN.IMS_PER_BATCH
     entries, images = random_train_entries(
         np.random.RandomState(seed), n_images, max_side=cfg.TRAIN.MAX_SIZE,
-        num_classes=cfg.MODEL.NUM_CLASSES, polygons=cfg.MODEL.MASK_ON)
+        num_classes=cfg.MODEL.NUM_CLASSES, polygons=cfg.MODEL.MASK_ON,
+        keypoints=cfg.KRCNN.NUM_KEYPOINTS if cfg.MODEL.KEYPOINTS_ON else 0)
     built = RCNNMinibatchBuilder(cfg, device_normalize=True).build(
         entries, seed=seed, images_bgr=images)
     batch = batch_to_torch(built, dev)
@@ -172,7 +174,7 @@ def seeded_rcnn_train_step(cfg_yaml: str, seed: int = 0, n_groups: int = 4, devi
 
 
 RCNN_STAGES = ("normalize", "backbone_fpn", "rpn_head_losses", "proposals", "sample",
-               "roi_align_box_head_losses", "mask_branch", "backward", "sgd")
+               "roi_align_box_head_losses", "mask_branch", "keypoint_branch", "backward", "sgd")
 
 
 def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
@@ -193,13 +195,17 @@ def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
     feats = run.model.roi_features({l: f.permute(0, 2, 3, 1) for l, f in nchw.items()})
     total = total + step.box_branch(feats, sampled)[0]
     ev[6].record()
+    prefix = step.fg_prefix(sampled)
     if run.cfg.MODEL.MASK_ON:
-        total = total + step.mask_branch(feats, sampled, batch)
+        total = total + step.mask_branch(feats, sampled, batch, prefix)
     ev[7].record()
-    grads = step.grads(total)
+    if run.cfg.MODEL.KEYPOINTS_ON:
+        total = total + step.keypoint_branch(feats, sampled, batch, prefix)
     ev[8].record()
-    step.apply(run.state, grads, lr)
+    grads = step.grads(total)
     ev[9].record()
+    step.apply(run.state, grads, lr)
+    ev[10].record()
     torch.cuda.synchronize()
     return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(RCNN_STAGES)}
 

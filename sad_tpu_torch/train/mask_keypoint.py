@@ -1,7 +1,7 @@
-"""Mask R-CNN training: mask targets made on the device, and the mask loss
-(ref: sad_tpu/train/mask_keypoint.py:47-102;
-detectron/lib/roi_data/mask_rcnn.py and mask_rcnn_heads.py
-add_mask_rcnn_losses).
+"""Mask and Keypoint R-CNN training: targets made on the device, and the
+mask and keypoint losses (ref: sad_tpu/train/mask_keypoint.py;
+detectron/lib/roi_data/{mask_rcnn, keypoint_rcnn}.py, mask_rcnn_heads.py
+add_mask_rcnn_losses and keypoint_rcnn_heads.py add_keypoint_losses).
 
 The rois are sampled on the device, so the targets are cut on the device
 too: each roi's matched gt raster (rasterised once per image on the host at
@@ -15,7 +15,14 @@ so only the wanted raster is read. On the card that is the RoIAlign forward
 kernel (one launch a step beside the two that carry gradients); no gradient
 flows through it.
 
-The keypoint targets and loss of that file are not ported yet.
+Keypoints: each roi's matched gt keypoints become one flat heatmap index
+per keypoint, with a weight of 1 where the keypoint is visible and inside
+the roi (keypoint_rcnn.py keypoints_to_heatmap_labels). As in sad_tpu, the
+keypoint head runs on the box head's fg slots rather than on a second,
+keypoint-only sample (sad_tpu/train/mask_keypoint.py:22-31): rois without a
+visible keypoint carry zero weight, and a group with too few visible
+keypoints contributes no keypoint loss (the reference's
+finalize_keypoint_minibatch, as a predicate on the device).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.roi_align import multilevel_roi_align
@@ -84,12 +92,72 @@ def mask_loss(
     return cfg.MRCNN.WEIGHT_LOSS_MASK * (sum_g / count_g).sum() / (total_groups or n_groups)
 
 
-def keypoint_targets_on_device(*args, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
-    raise NotImplementedError(
-        "keypoint_targets_on_device is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 "
-        "item 8)")
+def keypoint_targets_on_device(
+    gt_keypoints: torch.Tensor,  # (B, G, K, 3) [x, y, visibility]
+    rois: torch.Tensor,  # (B, R, 4)
+    matched_gt: torch.Tensor,  # (B, R) index into G
+    heatmap_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat heatmap index labels (B * R, K) int64 and their valid flags
+    (B * R, K), image-major (keypoint_rcnn.py keypoints_to_heatmap_labels)."""
+    b, r = matched_gt.shape
+    k = gt_keypoints.shape[2]
+    with torch.no_grad():
+        idx = matched_gt.long().clamp(0, gt_keypoints.shape[1] - 1)
+        kp = torch.gather(gt_keypoints.float(), 1, idx[:, :, None, None].expand(b, r, k, 3))
+        rois = rois.float()
+        x1, y1, x2, y2 = (rois[..., i, None] for i in range(4))
+        size = torch.full_like(x1, float(heatmap_size))  # tensor / tensor: IEEE division
+        sx = size / torch.clamp_min(x2 - x1, 1.0)
+        sy = size / torch.clamp_min(y2 - y1, 1.0)
+        px = torch.floor((kp[..., 0] - x1) * sx).int()
+        py = torch.floor((kp[..., 1] - y1) * sy).int()
+        inside = (px >= 0) & (px < heatmap_size) & (py >= 0) & (py < heatmap_size)
+        visible = (kp[..., 2] > 0) & inside
+        px = px.clamp(0, heatmap_size - 1)
+        py = py.clamp(0, heatmap_size - 1)
+        labels = (py * heatmap_size + px).long()
+        return labels.reshape(b * r, k), visible.reshape(b * r, k)
 
 
-def keypoint_loss(*args, **kwargs) -> torch.Tensor:
-    raise NotImplementedError(
-        "keypoint_loss is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+def keypoint_loss(
+    cfg,
+    kps_logits: torch.Tensor,  # (R, S, S, K) heatmap logits
+    heat_labels: torch.Tensor,  # (R, K) flat heatmap indices
+    heat_valid: torch.Tensor,  # (R, K)
+    is_fg: torch.Tensor,  # (R,)
+    n_groups: int,
+    n_images: int = 0,
+    total_groups: Optional[int] = None,
+) -> torch.Tensor:
+    """Softmax cross-entropy over the heatmap per visible keypoint at fg
+    rois (keypoint_rcnn_heads.py:110-149): per group of consecutive rows,
+    with KRCNN.NORMALIZE_BY_VISIBLE_KEYPOINTS the mean over its visible
+    keypoints, else its sum over the fixed expected count of fg keypoints,
+    n_images / n_groups * BATCH_SIZE_PER_IM * FG_FRACTION * K
+    (keypoint_rcnn.py:105-110; ``n_images`` is the images of this batch);
+    a group with no more than MIN_KEYPOINT_COUNT_FOR_VALID_MINIBATCH visible
+    keypoints gives 0; the groups summed, times KRCNN.LOSS_WEIGHT, divided
+    by ``total_groups`` (the groups of every rank; ``n_groups`` by
+    default)."""
+    kr = cfg.KRCNN
+    r, s, _, k = kps_logits.shape
+    flat = kps_logits.reshape(r, s * s, k).transpose(1, 2)  # (R, K, S*S)
+    logp = torch.log_softmax(flat.float(), dim=-1)
+    nll = -torch.gather(logp, 2, heat_labels.long()[..., None])[..., 0]
+    w = (heat_valid & is_fg[:, None]).float()
+    sum_g = (nll * w).reshape(n_groups, -1).sum(dim=1)
+    nvis_g = w.reshape(n_groups, -1).sum(dim=1)
+    if kr.NORMALIZE_BY_VISIBLE_KEYPOINTS:
+        per_group = sum_g / torch.clamp_min(nvis_g, 1.0)
+    else:
+        if not n_images:
+            raise ValueError(
+                "keypoint_loss with NORMALIZE_BY_VISIBLE_KEYPOINTS=False needs n_images (the "
+                "fixed denominator is per image, not per roi row)")
+        ims = n_images // n_groups
+        denom = float(np.float32(ims * cfg.TRAIN.BATCH_SIZE_PER_IM * cfg.TRAIN.FG_FRACTION * k))
+        per_group = sum_g / torch.full_like(sum_g, denom)
+    gate = nvis_g > kr.MIN_KEYPOINT_COUNT_FOR_VALID_MINIBATCH
+    per_group = torch.where(gate, per_group, 0.0)
+    return kr.LOSS_WEIGHT * per_group.sum() / (total_groups or n_groups)

@@ -1,4 +1,4 @@
-"""The Faster / Mask R-CNN end-to-end training step on an FPN backbone (ref:
+"""The Faster / Mask / Keypoint R-CNN end-to-end training step on an FPN backbone (ref:
 sad_tpu/train/rcnn_train.py, the FPN branch of make_rcnn_train_step; the
 reference's generalized_rcnn training graph, model_builder.py:74-92, with
 the GenerateProposalLabels Python op on the device).
@@ -6,9 +6,11 @@ the GenerateProposalLabels Python op on the device).
 One step: images -> ResNet-FPN -> RPN head and RPN losses -> train-mode
 proposals (per-level top-k, decode, ONE batched NMS over all level x image
 problems, global top-k) -> fg/bg sampling with targets on the device ->
-multilevel RoIAlign -> box head, softmax-CE + smooth-L1 -> for Mask R-CNN
-the fg prefix -> mask RoIAlign -> mask head -> mask targets cropped on the
-device -> sigmoid-CE -> backward -> Caffe2 momentum SGD. Proposals, sampling
+multilevel RoIAlign -> box head, softmax-CE + smooth-L1 -> for Mask and
+Keypoint R-CNN the fg prefix -> mask RoIAlign -> mask head -> mask targets
+cropped on the device -> sigmoid-CE, and keypoint RoIAlign -> keypoint head
+-> heatmap labels on the device -> softmax-CE -> backward -> Caffe2
+momentum SGD. Proposals, sampling
 and targets run under ``torch.no_grad()`` (sad_tpu stops the gradient
 there); nothing reads a value back to the host. On the card the NMS and both
 directions of RoIAlign are the hand-written kernels.
@@ -22,7 +24,7 @@ TRAIN.IMS_PER_BATCH consecutive images):
   (FPN.py:422-431),
 - box head: softmax-CE as a per-group mean over sampled rois, smooth-L1 with
   class-specific weights (fast_rcnn_heads.py add_fast_rcnn_losses),
-- mask: train/mask_keypoint.py.
+- mask and keypoints: train/mask_keypoint.py.
 Over W ranks (parallel/distributed.py) each rank holds B / W images and
 G / W groups; every denominator above stays the global one (images, rows,
 groups times W), the box head's accuracy divides by the live rois of all
@@ -30,8 +32,8 @@ ranks, the sampler draws the global (B, P + G) priorities and takes the
 rank's rows, and the gradients are summed over the ranks before the update.
 
 Not ported yet, each raising NotImplementedError (ROADMAP.md Queue 1 item 8):
-keypoints, the single-scale (C4) and R-FCN branches, training from
-precomputed proposals, TRAIN.OHEM.
+the single-scale (C4) and R-FCN branches, training from precomputed
+proposals, TRAIN.OHEM.
 
 Batch (tensors on the model's device, NHWC; data/rpn_minibatch.py):
   data (B, H, W, 3) float32 normalised, or data_u8 (B, H, W, 3) uint8 +
@@ -39,7 +41,8 @@ Batch (tensors on the model's device, NHWC; data/rpn_minibatch.py):
   rpn_labels {lvl: (B, H_l, W_l, A) int32}, rpn_bbox_targets /
   rpn_bbox_inside_weights / rpn_bbox_outside_weights {lvl: (B, H_l, W_l, A, 4)};
   gt_boxes (B, G, 4), gt_classes (B, G) with 0 = padding;
-  for Mask R-CNN gt_mask_rasters (B, G, Hm, Wm) and gt_mask_stride (a number).
+  for Mask R-CNN gt_mask_rasters (B, G, Hm, Wm) and gt_mask_stride (a number);
+  for Keypoint R-CNN gt_keypoints (B, G, K, 3) [x, y, visibility].
 """
 
 from __future__ import annotations
@@ -57,7 +60,9 @@ from ..ops.proposals import (
     map_rois_to_fpn_levels, multilevel_roi_align, sample_proposal_labels, sampled_fg_cap,
 )
 from ..parallel.distributed import all_reduce_grads, all_reduce_sum, shard_rows
-from .mask_keypoint import mask_loss, mask_targets_on_device
+from .mask_keypoint import (
+    keypoint_loss, keypoint_targets_on_device, mask_loss, mask_targets_on_device,
+)
 from .optimizer import momentum_sgd_update
 from .train_step import Metrics, TrainState
 
@@ -129,7 +134,7 @@ class RCNNTrainStep:
     ``state.velocity`` in place and returns the metrics as 0-d tensors on the
     device. Its stages are methods, so that a profiler can time each one:
     inputs -> backbone -> rpn -> proposals -> sample -> box_branch ->
-    mask_branch -> grads -> apply.
+    mask_branch / keypoint_branch -> grads -> apply.
 
     The sampler's random priorities come from ``generator`` (a
     torch.Generator on the model's device), or are handed to the step as
@@ -142,8 +147,6 @@ class RCNNTrainStep:
         if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN and cfg.FPN.MULTILEVEL_ROIS):
             raise NotImplementedError("the single-scale (C4 / R-FCN) R-CNN training step"
                                       + _LATER)
-        if cfg.MODEL.KEYPOINTS_ON:
-            raise NotImplementedError("MODEL.KEYPOINTS_ON: the keypoint branch" + _LATER)
         if not cfg.MODEL.FASTER_RCNN:
             raise NotImplementedError("MODEL.FASTER_RCNN False: training from precomputed "
                                       "proposals" + _LATER)
@@ -226,33 +229,72 @@ class RCNNTrainStep:
             sampled["bbox_outside_weights"].reshape(n, -1),
             sampled["valid"].reshape(-1), self.n_groups, self.n_groups * self.world)
 
-    def mask_cap(self) -> int:
-        """Mask-branch slots an image: the fg prefix of the sampler's
-        output, or fewer with MRCNN.ROI_SLOTS_PER_IM (fg rois beyond the cap
-        keep their box supervision and get no mask loss)."""
+    def _aux_cap(self, knob: int) -> int:
+        """Slots an image of an aux branch: the fg prefix of the sampler's
+        output, or fewer with the branch's ROI_SLOTS_PER_IM ``knob`` (fg
+        rois beyond the cap keep their box supervision and get no loss of
+        the branch)."""
         t = self.cfg.TRAIN
         fg_cap = sampled_fg_cap(t.BATCH_SIZE_PER_IM, t.FG_FRACTION)
-        knob = self.cfg.MRCNN.ROI_SLOTS_PER_IM
         return fg_cap if knob <= 0 else min(knob, fg_cap)
 
-    def mask_branch(self, feats, sampled, batch) -> torch.Tensor:
-        """The mask loss on the leading ``mask_cap`` slots of every image,
-        which hold every fg roi: RoIAlign, mask head, targets cropped from
-        the gt rasters on the device."""
-        cfg, cap = self.cfg, self.mask_cap()
+    def mask_cap(self) -> int:
+        """Mask-branch slots an image (MRCNN.ROI_SLOTS_PER_IM)."""
+        return self._aux_cap(self.cfg.MRCNN.ROI_SLOTS_PER_IM)
+
+    def kps_cap(self) -> int:
+        """Keypoint-branch slots an image (KRCNN.ROI_SLOTS_PER_IM)."""
+        return self._aux_cap(self.cfg.KRCNN.ROI_SLOTS_PER_IM)
+
+    def fg_prefix(self, sampled) -> Dict[str, torch.Tensor]:
+        """The leading slots of every image at the larger cap of the aux
+        branches that are on, which hold every fg roi (the sampler sorts
+        them first), with their RoI levels: made once and sliced by each
+        branch (sad_tpu's ``_branch_slice``). Every entry is (B, cap, ...)."""
+        m = self.cfg.MODEL
+        cap = max(self.mask_cap() if m.MASK_ON else 1, self.kps_cap() if m.KEYPOINTS_ON else 1)
         rois = sampled["rois"][:, :cap]
-        is_fg = sampled["is_fg"][:, :cap].reshape(-1)
-        labels = sampled["labels"][:, :cap].reshape(-1)
-        rois5 = flat_rois(rois)
-        mfeats = multilevel_roi_align(
-            feats, rois5, self._roi_levels(rois5), is_fg,
-            cfg.MRCNN.ROI_XFORM_RESOLUTION, cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
+        levels = self._roi_levels(flat_rois(rois)).reshape(rois.shape[:2])
+        return {"rois": rois, "levels": levels, "is_fg": sampled["is_fg"][:, :cap],
+                "labels": sampled["labels"][:, :cap], "matched_gt": sampled["matched_gt"][:, :cap]}
+
+    def _branch(self, feats, sampled, prefix, cap: int, res: int, sr: int):
+        """A branch's slice of the fg prefix and its RoIAlign: (slice with
+        'is_fg' flattened, roi features (B * cap, res, res, C))."""
+        p = {k: v[:, :cap] for k, v in (prefix or self.fg_prefix(sampled)).items()}
+        p["is_fg"] = p["is_fg"].reshape(-1)
+        return p, multilevel_roi_align(feats, flat_rois(p["rois"]), p["levels"].reshape(-1),
+                                       p["is_fg"], res, sr)
+
+    def mask_branch(self, feats, sampled, batch, prefix=None) -> torch.Tensor:
+        """The mask loss on the leading ``mask_cap`` slots of every image:
+        RoIAlign, mask head, targets cropped from the gt rasters on the
+        device."""
+        cfg = self.cfg
+        p, mfeats = self._branch(feats, sampled, prefix, self.mask_cap(),
+                                 cfg.MRCNN.ROI_XFORM_RESOLUTION,
+                                 cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
         mlogits = self.model.mask_head(mfeats)
         targets = mask_targets_on_device(
-            batch["gt_mask_rasters"], rois, sampled["matched_gt"][:, :cap],
+            batch["gt_mask_rasters"], p["rois"], p["matched_gt"],
             cfg.MRCNN.RESOLUTION, float(batch["gt_mask_stride"]))
-        return mask_loss(cfg, mlogits, targets, labels, is_fg, self.n_groups,
-                         self.n_groups * self.world)
+        return mask_loss(cfg, mlogits, targets, p["labels"].reshape(-1), p["is_fg"],
+                         self.n_groups, self.n_groups * self.world)
+
+    def keypoint_branch(self, feats, sampled, batch, prefix=None) -> torch.Tensor:
+        """The keypoint loss on the leading ``kps_cap`` slots of every image:
+        RoIAlign, keypoint head, heatmap labels from the gt keypoints on the
+        device."""
+        cfg = self.cfg
+        p, kfeats = self._branch(feats, sampled, prefix, self.kps_cap(),
+                                 cfg.KRCNN.ROI_XFORM_RESOLUTION,
+                                 cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO)
+        klogits = self.model.keypoint_heads(kfeats)
+        labels, valid = keypoint_targets_on_device(batch["gt_keypoints"], p["rois"],
+                                                   p["matched_gt"], klogits.shape[1])
+        return keypoint_loss(cfg, klogits, labels, valid, p["is_fg"], self.n_groups,
+                             n_images=p["rois"].shape[0],
+                             total_groups=self.n_groups * self.world)
 
     def losses(self, batch, uniforms=None) -> Tuple[torch.Tensor, Metrics]:
         """Forward and every loss: (total, metrics)."""
@@ -264,16 +306,26 @@ class RCNNTrainStep:
         box_total, box_metrics = self.box_branch(feats, sampled)
         total = total + box_total
         metrics.update(box_metrics)
-        if self.cfg.MODEL.MASK_ON and "gt_mask_rasters" in batch:
-            metrics["loss_mask"] = self.mask_branch(feats, sampled, batch)
-            total = total + metrics["loss_mask"]
+        m = self.cfg.MODEL
+        mask = m.MASK_ON and "gt_mask_rasters" in batch
+        kps = m.KEYPOINTS_ON and "gt_keypoints" in batch
+        if mask or kps:
+            prefix = self.fg_prefix(sampled)
+            aux = []
+            if mask:
+                metrics["loss_mask"] = self.mask_branch(feats, sampled, batch, prefix)
+                aux.append(metrics["loss_mask"])
+            if kps:
+                metrics["loss_kps"] = self.keypoint_branch(feats, sampled, batch, prefix)
+                aux.append(metrics["loss_kps"])
+            total = total + sum(aux)  # the aux losses summed first, as in sad_tpu
         metrics["loss"] = total
         return total, metrics
 
     def grads(self, total: torch.Tensor):
         """Gradients of the trainable parameters; one that the loss does not
-        reach (the mask head of a batch without rasters) gets zeros, and so
-        still decays."""
+        reach (the mask head of a batch without rasters, the keypoint head
+        of one without keypoints) gets zeros, and so still decays."""
         got = torch.autograd.grad(total, self.params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, got)]
 
@@ -297,7 +349,7 @@ class RCNNTrainStep:
 def make_rcnn_train_step(cfg, model: nn.Module, n_groups: Optional[int] = None,
                          generator: Optional[torch.Generator] = None, rank: int = 0,
                          world: int = 1) -> RCNNTrainStep:
-    """The training step of a Faster / Mask R-CNN ``model`` (ref: sad_tpu
+    """The training step of a Faster / Mask / Keypoint R-CNN ``model`` (ref: sad_tpu
     make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS; over
     ``world`` ranks it is the rank's own count."""
     return RCNNTrainStep(cfg, model, n_groups, generator, rank, world)

@@ -3,9 +3,8 @@
 PIL-based (matplotlib-free) box/label rendering for infer_simple and
 debugging. Writes PNG/PDF via PIL.
 
-A copy of sad_tpu/utils/vis.py for boxes, labels and mask overlays.
-Keypoint skeletons serve Keypoint R-CNN, which the port does not have yet:
-asking for them raises NotImplementedError (ROADMAP.md Queue 1 item 8).
+A copy of sad_tpu/utils/vis.py: boxes, labels, mask overlays and keypoint
+skeletons.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import Optional, Sequence
 import numpy as np
 from PIL import Image, ImageDraw
 
+from .keypoints import get_keypoints
 from .segms import rle_to_mask
 
 
@@ -30,6 +30,22 @@ def colormap(n: int = 79) -> np.ndarray:
         ][int(h * 6) % 6]
         colors.append((int(r * 255), int(g * 255), int(b * 255)))
     return np.asarray(colors, np.uint8)
+
+
+def kp_connections() -> list:
+    """COCO keypoint skeleton pairs (ref: vis.py kp_connections:47-65)."""
+    names, _ = get_keypoints()
+    pairs = [
+        ("left_eye", "right_eye"), ("left_eye", "nose"),
+        ("right_eye", "nose"), ("right_eye", "right_ear"),
+        ("left_eye", "left_ear"),
+        ("right_shoulder", "right_elbow"), ("right_elbow", "right_wrist"),
+        ("left_shoulder", "left_elbow"), ("left_elbow", "left_wrist"),
+        ("right_hip", "right_knee"), ("right_knee", "right_ankle"),
+        ("left_hip", "left_knee"), ("left_knee", "left_ankle"),
+        ("right_shoulder", "left_shoulder"), ("right_hip", "left_hip"),
+    ]
+    return [(names.index(a), names.index(b)) for a, b in pairs]
 
 
 def _blend_mask(
@@ -58,14 +74,12 @@ def vis_one_image(
     thresh: float = 0.5,
     out_path: Optional[str] = None,
     segms: Optional[Sequence] = None,  # per-k RLE dict / binary mask / None
-    keypoints: Optional[Sequence] = None,  # R-CNN keypoints: not ported
+    keypoints: Optional[Sequence] = None,  # per-k flat [x,y,v]*17 or (4,17)
+    kp_thresh: float = 2.0,
 ) -> Image.Image:
-    """Boxes + labels, optional mask overlays (ref: vis.py
-    vis_one_image_opencv: vis_mask + vis_class + vis_bbox)."""
-    if keypoints is not None:
-        raise NotImplementedError(
-            "keypoint overlays serve Keypoint R-CNN, which sad_tpu_torch does "
-            "not port yet (ROADMAP.md Queue 1 item 8)")
+    """Boxes + labels, optional mask overlays and keypoint skeletons
+    (ref: vis.py vis_one_image_opencv: vis_mask + vis_class + vis_bbox +
+    vis_keypoints)."""
     arr = np.ascontiguousarray(im_rgb).copy()
     cmap = colormap()
     if segms is not None:
@@ -101,6 +115,29 @@ def vis_one_image(
             else f"cls{c}"
         )
         draw.text((x1 + 2, max(0, y1 - 12)), f"{name} {scores[k]:.2f}", fill=color)
+        if keypoints is not None and k < len(keypoints) and (
+            keypoints[k] is not None
+        ):
+            kp = np.asarray(keypoints[k], np.float32)
+            if kp.ndim == 1:  # COCO triplets [x, y, v] * K
+                kp = kp.reshape(-1, 3).T  # (3, K): x, y, v
+                thr = 1.0  # v >= 1: labeled (engine triplets carry v=1)
+            else:  # (4, K) decode rows: x, y, logit, prob
+                thr = kp_thresh  # logit threshold (ref vis_keypoints)
+            vis_row = 2
+            for a, b in kp_connections():  # the COCO skeleton; none past K
+                if max(a, b) < kp.shape[1] and kp[vis_row, a] >= thr and kp[vis_row, b] >= thr:
+                    draw.line(
+                        [(kp[0, a], kp[1, a]), (kp[0, b], kp[1, b])],
+                        fill=color, width=2,
+                    )
+            for j in range(kp.shape[1]):
+                if kp[vis_row, j] >= thr:
+                    draw.ellipse(
+                        [kp[0, j] - 2, kp[1, j] - 2,
+                         kp[0, j] + 2, kp[1, j] + 2],
+                        fill=color,
+                    )
     if out_path:
         img.save(out_path)
     return img

@@ -47,7 +47,7 @@ def _body_case(groups, seed):
 @pytest.mark.parametrize("groups", [1, 2])
 def test_folded_body_matches_sad_tpu(groups):
     arch, x, body, params = _body_case(groups, seed=groups)
-    ref = body.apply({"params": params}, jnp.asarray(x))
+    ref = jax.jit(body.apply)({"params": params}, jnp.asarray(x))  # one compile, not eager
     port = load_params(ResNetBody(_port_arch(arch)).eval(), params)
     assert port.arch.fold_affine
     with torch.no_grad():
@@ -78,7 +78,8 @@ def test_folded_kernel_grads_match_sad_tpu(groups):
             out = body.apply({"params": p}, x64)
             return sum(jnp.sum(out[k] * cts[k]) for k in out)
 
-        ref = params_to_state_dict(jax.tree_util.tree_map(np.asarray, jax.grad(objective)(p64)))
+        grads = jax.jit(jax.grad(objective))(p64)  # one compile, not eager a primitive
+        ref = params_to_state_dict(jax.tree_util.tree_map(np.asarray, grads))
 
     port = load_params(ResNetBody(_port_arch(arch)), params).double()
     got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
@@ -128,7 +129,7 @@ def test_folded_retinanet_outputs_match_sad_tpu():
     x = np.random.RandomState(3).randn(1, 128, 128, 3).astype(np.float32)
     model = JaxRetinaNet(arch)
     params = random_params(model, x, seed=4)
-    ref = model.apply({"params": params}, jnp.asarray(x))
+    ref = jax.jit(model.apply)({"params": params}, jnp.asarray(x))
     port = load_params(RetinaNet(_port_arch(arch)).eval(), params)
     with torch.no_grad():
         got = port(torch.from_numpy(x))

@@ -11,6 +11,7 @@ per-level outputs. Each package reads the same settings with its own config modu
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,15 +113,23 @@ def test_save_res_returns_raw_maps(slice_pair):
     assert out["raw_bbox_pred"][3].shape == (2, 16, 32, 36)
 
 
+@pytest.fixture(scope="module")
+def raw_outputs(slice_pair):
+    """sad_tpu's per-level maps of the slice's canvases, once a module (one
+    jitted forward, not an eager dispatch a primitive for each case)."""
+    jc, _, jmodel, params, _, (data, _, _, content) = slice_pair
+    x = j_normalize(jnp.asarray(data), jc.PIXEL_MEANS, jc.PIXEL_DIV, jc.PIXEL_STD,
+                    jnp.asarray(content))
+    return jax.jit(jmodel.apply)({"params": params}, x)
+
+
 @pytest.mark.parametrize("use_bbox_reg", [True, False])
-def test_decode_alone_on_identical_outputs(slice_pair, use_bbox_reg):
+def test_decode_alone_on_identical_outputs(slice_pair, raw_outputs, use_bbox_reg):
     """Decode (threshold, per-level top-k, box decode, clip, class-wise NMS)
     on the very same per-level maps: the class-offset NMS sees identical
     candidates, so the kept sets agree exactly."""
     jc, tc, jmodel, params, _, (data, im_hw, scale, content) = slice_pair
-    x = j_normalize(jnp.asarray(data), jc.PIXEL_MEANS, jc.PIXEL_DIV, jc.PIXEL_STD,
-                    jnp.asarray(content))
-    out = jmodel.apply({"params": params}, x)
+    out = raw_outputs
     ref = j_decode(jc, out, jnp.asarray(im_hw), jnp.asarray(scale), use_bbox_reg)
     t_out = {k: {l: torch.from_numpy(np.array(v)) for l, v in d.items()} for k, d in out.items()}
     got = decode_detections(tc, t_out, torch.from_numpy(im_hw), torch.from_numpy(scale),

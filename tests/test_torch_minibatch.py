@@ -21,6 +21,7 @@ import sad_tpu_torch.data.anchors as tanchors
 import sad_tpu_torch.data.minibatch as tmb
 from sad_tpu.config.config import merge_cfg_from_dict as jmerge
 from sad_tpu.data.dataset import CocoDataset as JDataset
+from sad_tpu.data.dataset import flip_entry as j_flip_entry
 from sad_tpu.data.synth_coco import generate_synthetic_coco
 from sad_tpu_torch.config.config import merge_cfg_from_dict as tmerge
 from sad_tpu_torch.data import dataset as tdataset
@@ -150,17 +151,25 @@ def test_resize_bilinear_numpy_path_equals_cv2(monkeypatch):
 def test_rcnn_only_branches_refuse():
     entry = {"width": 10, "boxes": np.zeros((1, 4), np.float32), "segms": [[[0, 0, 1, 1, 2, 2]]],
              "gt_keypoints": np.zeros((0, 17, 3), np.float32)}
-    # segmentations flip with the entry (Mask R-CNN training); keypoints wait
+    # segmentations flip with the entry (Mask R-CNN training), and keypoints
+    # with their left/right channels swapped (Keypoint R-CNN), as sad_tpu's
     assert tdataset.flip_entry(entry)["segms"] == [[[9.0, 0.0, 8.0, 1.0, 7.0, 2.0]]]
-    entry = dict(entry, segms=[], gt_keypoints=np.ones((1, 17, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tdataset.flip_entry(entry)
+    kp = np.random.RandomState(0).uniform(0, 9, (1, 17, 3)).astype(np.float32)
+    kp[0, :3, 2] = 0.0
+    entry = dict(entry, segms=[], gt_keypoints=kp)
+    np.testing.assert_array_equal(tdataset.flip_entry(entry)["gt_keypoints"],
+                                  j_flip_entry(entry)["gt_keypoints"])
     flipped = tdataset.flip_entry(dict(entry, gt_keypoints=np.zeros((0, 17, 3), np.float32)))
     assert flipped["flipped"] and flipped["boxes"][0, 0] == 9.0
     im = np.zeros((8, 8, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        vis_one_image(im, np.zeros((1, 4)), np.ones(1), np.ones(1, int),
-                      keypoints=[np.zeros(51)])
+    # keypoint overlays: a labeled keypoint draws, an unlabeled one does not
+    big, kps = np.zeros((32, 32, 3), np.uint8), np.zeros(51)
+    kps[0:3] = (20, 24, 1)
+    assert np.asarray(vis_one_image(big, np.zeros((1, 4)), np.ones(1), np.ones(1, int),
+                                    keypoints=[kps]))[24, 20].any()
+    kps[2] = 0
+    assert not np.asarray(vis_one_image(big, np.zeros((1, 4)), np.ones(1), np.ones(1, int),
+                                        keypoints=[kps]))[24, 20].any()
     assert vis_one_image(im, np.zeros((1, 4)), np.ones(1), np.ones(1, int)).size == (8, 8)
     # mask overlays serve Mask R-CNN's results (ported): a mask tints its pixels
     mask = np.zeros((8, 8), np.uint8)

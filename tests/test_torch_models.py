@@ -99,7 +99,7 @@ def pair(request):
     x = rng.randn(2, 128, 128, 3).astype(np.float32)
     model = JaxRetinaNet(arch)
     params = random_params(model, x, seed=1)
-    ref = model.apply({"params": params}, jnp.asarray(x))
+    ref = jax.jit(model.apply)({"params": params}, jnp.asarray(x))  # one compile, not eager
     port = load_params(RetinaNet(_port_arch(arch)).eval(), params)
     with torch.no_grad():
         got = port(torch.from_numpy(x))
@@ -149,7 +149,7 @@ def test_body_grouped_dilated_stride3x3_matches():
     x = np.random.RandomState(1).randn(1, 64, 96, 3).astype(np.float32)
     body = JaxResNetBody(arch)
     params = random_params(body, x, seed=2)
-    ref = body.apply({"params": params}, jnp.asarray(x))
+    ref = jax.jit(body.apply)({"params": params}, jnp.asarray(x))
     port = load_params(ResNetBody(_port_arch(arch)).eval(), params)
     with torch.no_grad():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2))

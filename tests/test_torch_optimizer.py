@@ -84,8 +84,10 @@ def test_momentum_sgd_equals_sad_tpu(tiny, lr, wd):
     grads = jax.tree_util.tree_map(lambda a: rng.randn(*a.shape).astype(np.float32), params)
     vel = jax.tree_util.tree_map(lambda a: rng.randn(*a.shape).astype(np.float32) * 1e-3, params)
     t_tree, b_tree = j_trainable_mask(params, 2, False), j_bias_mask(params)
-    jp, js = j_update(params, grads, MomentumSGDState(vel), jnp.float32(lr), momentum=0.9,
-                      weight_decay=wd, trainable=t_tree, is_bias=b_tree)
+    update = jax.jit(lambda p, g, v, lr_: j_update(  # one compile, not eager a leaf
+        p, g, MomentumSGDState(v), lr_, momentum=0.9, weight_decay=wd, trainable=t_tree,
+        is_bias=b_tree))
+    jp, js = update(params, grads, vel, jnp.float32(lr))
 
     p_sd = {k: v.clone() for k, v in params_to_state_dict(params).items()}
     g_sd, v_sd = params_to_state_dict(grads), params_to_state_dict(vel)

@@ -187,7 +187,8 @@ def forward_pair(request):
     rng = np.random.RandomState(12)
     images = rng.randn(2, 128, 192, 3).astype(np.float32)
     im_hw = np.array([[128, 192], [100, 160]], np.float32)
-    ref = jmodel.apply({"params": params}, jnp.asarray(images), jnp.asarray(im_hw))
+    # jitted: one compile of the forward instead of one eager dispatch a primitive
+    ref = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(images), jnp.asarray(im_hw))
     with torch.no_grad():
         got = port(torch.from_numpy(images), torch.from_numpy(im_hw))
     return jc, tc, jmodel, params, port, ref, got
@@ -294,7 +295,8 @@ def test_full_width_state_dict_matches_flax_tree():
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"MODEL": {"KEYPOINTS_ON": True}}, "keypoint"),
+    ({"MODEL": {"KEYPOINTS_ON": True},
+      "KRCNN": {"ROI_KEYPOINTS_HEAD": "keypoint_rcnn_heads.add_roi_pose_head_v0"}}, "keypoint"),
     ({"MODEL": {"TYPE": "rpn", "RPN_ONLY": True}}, "RPN-only"),
     ({"FPN": {"FPN_ON": False}}, "single-scale"),
     ({"FAST_RCNN": {"ROI_BOX_HEAD": "fast_rcnn_heads.add_roi_Xconv1fc_gn_head"}}, "box head"),
@@ -310,7 +312,21 @@ def test_unported_models_raise(over, match):
 
 
 def test_keypoint_head_raises():
+    """The keypoint head builds at full width (the v1convX tower of
+    e2e_keypoint_rcnn_R-50-FPN.yaml: 8 convs at 512, the deconv, heatmaps of
+    56) and without the upsample; what stays unported raises."""
     from sad_tpu_torch.models.rcnn import KeypointHead
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        KeypointHead(256, 17)
+    with torch.device("meta"):
+        head = KeypointHead(256, 512, 17)
+    assert head.convs == [f"conv_fcn{i}" for i in range(1, 9)] and head.upsamples == 1
+    assert tuple(head.conv_fcn1.weight.shape) == (512, 256, 3, 3)
+    assert tuple(head.kps_score_lowres.weight.shape) == (512, 17, 4, 4)
+    with torch.no_grad():  # the same structure narrow: 14x14 rois give 56x56 heatmaps
+        out = KeypointHead(4, 4, 17, num_convs=1)(torch.zeros(2, 14, 14, 4))
+    assert tuple(out.shape) == (2, 56, 56, 17)
+    assert KeypointHead(16, 8, 17, 2, up_scale=2, use_deconv_output=False).upsamples == 0
+    over = {"MODEL": dict(TINY["MODEL"], KEYPOINTS_ON=True),
+            "KRCNN": {"ROI_XFORM_METHOD": "RoIPoolF"}}
+    with pytest.raises(NotImplementedError, match="RoIAlign"):
+        create_model(t_merge(t_merge(tcfg.Config(), TINY), over), "cpu")

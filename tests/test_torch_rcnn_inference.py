@@ -168,7 +168,7 @@ def test_run_inference_on_roidb_box_results(synth_dataset):
 
 @pytest.mark.parametrize("over,match", [
     ({"MODEL": {"FASTER_RCNN": False}}, "precomputed proposals"),
-    ({"MODEL": {"KEYPOINTS_ON": True}}, "KEYPOINTS_ON"),
+    ({"MODEL": {"KEYPOINTS_ON": True}, "FPN": {"FPN_ON": False}}, "single-scale"),
     ({"FPN": {"FPN_ON": False}}, "single-scale"),
 ])
 def test_unported_inference_branches_raise(over, match):
@@ -192,6 +192,7 @@ def test_aux_on_boxes_raises():
      "Queue 1 item 8"),
     ({"MODEL": {"MASK_ON": True}, "TEST": {"MASK_AUG": {"ENABLED": True}}}, "MASK_AUG"),
     ({"MODEL": {"TYPE": "rfcn"}}, "not ported"),
+    ({"MODEL": {"KEYPOINTS_ON": True}, "TEST": {"KPS_AUG": {"ENABLED": True}}}, "KPS_AUG"),
 ])
 def test_engine_refuses_unported_rcnn_options(over, match):
     """Both entry points refuse before any work: test_net_on_dataset before

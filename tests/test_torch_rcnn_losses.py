@@ -43,9 +43,9 @@ def test_smooth_l1_loss(beta, scale):
     y_hat[0] = y[0] + 0.01  # inside the quadratic zone
     w_in = (rng.rand(6, 5, 4) > 0.4).astype(np.float32)
     w_out = rng.rand(6, 5, 4).astype(np.float32)
-    ref, gref = jax.value_and_grad(
+    ref, gref = jax.jit(jax.value_and_grad(
         lambda p: j_smooth_l1(p, jnp.asarray(y), jnp.asarray(w_in), jnp.asarray(w_out),
-                              beta=beta, scale=scale))(jnp.asarray(y_hat))
+                              beta=beta, scale=scale)))(jnp.asarray(y_hat))
     p = torch.from_numpy(y_hat).requires_grad_(True)
     got = smooth_l1_loss(p, torch.from_numpy(y), torch.from_numpy(w_in), torch.from_numpy(w_out),
                          beta=beta, scale=scale)
@@ -74,9 +74,9 @@ def test_rpn_losses():
     logits, deltas, batch = _rpn_case()
     jc, tc = jcfg.Config(), tcfg.Config()
     to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)
-    (ref, ref_m), (g_lg, g_dl) = jax.value_and_grad(
+    (ref, ref_m), (g_lg, g_dl) = jax.jit(jax.value_and_grad(  # one compile, not eager
         lambda lg, dl: jrt.rpn_losses(jc, lg, dl, to_j(batch), 1), argnums=(0, 1),
-        has_aux=True)(to_j(logits), to_j(deltas))
+        has_aux=True))(to_j(logits), to_j(deltas))
     to_t = lambda t: jax.tree_util.tree_map(torch.from_numpy, t)
     lg = {l: torch.from_numpy(v).requires_grad_(True) for l, v in logits.items()}
     dl = {l: torch.from_numpy(v).requires_grad_(True) for l, v in deltas.items()}
@@ -107,10 +107,10 @@ def test_fast_rcnn_losses(n_groups):
         w[i, labels[i]] = 1.0
     w = w.reshape(r, -1)
     jc, tc = jcfg.Config(), tcfg.Config()
-    (ref, ref_m), (g_cls, g_box) = jax.value_and_grad(
+    (ref, ref_m), (g_cls, g_box) = jax.jit(jax.value_and_grad(
         lambda s, p: jrt.fast_rcnn_losses(
             jc, s, jnp.asarray(labels), p, jnp.asarray(tgt), jnp.asarray(w), jnp.asarray(w),
-            jnp.asarray(valid), n_groups, n_images=2), argnums=(0, 1), has_aux=True)(
+            jnp.asarray(valid), n_groups, n_images=2), argnums=(0, 1), has_aux=True))(
         jnp.asarray(cls_score), jnp.asarray(bbox_pred))
     s = torch.from_numpy(cls_score).requires_grad_(True)
     p = torch.from_numpy(bbox_pred).requires_grad_(True)
@@ -186,8 +186,8 @@ def test_mask_loss(n_groups, cls_specific):
     is_fg[:4] = [True, False, False, False]  # uneven fg counts between the groups
     cfg = SimpleNamespace(MRCNN=SimpleNamespace(CLS_SPECIFIC_MASK=cls_specific,
                                                 WEIGHT_LOSS_MASK=1.5))
-    ref, gref = jax.value_and_grad(lambda x: jmk.mask_loss(
-        cfg, x, jnp.asarray(targets), jnp.asarray(labels), jnp.asarray(is_fg), n_groups))(
+    ref, gref = jax.jit(jax.value_and_grad(lambda x: jmk.mask_loss(
+        cfg, x, jnp.asarray(targets), jnp.asarray(labels), jnp.asarray(is_fg), n_groups)))(
         jnp.asarray(logits))
     x = torch.from_numpy(logits).requires_grad_(True)
     got = tmk.mask_loss(cfg, x, torch.from_numpy(targets), torch.from_numpy(labels),

@@ -182,8 +182,7 @@ def test_branches_left_for_later_raise(over, what):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8") as e:
         make_rcnn_train_step(tc, port)
     assert what in str(e.value)
-    from sad_tpu_torch.train.mask_keypoint import keypoint_loss, keypoint_targets_on_device
-    for fn in (keypoint_loss, keypoint_targets_on_device):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            fn()
+    # keypoints are ported: the same config with KEYPOINTS_ON builds its step
+    kps = t_merge(tcfg.Config(), dict(TINY, MODEL=dict(TINY["MODEL"], KEYPOINTS_ON=True)))
+    assert make_rcnn_train_step(kps, GeneralizedRCNN(kps)).kps_cap() == 2
     assert rcnn_train.make_rcnn_train_step is make_rcnn_train_step

@@ -52,7 +52,8 @@ def jax_grads(fn, feats, rois, levels, valid, weights, res, sr=2, dtype=jnp.floa
         out = fn(fd, jnp.asarray(rois), jnp.asarray(levels), jnp.asarray(valid), res, sr)
         return jnp.sum(out.astype(jnp.float32) * jnp.asarray(weights))
 
-    return {l: np.asarray(g.astype(jnp.float32)) for l, g in jax.grad(loss)(jf).items()}
+    # jitted: one compile of the gradient instead of one eager dispatch a primitive
+    return {l: np.asarray(g.astype(jnp.float32)) for l, g in jax.jit(jax.grad(loss))(jf).items()}
 
 
 def port_grads(feats, rois, levels, valid, weights, res, sr=2, dtype=torch.float32):

@@ -147,6 +147,6 @@ def test_what_is_left_for_later_raises():
         trm.rpn_anchor_grid(cfgs(FPN=dict(OVER["FPN"], MULTILEVEL_RPN=False))[1], 128, 192)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], FASTER_RCNN=False))[1])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], KEYPOINTS_ON=True))[1])
+    # keypoint batches are ported (tests/test_torch_keypoint_rcnn.py holds them)
+    assert trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], KEYPOINTS_ON=True))[1]).kps_on
     assert not hasattr(trm, "pad_proposals")
