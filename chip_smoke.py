@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
 against its plain PyTorch version, and drive the RetinaNet serving path, the
-joint SAD training step, Faster / Mask / Keypoint R-CNN serving, the Faster /
-Mask / Keypoint R-CNN training step, the training workflow (pseudo-labels, train_net,
-checkpoints, resume), the evaluation path (test_net, the COCO evaluator) and
-the paper's R-101 <- X-101-64x4d pair at scale 500 end to end.
+joint SAD training step, Fast / Faster / Mask / Keypoint R-CNN serving, the Fast /
+Faster / Mask / Keypoint R-CNN training step, the training workflow (pseudo-labels,
+train_net, checkpoints, resume), the evaluation path (test_net, the COCO
+evaluator, test-time augmentation, RPN-only proposals and the two-stage
+workflow) and the paper's R-101 <- X-101-64x4d pair at scale 500 end to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -210,6 +211,43 @@ line each (name, what was checked, time):
                  batch; then train_net 8 iterations on the split (snapshot
                  at 3, loss_kps in stats.jsonl, NMS 1, RoIAlign 2 + 2 a step)
 
+  fast_rcnn_infer
+                 after keypoint_rcnn_infer: Fast R-CNN R-50-FPN
+                 (fast_rcnn_R-50-FPN.yaml, no RPN) on 2000 seeded proposals an
+                 image spread over its content, bs 8 on 800x1344: the checks
+                 of faster_rcnn_infer, detections equal to the plain-twin run;
+                 the RoIAlign forward at R = 16,000 res 7 bit-equal to the plain
+                 twin; the detection NMS at 8 x 160,000 -> 100 on the batch's
+                 own candidates exactly equal to the plain NMS, with its path
+                 (sorted, or the argmax loop over 8192 valid) and valid counts;
+                 1 NMS and 1 RoIAlign launch a batch; imgs/s, stage ms
+                 (backbone, RoI levels, RoIAlign, box head, decode, NMS) and
+                 the device's idle share
+  fast_rcnn_train
+                 after keypoint_rcnn_train: the checks of faster_rcnn_train for
+                 the Fast R-CNN step on those proposals (G = 4): no NMS, RoIAlign
+                 forward 1 and backward 1 a step, no RPN losses, the backward's
+                 FPN-output gradients held to the plain one, the backward timed
+                 on the step's own rois beside its plain twin and bound
+  proposal_pipeline
+                 after keypoint_test_net, the two-stage workflow on the first 8
+                 landscape images of smoke_val (one batch):
+                 test_net with rpn_R-50-FPN.yaml (seeded weights, RPN outputs
+                 spread) writes rpn_proposals.pkl, equal to a plain-NMS run's,
+                 and its AR; the RPN-only NMS at 40 x 1000 -> 2000 held to its
+                 twin (slots past the 1000 candidates invalid); train_net with
+                 fast_rcnn_R-50-FPN.yaml on that file (TRAIN.PROPOSAL_FILES), 8
+                 iterations; test_net on TEST.PROPOSAL_FILES from
+                 its model_final, byte-identical to the plain-twin run;
+                 launches counted for each
+  tta_test_net   test_net --range 0 8 with e2e_mask_rcnn_R-50-FPN_tta.yaml (box
+                 and mask TTA, 18 box and 17 mask passes a batch, box voting),
+                 the same with soft-NMS, and Keypoint R-CNN with the KPS_AUG
+                 overrides (17 keypoint passes, SCALE_SIZE_DEP) on smoke_kps:
+                 byte-identical to the plain-twin runs, launches a pass, the
+                 dataset imgs/s and timing.json's split of passes, host merge
+                 and aux passes, the device's idle share
+
   cls_loss_kernels_500
                  with the kernel checks: the cls-loss kernels against their
                  plain twin at the 5 levels of the scale-500 pair's 512x896
@@ -264,7 +302,7 @@ line each (name, what was checked, time):
                  parameter tensor within 1e-5 relative L2, parameters and
                  momenta bit-equal across the ranks, one cls-loss forward
                  and backward a level a step on each rank at its row count;
-                 then --iters timed steps: each rank's step ms, the gradient
+                 then 3 timed steps (DDP_TIMED_STEPS): each rank's step ms, the gradient
                  all-reduce's ms (CUDA events) and bytes, host CPU s a step
   ddp_rcnn_step  the same for the Mask R-CNN R-50-FPN step on 800x1344, each
                  rank taking its rows of the sampler's global draws: 2 steps,
@@ -1483,7 +1521,9 @@ def _roi_branch_grads(torch, step, run, nchw, sampled):
 def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers):
     from sad_tpu_torch.models.rcnn import flat_rois
     from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
-    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.ops.roi_align import (
+        multilevel_roi_align, multilevel_roi_align_bwd_plain, multilevel_roi_align_plain,
+    )
     from sad_tpu_torch.tools.profile_infer import wall_seconds
     from sad_tpu_torch.tools.profile_roi_align import roi_align_bound
     from sad_tpu_torch.tools.profile_train import BENCH_LR, seeded_rcnn_train_step
@@ -1508,7 +1548,9 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
 
     # one step with the kernels and one with the plain versions, from the same
     # state and the same sampler uniforms
-    p_all = cfg.TRAIN.RPN_POST_NMS_TOP_N + batch["gt_boxes"].shape[1]
+    fast = not cfg.MODEL.FASTER_RCNN  # Fast R-CNN: no RPN, the batch's proposals
+    p_all = (batch["proposal_boxes"].shape[1] if fast else cfg.TRAIN.RPN_POST_NMS_TOP_N) + \
+        batch["gt_boxes"].shape[1]
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     uniforms = (torch.rand((n, p_all), generator=gen, device="cuda"),
                 torch.rand((n, p_all), generator=gen, device="cuda"))
@@ -1533,8 +1575,13 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     # the gradients that the RoIAlign backward hands to the FPN outputs
     with torch.no_grad():
         nchw = step.backbone(step.inputs(batch))
-        logits, deltas = run.model.rpn_outputs(nchw)
-    boxes, valid = step.proposals(logits, deltas, batch)
+        if not fast:
+            logits, deltas = run.model.rpn_outputs(nchw)
+    if fast:
+        boxes, valid = batch["proposal_boxes"], batch["proposal_valid"]
+    else:
+        boxes, valid = step.proposals(logits, deltas, batch)
+        del logits, deltas
     sampled = step.sample(boxes, valid, batch, uniforms)
     g_kernel = _roi_branch_grads(torch, step, run, nchw, sampled)
     with _plain_twins():
@@ -1574,14 +1621,20 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
         kcap = step.kps_cap()
         shapes.append(("mask", flat_rois(sampled["rois"][:, :kcap]),
                        sampled["is_fg"][:, :kcap].reshape(-1), cfg.KRCNN.ROI_XFORM_RESOLUTION))
+    own_stats = {}
     for key, r5, ok, res in shapes:
         r5 = r5.contiguous()
         lv = step._roi_levels(r5)
         g = torch.randn((r5.shape[0], res, res, c), generator=gen, device="cuda").to(dtype)
         ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
             g, dims, 2, n, r5, lv, ok, 2), iters * 2, warmup)
+        plain_ms = _median_ms(torch, lambda: multilevel_roi_align_bwd_plain(
+            g, {l: hw for l, hw in zip(range(2, 6), dims)}, n, r5, lv, ok, 2), iters, 1)
+        b_, _ = _roi_align_bwd_bound(dims, n, c, g.element_size(), r5.shape[0], res, 2)
+        own_stats.setdefault(key, {"max_abs_err": None, "ms": ms, "plain_ms": plain_ms, **b_})
         own.append(f"{'keypoint' if key == 'mask' and kps_on else key} R={r5.shape[0]} "
-                   f"({int(ok.sum())} live) {ms:.4f} ms")
+                   f"({int(ok.sum())} live) {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                   f"{b_['bound_ms']:.4f} ms by {b_['bound_by']})")
         # the forward on the same rois, timed on the device after the main paths
         own_feats = {l: nchw[l].permute(0, 2, 3, 1).contiguous() for l in range(2, 6)}
         timers[f"{key}_train:{name} own rois"] = (
@@ -1612,9 +1665,11 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
         own.append(f"mask target crop R={r5.shape[0]} res={res} C=1 over {bb * gg} rasters: "
                    f"kernel {ms:.4f} ms (event median), plain {plain_ms:.4f} ms, bound "
                    f"{b_['bound_ms']:.4f} ms")
-    del nchw, logits, deltas, g_kernel, g_plain, sampled
+    del nchw, g_kernel, g_plain, sampled
+    for st in own_stats.values():
+        st["max_abs_err"] = gworst  # the FPN-output gradients against the plain backward's
     stage_ms = {}
-    if kps_on:
+    if kps_on or fast:
         # each stage's device time, before the main path (these steps launch too)
         from sad_tpu_torch.tools.profile_train import rcnn_stage_ms
 
@@ -1630,7 +1685,8 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     torch.cuda.synchronize()
     launches = _kernel_counts()
     n_steps = iters + warmup
-    want = (n_steps, (1 + 2 * mask_on + kps_on) * n_steps, (1 + mask_on + kps_on) * n_steps)
+    want = ((not fast) * n_steps, (1 + 2 * mask_on + kps_on) * n_steps,
+            (1 + mask_on + kps_on) * n_steps)
     if launches != want:
         raise AssertionError(f"{name}: NMS / RoIAlign forward / backward launches {launches} in "
                              f"{n_steps} steps, want {want}")
@@ -1638,9 +1694,12 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     if not all(np.isfinite(v).all() for v in vals.values()):
         raise AssertionError(f"{name}: non-finite metrics {vals}")
     still = [k for k in step.names if not bool(run.state.velocity[k].any())]
-    if still:
+    # Fast R-CNN: no loss reaches the RPN head, and its biases take no weight decay
+    idle = [k for k, bias in zip(step.names, step.is_bias) if fast and bias and
+            k.startswith("rpn.")]
+    if still != idle:
         raise AssertionError(f"{name}: {len(still)} trainable tensors got no update, e.g. "
-                             f"{still[:3]}")
+                             f"{still[:3]} (want {idle})")
     unchanged = [k for k in step.names if torch.equal(params[k], snap[k])]
     if len(unchanged) > len(step.names) // 10:
         raise AssertionError(f"{name}: {len(unchanged)} of {len(step.names)} trainable tensors "
@@ -1651,7 +1710,9 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
     _phase(name, f"{cfg_path}: {n}x{RCNN_CANVAS[0]}x{RCNN_CANVAS[1]} uint8, G={groups}, bf16, LR "
-           f"{BENCH_LR}; kernel step vs plain step from one state: metrics within {worst:.2e} "
+           f"{BENCH_LR}" + (f", {batch['proposal_boxes'].shape[1]} seeded proposals an image "
+                            "(no RPN)" if fast else "")
+           + f"; kernel step vs plain step from one state: metrics within {worst:.2e} "
            f"rel, FPN-output grads within tolerance (max abs diff {gworst:.3e} of max "
            f"{ref_max:.3e}); proposals per image {proposals_per_im}, sampled valid "
            f"{valid_per_im}, fg {fg_per_im}, rois per level P2..P5 {roi_levels}; backward "
@@ -1660,7 +1721,9 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
            + (f", loss_mask {vals['loss_mask'][-1]:.4f}" if mask_on else "")
            + (f", loss_kps {vals['loss_kps'][0]:.4f} -> {vals['loss_kps'][-1]:.4f}"
               if kps_on else "")
-           + f", all {len(step.names)} trainable tensors updated and "
+           + f", all {len(step.names) - len(idle)} trainable tensors updated"
+           + (f" (not the RPN head's {len(idle)} biases: no loss, no decay)" if fast else "")
+           + " and "
            f"{len(step.names) - len(unchanged)} changed, {len(frozen)} frozen bit-identical; "
            f"launches NMS {launches[0]}, RoIAlign forward {launches[1]}"
            + (" (box, mask and the target crop)" if mask_on else "")
@@ -1672,7 +1735,7 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
               if stage_ms else ""),
            time.perf_counter() - t0)
     return {"imgs_per_s": n / med, "launches": launches, "steps": n_steps,
-            "target_stats": target_stats, "stage_ms": stage_ms}
+            "target_stats": target_stats, "stage_ms": stage_ms, "own_stats": own_stats}
 
 
 LOOP_WORKERS = 6  # DATA_LOADER.NUM_PROCESSES: the card's host has 8 cores
@@ -2058,12 +2121,14 @@ def _read_json(path):
         return json.load(f)
 
 
-def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smoke_val"):
+def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smoke_val",
+                  opts=(), profile=True):
     """test_net.main on ``model`` (saved as a native pickle, loaded through
-    --weights) over ``dataset`` or its ``im_range``, with the kernels and then
-    with their plain twins: the kernel run's launches, results, detections'
-    bytes and timing, and the device's kernel ms over the same inference
-    loop, profiled."""
+    --weights) over ``dataset`` or its ``im_range`` with the config options
+    ``opts``, with the kernels and then with their plain twins: the kernel
+    run's launches, results, detections' bytes and timing, and with
+    ``profile`` the device's kernel ms over the same inference loop,
+    profiled."""
     from sad_tpu_torch.config import load_cfg
     from sad_tpu_torch.data.dataset import CocoDataset
     from sad_tpu_torch.eval import test_engine
@@ -2079,7 +2144,7 @@ def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smo
 
     def run(out_dir):
         argv = ["--cfg", os.path.join(REPO, cfg_path), "--weights", pkl, *extra,
-                "TEST.DATASETS", f"('{dataset}',)", "OUTPUT_DIR", out_dir]
+                "TEST.DATASETS", f"('{dataset}',)", *opts, "OUTPUT_DIR", out_dir]
         test_net.main(argv)
         return os.path.join(out_dir, "test", dataset)
 
@@ -2099,17 +2164,21 @@ def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smo
             if f.read() != files[fname]:
                 raise AssertionError(f"test_net {name}: {fname} differs from the plain-twin run")
     timing = _read_json(os.path.join(got_dir, "timing.json"))
+    out = {"launches": launches, "results": json.loads(files["results.json"]),
+           "n_dets": len(json.loads(files["bbox_results.json"])), "timing": timing,
+           "bytes": len(files["bbox_results.json"])}
+    if not profile:
+        return out
     # the device's kernel time over the same loop, beside the unprofiled wall
-    cfg = load_cfg(os.path.join(REPO, cfg_path), ["TEST.DATASETS", f"('{dataset}',)"])
+    cfg = load_cfg(os.path.join(REPO, cfg_path), ["TEST.DATASETS", f"('{dataset}',)", *opts])
     ds = CocoDataset(dataset)
     roidb = ds.get_roidb(include_gt=False)[slice(*(im_range or (None,)))]
+    if cfg.TEST.PROPOSAL_FILES:
+        test_engine.attach_test_proposals(cfg, roidb, dataset)
     model.to(compute_dtype(cfg))
     kernel_ms = sum(device_ms(lambda: test_engine.run_inference_on_roidb(
         cfg, model, roidb, ds.contiguous_to_json), 1, 0).values())
-    return {"launches": launches, "results": json.loads(files["results.json"]),
-            "n_dets": len(json.loads(files["bbox_results.json"])), "timing": timing,
-            "kernel_ms": kernel_ms, "idle": 1.0 - kernel_ms / (1e3 * timing["wall"]),
-            "bytes": len(files["bbox_results.json"])}
+    return dict(out, kernel_ms=kernel_ms, idle=1.0 - kernel_ms / (1e3 * timing["wall"]))
 
 
 def _split_line(t):
@@ -2235,9 +2304,25 @@ def phase_keypoint_test_net(torch, seed, data_root):
         return _keypoint_test_net(torch, seed, data_root, tmp)
 
 
-def _keypoint_test_net(torch, seed, data_root, tmp):
-    from sad_tpu_torch.config import load_cfg, register_dataset
+def _kps_split(data_root, seed):
+    """The synthetic keypoint split smoke_kps under ``data_root``, written by
+    the first phase that asks and registered in the port's catalog: one
+    category (the config's person) with 5 named keypoints and a flip map;
+    the 17-channel head trains on the first 5, the rest unlabeled."""
+    from sad_tpu_torch.config import register_dataset
     from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
+
+    js = os.path.join(data_root, "instances_kps.json")
+    img_dir = os.path.join(data_root, "images_kps")
+    if not os.path.exists(js):
+        img_dir, js = generate_synthetic_coco(data_root, "kps", KPS_IMAGES, seed=seed,
+                                              n_categories=1, size_range=(480, 800),
+                                              with_keypoints=True)
+    register_dataset("smoke_kps", img_dir, js, allow_override=True)
+
+
+def _keypoint_test_net(torch, seed, data_root, tmp):
+    from sad_tpu_torch.config import load_cfg
     from sad_tpu_torch.data.synthetic import random_canvases
     from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
     from sad_tpu_torch.models import create_model
@@ -2246,11 +2331,7 @@ def _keypoint_test_net(torch, seed, data_root, tmp):
     from sad_tpu_torch.tools.profile_train import BENCH_LR, BENCH_OPTS
 
     t0 = time.perf_counter()
-    # one category (the config's person) with 5 named keypoints and a flip map;
-    # the 17-channel head trains on the first 5, the rest unlabeled
-    img_dir, js = generate_synthetic_coco(data_root, "kps", KPS_IMAGES, seed=seed, n_categories=1,
-                                          size_range=(480, 800), with_keypoints=True)
-    register_dataset("smoke_kps", img_dir, js, allow_override=True)
+    _kps_split(data_root, seed)
     cfg = load_cfg(os.path.join(REPO, KEYPOINT_CFG))
     model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
     b = random_canvases(np.random.RandomState(seed), 8, _test_canvas_shapes(cfg)[0], "cuda")
@@ -2309,6 +2390,416 @@ def _keypoint_test_net(torch, seed, data_root, tmp):
            time.perf_counter() - t0)
     return {"launches": r["launches"], "loop_launches": loop_launches, "timing": t,
             "results": res}
+
+
+# --------------------------------------------------------------------------- #
+# The rest of the R-CNN test path: Fast R-CNN on precomputed
+# proposals, RPN-only proposals and the two-stage workflow, test-time
+# augmentation with box voting and soft-NMS.
+
+FAST_CFG = "sad_tpu_torch/configs/fast_rcnn_R-50-FPN.yaml"
+RPN_CFG = "sad_tpu_torch/configs/rpn_R-50-FPN.yaml"
+TTA_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN_tta.yaml"
+TTA_SCALES = "(400,500,600,700,900,1000,1100,1200)"
+SOFT_NMS_OPTS = ("TEST.SOFT_NMS.ENABLED", "True", "TEST.SOFT_NMS.METHOD", "linear",
+                 "TEST.SOFT_NMS.SIGMA", "0.5")
+# the KPS_AUG section of Detectron's test_time_aug/keypoint_rcnn_R-50-FPN_1x.yaml
+KPS_AUG_OPTS = ("TEST.KPS_AUG.ENABLED", "True", "TEST.KPS_AUG.HEUR", "HM_AVG",
+                "TEST.KPS_AUG.H_FLIP", "True", "TEST.KPS_AUG.SCALES", TTA_SCALES,
+                "TEST.KPS_AUG.MAX_SIZE", "2000", "TEST.KPS_AUG.SCALE_H_FLIP", "True",
+                "TEST.KPS_AUG.SCALE_SIZE_DEP", "True", "TEST.KPS_AUG.AREA_TH", str(180.0 ** 2))
+
+
+def _nms_path(torch, scores):
+    """Which path of csrc/nms.cu takes these problems, and their valid
+    counts: sorted while every problem has at most ORDER_CAP valid
+    candidates, else the argmax loop for those over it."""
+    from sad_tpu_torch.ops.nms_kernel import ORDER_CAP
+
+    counts = (scores > -1e29).sum(dim=1).tolist()
+    over = sum(c > ORDER_CAP for c in counts)
+    return ("sorted" if not over else f"argmax loop for {over} of {len(counts)}"), counts
+
+
+def _nms_at(torch, name, boxes, scores, thr, max_out, iters, warmup):
+    """The NMS kernel on these problems against the plain NMS, idx and valid
+    exactly equal; both timed (CUDA events), the bound of this data."""
+    from sad_tpu_torch.ops import nms, nms_kernel
+
+    boxes, scores = boxes.float().contiguous(), scores.float().contiguous()
+    ik, vk = nms_kernel.nms_cuda(boxes, scores, thr, max_out)
+    ip, vp = nms.nms_multi_plain(boxes, scores, thr, max_out)
+    torch.cuda.synchronize()
+    if not torch.equal(ik, ip) or not torch.equal(vk, vp):
+        raise AssertionError(f"{name}: NMS kernel != plain ({int((ik != ip).sum())} idx, "
+                             f"{int((vk != vp).sum())} valid entries differ)")
+    ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, thr, max_out),
+                    iters * 5, warmup)
+    plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr, max_out),
+                          max(iters // 5, 1), 1)
+    path, counts = _nms_path(torch, scores)
+    b = _nms_bound(*scores.shape, max_out, vk)
+    said = (f"NMS N={scores.shape[0]} K={scores.shape[1]} -> {max_out} ({path}; valid an "
+            f"problem {min(counts)}..{max(counts)}, {sum(counts)} in all): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+            f"{int(vk.sum())} kept, idx and valid equal to the plain NMS")
+    return {"max_abs_err": float((ik - ip).abs().max()), "ms": ms, "plain_ms": plain_ms, **b,
+            "path": path}, vk, said
+
+
+def phase_fast_rcnn_infer(torch, seed, batch, iters, warmup, timers):
+    """Fast R-CNN serving on seeded proposals, bs 8 on 800x1344."""
+    from sad_tpu_torch.eval.inference import device_normalize
+    from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_candidates, fast_rcnn_outputs
+    from sad_tpu_torch.models.rcnn import flat_rois
+    from sad_tpu_torch.ops import nms, nms_kernel, roi_align_kernel
+    from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.tools.profile_infer import (
+        _event_ms, device_ms, rcnn_stages, seeded_inference, wall_seconds,
+    )
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound
+
+    t0 = time.perf_counter()
+    cfg, model, infer, args = seeded_inference(os.path.join(REPO, FAST_CFG), seed, batch, "cuda")
+    props, pvalid = args[4], args[5]
+    p = cfg.TEST.PROPOSAL_LIMIT
+    if tuple(args[0].shape) != (batch, *RCNN_CANVAS, 3) or tuple(props.shape) != (batch, p, 4):
+        raise AssertionError(f"fast_rcnn_infer: canvas {tuple(args[0].shape)}, proposals "
+                             f"{tuple(props.shape)}")
+    dets = infer(*args)
+    torch.cuda.synchronize()
+    max_out, n_fg = cfg.TEST.DETECTIONS_PER_IM, cfg.MODEL.NUM_CLASSES - 1
+    keys = ("boxes", "scores", "classes", "valid")
+    valid = dets["valid"]
+    per_im = valid.sum(dim=1).tolist()
+    cls = dets["classes"][valid]
+    if tuple(dets["boxes"].shape) != (batch, max_out, 4) or not bool(
+            torch.isfinite(dets["boxes"]).all()) or min(per_im) < max_out // 2 or int(
+            cls.min()) < 1 or int(cls.max()) > n_fg:
+        raise AssertionError(f"fast_rcnn_infer: boxes {tuple(dets['boxes'].shape)}, detections "
+                             f"per image {per_im}, classes {int(cls.min())}..{int(cls.max())}")
+    counts = nms_kernel.launches, roi_align_kernel.launches
+    with _plain_twins():
+        ref = infer(*args)
+    torch.cuda.synchronize()
+    if (nms_kernel.launches, roi_align_kernel.launches) != counts:
+        raise AssertionError("fast_rcnn_infer: the plain-twin run launched a kernel")
+    for key in keys:
+        if not torch.equal(dets[key], ref[key]):
+            raise AssertionError(f"fast_rcnn_infer: {key} differs from the plain-twin run")
+    del ref
+
+    with torch.inference_mode():
+        x = device_normalize(cfg, args[0], args[3])
+        # the RoIAlign forward at R = B x P on the proposals: bit for bit
+        feats = {l: f.contiguous() for l, f in model.roi_features(model.backbone(x)).items()}
+        f = cfg.FPN
+        rois5 = flat_rois(props).contiguous()
+        lv = map_rois_to_fpn_levels(rois5[:, 1:], f.ROI_MIN_LEVEL, f.ROI_MAX_LEVEL,
+                                    f.ROI_CANONICAL_SCALE, f.ROI_CANONICAL_LEVEL)
+        ok = pvalid.reshape(-1)
+        res, sr = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION, cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO
+        roi_err, _ = _roi_align_check(torch, f"fast_rcnn R={rois5.shape[0]}", feats, rois5, lv,
+                                      ok, res, sr)
+        roi_ms = _median_ms(torch, lambda: multilevel_roi_align(feats, rois5, lv, ok, res, sr),
+                            iters * 2, warmup)
+        roi_plain_ms = _median_ms(
+            torch, lambda: multilevel_roi_align_plain(feats, rois5, lv, ok, res, sr), iters, 1)
+        roi_b, _, _ = roi_align_bound(feats, rois5, lv, ok, res, sr)
+        roi_stats = {"max_abs_err": roi_err, "ms": roi_ms, "plain_ms": roi_plain_ms, **roi_b}
+        timers[f"fast_rcnn:R={rois5.shape[0]}"] = (
+            lambda: multilevel_roi_align(feats, rois5, lv, ok, res, sr), roi_stats)
+        roi_levels = torch.bincount(lv, minlength=6)[2:].tolist()
+        # the detection NMS at its shape: B problems of P x 80 class-offset candidates
+        out = fast_rcnn_outputs(cfg, model, x, props, pvalid)
+        cands = decode_rcnn_candidates(cfg, out["rois"], out["roi_valid"], out["cls_prob"],
+                                       out["bbox_pred"], args[1], args[2])
+        del out
+        boxes, scores = nms.offset_by_class(*cands)
+    nms_stats, _, nms_said = _nms_at(torch, "fast_rcnn_infer decode", boxes, scores,
+                                     cfg.TEST.NMS, max_out, iters, warmup)
+    del boxes, scores, cands
+    stages = rcnn_stages(cfg, model, args)
+    per = {n: [] for n, _ in stages}
+    with torch.inference_mode():
+        for i in range(iters + warmup):
+            _, ms = _event_ms([fn for _, fn in stages])
+            if i >= warmup:
+                for (n, _), t in zip(stages, ms):
+                    per[n].append(t)
+    stage_ms = {n: statistics.median(v) for n, v in per.items() if n != "count"}
+
+    # the main path: counts set to 0 just before, read just after
+    nms_kernel.launches = roi_align_kernel.launches = 0
+    times = wall_seconds(lambda: infer(*args), iters, warmup)
+    launches = nms_kernel.launches, roi_align_kernel.launches
+    n_batches = iters + warmup
+    if launches != (n_batches, n_batches):
+        raise AssertionError(f"fast_rcnn_infer: {launches} NMS / RoIAlign launches in "
+                             f"{n_batches} batches, want one of each a batch")
+    med = statistics.median(times)
+    kernel_ms = sum(device_ms(lambda: infer(*args), 5, 1).values())
+    _phase("fast_rcnn_infer", f"{FAST_CFG}: {batch}x{RCNN_CANVAS[0]}x{RCNN_CANVAS[1]} uint8, "
+           f"bf16, {p} seeded proposals an image (rois per level P2..P5 {roi_levels}); "
+           f"detections per image {per_im}, classes in 1..{n_fg}, finite; {', '.join(keys)} "
+           f"equal to the plain-twin run; RoIAlign R={rois5.shape[0]} res {res}: bit-equal to "
+           f"the plain twin, kernel {roi_ms:.4f} ms, plain {roi_plain_ms:.4f} ms, bound "
+           f"{roi_b['bound_ms']:.4f} ms by {roi_b['bound_by']}; decode {nms_said}; "
+           f"{launches[0]} NMS and {launches[1]} RoIAlign launches in {n_batches} batches; "
+           f"{batch / med:.2f} imgs/s, {1e3 * med:.3f} ms a batch (median of {iters} after "
+           f"{warmup} warm-up); stage device ms (CUDA events, median of {iters}): "
+           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+           + f"; kernels {kernel_ms:.3f} ms a batch (torch.profiler), device idle "
+           f"{1.0 - kernel_ms / (1e3 * med):.4f}", time.perf_counter() - t0)
+    return {"imgs_per_s": batch / med, "nms_launches": launches[0],
+            "roi_align_launches": launches[1], "roi_stats": roi_stats,
+            "nms_stats": nms_stats, "stage_ms": stage_ms}
+
+
+def phase_proposal_pipeline(torch, seed, data_root, iters, warmup):
+    """The two-stage workflow through its entry points on the synthetic val
+    split: test_net with the RPN-only config writes rpn_proposals.pkl and
+    its recall, train_net trains Fast R-CNN on that file, test_net serves
+    Fast R-CNN on it. Runs go to a temporary directory under ``data_root``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="proposal_pipeline_", dir=data_root) as tmp:
+        return _proposal_pipeline(torch, seed, data_root, tmp, iters, warmup)
+
+
+def _proposal_pipeline(torch, seed, data_root, tmp, iters, warmup):
+    import pickle
+
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.data.dataset import CocoDataset
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.eval import rpn_generator
+    from sad_tpu_torch.eval.inference import device_normalize
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.models import compute_dtype, create_model
+    from sad_tpu_torch.ops.proposals import stack_level_problems
+    from sad_tpu_torch.tools import test_net, train_net
+    from sad_tpu_torch.tools.profile_infer import seeded_proposals, spread_rcnn_outputs
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, BENCH_OPTS
+    from sad_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0, ("smoke_val",))
+    split = _landscape_eight("smoke_val")  # one batch: the plain NMS takes ~1 s a batch
+    roidb = CocoDataset(split).get_roidb(include_gt=False)
+    n_batches = 1
+
+    # 1. RPN-only: seeded weights, the RPN's outputs spread
+    cfg = load_cfg(os.path.join(REPO, RPN_CFG))
+    model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+    b = random_canvases(np.random.RandomState(seed), 8, _test_canvas_shapes(cfg)[0], "cuda")
+    spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+    pkl = os.path.join(tmp, "rpn.pkl")
+    save_checkpoint(pkl, model)
+    model.to(compute_dtype(cfg))
+    # the proposal NMS at its shape on this batch: 5 levels x 8 images, each
+    # level's RPN_PRE_NMS_TOP_N candidates -> RPN_POST_NMS_TOP_N slots
+    with torch.inference_mode():
+        logits, deltas = model.rpn_outputs(model._features(
+            device_normalize(cfg, b["data"], b["content_hw"])))
+        boxes, _, masked = stack_level_problems(model.rpn_candidates(logits, deltas, b["im_hw"]))
+        del logits, deltas
+    post = cfg.TEST.RPN_POST_NMS_TOP_N
+    nms_stats, vk, nms_said = _nms_at(torch, "proposal_pipeline RPN", boxes, masked,
+                                      cfg.TEST.RPN_NMS_THRESH, post, iters, warmup)
+    if tuple(masked.shape) != (40, cfg.TEST.RPN_PRE_NMS_TOP_N) or bool(
+            vk[:, masked.shape[1]:].any()):
+        raise AssertionError(f"proposal_pipeline: problems {tuple(masked.shape)}, or a slot past "
+                             f"the {masked.shape[1]} candidates came back valid")
+    del boxes, masked, b
+    # test_net writes the proposals and their recall: the counts at 0 just
+    # before, read just after
+    _reset_counts()
+    rec = test_net.main(["--cfg", os.path.join(REPO, RPN_CFG), "--weights", pkl,
+                         "TEST.DATASETS", f"('{split}',)", "OUTPUT_DIR", os.path.join(tmp, "rpn")])
+    rpn_launches = _all_counts()
+    if rpn_launches != (n_batches, 0, 0, 0, 0):
+        raise AssertionError(f"proposal_pipeline: test_net rpn launches {rpn_launches} in "
+                             f"{n_batches} batches, want one NMS a batch")
+    prop_file = rec["proposal_file"]
+    with open(prop_file, "rb") as f:
+        props = pickle.load(f)
+    n_props = [len(x) for x in props["boxes"]]
+    if sorted(props["ids"]) != sorted(e["id"] for e in roidb) or max(n_props) > post or not (
+            0.0 <= rec["ar"] <= 1.0) or not all(np.isfinite(x).all() for x in props["boxes"]):
+        raise AssertionError(f"proposal_pipeline: {len(props['ids'])} images, proposals an image "
+                             f"{min(n_props)}..{max(n_props)}, AR {rec['ar']}")
+    # the same file from the plain NMS in this process, in test_net's dtype
+    with _plain_twins():
+        plain = rpn_generator.generate_rpn_on_dataset(cfg, model, split)
+    if plain["ids"] != props["ids"] or not all(
+            np.array_equal(a, b_) for a, b_ in zip(plain["boxes"], props["boxes"])):
+        raise AssertionError("proposal_pipeline: rpn_proposals.pkl differs from the plain-NMS "
+                             "run's proposals")
+    del model
+    torch.cuda.empty_cache()
+
+    # 2. Fast R-CNN trained on the file: spread seeded weights as TRAIN.WEIGHTS
+    fcfg = load_cfg(os.path.join(REPO, FAST_CFG))
+    fmodel = create_model(fcfg, "cuda", torch.Generator(device="cuda").manual_seed(seed + 1))
+    b = random_canvases(np.random.RandomState(seed + 1), 8, _test_canvas_shapes(fcfg)[0], "cuda")
+    spread_rcnn_outputs(fcfg, fmodel, b["data"], b["im_hw"], b["content_hw"], *seeded_proposals(
+        np.random.RandomState(seed + 2), b["content_hw"], fcfg.TEST.PROPOSAL_LIMIT, "cuda"))
+    del b
+    init = os.path.join(tmp, "fast_init.pkl")
+    save_checkpoint(init, fmodel)
+    del fmodel
+    max_iter, snap = 8, 3
+    out = os.path.join(tmp, "train")
+    argv = ["--cfg", os.path.join(REPO, FAST_CFG), "--skip-test"] + BENCH_OPTS + [
+        "NUM_GPUS", "4", "OUTPUT_DIR", out, "TRAIN.DATASETS", f"('{split}',)",
+        "TRAIN.PROPOSAL_FILES", f"('{prop_file}',)", "TRAIN.WEIGHTS", init,
+        "SOLVER.BASE_LR", str(BENCH_LR), "SOLVER.MAX_ITER", str(max_iter),
+        "TRAIN.SNAPSHOT_ITERS", "16", "DATA_LOADER.NUM_PROCESSES", str(LOOP_WORKERS)]
+    _reset_counts()
+    result = train_net.main(argv)
+    train_launches = _all_counts()
+    if train_launches != (0, max_iter, max_iter, 0, 0):
+        raise AssertionError(f"proposal_pipeline: train_net launches (NMS, RoIAlign fwd, bwd, cls "
+                             f"fwd, bwd) {train_launches} in {max_iter} steps, want RoIAlign "
+                             "forward and backward one a step")
+    lines = _check_run_files("proposal_pipeline", out, (snap,), dataset=split)
+    if any(k.startswith("loss_rpn") for k in lines[-1]) or "loss_cls" not in lines[-1]:
+        raise AssertionError(f"proposal_pipeline: stats.jsonl keys {sorted(lines[-1])}")
+    iter_ms = 1e3 * statistics.median(result.iter_seconds[LOOP_WARMUP:])
+    del result
+
+    # 3. Fast R-CNN served on the file, from the trained weights
+    from sad_tpu_torch.train.checkpoint import load_reference_or_native
+
+    fmodel = create_model(fcfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    load_reference_or_native(os.path.join(_run_dir(out, split), "model_final.pkl"), fmodel, fcfg)
+    r = _test_net_run(torch, "fast_rcnn", FAST_CFG, fmodel, tmp, dataset=split,
+                      opts=("TEST.PROPOSAL_FILES", f"('{prop_file}',)"))
+    del fmodel
+    torch.cuda.empty_cache()
+    t = r["timing"]
+    if r["launches"] != (t["batches"], t["batches"]) or not all(
+            np.isfinite(v) for v in r["results"].values()) or r["n_dets"] < 8:
+        raise AssertionError(f"proposal_pipeline: test_net fast_rcnn launches {r['launches']} in "
+                             f"{t['batches']} batches, {r['n_dets']} detections, results "
+                             f"{r['results']}")
+    _phase("proposal_pipeline", f"{split} (the first {len(roidb)} landscape images of "
+           f"smoke_val, one batch). "
+           f"RPN-only ({RPN_CFG}, seeded weights, RPN outputs spread): the proposal {nms_said}; "
+           f"test_net wrote {os.path.basename(prop_file)} ({min(n_props)}..{max(n_props)} "
+           f"proposals an image) equal to a plain-NMS run's, AR {rec['ar']:.4f} over "
+           f"{rec['num_pos']} gt boxes (recall at IoU 0.5 {rec['recalls'][0]:.4f}), launches NMS "
+           f"{rpn_launches[0]}, RoIAlign {rpn_launches[1]}; train_net {FAST_CFG} on it "
+           f"(TRAIN.PROPOSAL_FILES, {max_iter} iterations, bs 8, G=4, {LOOP_WORKERS} loader "
+           f"processes): model_iter{snap}, model_final, stats.jsonl without RPN losses (loss "
+           f"{lines[0]['loss']:.4f} -> {lines[-1]['loss']:.4f}), launches NMS "
+           f"{train_launches[0]}, RoIAlign forward {train_launches[1]}, backward "
+           f"{train_launches[2]}, median iteration after {LOOP_WARMUP} {iter_ms:.1f} ms; "
+           f"test_net on TEST.PROPOSAL_FILES from model_final: bbox_results.json "
+           f"and results.json byte-identical to the plain-twin run, {r['n_dets']} detections, "
+           f"AP {r['results']['AP']:.4f}, launches NMS {r['launches'][0]}, RoIAlign "
+           f"{r['launches'][1]} in {t['batches']} batches; dataset "
+           f"{t['images'] / t['wall']:.2f} imgs/s; ms a batch: {_split_line(t)}; device idle "
+           f"{r['idle']:.4f}", time.perf_counter() - t0)
+    return {"nms_stats": nms_stats, "rpn_launches": rpn_launches,
+            "train_launches": train_launches, "test_launches": r["launches"], "recall": rec}
+
+
+def phase_tta_test_net(torch, seed, data_root):
+    """Test-time augmentation through test_net: Mask R-CNN with box and mask
+    TTA and box voting, the same with soft-NMS, Keypoint R-CNN with keypoint
+    TTA. Runs go to a temporary directory under ``data_root``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tta_test_net_", dir=data_root) as tmp:
+        return _tta_test_net(torch, seed, data_root, tmp)
+
+
+def _tta_split_line(t):
+    n = t["batches"]
+    return ", ".join(f"{k.replace('_', ' ')} {1e3 * t[k] / n:.1f}" for k in (
+        "load_resize", "device", "aug_box_passes", "aug_merge", "aug_aux_passes", "aug_combine",
+        "mask_gather", "kps_copy", "kps_decode", "paste", "rle", "dicts"))
+
+
+def _landscape_eight(name):
+    """``name`` + '_land8': the first 8 landscape images of a registered split
+    (one batch of one canvas), registered beside it."""
+    from sad_tpu_torch.config import register_dataset
+    from sad_tpu_torch.data.dataset import CocoDataset
+
+    ds = CocoDataset(name)
+    doc = ds.dataset
+    keep = [im for im in doc["images"] if im["width"] >= im["height"]][:8]
+    ids = {im["id"] for im in keep}
+    js = os.path.join(os.path.dirname(ds.spec.annotation_file), f"{name}_land8.json")
+    with open(js, "w") as f:
+        json.dump(dict(doc, images=keep,
+                       annotations=[a for a in doc["annotations"] if a["image_id"] in ids]), f)
+    register_dataset(f"{name}_land8", ds.spec.image_directory, js, allow_override=True)
+    return f"{name}_land8"
+
+
+def _tta_test_net(torch, seed, data_root, tmp):
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.tools.profile_infer import spread_rcnn_outputs
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0, ("smoke_val",))
+    _kps_split(data_root, seed)
+    val, kps = _landscape_eight("smoke_val"), _landscape_eight("smoke_kps")
+    runs, lines = {}, []
+    for key, cfg_path, dataset, opts, model_seed in (
+            ("tta", TTA_CFG, val, (), seed),
+            ("tta_soft_nms", TTA_CFG, val, SOFT_NMS_OPTS, seed),
+            ("kps_aug", KEYPOINT_CFG, kps, KPS_AUG_OPTS, seed + 1)):
+        cfg = load_cfg(os.path.join(REPO, cfg_path), list(opts))
+        model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(model_seed))
+        b = random_canvases(np.random.RandomState(model_seed), 8, _test_canvas_shapes(cfg)[0],
+                            "cuda")
+        spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+        del b
+        r = _test_net_run(torch, key, cfg_path, model, tmp, dataset=dataset, opts=opts,
+                          profile=False)
+        del model
+        torch.cuda.empty_cache()
+        t = r["timing"]
+        n = t["batches"]
+        aug = cfg.TEST.BBOX_AUG
+        box_passes = (1 + aug.H_FLIP + len(aug.SCALES) * (1 + aug.SCALE_H_FLIP)
+                      if aug.ENABLED else 1)
+        a = cfg.TEST.MASK_AUG if cfg.MODEL.MASK_ON else cfg.TEST.KPS_AUG
+        aux_passes = aug.ENABLED + a.H_FLIP + len(a.SCALES) * (1 + a.SCALE_H_FLIP)
+        # each box pass: the RPN and the detection NMS and the box RoIAlign; the
+        # aux head's RoIAlign once a pass of it (and in the base pass without BBOX_AUG)
+        want = (2 * box_passes * n, (box_passes + aux_passes + (not aug.ENABLED)) * n)
+        res = r["results"]
+        if r["launches"] != want or not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"tta_test_net {key}: launches {r['launches']} in {n} batches, "
+                                 f"want {want} ({box_passes} box passes, {aux_passes} aux "
+                                 f"passes); results {res}")
+        r.update(box_roi=box_passes * n, aux_roi=want[1] - box_passes * n, nms_each=box_passes * n)
+        runs[key] = r
+        lines.append(
+            f"{key} ({cfg_path}{' ' + ' '.join(opts[:2]) if opts else ''}; {box_passes} box "
+            f"passes and {aux_passes} {'mask' if cfg.MODEL.MASK_ON else 'keypoint'} passes a "
+            f"batch): {r['n_dets']} detections, AP {res['AP']:.4f}"
+            + (f", segm AP {res['segm_AP']:.4f}" if "segm_AP" in res else "")
+            + (f", keypoints AP {res['keypoints_AP']:.4f}" if "keypoints_AP" in res else "")
+            + f"; launches NMS {r['launches'][0]}, RoIAlign {r['launches'][1]} in {n} batches; "
+            f"dataset {t['images'] / t['wall']:.2f} imgs/s, {t['wall']:.2f} s a batch; ms a "
+            f"batch: {_tta_split_line(t)}")
+    _phase("tta_test_net", "test_net on the first 8 landscape images of smoke_val / smoke_kps "
+           "(one batch), --weights (native pickles of seeded weights, output layers spread), "
+           "bbox_results.json and results.json byte-identical to the plain-twin runs, every "
+           "metric finite; " + "; ".join(lines),
+           time.perf_counter() - t0)
+    return runs
 
 
 def phase_label_assign(torch, data_root):
@@ -2687,6 +3178,9 @@ def phase_softmax_step(torch, seed, groups, iters, warmup):
 
 DDP_TIMEOUT_S = 420.0  # a world's spawn: the ranks' start, builds and steps
 DDP_STEPS = 2  # compared steps (the timed ones follow)
+# timed steps of [ddp_joint_step] and [ddp_rcnn_step] (--iters earlier): cut to hold the whole
+# script's time with the Fast R-CNN, proposal and TTA phases in (PERF.md section 6)
+DDP_TIMED_STEPS = 3
 # of them the steps held to DDP_TOL: the R-CNN step's first, since at its second a proposal
 # near a tie flips with the first update's last bits (PERF.md §6, data parallelism); its
 # second is still held to the sampler's generator state and to ranks bit-equal, and printed
@@ -3077,10 +3571,17 @@ PARTIAL = {
                                                            a.iters, a.warmup),
     "softmax_step": lambda torch, a, rng: phase_softmax_step(torch, a.seed + 10, a.groups,
                                                              a.iters, a.warmup),
+    "fast_rcnn_infer": lambda torch, a, rng: phase_fast_rcnn_infer(
+        torch, a.seed + 14, a.batch, a.iters, a.warmup, ROI_TIMERS),
+    "fast_rcnn_train": lambda torch, a, rng: phase_rcnn_train(
+        torch, "fast_rcnn_train", FAST_CFG, a.seed + 15, a.groups, a.iters, a.warmup, ROI_TIMERS),
+    "proposal_pipeline": lambda torch, a, rng: phase_proposal_pipeline(
+        torch, a.seed + 16, a.loop_data, a.iters, a.warmup),
+    "tta_test_net": lambda torch, a, rng: phase_tta_test_net(torch, a.seed + 17, a.loop_data),
     "ddp_joint_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_joint_step", a.seed,
-                                                           a.groups, a.iters, a.gpu),
+                                                           a.groups, DDP_TIMED_STEPS, a.gpu),
     "ddp_rcnn_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_rcnn_step", a.seed + 5,
-                                                          a.groups, a.iters, a.gpu),
+                                                          a.groups, DDP_TIMED_STEPS, a.gpu),
     "ddp_test_net": lambda torch, a, rng: phase_ddp_test_net(torch, a.seed + 7, a.loop_data,
                                                              a.ddp, a.gpu),
     # trains on ddp_test_net's pseudo-labels: runs that phase first when it has not run
@@ -3191,6 +3692,8 @@ def _main(torch, args) -> int:
     # Keypoint R-CNN serving: the counts are set to 0 inside, after the comparisons
     kps = PARTIAL["keypoint_rcnn_infer"](torch, args, rng)
     kps_batches = kps["nms_launches"] // 2
+    # Fast R-CNN serving on proposals: the counts are set to 0 inside, after the comparisons
+    fast = PARTIAL["fast_rcnn_infer"](torch, args, rng)
     rcnn_batches = (faster["nms_launches"] + mask["nms_launches"]) // 2
     args.batch_imgs = {"student": student_imgs, "mask": mask["imgs_per_s"]}
     # the R-CNN training steps: the counts are set to 0 inside, after the comparisons
@@ -3201,6 +3704,9 @@ def _main(torch, args) -> int:
     kps_t = PARTIAL["keypoint_rcnn_train"](torch, args, rng)
     if _kernel_counts() != kps_t["launches"]:
         raise AssertionError("a kernel was launched after the keypoint training run")
+    fast_t = PARTIAL["fast_rcnn_train"](torch, args, rng)
+    if _kernel_counts() != fast_t["launches"]:
+        raise AssertionError("a kernel was launched after the Fast R-CNN training run")
     # the training workflow: the counts are set to 0 inside, just before each train_net
     # run, and read just after it (the resume checks that follow launch more)
     sad_loop = PARTIAL["sad_train_loop"](torch, args, rng)
@@ -3216,6 +3722,14 @@ def _main(torch, args) -> int:
     kps_eval = PARTIAL["keypoint_test_net"](torch, args, rng)
     kps_eval_batches = kps_eval["launches"][0] // 2
     kps_loop = kps_eval["loop_launches"]
+    # the two-stage workflow (RPN-only proposals -> Fast R-CNN train_net and
+    # test_net) and test-time augmentation through test_net: the counts set to
+    # 0 inside, just before each run with the kernels, and read just after it
+    prop = PARTIAL["proposal_pipeline"](torch, args, rng)
+    tta = PARTIAL["tta_test_net"](torch, args, rng)
+    tta_rcnn = tta["tta"]["nms_each"] + tta["tta_soft_nms"]["nms_each"]
+    tta_box = tta_rcnn + tta["kps_aug"]["box_roi"]
+    tta_aux = sum(r["aux_roi"] for r in tta.values())
     # the paper's R-101 <- X-101-64x4d pair at scale 500: the host's label
     # assignment, then the teacher's serving path and the joint step, each
     # with every count set to 0 just before it and read just after
@@ -3297,14 +3811,38 @@ def _main(torch, args) -> int:
         **nms_stats["rpn"], **nms_entry, "keypoint_launches": kps_batches,
         "test_net_launches": eval_rcnn + kps_eval_batches,
         "keypoint_test_net_launches": kps_eval_batches,
+        # one a box pass of the three TTA runs (18 passes a Mask R-CNN batch)
+        "tta_test_net_launches": tta_box,
     }, {
         "name": "greedy_nms_sorted@rcnn_decode", "launches": rcnn_batches,
         **nms_stats["rcnn_decode"], **nms_entry, "test_net_launches": eval_rcnn,
+        "tta_test_net_launches": tta_rcnn,
     }, {
         # Keypoint R-CNN's detection NMS: one foreground class, 8 x 1000 -> 100, timed
         # on the serving batch's own candidates
         "name": "greedy_nms_sorted@kps_decode", "launches": kps_batches,
         **kps["nms_decode"], **nms_entry, "test_net_launches": kps_eval_batches,
+        "tta_test_net_launches": tta["kps_aug"]["nms_each"],
+    }, {
+        # RPN-only serving (test_net with rpn_R-50-FPN.yaml): 5 levels x 8 images of 1000
+        # candidates -> 2000 slots, timed on a seeded batch's own candidates
+        "name": "greedy_nms_sorted@rpn_only", "launches": prop["rpn_launches"][0],
+        **prop["nms_stats"], **nms_entry,
+    }, {
+        # Fast R-CNN's detection NMS: 8 x (2000 proposals x 80 classes) -> 100, timed on
+        # the serving batch's own candidates
+        "name": "greedy_nms_sorted@fast_rcnn_decode", "launches": fast["nms_launches"],
+        **fast["nms_stats"], **nms_entry, "test_net_launches": prop["test_launches"][0],
+    }, {
+        # Fast R-CNN serving's box RoIAlign: R = 8 x 2000, res 7
+        "name": "roi_align_fwd@fast_rcnn", "launches": fast["roi_align_launches"],
+        **fast["roi_stats"], **roi_entry, "test_net_launches": prop["test_launches"][1],
+    }, {
+        # the Fast R-CNN step's box RoIAlign backward on the rois it sampled from its
+        # proposals (R = 4096, res 7)
+        "name": "roi_align_bwd_gather@fast_rcnn_train", "launches": fast_t["launches"][2],
+        **fast_t["own_stats"]["box"], **roi_bwd_entry,
+        "train_loop_launches": prop["train_launches"][2],
     }, {
         # box RoIAlign: one launch a batch of the three R-CNN runs; mask: of the Mask R-CNN
         # run and, at the same shape (R=800, res 14), the keypoint RoIAlign of Keypoint R-CNN
@@ -3312,12 +3850,14 @@ def _main(torch, args) -> int:
         "launches": faster["roi_align_launches"] + mask["roi_align_launches"] // 2
         + kps_batches, "keypoint_launches": kps_batches,
         "test_net_launches": eval_roi + kps_eval_batches,
-        "keypoint_test_net_launches": kps_eval_batches,
+        "keypoint_test_net_launches": kps_eval_batches, "tta_test_net_launches": tta_box,
     }, {
         "name": "roi_align_fwd@mask", **roi_stats["mask"], **roi_entry,
         "launches": mask["roi_align_launches"] // 2 + kps_batches,
         "keypoint_launches": kps_batches, "test_net_launches": eval_roi + kps_eval_batches,
         "keypoint_test_net_launches": kps_eval_batches,
+        # the mask / keypoint head on the merged boxes and once a mask / keypoint TTA pass
+        "tta_test_net_launches": tta_aux,
     }, {
         # the training steps: one NMS, one box RoIAlign pair a step of the three families;
         # the mask pair and the mask target crop (forward only) a step of Mask R-CNN; the
@@ -3329,8 +3869,10 @@ def _main(torch, args) -> int:
         "ddp_launches": [la["nms"] for la in ddp_rows],
         **nms_stats["rpn_train"], **nms_entry,
     }, {
-        "name": "roi_align_fwd@box_train", "launches": train_steps + kps_t["steps"],
-        "keypoint_launches": kps_t["steps"],
+        "name": "roi_align_fwd@box_train",
+        "launches": train_steps + kps_t["steps"] + fast_t["steps"],
+        "keypoint_launches": kps_t["steps"], "fast_rcnn_launches": fast_t["steps"],
+        "fast_rcnn_train_loop_launches": prop["train_launches"][1],
         "train_loop_launches": mask_loop["launches"][1] // 3,
         "keypoint_train_loop_launches": kps_loop[1] // 2,
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],

@@ -5,8 +5,9 @@ A copy of sad_tpu/data/rpn_minibatch.py: ``rpn_anchor_grid``,
 ``RCNNMinibatchBuilder`` with the gt padding, the gt mask rasters
 (rasterised with this package's utils/segms.py) and the gt keypoints; the
 IoU is the float32 native kernel (``anchors._assignment_iou``), as
-sad_tpu's. Not copied: precomputed proposals (``pad_proposals``, pure Fast
-R-CNN; ROADMAP.md Queue 1 item 8). Added: ``build`` takes the images in memory
+sad_tpu's, and ``pad_proposals`` with the Fast R-CNN batches (MODEL.FASTER_RCNN
+False: 'proposal_boxes' / 'proposal_valid' from the roidb's precomputed
+proposals, no RPN targets). Added: ``build`` takes the images in memory
 and, with ``device_normalize``, ships one uint8 canvas per image and its
 content extent for the train step to normalise on the device, as
 RetinaNetMinibatchBuilder does.
@@ -157,22 +158,48 @@ def assign_rpn_labels(
     return tuple(zip(*out))
 
 
+def pad_proposals(entries, cap: int, scales, hflip: bool = False):
+    """The roidb's 'proposal_boxes' packed into static (N, cap, 4) canvases
+    in network-input coordinates and (N, cap) valid flags (training batches
+    and the Fast R-CNN test path; ref roi_data/fast_rcnn.py, test.py
+    im_detect_bbox's ``boxes`` input). ``scales`` is each entry's im_scale.
+    With ``hflip`` the boxes are mirrored on the image's width first
+    (box_utils.flip_boxes), for a test-time-augmentation pass whose image is
+    flipped; flipped training entries already carry flipped proposals."""
+    n = len(entries)
+    props = np.zeros((n, cap, 4), np.float32)
+    pvalid = np.zeros((n, cap), bool)
+    for i, e in enumerate(entries):
+        pb = e.get("proposal_boxes")
+        pb = np.zeros((0, 4), np.float32) if pb is None else np.asarray(pb[:cap], np.float32)
+        if hflip and len(pb):
+            w = float(e["width"])
+            x1 = pb[:, 0].copy()
+            pb = pb.copy()
+            pb[:, 0] = w - pb[:, 2] - 1.0
+            pb[:, 2] = w - x1 - 1.0
+        props[i, : len(pb)] = pb * scales[i]
+        pvalid[i, : len(pb)] = True
+    return props, pvalid
+
+
 class RCNNMinibatchBuilder:
     """Static-shape training batches for the Faster / Mask / Keypoint R-CNN
     path (images + RPN targets + padded gt; optional gt mask rasters and gt
     keypoints (B, max_gt, NUM_KEYPOINTS, 3) [x, y, visibility] in network
     input coordinates). The RoI sampling itself happens on the device
-    (train/rcnn_train.py)."""
+    (train/rcnn_train.py). Fast R-CNN (MODEL.FASTER_RCNN False) samples from
+    the roidb's precomputed proposals instead: its batches carry
+    'proposal_boxes' (B, max_proposals, 4) and 'proposal_valid' and no RPN
+    targets."""
 
     def __init__(self, cfg: Config, mask_on: bool = None, mask_stride: int = 4,
-                 max_gt: int = 50, device_normalize: bool = False):
+                 max_gt: int = 50, device_normalize: bool = False, max_proposals: int = 2000):
         from .minibatch import canvas_shapes
 
-        if not cfg.MODEL.FASTER_RCNN and cfg.MODEL.TYPE == "generalized_rcnn":
-            raise NotImplementedError(
-                "MODEL.FASTER_RCNN False: training from precomputed proposals is not "
-                "ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
         self.cfg = cfg
+        self.use_proposals = not cfg.MODEL.FASTER_RCNN and cfg.MODEL.TYPE == "generalized_rcnn"
+        self.max_proposals = max_proposals
         self.landscape, self.portrait = canvas_shapes(cfg)
         self.mask_on = cfg.MODEL.MASK_ON if mask_on is None else mask_on
         self.kps_on = cfg.MODEL.KEYPOINTS_ON
@@ -237,7 +264,11 @@ class RCNNMinibatchBuilder:
             scales[i] = scale
         if self.device_normalize:
             batch["content_hw"] = batch["im_hw"].copy()
-        add_rpn_blobs_to_batch(cfg, batch, entries, canvas, scales, seed=seed, replay=replay)
+        add_rpn_blobs_to_batch(cfg, batch, entries, canvas, scales, seed=seed, replay=replay,
+                               rpn_targets=not self.use_proposals)
+        if self.use_proposals:
+            batch["proposal_boxes"], batch["proposal_valid"] = pad_proposals(
+                entries, self.max_proposals, scales)
         # repad gt arrays to a fixed max (stable shapes across batches)
         g = batch["gt_boxes"].shape[1]
         if g < self.max_gt:
@@ -308,30 +339,35 @@ def add_rpn_blobs_to_batch(
     im_scales: np.ndarray,
     seed: int = 0,
     replay: Sequence[Tuple[dict, float]] = (),
+    rpn_targets: bool = True,
 ) -> None:
     """Fill batch['rpn_labels'/'rpn_bbox_targets'/'rpn_bbox_inside_weights'/
     'rpn_bbox_outside_weights'] per FPN level, plus padded gt arrays for the
     on-device proposal-label sampling. ``replay``: the (entry, scale) of the
     batch's images before ``entries``, whose label sampling advances the
-    generator first and is thrown away."""
+    generator first and is thrown away. With ``rpn_targets`` False (Fast
+    R-CNN on precomputed proposals) only the gt arrays are built, and no
+    label is drawn, so there is nothing to replay."""
     ch, cw = canvas
     n = len(entries)
     rng = np.random.RandomState(seed)
-    grid = rpn_anchor_grid(cfg, ch, cw)
-    for e, scale in replay:
-        keep = (e["gt_classes"] > 0) & (~e["is_crowd"])
-        assign_rpn_labels(cfg, grid, e["boxes"][keep] * scale, ch, cw, rng)
-    levels = grid.levels
-    A = grid.num_anchors
-    batch["rpn_labels"] = {
-        lvl: np.zeros((n, fh, fw, A), np.int32)
-        for lvl, (fh, fw) in zip(levels, grid.field_hw)
-    }
-    for key in ("rpn_bbox_targets", "rpn_bbox_inside_weights", "rpn_bbox_outside_weights"):
-        batch[key] = {
-            lvl: np.zeros((n, fh, fw, A, 4), np.float32)
+    if rpn_targets:
+        grid = rpn_anchor_grid(cfg, ch, cw)
+        for e, scale in replay:
+            keep = (e["gt_classes"] > 0) & (~e["is_crowd"])
+            assign_rpn_labels(cfg, grid, e["boxes"][keep] * scale, ch, cw, rng)
+        levels = grid.levels
+        A = grid.num_anchors
+        batch["rpn_labels"] = {
+            lvl: np.zeros((n, fh, fw, A), np.int32)
             for lvl, (fh, fw) in zip(levels, grid.field_hw)
         }
+        for key in ("rpn_bbox_targets", "rpn_bbox_inside_weights",
+                    "rpn_bbox_outside_weights"):
+            batch[key] = {
+                lvl: np.zeros((n, fh, fw, A, 4), np.float32)
+                for lvl, (fh, fw) in zip(levels, grid.field_hw)
+            }
     g_max = max(max((len(e["boxes"]) for e in entries), default=1), 1)
     batch["gt_boxes"] = np.zeros((n, g_max, 4), np.float32)
     batch["gt_classes"] = np.zeros((n, g_max), np.int32)
@@ -340,11 +376,12 @@ def add_rpn_blobs_to_batch(
         keep = (e["gt_classes"] > 0) & (~e["is_crowd"])
         gt = e["boxes"][keep] * im_scales[i]
         cls = e["gt_classes"][keep]
-        lv = assign_rpn_labels(cfg, grid, gt, ch, cw, rng)
-        for j, lvl in enumerate(levels):
-            batch["rpn_labels"][lvl][i] = lv[0][j]
-            batch["rpn_bbox_targets"][lvl][i] = lv[1][j]
-            batch["rpn_bbox_inside_weights"][lvl][i] = lv[2][j]
-            batch["rpn_bbox_outside_weights"][lvl][i] = lv[3][j]
+        if rpn_targets:
+            lv = assign_rpn_labels(cfg, grid, gt, ch, cw, rng)
+            for j, lvl in enumerate(levels):
+                batch["rpn_labels"][lvl][i] = lv[0][j]
+                batch["rpn_bbox_targets"][lvl][i] = lv[1][j]
+                batch["rpn_bbox_inside_weights"][lvl][i] = lv[2][j]
+                batch["rpn_bbox_outside_weights"][lvl][i] = lv[3][j]
         batch["gt_boxes"][i, : len(gt)] = gt
         batch["gt_classes"][i, : len(cls)] = cls

@@ -3,7 +3,7 @@ canvases and training entries with their images."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,3 +72,25 @@ def random_train_entries(rng: np.random.RandomState, n: int, max_side: int = 100
             entries[-1]["gt_keypoints"] = kp
         images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
     return entries, images
+
+
+def random_proposals(rng: np.random.RandomState, width: float, height: float, n: int,
+                     gt_boxes: Optional[np.ndarray] = None, near_frac: float = 0.25
+                     ) -> np.ndarray:
+    """``n`` float32 proposals (x1, y1, x2, y2) spread over a width x height
+    image, sides log-uniform from 4 px to the image's, clipped to it: the
+    stand-in for a Fast R-CNN proposal file. With ``gt_boxes`` the first
+    ``near_frac`` of them are gt boxes jittered by up to a fifth of their
+    sides, so that a sampler finds foreground among them."""
+    xy = rng.uniform(0, [width * 0.95, height * 0.95], (n, 2))
+    wh = np.exp(rng.uniform(np.log(4.0), np.log(max(width, height)), (n, 2)))
+    boxes = np.concatenate([xy, xy + wh], axis=1)
+    if gt_boxes is not None and len(gt_boxes):
+        k = int(n * near_frac)
+        g = gt_boxes[rng.randint(0, len(gt_boxes), k)].astype(np.float64)
+        side = np.repeat(g[:, 2:] - g[:, :2] + 1.0, 2, axis=0).reshape(k, 4)
+        boxes[:k] = g + rng.uniform(-0.2, 0.2, (k, 4)) * side
+    boxes[:, [0, 2]] = np.clip(boxes[:, [0, 2]], 0, width - 1.0)
+    boxes[:, [1, 3]] = np.clip(boxes[:, [1, 3]], 0, height - 1.0)
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2])
+    return boxes.astype(np.float32)

@@ -1,4 +1,4 @@
-"""Faster / Mask / Keypoint R-CNN inference decode, batched and on the device (ref:
+"""Fast / Faster / Mask / Keypoint R-CNN inference decode, batched and on the device (ref:
 sad_tpu/eval/rcnn_inference.py; detectron/lib/core/test.py im_detect_bbox +
 box_results_with_nms_and_limit, test.py:52-193).
 
@@ -10,10 +10,14 @@ reference's cascaded inference). Every shape is static and no step reads a
 value back to the host; the keypoint heatmaps are decoded on the host
 (eval/test_engine.py, utils/keypoints.heatmaps_to_keypoints).
 
-Not ported yet (ROADMAP.md Queue 1): precomputed proposals
-(MODEL.FASTER_RCNN False), the single-scale (C4) cascaded mask branch, and
-``make_aux_on_boxes_fn`` (the heads on fixed boxes that test-time
-augmentation re-runs). They raise NotImplementedError.
+With MODEL.FASTER_RCNN False (Fast R-CNN on precomputed proposals, ref:
+test.py im_detect_bbox's ``boxes`` input) the RPN is skipped: the box head
+runs on the (B, P, 4) proposals handed in. ``make_aux_on_boxes_fn`` runs
+the mask and keypoint heads on fixed boxes, the passes that mask and
+keypoint test-time augmentation re-run (test.py:410-478, 582-665).
+
+Not ported yet (ROADMAP.md Queue 1 item 8): the single-scale (C4) cascaded
+mask branch, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -86,74 +90,137 @@ def rcnn_gather_detections(cands, keep_idx, keep_valid) -> Dict[str, torch.Tenso
     return dets
 
 
-def kept_box_rois(cfg, boxes, im_scale):
-    """The kept (B, K, 4) detection boxes back in network-input coordinates,
-    as (B*K, 5) image-major rois and their (B*K,) RoI levels."""
-    net_boxes = boxes * im_scale.float()[:, None, None]
+def net_box_rois(cfg, net_boxes):
+    """(B, K, 4) boxes in network-input coordinates as (B*K, 5) image-major
+    rois and their (B*K,) RoI levels."""
     lvls = map_rois_to_fpn_levels(
         net_boxes, cfg.FPN.ROI_MIN_LEVEL, cfg.FPN.ROI_MAX_LEVEL,
         cfg.FPN.ROI_CANONICAL_SCALE, cfg.FPN.ROI_CANONICAL_LEVEL)
     return flat_rois(net_boxes), lvls.reshape(-1)
 
 
+def kept_box_rois(cfg, boxes, im_scale):
+    """The kept (B, K, 4) detection boxes back in network-input coordinates,
+    as (B*K, 5) image-major rois and their (B*K,) RoI levels."""
+    return net_box_rois(cfg, boxes * im_scale.float()[:, None, None])
+
+
+def _aux_roi_features(cfg, model, features, rois5, lvls, valid, head):
+    """RoIAlign for the mask head (``head`` 'mask', MRCNN's resolution) or
+    the keypoint head ('kps', KRCNN's): (B*K, res, res, C)."""
+    c = cfg.MRCNN if head == "mask" else cfg.KRCNN
+    return multilevel_roi_align(model.roi_features(features), rois5, lvls, valid.reshape(-1),
+                                c.ROI_XFORM_RESOLUTION, c.ROI_XFORM_SAMPLING_RATIO)
+
+
 def mask_roi_features(cfg, model, features, boxes, valid, im_scale) -> torch.Tensor:
     """RoIAlign of the kept (B, K, 4) detection boxes for the mask head, from
     the model's NHWC ``features``: (B*K, res, res, C)."""
-    rois5, lvls = kept_box_rois(cfg, boxes, im_scale)
-    return multilevel_roi_align(
-        model.roi_features(features), rois5, lvls, valid.reshape(-1),
-        cfg.MRCNN.ROI_XFORM_RESOLUTION, cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
+    return _aux_roi_features(cfg, model, features, *kept_box_rois(cfg, boxes, im_scale), valid,
+                             "mask")
 
 
 def keypoint_roi_features(cfg, model, features, boxes, valid, im_scale) -> torch.Tensor:
     """RoIAlign of the kept (B, K, 4) detection boxes for the keypoint head
     (KRCNN.ROI_XFORM_RESOLUTION): (B*K, res, res, C)."""
-    rois5, lvls = kept_box_rois(cfg, boxes, im_scale)
-    return multilevel_roi_align(
-        model.roi_features(features), rois5, lvls, valid.reshape(-1),
-        cfg.KRCNN.ROI_XFORM_RESOLUTION, cfg.KRCNN.ROI_XFORM_SAMPLING_RATIO)
+    return _aux_roi_features(cfg, model, features, *kept_box_rois(cfg, boxes, im_scale), valid,
+                             "kps")
 
 
-def make_rcnn_inference_fn(cfg, model) -> Callable:
+def _aux_heads(cfg, model, features, rois5, lvls, valid, b: int, k: int) -> Dict:
+    """The mask head ('mask_prob' (B, K, m, m, C)) and the keypoint head
+    ('kps_heatmaps' (B, K, S, S, J) float32 logits) that are on, over the
+    (B*K, 5) rois."""
+    out = {}
+    if cfg.MODEL.MASK_ON:
+        logits = model.mask_heads(
+            _aux_roi_features(cfg, model, features, rois5, lvls, valid, "mask"))
+        out["mask_prob"] = torch.sigmoid(logits).reshape((b, k) + logits.shape[1:])
+    if cfg.MODEL.KEYPOINTS_ON:
+        hm = model.keypoint_heads(
+            _aux_roi_features(cfg, model, features, rois5, lvls, valid, "kps"))
+        out["kps_heatmaps"] = hm.reshape((b, k) + hm.shape[1:])
+    return out
+
+
+def fast_rcnn_outputs(cfg, model, images, proposals, prop_valid) -> Dict[str, torch.Tensor]:
+    """Fast R-CNN's box head on precomputed (B, P, 4) proposals in
+    network-input coordinates (sad_tpu/eval/rcnn_inference.py:127-178):
+    backbone, RoI levels, RoIAlign, box head, softmax; the dict of
+    ``GeneralizedRCNN.forward`` without the RPN's scores."""
+    feats = model.backbone(images)
+    b, r = proposals.shape[:2]
+    f = cfg.FPN
+    lvls = map_rois_to_fpn_levels(proposals, f.ROI_MIN_LEVEL, f.ROI_MAX_LEVEL,
+                                  f.ROI_CANONICAL_SCALE, f.ROI_CANONICAL_LEVEL)
+    cls_score, bbox_pred = model.box_head(
+        model.box_roi_features(feats, proposals, lvls, prop_valid))
+    cls_score = cls_score.reshape(b, r, -1)
+    return {"rois": proposals, "roi_valid": prop_valid, "roi_levels": lvls,
+            "cls_score": cls_score, "cls_prob": torch.softmax(cls_score, dim=-1),
+            "bbox_pred": bbox_pred.reshape(b, r, -1), "features": feats}
+
+
+def make_rcnn_inference_fn(cfg, model, aux_heads: bool = True) -> Callable:
     """Faster R-CNN end to end: images -> detections, plus 'mask_prob' (B, K,
     m, m, C) on the kept boxes with MODEL.MASK_ON and 'kps_heatmaps' (B, K,
     S, S, NUM_KEYPOINTS) float32 logits with MODEL.KEYPOINTS_ON.
 
-    fn(images (B,H,W,3), im_hw (B,2), im_scale (B,), content_hw=None) ->
-    dict. All tensors on the model's device; uint8 canvases are normalised
-    on the device (content_hw required then)."""
-    if not cfg.MODEL.FASTER_RCNN:
-        raise NotImplementedError(
-            "MODEL.FASTER_RCNN False (Fast R-CNN on precomputed proposals) is not ported "
-            "to sad_tpu_torch yet (ROADMAP.md Queue 1)")
+    fn(images (B,H,W,3), im_hw (B,2), im_scale (B,), content_hw=None,
+    proposals=None, prop_valid=None) -> dict. All tensors on the model's
+    device; uint8 canvases are normalised on the device (content_hw required
+    then). With MODEL.FASTER_RCNN False (Fast R-CNN) ``proposals`` (B, P, 4)
+    in network-input coordinates and ``prop_valid`` (B, P) are required and
+    take the RPN's place. With ``aux_heads`` False the mask and keypoint
+    heads do not run: the box passes of test-time augmentation, whose
+    heads run on the merged boxes instead."""
     if not cfg.FPN.FPN_ON:
         raise NotImplementedError(
             "single-scale (C4) R-CNN inference, with its cascaded mask branch, is not "
-            "ported to sad_tpu_torch yet (ROADMAP.md Queue 1)")
+            "ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+    precomputed = not cfg.MODEL.FASTER_RCNN
 
     @torch.inference_mode()
-    def infer(images, im_hw, im_scale, content_hw=None):
+    def infer(images, im_hw, im_scale, content_hw=None, proposals=None, prop_valid=None):
         images = device_normalize(cfg, images, content_hw)
-        out = model(images, im_hw)
+        if precomputed:
+            if proposals is None or prop_valid is None:
+                raise ValueError(
+                    "MODEL.FASTER_RCNN=False (pure Fast R-CNN) needs precomputed proposals: "
+                    "pass proposals/prop_valid (set TEST.PROPOSAL_FILES)")
+            out = fast_rcnn_outputs(cfg, model, images, proposals, prop_valid)
+        else:
+            out = model(images, im_hw)
         dets = decode_rcnn_detections(cfg, out["rois"], out["roi_valid"], out["cls_prob"],
                                       out["bbox_pred"], im_hw, im_scale)
-        b, k = dets["boxes"].shape[:2]
-        if cfg.MODEL.MASK_ON:
-            logits = model.mask_heads(mask_roi_features(
-                cfg, model, out["features"], dets["boxes"], dets["valid"], im_scale))
-            dets["mask_prob"] = torch.sigmoid(logits).reshape((b, k) + logits.shape[1:])
-        if cfg.MODEL.KEYPOINTS_ON:
-            hm = model.keypoint_heads(keypoint_roi_features(
-                cfg, model, out["features"], dets["boxes"], dets["valid"], im_scale))
-            dets["kps_heatmaps"] = hm.reshape((b, k) + hm.shape[1:])
+        if aux_heads:
+            b, k = dets["boxes"].shape[:2]
+            dets.update(_aux_heads(cfg, model, out["features"],
+                                   *kept_box_rois(cfg, dets["boxes"], im_scale), dets["valid"],
+                                   b, k))
         return dets
 
     return infer
 
 
 def make_aux_on_boxes_fn(cfg, model) -> Callable:
-    """The mask / keypoint heads on fixed boxes (the passes that mask and
-    keypoint test-time augmentation re-run): not ported yet."""
-    raise NotImplementedError(
-        "make_aux_on_boxes_fn (mask/keypoint heads on fixed boxes, for test-time "
-        "augmentation) is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1)")
+    """The mask / keypoint heads on fixed boxes: the cascaded passes that
+    mask and keypoint test-time augmentation re-run on transformed images
+    (sad_tpu/eval/rcnn_inference.py:262-332, its FPN branch).
+
+    aux(images, net_boxes (B, K, 4) in network-input coordinates, valid
+    (B, K), content_hw=None) -> {'mask_prob': (B, K, m, m, C),
+    'kps_heatmaps': (B, K, S, S, J)}, each under its MODEL switch."""
+    if not cfg.FPN.FPN_ON:
+        raise NotImplementedError(
+            "make_aux_on_boxes_fn for single-scale (C4) models, the cascaded mask branch on "
+            "fixed boxes, is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+
+    @torch.inference_mode()
+    def aux(images, net_boxes, valid, content_hw=None):
+        images = device_normalize(cfg, images, content_hw)
+        b, k = net_boxes.shape[:2]
+        return _aux_heads(cfg, model, model.backbone(images), *net_box_rois(cfg, net_boxes),
+                          valid, b, k)
+
+    return aux

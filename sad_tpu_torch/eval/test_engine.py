@@ -22,12 +22,26 @@ mesh batch sharding (sad_tpu/eval/test_engine.py:195-212); rank 0 merges
 the detections in the one-process order (the landscape images in roidb
 order, then the portrait ones), evaluates and writes the files.
 
-Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item when a config asks for them: test-time augmentation (box, mask and
-keypoint), soft-NMS, box voting and proposals from files (Queue 1 item 8;
-sad_tpu's RetinaNet branch ignores TEST.BBOX_AUG, TEST.SOFT_NMS and
-TEST.BBOX_VOTE, sad_tpu/eval/test_engine.py:160, and so does the port's),
-and the VOC, Cityscapes-mask and VID evaluators (item 9).
+Test-time augmentation (TEST.BBOX_AUG, TEST.MASK_AUG, TEST.KPS_AUG; ref:
+test.py im_detect_bbox_aug:195-276, im_detect_mask_aug:410-478,
+im_detect_keypoints_aug:582-665; sad_tpu/eval/test_engine.py:145-410): the
+box pass runs once a transform, each image's candidates are UNION-merged and
+post-processed on the host (eval/test_augmentation.postprocess_detections:
+soft-NMS or NMS, box voting, the top DETECTIONS_PER_IM), the mask and
+keypoint heads re-run on the merged boxes, then once a mask / keypoint
+transform, and their outputs are combined by the configured heuristic.
+Fast R-CNN (MODEL.FASTER_RCNN False) serves precomputed proposals attached
+from TEST.PROPOSAL_FILES (eval/rpn_generator.add_proposals_to_roidb), one
+file a TEST.DATASETS entry, before the roidb is sharded over the ranks.
+
+Refused, each naming its ROADMAP.md note, where sad_tpu silently ignores the
+option (a refusal is no different result): TEST.SOFT_NMS or TEST.BBOX_VOTE
+without TEST.BBOX_AUG (sad_tpu applies them only in its bbox-aug branch),
+TEST.PROPOSAL_FILES with MODEL.FASTER_RCNN True, aspect-ratio TTA (sad_tpu
+refuses it too). RetinaNet ignores TTA, soft-NMS and voting, as sad_tpu's
+RetinaNet branch does. Not ported yet, raising NotImplementedError naming
+their ROADMAP.md item: the VOC, Cityscapes-mask and VID evaluators (Queue 1
+item 9).
 
 Dataset I/O is the port's copy of sad_tpu's host modules (sad_tpu_torch.data).
 """
@@ -53,13 +67,20 @@ from ..utils.keypoints import heatmaps_to_keypoints, nms_oks
 from ..utils.segms import mask_to_rle, paste_mask_into_image
 from .coco_eval import COCOEvaluator
 from .inference import make_inference_fn
-from .rcnn_inference import make_rcnn_inference_fn
+from . import test_augmentation
+from .rcnn_inference import make_aux_on_boxes_fn, make_rcnn_inference_fn
 
 logger = logging.getLogger(__name__)
 
-# the host split of run_inference_on_roidb, in the order of a batch
-SPLIT_KEYS = ("load_resize", "device", "mask_gather", "kps_copy", "kps_decode", "paste", "rle",
-              "dicts", "vis")
+# the host split of run_inference_on_roidb, in the order of a batch: with
+# test-time augmentation the extra box passes (each a load, the model and
+# the copy back), the host merge and post-processing, the mask / keypoint
+# heads on the merged boxes and their TTA passes, and the combining
+SPLIT_KEYS = ("load_resize", "device", "aug_box_passes", "aug_merge", "aug_aux_passes",
+              "aug_combine", "mask_gather", "kps_copy", "kps_decode", "paste", "rle", "dicts",
+              "vis")
+# where sad_tpu and Detectron differ on this path (ROADMAP.md Queue 3)
+_QUEUE3 = " (sad_tpu ignores it; ROADMAP.md Queue 3)"
 
 
 def _test_canvas_shapes(cfg):
@@ -72,9 +93,17 @@ def _test_canvas_shapes(cfg):
     return (short, long), (long, short)
 
 
-def prepare_test_batch(cfg, entries: List[dict], canvas) -> Dict[str, np.ndarray]:
+def prepare_test_batch(cfg, entries: List[dict], canvas, target_scale: int = 0,
+                       target_max_size: int = 0, hflip: bool = False,
+                       images: Optional[List[np.ndarray]] = None) -> Dict[str, np.ndarray]:
     """uint8 BGR canvases plus per-image content extents ('content_hw'),
-    original sizes ('im_hw') and scales ('im_scale')."""
+    original sizes ('im_hw') and scales ('im_scale'). ``target_scale`` /
+    ``target_max_size`` override TEST.SCALES[0] / TEST.MAX_SIZE for a TTA
+    pass, the scale clamped so that the content still fits the static canvas
+    (sad_tpu/eval/test_engine.py:87; Detectron would enlarge the canvas,
+    ROADMAP.md Queue 3); ``hflip`` mirrors the content, not the canvas.
+    ``images``: the entries' BGR images already decoded (a TTA batch decodes
+    them once for all its passes)."""
     ch, cw = canvas
     n = len(entries)
     data = np.zeros((n, ch, cw, 3), np.uint8)
@@ -82,11 +111,13 @@ def prepare_test_batch(cfg, entries: List[dict], canvas) -> Dict[str, np.ndarray
     content_hw = np.zeros((n, 2), np.float32)
     scales = np.zeros((n,), np.float32)
     for i, e in enumerate(entries):
-        im_bgr = load_image_bgr(e["image"], False)
-        scale = compute_im_scale(e["height"], e["width"], cfg.TEST.SCALES[0],
-                                 cfg.TEST.MAX_SIZE)
+        im_bgr = images[i] if images is not None else load_image_bgr(e["image"], False)
+        scale = compute_im_scale(e["height"], e["width"], target_scale or cfg.TEST.SCALES[0],
+                                 target_max_size or cfg.TEST.MAX_SIZE)
         scale = min(scale, ch / float(e["height"]), cw / float(e["width"]))
         im = resize_bgr_u8(im_bgr, scale)
+        if hflip:
+            im = im[:, ::-1]
         h, w = im.shape[:2]
         data[i, :h, :w] = im
         im_hw[i] = (e["height"], e["width"])
@@ -96,25 +127,42 @@ def prepare_test_batch(cfg, entries: List[dict], canvas) -> Dict[str, np.ndarray
 
 
 def _refuse_unported_inference(cfg) -> None:
-    """Raise for what run_inference_on_roidb does not port, before any work
+    """Raise for what run_inference_on_roidb does not serve, before any work
     (dispatch by model type, sad_tpu/eval/test_engine.py:109-124; ref:
     im_detect_all branching, test.py:52-58)."""
     if cfg.MODEL.TYPE in ("retinanet", "distillation"):
-        return
+        return  # TTA, soft-NMS and voting ignored, as sad_tpu's RetinaNet branch does
+    if cfg.MODEL.TYPE == "rpn":
+        raise ValueError("MODEL.TYPE 'rpn' makes proposals, not detections: serve it through "
+                         "tools/test_net or eval/rpn_generator.generate_rpn_on_dataset")
     if cfg.MODEL.TYPE != "generalized_rcnn":
-        raise NotImplementedError(f"MODEL.TYPE={cfg.MODEL.TYPE!r} inference is not ported")
-    unported = [name for name, on in (
-        ("TEST.BBOX_AUG", cfg.TEST.BBOX_AUG.ENABLED),
-        ("TEST.MASK_AUG", cfg.MODEL.MASK_ON and cfg.TEST.MASK_AUG.ENABLED),
-        ("TEST.KPS_AUG", cfg.MODEL.KEYPOINTS_ON and cfg.TEST.KPS_AUG.ENABLED),
-        ("TEST.SOFT_NMS", cfg.TEST.SOFT_NMS.ENABLED),
-        ("TEST.BBOX_VOTE", cfg.TEST.BBOX_VOTE.ENABLED),
-        ("TEST.PROPOSAL_FILES", bool(cfg.TEST.PROPOSAL_FILES)),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            f"run_inference_on_roidb for generalized_rcnn: {', '.join(unported)} not "
-            "ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+        raise NotImplementedError(f"MODEL.TYPE={cfg.MODEL.TYPE!r} inference is not ported "
+                                  "to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+    t = cfg.TEST
+    if not t.BBOX_AUG.ENABLED:
+        alone = [n for n, on in (("TEST.SOFT_NMS", t.SOFT_NMS.ENABLED),
+                                 ("TEST.BBOX_VOTE", t.BBOX_VOTE.ENABLED)) if on]
+        if alone:
+            raise NotImplementedError(
+                f"{' and '.join(alone)} without TEST.BBOX_AUG: sad_tpu applies them only "
+                "inside its bbox-aug branch and ignores them otherwise" + _QUEUE3)
+    if t.BBOX_AUG.ENABLED and ("UNION", "UNION", False) != (
+            t.BBOX_AUG.SCORE_HEUR, t.BBOX_AUG.COORD_HEUR, t.BBOX_AUG.SCALE_SIZE_DEP):
+        raise NotImplementedError("TEST.BBOX_AUG: only the UNION score and coordinate "
+                                  "heuristics, without SCALE_SIZE_DEP, are served" + _QUEUE3)
+    if t.PROPOSAL_FILES and cfg.MODEL.FASTER_RCNN:
+        raise NotImplementedError("TEST.PROPOSAL_FILES with MODEL.FASTER_RCNN True: the RPN "
+                                  "makes the proposals, the files would go unread" + _QUEUE3)
+    if cfg.MODEL.RPN_ONLY:
+        raise NotImplementedError("MODEL.RPN_ONLY with MODEL.TYPE 'generalized_rcnn': "
+                                  "RPN-only serving is MODEL.TYPE 'rpn'" + _QUEUE3)
+    if (t.BBOX_AUG.ENABLED and t.BBOX_AUG.ASPECT_RATIOS) or (
+            cfg.MODEL.MASK_ON and t.MASK_AUG.ENABLED and t.MASK_AUG.ASPECT_RATIOS) or (
+            cfg.MODEL.KEYPOINTS_ON and t.KPS_AUG.ENABLED and t.KPS_AUG.ASPECT_RATIOS):
+        raise NotImplementedError(test_augmentation._ASPECT_RATIOS_REFUSED)
+    if cfg.MODEL.MASK_ON and t.MASK_AUG.ENABLED and t.MASK_AUG.SCALE_SIZE_DEP:
+        # the reference asserts this out too (test.py:421)
+        raise NotImplementedError("Size dependent scaling not implemented for masks")
 
 
 def _make_infer_fn(cfg, model):
@@ -124,7 +172,8 @@ def _make_infer_fn(cfg, model):
                          f"{cfg.KRCNN.KEYPOINT_CONFIDENCE!r}")
     _refuse_unported_inference(cfg)
     if cfg.MODEL.TYPE == "generalized_rcnn":
-        return make_rcnn_inference_fn(cfg, model)
+        # under TEST.BBOX_AUG the heads run on the merged boxes, not in the box passes
+        return make_rcnn_inference_fn(cfg, model, aux_heads=not cfg.TEST.BBOX_AUG.ENABLED)
     return make_inference_fn(cfg, model)
 
 
@@ -138,6 +187,128 @@ def gather_class_masks(mask_prob: torch.Tensor, classes: torch.Tensor) -> torch.
     return torch.gather(mask_prob, 4, idx)[..., 0].float()
 
 
+def _flip_boxes_imframe(boxes: np.ndarray, entries: List[dict]) -> np.ndarray:
+    """(B, K, 4) boxes mirrored on each image's width (boxes.py flip_boxes)."""
+    out = boxes.copy()
+    for j, e in enumerate(entries):
+        w = float(e["width"])
+        out[j, :, 0] = w - boxes[j, :, 2] - 1.0
+        out[j, :, 2] = w - boxes[j, :, 0] - 1.0
+    return out
+
+
+class _Batch:
+    """One batch of run_inference_on_roidb on the device: the infer and aux
+    functions, its entries, canvas and device, and the host split's clock."""
+
+    def __init__(self, cfg, infer, aux, entries, canvas, dev, precomputed, split, clock):
+        self.cfg, self.infer, self.aux = cfg, infer, aux
+        self.entries, self.canvas, self.dev = entries, canvas, dev
+        self.precomputed, self.split, self.clock = precomputed, split, clock
+        self.images = None  # the entries' images, decoded once for every pass
+        self.mark = clock()
+
+    def lap(self, name: str) -> None:
+        """The seconds since the last lap, added to ``name`` of the split."""
+        now = self.clock()
+        self.split[name] += now - self.mark
+        self.mark = now
+
+    def tensors(self, scale: int = 0, max_size: int = 0, hflip: bool = False):
+        """The batch's images at a transform, on the device, with their
+        proposals (flipped with the image) for Fast R-CNN: (host, tensors)."""
+        if self.images is None:
+            decoded = {path: load_image_bgr(path, False) for path in
+                       {e["image"] for e in self.entries}}
+            self.images = [decoded[e["image"]] for e in self.entries]
+        host = prepare_test_batch(self.cfg, self.entries, self.canvas, scale, max_size, hflip,
+                                  self.images)
+        if self.precomputed:
+            from ..data.rpn_minibatch import pad_proposals
+
+            host["proposals"], host["prop_valid"] = pad_proposals(
+                self.entries, max(self.cfg.TEST.PROPOSAL_LIMIT, 1), host["im_scale"],
+                hflip=hflip)
+        return host, {k: torch.from_numpy(v).to(self.dev) for k, v in host.items()}
+
+    def boxes(self, t) -> Dict:
+        """The model's detections on the batch's tensors ``t``: the device
+        dict."""
+        return self.infer(t["data"], t["im_hw"], t["im_scale"], t["content_hw"],
+                          *((t["proposals"], t["prop_valid"]) if self.precomputed else ()))
+
+    def aux_on(self, host, t, boxes: np.ndarray, valid: np.ndarray, hflip: bool = False):
+        """The mask / keypoint heads on fixed (B, K, 4) image-frame boxes over
+        the images of ``host`` / ``t`` (flipped with them): the device dict."""
+        bx = _flip_boxes_imframe(boxes, self.entries) if hflip else boxes
+        net = (bx * host["im_scale"][:, None, None]).astype(np.float32)
+        return self.aux(t["data"], torch.from_numpy(net).to(self.dev),
+                        torch.from_numpy(valid).to(self.dev), t["content_hw"])
+
+
+def _merge_box_passes(cfg, batch: _Batch, chunk, base_out):
+    """TEST.BBOX_AUG: the extra box passes, the per-image UNION merge and the
+    host post-processing (sad_tpu/eval/test_engine.py:258-322): the merged
+    (boxes, scores, classes, valid) numpy arrays, the top
+    min(DETECTIONS_PER_IM, K) an image by score, padding zero."""
+    keys = ("boxes", "scores", "classes", "valid")
+    t_list = test_augmentation.bbox_aug_transforms(cfg)
+    outs = [base_out]
+    for t in t_list[1:]:
+        _, tens = batch.tensors(int(t["scale"]), int(t["max_size"]), bool(t["hflip"]))
+        o = batch.boxes(tens)
+        outs.append({k: o[k].cpu().numpy() for k in keys})
+    batch.lap("aug_box_passes")
+    boxes = base_out["boxes"]
+    kmax = boxes.shape[1]
+    nb, ns = np.zeros_like(boxes), np.zeros_like(base_out["scores"])
+    nc, nv = np.zeros_like(base_out["classes"]), np.zeros(base_out["valid"].shape, bool)
+    flips = [bool(t["hflip"]) for t in t_list]
+    for j, e in enumerate(chunk):
+        per = [{"boxes": o["boxes"][j], "scores": o["scores"][j], "classes": o["classes"][j],
+                "valid": o["valid"][j].astype(bool)} for o in outs]
+        merged = test_augmentation.merge_aug_detections(per, im_w=float(e["width"]),
+                                                        flipped_flags=flips)
+        fb, fs, fc = test_augmentation.postprocess_detections(
+            cfg, merged["boxes"], merged["scores"], merged["classes"],
+            merged["valid"].astype(bool), cfg.MODEL.NUM_CLASSES)
+        m = min(len(fs), kmax)
+        order = np.argsort(-fs)[:m]
+        nb[j, :m], ns[j, :m], nc[j, :m], nv[j, :m] = fb[order], fs[order], fc[order], True
+    batch.lap("aug_merge")
+    return nb, ns, nc, nv
+
+
+def _aux_aug(cfg, batch: _Batch, aug, first, boxes, valid, classes, head: str):
+    """TEST.MASK_AUG (``head`` 'mask') or TEST.KPS_AUG ('kps'): the head on
+    the final boxes once a transform of aux_aug_transforms, combined with
+    ``first`` (the identity pass's output) by the section's heuristic. Masks
+    are gathered to their class on the card, then un-flipped on the host."""
+    stacks, ds, us = [first], [False], [False]
+    for t in test_augmentation.aux_aug_transforms(aug, cfg):
+        host, tens = batch.tensors(int(t["scale"]), int(t["max_size"]), bool(t["hflip"]))
+        o = batch.aux_on(host, tens, boxes, valid, hflip=bool(t["hflip"]))
+        if head == "mask":
+            out = gather_class_masks(o["mask_prob"], torch.from_numpy(classes).to(batch.dev))
+            out = out.cpu().numpy()
+            stacks.append(test_augmentation.flip_mask_probs(out) if t["hflip"] else out)
+        else:
+            out = o["kps_heatmaps"].cpu().numpy()
+            stacks.append(test_augmentation.flip_heatmaps(out) if t["hflip"] else out)
+        ds.append(bool(t["ds"]))
+        us.append(bool(t["us"]))
+    batch.lap("aug_aux_passes")
+    if head == "mask":
+        out = test_augmentation.combine_soft_masks(stacks, aug.HEUR)
+    elif aug.SCALE_SIZE_DEP:
+        out = test_augmentation.combine_heatmaps_size_dep(stacks, ds, us, boxes, aug.HEUR,
+                                                          aug.AREA_TH)
+    else:
+        out = test_augmentation.combine_heatmaps(stacks, aug.HEUR)
+    batch.lap("aug_combine")
+    return out
+
+
 def run_inference_on_roidb(cfg, model, roidb: List[dict],
                            contiguous_to_json: Dict[int, int],
                            batch_size: int = 8,
@@ -147,10 +318,25 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
     each carries its mask as uncompressed RLE in 'segmentation', with
     MODEL.KEYPOINTS_ON its keypoints as COCO triplets in 'keypoints' and
     their score in 'kps_score'. With ``vis_dir`` each image is rendered
-    there with its boxes, masks and keypoints.
+    there with its boxes, masks and keypoints. Fast R-CNN serves the
+    'proposal_boxes' attached to the roidb's entries (the first
+    TEST.PROPOSAL_LIMIT of each); TEST.BBOX_AUG / MASK_AUG / KPS_AUG run
+    their test-time augmentation (module docstring).
     ``timing``, when given, receives the loop's wall seconds, its batches
     and images, and the seconds of each stage of SPLIT_KEYS."""
     infer = _make_infer_fn(cfg, model)
+    rcnn = cfg.MODEL.TYPE == "generalized_rcnn"
+    # Fast R-CNN: precomputed proposals attached to the roidb (test.py
+    # im_detect_all passes entry['boxes'] when not FASTER_RCNN)
+    precomputed = rcnn and not cfg.MODEL.FASTER_RCNN and any(
+        "proposal_boxes" in e for e in roidb)
+    t = cfg.TEST
+    bbox_aug = rcnn and t.BBOX_AUG.ENABLED
+    mask_aug = rcnn and cfg.MODEL.MASK_ON and t.MASK_AUG.ENABLED
+    kps_aug = rcnn and cfg.MODEL.KEYPOINTS_ON and t.KPS_AUG.ENABLED
+    aux = None
+    if (bbox_aug or mask_aug or kps_aug) and (cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINTS_ON):
+        aux = make_aux_on_boxes_fn(cfg, model)
     dev = next(model.parameters()).device
     land, port = _test_canvas_shapes(cfg)
     groups = {"l": [], "p": []}
@@ -164,24 +350,38 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
     for key, canvas in (("l", land), ("p", port)):
         entries = groups[key]
         for i in range(0, len(entries), batch_size):
-            t0 = clock()
             chunk = entries[i:i + batch_size]
             # pad the final chunk to the static batch size; only chunk's
             # entries produce detections
-            batch_entries = chunk + [chunk[-1]] * (batch_size - len(chunk))
-            host = prepare_test_batch(cfg, batch_entries, canvas)
-            t1 = clock()
-            t = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-            out = infer(t["data"], t["im_hw"], t["im_scale"], t["content_hw"])
+            batch = _Batch(cfg, infer, aux, chunk + [chunk[-1]] * (batch_size - len(chunk)),
+                           canvas, dev, precomputed, split, clock)
+            host, tens = batch.tensors()
+            batch.lap("load_resize")
+            out = batch.boxes(tens)
             boxes, scores, classes, valid = (
                 out[k].cpu().numpy() for k in ("boxes", "scores", "classes", "valid"))
-            t2 = clock()
+            batch.lap("device")
             masks = heatmaps = None
+            if bbox_aug:
+                boxes, scores, classes, valid = _merge_box_passes(
+                    cfg, batch, chunk, {"boxes": boxes, "scores": scores, "classes": classes,
+                                        "valid": valid})
+                if aux is not None:
+                    # the masks and keypoints follow the MERGED boxes
+                    out = batch.aux_on(host, tens, boxes, valid)
+                    out["classes"] = torch.from_numpy(classes).to(dev)
+                    batch.lap("aug_aux_passes")
             if "mask_prob" in out:
                 masks = gather_class_masks(out["mask_prob"], out["classes"]).cpu().numpy()
-            t3 = clock()
+            batch.lap("mask_gather")
             if "kps_heatmaps" in out:
                 heatmaps = out["kps_heatmaps"].cpu().numpy()
+            batch.lap("kps_copy")
+            if mask_aug and masks is not None:
+                masks = _aux_aug(cfg, batch, t.MASK_AUG, masks, boxes, valid, classes, "mask")
+            if kps_aug and heatmaps is not None:
+                heatmaps = _aux_aug(cfg, batch, t.KPS_AUG, heatmaps, boxes, valid, classes,
+                                    "kps")
             t4 = clock()
             paste_s = rle_s = vis_s = decode_s = 0.0
             for j, e in enumerate(chunk):
@@ -242,9 +442,7 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
                     vis_s += clock() - tv
             t5 = clock()
             batches += 1
-            for name, sec in (("load_resize", t1 - t0), ("device", t2 - t1),
-                              ("mask_gather", t3 - t2), ("kps_copy", t4 - t3),
-                              ("kps_decode", decode_s), ("paste", paste_s), ("rle", rle_s),
+            for name, sec in (("kps_decode", decode_s), ("paste", paste_s), ("rle", rle_s),
                               ("dicts", t5 - t4 - decode_s - paste_s - rle_s - vis_s),
                               ("vis", vis_s)):
                 split[name] += sec
@@ -341,6 +539,25 @@ def _refuse_unported_evaluator(cfg, name: str) -> None:
                               "yet (ROADMAP.md Queue 1 item 9)")
 
 
+def attach_test_proposals(cfg, roidb: List[dict], name: str) -> None:
+    """Fast R-CNN: the TEST.PROPOSAL_FILES entry of dataset ``name``
+    attached to ``roidb``, the first TEST.PROPOSAL_LIMIT of each image
+    (sad_tpu/eval/test_engine.py:543-565). The files pair positionally with
+    TEST.DATASETS, and a wrong file would silently give every image zero
+    proposals (an image-id mismatch), so an unpaired dataset raises."""
+    from .rpn_generator import add_proposals_to_roidb
+
+    if name not in cfg.TEST.DATASETS:
+        raise ValueError(f"TEST.PROPOSAL_FILES is set but dataset {name!r} is not in "
+                         f"TEST.DATASETS {cfg.TEST.DATASETS}: cannot pick its proposal file")
+    idx = list(cfg.TEST.DATASETS).index(name)
+    if idx >= len(cfg.TEST.PROPOSAL_FILES):
+        raise ValueError("TEST.PROPOSAL_FILES must pair 1:1 with TEST.DATASETS (got "
+                         f"{len(cfg.TEST.PROPOSAL_FILES)} files, dataset {name!r} is index "
+                         f"{idx})")
+    add_proposals_to_roidb(roidb, cfg.TEST.PROPOSAL_FILES[idx], top_k=cfg.TEST.PROPOSAL_LIMIT)
+
+
 def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_size: int = 8,
                         output_dir: Optional[str] = None,
                         im_range: Optional[Tuple[int, int]] = None,
@@ -362,15 +579,13 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
     name = dataset_name or cfg.TEST.DATASETS[0]
     _refuse_unported_inference(cfg)
     _refuse_unported_evaluator(cfg, name)
-    if cfg.TEST.PROPOSAL_FILES and not cfg.MODEL.FASTER_RCNN:
-        raise NotImplementedError(
-            "TEST.PROPOSAL_FILES (Fast R-CNN on precomputed proposals, "
-            "eval/rpn_generator.add_proposals_to_roidb) is not ported to sad_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 8)")
     ds = CocoDataset(name)
     roidb = ds.get_roidb(include_gt=False)
     if im_range is not None:
         roidb = roidb[im_range[0]:im_range[1]]
+    if cfg.TEST.PROPOSAL_FILES:
+        # before the roidb is sharded: each rank serves its own images' proposals
+        attach_test_proposals(cfg, roidb, name)
     vis_dir = (os.path.join(output_dir or get_output_dir(cfg, training=False), "vis")
                if cfg.VIS else None)
     timing: Dict[str, float] = {}

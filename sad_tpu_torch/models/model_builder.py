@@ -4,9 +4,12 @@ sad_tpu/models/model_builder.py:139-182).
 
 'retinanet' and 'distillation' both build a RetinaNet: for distillation,
 call create_model once with the teacher config and once with the student
-config. 'generalized_rcnn' with FPN builds a GeneralizedRCNN (Faster / Mask /
-Keypoint R-CNN). RPN-only models, the single-scale (C4) and VGG bodies and
-R-FCN are not ported yet.
+config. 'generalized_rcnn' with FPN builds a GeneralizedRCNN (Fast / Faster /
+Mask / Keypoint R-CNN), and so does 'rpn' (RPN-only proposals: the same tree,
+of which test_net runs the proposal stage), as sad_tpu's create_model does
+(sad_tpu/models/model_builder.py:40-46); the old type spellings that
+sad_tpu's config aliases to them normalise here too. The single-scale (C4)
+and VGG bodies and R-FCN are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..config.config import _TYPE_ALIASES
 from ..device import get_device
 from .arch import arch_from_config
 from .rcnn import GeneralizedRCNN
@@ -32,19 +36,25 @@ def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
     in cfg.COMPUTE_DTYPE with the float32 parameters cast per layer; for
     inference the model may be cast once with ``model.to(compute_dtype(cfg))``
     after loading weights."""
-    mtype = cfg.MODEL.TYPE
+    # deprecated type spellings normalise at load_cfg; here too, for configs
+    # assembled without it
+    mtype = _TYPE_ALIASES.get(cfg.MODEL.TYPE, cfg.MODEL.TYPE)
+    if mtype == "generalized_rcnn" and cfg.MODEL.RPN_ONLY:
+        raise NotImplementedError(
+            "MODEL.RPN_ONLY with MODEL.TYPE 'generalized_rcnn': sad_tpu dispatches "
+            "RPN-only on MODEL.TYPE 'rpn' alone and ignores the flag; set MODEL.TYPE 'rpn' "
+            "(ROADMAP.md Queue 3)")
     with torch.device(get_device(device)):
         if mtype in ("retinanet", "distillation"):
             model = RetinaNet(arch_from_config(cfg))
-        elif mtype == "generalized_rcnn" and cfg.FPN.FPN_ON and not cfg.MODEL.RPN_ONLY:
+        elif mtype in ("generalized_rcnn", "rpn") and cfg.FPN.FPN_ON:
             _check_head_strings_fpn(cfg)
             model = GeneralizedRCNN(cfg)
         else:
             raise NotImplementedError(
-                f"MODEL.TYPE={mtype!r} (FPN_ON={cfg.FPN.FPN_ON}, RPN_ONLY="
-                f"{cfg.MODEL.RPN_ONLY}) is not ported to sad_tpu_torch yet: RPN-only "
-                "models, single-scale (C4) and VGG bodies and R-FCN wait (ROADMAP.md "
-                "Queue 1)"
+                f"MODEL.TYPE={mtype!r} (FPN_ON={cfg.FPN.FPN_ON}) is not ported to "
+                "sad_tpu_torch yet: single-scale (C4) and VGG bodies and R-FCN wait "
+                "(ROADMAP.md Queue 1 item 8)"
             )
     init_weights(model, generator)
     return model.eval()

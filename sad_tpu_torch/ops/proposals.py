@@ -77,6 +77,24 @@ def generate_proposals(
     return boxes[idx], torch.where(valid, top_scores[idx], 0.0), valid
 
 
+def stack_level_problems(prop_levels):
+    """The (level x image) NMS problems of ``prop_levels`` stacked level-major
+    and padded to the longest level: boxes (L*B, k, 4), scores (L*B, k) and
+    the masked scores the NMS ranks (NEG_INF where a candidate is padding or
+    was masked)."""
+    kmax = max(bx.shape[1] for _, bx, _, _ in prop_levels)
+
+    def padk(x, fill):
+        pad = kmax - x.shape[1]
+        if pad == 0:
+            return x
+        return torch.cat([x, x.new_full((x.shape[0], pad) + x.shape[2:], fill)], dim=1)
+
+    return (torch.cat([padk(bx, 0.0) for _, bx, _, _ in prop_levels]),
+            torch.cat([padk(ts, 0.0) for _, _, ts, _ in prop_levels]),
+            torch.cat([padk(ms, NEG_INF) for _, _, _, ms in prop_levels]))
+
+
 def nms_levels_batched(
     prop_levels: Sequence[Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor]],
     nms_thresh: float,
@@ -88,17 +106,7 @@ def nms_levels_batched(
     NEG_INF candidates that can be neither picked nor suppress anything.
     Returns ({lvl: boxes (B, post_n, 4)}, {lvl: scores}, {lvl: valid})."""
     b = prop_levels[0][1].shape[0]
-    kmax = max(bx.shape[1] for _, bx, _, _ in prop_levels)
-
-    def padk(x, fill):
-        pad = kmax - x.shape[1]
-        if pad == 0:
-            return x
-        return torch.cat([x, x.new_full((x.shape[0], pad) + x.shape[2:], fill)], dim=1)
-
-    all_boxes = torch.cat([padk(bx, 0.0) for _, bx, _, _ in prop_levels])
-    all_top = torch.cat([padk(ts, 0.0) for _, _, ts, _ in prop_levels])
-    all_masked = torch.cat([padk(ms, NEG_INF) for _, _, _, ms in prop_levels])
+    all_boxes, all_top, all_masked = stack_level_problems(prop_levels)
     keep_idx, keep_valid = nms_multi(all_boxes, all_masked, nms_thresh, post_nms_top_n)
     keep = keep_idx.long()
     kept_boxes = torch.gather(all_boxes, 1, keep[..., None].expand(-1, -1, 4))

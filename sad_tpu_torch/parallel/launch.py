@@ -3,6 +3,10 @@ would, and wait for all of them with a timeout.
 
     results = spawn(fn, world=2, args=(...), device="cpu", timeout_s=120)
 
+Ranks run on the card unless ``device="cpu"`` asks for the CPU: with the
+default ``cuda`` on a host without one, ``spawn`` raises before it starts a
+rank.
+
 Each rank process gets torchrun's RANK / WORLD_SIZE / LOCAL_RANK in its
 environment, joins a process group that meets through a ``file://`` store
 in a fresh temporary directory (no port, so runs side by side cannot
@@ -97,7 +101,7 @@ def _end(procs) -> None:
         p.join()
 
 
-def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cpu",
+def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda",
           backend: Optional[str] = None, local_ranks: Optional[Sequence[int]] = None,
           timeout_s: float = 120.0, threads: Optional[int] = None,
           log_prefix: Optional[str] = None) -> List[Any]:
@@ -105,6 +109,10 @@ def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cpu",
     ``device`` ('cpu' or 'cuda') picks each rank's device and the default
     backend (gloo, NCCL); ``threads`` sets torch's intra-op threads a rank."""
     import multiprocessing as mp
+
+    from ..device import get_device
+
+    get_device(device.split(":")[0])  # no card: raise here, before any rank starts
 
     local_ranks = list(range(world)) if local_ranks is None else list(local_ranks)
     if len(local_ranks) != world:

@@ -3,9 +3,10 @@
     python -m sad_tpu_torch.tools.profile_infer --cfg sad_tpu_torch/configs/retinanet_R-50-FPN_student.yaml \
         [--batch 8] [--iters 20] [--seed 0] [--out profile_student.json]
 
-``--cfg`` takes the RetinaNet configs and the three R-CNN ones
+``--cfg`` takes the RetinaNet configs and the R-CNN ones
 (``e2e_faster_rcnn_R-50-FPN.yaml``, ``e2e_mask_rcnn_R-50-FPN.yaml``,
-``e2e_keypoint_rcnn_R-50-FPN.yaml``). Seeded
+``e2e_keypoint_rcnn_R-50-FPN.yaml``, and ``fast_rcnn_R-50-FPN.yaml`` on
+TEST.PROPOSAL_LIMIT seeded proposals an image, spread over its content). Seeded
 random weights in the config's compute dtype and seeded uint8 canvases of the
 config's landscape test canvas. Prints, and writes as JSON:
 - imgs/s: median and quartiles of --iters timed batches (host clock around
@@ -14,7 +15,9 @@ config's landscape test canvas. Prints, and writes as JSON:
   decode before NMS, NMS, gather. R-CNN: normalise, backbone+FPN, RPN head,
   candidates, RPN NMS, collect, RoIAlign, box head, decode, detection NMS,
   gather, with MODEL.MASK_ON mask RoIAlign and mask head, and with
-  MODEL.KEYPOINTS_ON keypoint RoIAlign and keypoint head;
+  MODEL.KEYPOINTS_ON keypoint RoIAlign and keypoint head; Fast R-CNN:
+  normalise, backbone+FPN, RoI levels, RoIAlign, box head, decode, detection
+  NMS, gather;
 - peak device memory of the timed batches (torch.cuda.max_memory_allocated);
 - from a torch.profiler run of 5 batches: kernel time by category (conv,
   matmul, elementwise, top-k/sort, NMS kernel, RoIAlign kernel, other), the
@@ -46,19 +49,19 @@ import numpy as np
 import torch
 
 from sad_tpu_torch.config import load_cfg
-from sad_tpu_torch.data.synthetic import random_canvases
+from sad_tpu_torch.data.synthetic import random_canvases, random_proposals
 from sad_tpu_torch.device import get_device, nvidia_smi_line, set_tf32
 from sad_tpu_torch.eval.inference import (
     decode_candidates, device_normalize, gather_detections, make_inference_fn,
 )
 from sad_tpu_torch.eval.rcnn_inference import (
-    decode_rcnn_candidates, keypoint_roi_features, make_rcnn_inference_fn, mask_roi_features,
-    rcnn_gather_detections,
+    decode_rcnn_candidates, fast_rcnn_outputs, keypoint_roi_features, make_rcnn_inference_fn,
+    mask_roi_features, rcnn_gather_detections,
 )
 from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
 from sad_tpu_torch.models import compute_dtype, create_model
 from sad_tpu_torch.ops.nms import batched_nms_multi
-from sad_tpu_torch.ops.proposals import nms_levels_batched
+from sad_tpu_torch.ops.proposals import map_rois_to_fpn_levels, nms_levels_batched
 
 logger = logging.getLogger(__name__)
 
@@ -97,11 +100,13 @@ _SPREAD_STD = {"rpn_cls": 2.0, "rpn_bbox": 0.5, "cls_score": 3.0, "bbox_pred": 1
 
 
 @torch.no_grad()
-def spread_rcnn_outputs(cfg, model, images, im_hw, content_hw) -> dict:
+def spread_rcnn_outputs(cfg, model, images, im_hw, content_hw, proposals=None,
+                        prop_valid=None) -> dict:
     """Rescale the weights and biases of the RPN's two output convs and the
     box head's two output layers so that their outputs on this batch have the
     stds of ``_SPREAD_STD``; the RPN first, because the box head sees the
-    rois it makes. Returns the factors."""
+    rois it makes (Fast R-CNN: the box head sees ``proposals``). Returns the
+    factors."""
     def rescale(layer, out, target):
         factor = target / float(out.float().std())
         layer.weight.mul_(factor)
@@ -120,7 +125,8 @@ def spread_rcnn_outputs(cfg, model, images, im_hw, content_hw) -> dict:
                             torch.cat([v.reshape(-1) for v in deltas.values()]),
                             _SPREAD_STD["rpn_bbox"]),
     }
-    out = model(x, im_hw)
+    out = (model(x, im_hw) if proposals is None
+           else fast_rcnn_outputs(cfg, model, x, proposals, prop_valid))
     factors["cls_score"] = rescale(model.box_head.cls_score, out["cls_score"],
                                    _SPREAD_STD["cls_score"])
     factors["bbox_pred"] = rescale(model.box_head.bbox_pred, out["bbox_pred"],
@@ -132,12 +138,22 @@ def is_rcnn(cfg) -> bool:
     return cfg.MODEL.TYPE == "generalized_rcnn"
 
 
+def seeded_proposals(rng: np.random.RandomState, content_hw: torch.Tensor, n: int, device):
+    """Fast R-CNN's inputs beside the canvases: ``n`` proposals an image
+    spread over its content in network-input coordinates (the stand-in for
+    a proposal file) and their valid flags, all on."""
+    props = np.stack([random_proposals(rng, float(w), float(h), n)
+                      for h, w in content_hw.cpu().numpy()])
+    return (torch.from_numpy(props).to(device),
+            torch.ones(props.shape[:2], dtype=torch.bool, device=device))
+
+
 def seeded_inference(cfg_path: str, seed: int, batch: int, device):
     """The config, its model with random weights from ``seed`` in the
     compute dtype (an R-CNN's output layers rescaled by
     ``spread_rcnn_outputs``), the inference function of it, and the arguments
     of one batch of seeded uint8 canvases of the config's landscape test
-    canvas."""
+    canvas (for Fast R-CNN then its seeded proposals and their flags)."""
     cfg = load_cfg(cfg_path)
     model = create_model(cfg, device, torch.Generator(device=device).manual_seed(seed))
     model.to(compute_dtype(cfg))
@@ -145,7 +161,10 @@ def seeded_inference(cfg_path: str, seed: int, batch: int, device):
     b = random_canvases(np.random.RandomState(seed), batch, (ch, cw), device)
     args = (b["data"], b["im_hw"], b["im_scale"], b["content_hw"])
     if is_rcnn(cfg):
-        spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+        if not cfg.MODEL.FASTER_RCNN:
+            args += seeded_proposals(np.random.RandomState(seed + 1), b["content_hw"],
+                                     cfg.TEST.PROPOSAL_LIMIT, device)
+        spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"], *args[4:])
         return cfg, model, make_rcnn_inference_fn(cfg, model), args
     return cfg, model, make_inference_fn(cfg, model), args
 
@@ -185,16 +204,33 @@ def retinanet_stages(cfg, model, x):
 
 
 def rcnn_stages(cfg, model, x):
-    """(name, fn) stages of one Faster / Mask R-CNN batch, the steps of
-    GeneralizedRCNN.forward and make_rcnn_inference_fn one by one; the last,
-    untimed in the report, returns the number of valid detection-NMS
-    candidates."""
-    data, im_hw, im_scale, content_hw = x
+    """(name, fn) stages of one Fast / Faster / Mask / Keypoint R-CNN batch,
+    the steps of GeneralizedRCNN.forward (or, for Fast R-CNN, of
+    fast_rcnn_outputs on the proposals x[4], x[5]) and make_rcnn_inference_fn
+    one by one; the last, untimed in the report, returns the number of valid
+    detection-NMS candidates."""
+    data, im_hw, im_scale, content_hw = x[:4]
     st = {}
 
     def keep(key, value):
         st[key] = value
         return value
+
+    if not cfg.MODEL.FASTER_RCNN:  # Fast R-CNN: x holds the proposals
+        f = cfg.FPN
+        levels = lambda _: map_rois_to_fpn_levels(  # noqa: E731
+            x[4], f.ROI_MIN_LEVEL, f.ROI_MAX_LEVEL, f.ROI_CANONICAL_SCALE, f.ROI_CANONICAL_LEVEL)
+        front = [("roi_levels", levels),
+                 ("roi_align", lambda lv: roi_align((x[4], None, x[5], lv)))]
+    else:
+        front = [
+            ("rpn_head", lambda feats: model.rpn_outputs(feats)),
+            ("candidates", lambda o: model.rpn_candidates(*o, im_hw)),
+            ("rpn_nms", lambda pl: nms_levels_batched(pl, cfg.TEST.RPN_NMS_THRESH,
+                                                      cfg.TEST.RPN_POST_NMS_TOP_N)),
+            ("collect", lambda kept: model.collect(*kept)),
+            ("roi_align", lambda props: roi_align(props)),
+        ]
 
     def roi_align(props):
         st["props"] = props
@@ -212,12 +248,7 @@ def rcnn_stages(cfg, model, x):
     stages = [
         ("normalize", lambda _: device_normalize(cfg, data, content_hw)),
         ("backbone_fpn", lambda im: keep("nchw", model._features(im))),
-        ("rpn_head", lambda feats: model.rpn_outputs(feats)),
-        ("candidates", lambda o: model.rpn_candidates(*o, im_hw)),
-        ("rpn_nms", lambda pl: nms_levels_batched(pl, cfg.TEST.RPN_NMS_THRESH,
-                                                  cfg.TEST.RPN_POST_NMS_TOP_N)),
-        ("collect", lambda kept: model.collect(*kept)),
-        ("roi_align", roi_align),
+        *front,
         ("box_head", lambda rf: model.box_head(rf)),
         ("decode", decode),
         ("detection_nms", lambda c: batched_nms_multi(*c, cfg.TEST.NMS,

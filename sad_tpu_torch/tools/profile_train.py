@@ -54,7 +54,7 @@ import torch
 from sad_tpu_torch.config import load_cfg
 from sad_tpu_torch.data.minibatch import RetinaNetMinibatchBuilder
 from sad_tpu_torch.data.rpn_minibatch import RCNNMinibatchBuilder
-from sad_tpu_torch.data.synthetic import random_train_entries
+from sad_tpu_torch.data.synthetic import random_proposals, random_train_entries
 from sad_tpu_torch.device import get_device, nvidia_smi_line, set_tf32
 from sad_tpu_torch.models import create_model
 from sad_tpu_torch.tools.profile_infer import (
@@ -73,6 +73,7 @@ TEACHER_CFG = os.path.join(REPO, "sad_tpu_torch/configs/retinanet_R-101-FPN_teac
 BENCH_OPTS = ["COMPUTE_DTYPE", "bfloat16", "PIXEL_STD", "(57.375,57.12,58.395)",
               "TRAIN.WEIGHTS", ""]
 BENCH_LR = 1e-6
+PROPOSALS_A_TRAIN_IMAGE = 2000  # Fast R-CNN: a proposal file's count (RCNNMinibatchBuilder's max_proposals)
 
 _CATEGORIES = (
     ("cls_loss_kernels", ("cls_losses",)),
@@ -148,7 +149,8 @@ class SeededRCNNTrainStep:
 
 def seeded_rcnn_train_step(cfg_yaml: str, seed: int = 0, n_groups: int = 4, device="cuda",
                            opts: Sequence[str] = ()) -> SeededRCNNTrainStep:
-    """The R-CNN of ``cfg_yaml`` with random float32 weights from ``seed``
+    """The R-CNN of ``cfg_yaml`` (Fast R-CNN too: then each image carries
+    seeded proposals) with random float32 weights from ``seed``
     and its four output layers rescaled (profile_infer.spread_rcnn_outputs,
     so that the RPN spreads its scores and fills its slots), its training
     step and zero momentum, and one batch of n_groups x TRAIN.IMS_PER_BATCH
@@ -163,6 +165,13 @@ def seeded_rcnn_train_step(cfg_yaml: str, seed: int = 0, n_groups: int = 4, devi
         np.random.RandomState(seed), n_images, max_side=cfg.TRAIN.MAX_SIZE,
         num_classes=cfg.MODEL.NUM_CLASSES, polygons=cfg.MODEL.MASK_ON,
         keypoints=cfg.KRCNN.NUM_KEYPOINTS if cfg.MODEL.KEYPOINTS_ON else 0)
+    if not cfg.MODEL.FASTER_RCNN:
+        # Fast R-CNN: PROPOSALS_A_TRAIN_IMAGE seeded proposals an image, a
+        # quarter of them near its gt boxes
+        prop_rng = np.random.RandomState(seed + 1)
+        for e in entries:
+            e["proposal_boxes"] = random_proposals(prop_rng, e["width"], e["height"],
+                                                   PROPOSALS_A_TRAIN_IMAGE, e["boxes"])
     built = RCNNMinibatchBuilder(cfg, device_normalize=True).build(
         entries, seed=seed, images_bgr=images)
     batch = batch_to_torch(built, dev)
@@ -178,7 +187,8 @@ RCNN_STAGES = ("normalize", "backbone_fpn", "rpn_head_losses", "proposals", "sam
 
 
 def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
-    """Device ms of each stage of one R-CNN step, from CUDA events."""
+    """Device ms of each stage of one R-CNN step, from CUDA events (for Fast
+    R-CNN the RPN stages are empty)."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(RCNN_STAGES) + 1)]
     step, batch = run.step, run.batch
     ev[0].record()
@@ -186,9 +196,14 @@ def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
     ev[1].record()
     nchw = step.backbone(data)
     ev[2].record()
-    logits, deltas, total, _ = step.rpn(nchw, batch)
-    ev[3].record()
-    boxes, valid = step.proposals(logits, deltas, batch)
+    if run.cfg.MODEL.FASTER_RCNN or "proposal_boxes" not in batch:
+        logits, deltas, total, _ = step.rpn(nchw, batch)
+        ev[3].record()
+        boxes, valid = step.proposals(logits, deltas, batch)
+    else:  # Fast R-CNN: no RPN stage, the batch's proposals
+        total = 0.0
+        ev[3].record()
+        boxes, valid = batch["proposal_boxes"], batch["proposal_valid"]
     ev[4].record()
     sampled = step.sample(boxes, valid, batch)
     ev[5].record()

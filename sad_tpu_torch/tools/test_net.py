@@ -22,11 +22,25 @@ the W ranks, one card each; rank 0 merges the detections in the
 one-process order, evaluates and writes the files (or the pseudo-label
 json). Without the flag rank 0 alone serves; without torchrun one process
 serves.
+
+MODEL.TYPE 'rpn' (RPN-only; ref: sad_tpu/tools/test_net.py:94-112) writes
+the proposals over TEST.DATASETS[0] to OUTPUT_DIR/test/<datasets>/
+rpn_proposals.pkl, scores their recall against the dataset's ground truth
+(eval/rpn_generator.evaluate_box_proposals), logs AR and returns the recall
+dict; rank 0 alone serves under torchrun. The file is the TRAIN /
+TEST.PROPOSAL_FILES of a Fast R-CNN config (MODEL.FASTER_RCNN False):
+
+    python -m sad_tpu_torch.tools.test_net --cfg sad_tpu_torch/configs/rpn_R-50-FPN.yaml
+    python -m sad_tpu_torch.tools.train_net --cfg sad_tpu_torch/configs/fast_rcnn_R-50-FPN.yaml \
+        TRAIN.PROPOSAL_FILES "('<rpn train-set output>/rpn_proposals.pkl',)"
+    python -m sad_tpu_torch.tools.test_net --cfg sad_tpu_torch/configs/fast_rcnn_R-50-FPN.yaml \
+        --weights <model_final.pkl> TEST.PROPOSAL_FILES "('<rpn output>/rpn_proposals.pkl',)"
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 
@@ -34,7 +48,8 @@ import torch
 
 from ..config import load_cfg
 from ..config.config import get_output_dir
-from ..eval import test_engine
+from ..data.dataset import CocoDataset
+from ..eval import rpn_generator, test_engine
 from ..eval.task_evaluation import check_expected_results
 from ..models.model_builder import compute_dtype, create_model
 from ..parallel.distributed import init_distributed, rank_device
@@ -80,6 +95,21 @@ def evaluate_and_check(cfg, model, batch_size: int = 8, im_range=None,
     return results
 
 
+def rpn_proposals_and_recall(cfg, model, batch_size: int = 8):
+    """RPN-only: the proposals over TEST.DATASETS[0] into
+    OUTPUT_DIR/test/<datasets>/rpn_proposals.pkl and their recall against
+    its ground truth (rpn_generator.evaluate_box_proposals's dict, with
+    'proposal_file')."""
+    logger = logging.getLogger("test_net")
+    out_file = os.path.join(get_output_dir(cfg, training=False), "rpn_proposals.pkl")
+    props = rpn_generator.generate_rpn_on_dataset(cfg, model, batch_size=batch_size,
+                                                  output_file=out_file)
+    gt_roidb = CocoDataset(cfg.TEST.DATASETS[0]).get_roidb(include_gt=True)
+    rec = rpn_generator.evaluate_box_proposals(props, gt_roidb)
+    logger.info("Proposal AR=%.4f over %d gt boxes -> %s", rec["ar"], rec["num_pos"], out_file)
+    return dict(rec, proposal_file=out_file)
+
+
 def main(argv=None):
     logger = setup_logging("test_net")
     args = parse_args(argv)
@@ -87,15 +117,14 @@ def main(argv=None):
     if args.vis:
         opts += ["VIS", "True"]
     cfg = load_cfg(args.cfg_file, opts or None)
-    if cfg.MODEL.TYPE == "rpn":
-        raise NotImplementedError(
-            "MODEL.TYPE='rpn' (RPN-only proposals and their recall, eval/rpn_generator.py) is "
-            "not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+    rpn_only = cfg.MODEL.TYPE == "rpn"
     dist_info = init_distributed(device=args.device)
     if args.multi_gpu_testing and dist_info.world == 1:
         logger.info("--multi-gpu-testing without torchrun: one process serves")
-    if dist_info.world > 1 and not args.multi_gpu_testing and not dist_info.is_main:
-        logger.info("rank %d: rank 0 serves (no --multi-gpu-testing)", dist_info.rank)
+    if dist_info.world > 1 and (rpn_only or not args.multi_gpu_testing) and (
+            not dist_info.is_main):
+        logger.info("rank %d: rank 0 serves (%s)", dist_info.rank,
+                    "RPN-only" if rpn_only else "no --multi-gpu-testing")
         return None
     dev = rank_device(args.device)
     model = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(0))
@@ -109,6 +138,8 @@ def main(argv=None):
         logger.info("Loaded weights: %s", weights)
     model.to(compute_dtype(cfg))
 
+    if rpn_only:
+        return rpn_proposals_and_recall(cfg, model, args.batch_size)
     if args.pseudo_out:
         test_engine.generate_pseudo_labels(
             cfg, model, cfg.TEST.DATASETS[0], args.pseudo_out,

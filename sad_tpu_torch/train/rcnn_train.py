@@ -31,9 +31,13 @@ groups times W), the box head's accuracy divides by the live rois of all
 ranks, the sampler draws the global (B, P + G) priorities and takes the
 rank's rows, and the gradients are summed over the ranks before the update.
 
+Fast R-CNN (MODEL.FASTER_RCNN False, a batch with 'proposal_boxes'; ref:
+sad_tpu/train/rcnn_train.py:224-270): no RPN head and no RPN losses; the
+sampler draws from the precomputed proposals and the gt boxes, then the box
+branch and the mask branch as above.
+
 Not ported yet, each raising NotImplementedError (ROADMAP.md Queue 1 item 8):
-the single-scale (C4) and R-FCN branches, training from precomputed
-proposals, TRAIN.OHEM.
+the single-scale (C4) and R-FCN branches, TRAIN.OHEM.
 
 Batch (tensors on the model's device, NHWC; data/rpn_minibatch.py):
   data (B, H, W, 3) float32 normalised, or data_u8 (B, H, W, 3) uint8 +
@@ -42,7 +46,9 @@ Batch (tensors on the model's device, NHWC; data/rpn_minibatch.py):
   rpn_bbox_inside_weights / rpn_bbox_outside_weights {lvl: (B, H_l, W_l, A, 4)};
   gt_boxes (B, G, 4), gt_classes (B, G) with 0 = padding;
   for Mask R-CNN gt_mask_rasters (B, G, Hm, Wm) and gt_mask_stride (a number);
-  for Keypoint R-CNN gt_keypoints (B, G, K, 3) [x, y, visibility].
+  for Keypoint R-CNN gt_keypoints (B, G, K, 3) [x, y, visibility];
+  for Fast R-CNN proposal_boxes (B, P, 4) in network-input coordinates and
+  proposal_valid (B, P) in place of the RPN targets.
 """
 
 from __future__ import annotations
@@ -147,9 +153,6 @@ class RCNNTrainStep:
         if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN and cfg.FPN.MULTILEVEL_ROIS):
             raise NotImplementedError("the single-scale (C4 / R-FCN) R-CNN training step"
                                       + _LATER)
-        if not cfg.MODEL.FASTER_RCNN:
-            raise NotImplementedError("MODEL.FASTER_RCNN False: training from precomputed "
-                                      "proposals" + _LATER)
         if cfg.TRAIN.OHEM:
             raise NotImplementedError("TRAIN.OHEM" + _LATER)
         self.cfg = cfg
@@ -299,8 +302,13 @@ class RCNNTrainStep:
     def losses(self, batch, uniforms=None) -> Tuple[torch.Tensor, Metrics]:
         """Forward and every loss: (total, metrics)."""
         nchw = self.backbone(self.inputs(batch))
-        logits, deltas, total, metrics = self.rpn(nchw, batch)
-        boxes, valid = self.proposals(logits, deltas, batch)
+        if not self.cfg.MODEL.FASTER_RCNN and "proposal_boxes" in batch:
+            # Fast R-CNN: the RPN head and its losses are skipped entirely
+            total, metrics = 0.0, {}
+            boxes, valid = batch["proposal_boxes"], batch["proposal_valid"]
+        else:
+            logits, deltas, total, metrics = self.rpn(nchw, batch)
+            boxes, valid = self.proposals(logits, deltas, batch)
         sampled = self.sample(boxes, valid, batch, uniforms)
         feats = self.model.roi_features({l: f.permute(0, 2, 3, 1) for l, f in nchw.items()})
         box_total, box_metrics = self.box_branch(feats, sampled)
@@ -349,7 +357,7 @@ class RCNNTrainStep:
 def make_rcnn_train_step(cfg, model: nn.Module, n_groups: Optional[int] = None,
                          generator: Optional[torch.Generator] = None, rank: int = 0,
                          world: int = 1) -> RCNNTrainStep:
-    """The training step of a Faster / Mask / Keypoint R-CNN ``model`` (ref: sad_tpu
+    """The training step of a Fast / Faster / Mask / Keypoint R-CNN ``model`` (ref: sad_tpu
     make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS; over
     ``world`` ranks it is the rank's own count."""
     return RCNNTrainStep(cfg, model, n_groups, generator, rank, world)

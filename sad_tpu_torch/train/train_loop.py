@@ -198,6 +198,15 @@ def _make_loader(cfg, teacher_cfg, distill: bool, is_rcnn: bool, start_iter: int
         gt_min_area=cfg.TRAIN.GT_MIN_AREA,
         require_keypoints=cfg.MODEL.KEYPOINTS_ON,
     )
+    if is_rcnn and cfg.TRAIN.PROPOSAL_FILES and not cfg.MODEL.FASTER_RCNN:
+        # Fast R-CNN: each dataset's precomputed proposals, one file a
+        # dataset (sad_tpu/train/train_loop.py:145-166; ref roidb.py
+        # combined_roidb_for_training zips TRAIN.DATASETS with the files)
+        from ..eval.rpn_generator import add_proposals_to_roidb
+
+        for dname, pf in zip(cfg.TRAIN.DATASETS, cfg.TRAIN.PROPOSAL_FILES):
+            add_proposals_to_roidb([e for e in roidb if e.get("dataset_name") == dname], pf,
+                                   crowd_thresh=cfg.TRAIN.CROWD_FILTER_THRESH)
     unlabeled = None
     if distill and cfg.DISTILLATION.UNLABEL_DISTILLATION:
         # the pseudo-labeled sets: images without a pseudo box are dropped
@@ -265,10 +274,12 @@ def train_model(
         raise ValueError(
             "TRAIN.CHECKPOINT_BACKEND must be 'pickle' or 'orbax'; got "
             f"{cfg.TRAIN.CHECKPOINT_BACKEND!r}")
-    if is_rcnn and cfg.TRAIN.PROPOSAL_FILES and not cfg.MODEL.FASTER_RCNN:
-        raise NotImplementedError(
-            "TRAIN.PROPOSAL_FILES: training from precomputed proposals is not ported to "
-            "sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+    if is_rcnn and cfg.TRAIN.PROPOSAL_FILES and not cfg.MODEL.FASTER_RCNN and (
+            len(cfg.TRAIN.PROPOSAL_FILES) != len(cfg.TRAIN.DATASETS)):
+        raise ValueError(
+            "TRAIN.PROPOSAL_FILES must pair 1:1 with TRAIN.DATASETS (got "
+            f"{len(cfg.TRAIN.PROPOSAL_FILES)} files for {len(cfg.TRAIN.DATASETS)} datasets; "
+            "ref roidb.py combined_roidb_for_training asserts the same)")
 
     # ----- models
     student = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(cfg.RNG_SEED))

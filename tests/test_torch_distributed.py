@@ -363,8 +363,21 @@ def test_spawn_fails_a_rank_that_raises_and_ends_a_hung_world():
     from sad_tpu_torch.parallel.launch import spawn
 
     with pytest.raises(RuntimeError, match="ZeroDivisionError"):
-        spawn(operator.truediv, W, (1, 0), timeout_s=TIMEOUT_S)
+        spawn(operator.truediv, W, (1, 0), device="cpu", timeout_s=TIMEOUT_S)
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="not done after"):
-        spawn(time.sleep, W, (600,), timeout_s=5.0)
+        spawn(time.sleep, W, (600,), device="cpu", timeout_s=5.0)
     assert time.monotonic() - t0 < 60
+
+
+def test_spawn_defaults_to_the_card_and_raises_without_one(tmp_path):
+    """Without ``device`` the ranks would run on the card: on a host without
+    one spawn raises before it starts a rank, and nothing runs on the CPU."""
+    from sad_tpu_torch.parallel.launch import spawn
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    marker = tmp_path / "ran"
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        spawn(marker.touch, W, (), timeout_s=TIMEOUT_S)
+    assert not marker.exists()

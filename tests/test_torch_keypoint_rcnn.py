@@ -435,11 +435,23 @@ def test_test_net_keypoints_match_sad_tpu(test_net_pair):
     assert len(os.listdir(os.path.join(got_dir, "vis"))) == 3
 
 
-def test_kps_aug_and_keypoint_confidence_refused(kps_split):
+def test_kps_aug_transforms_match_sad_tpu():
+    """KPS_AUG's transforms, each tagged downscaled / upscaled against
+    TEST.SCALES[0] for SCALE_SIZE_DEP (tests/test_torch_tta.py serves them)."""
+    from sad_tpu.eval import test_augmentation as jta
+    from sad_tpu_torch.eval import test_augmentation as ta
+
+    aug = {"ENABLED": True, "H_FLIP": True, "SCALES": (32, 64, 96), "MAX_SIZE": 160,
+           "SCALE_H_FLIP": True, "SCALE_SIZE_DEP": True}
+    jc, tc = kps_pair(dict(KPS, TEST=dict(TINY["TEST"], KPS_AUG=aug)))
+    got = ta.aux_aug_transforms(tc.TEST.KPS_AUG, tc)
+    assert got == jta.aux_aug_transforms(jc.TEST.KPS_AUG, jc) and len(got) == 7
+    assert [(t["ds"], t["us"]) for t in got[1:]] == [(True, False)] * 2 + [(False, False)] * 2 + [
+        (False, True)] * 2
+
+
+def test_keypoint_confidence_refused(kps_split):
     _, tc = kps_pair(dict(KPS, TEST=dict(TINY["TEST"], DATASETS=(kps_split,))))
-    with pytest.raises(NotImplementedError, match="TEST.KPS_AUG"):
-        test_engine.test_net_on_dataset(t_merge(tc, {"TEST": {"KPS_AUG": {"ENABLED": True}}}),
-                                        None)
     with pytest.raises(ValueError, match="KEYPOINT_CONFIDENCE"):
         test_engine.run_inference_on_roidb(
             t_merge(tc, {"KRCNN": dict(KRCNN, KEYPOINT_CONFIDENCE="box")}), None, [], {})

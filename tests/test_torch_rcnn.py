@@ -297,7 +297,6 @@ def test_full_width_state_dict_matches_flax_tree():
 @pytest.mark.parametrize("over,match", [
     ({"MODEL": {"KEYPOINTS_ON": True},
       "KRCNN": {"ROI_KEYPOINTS_HEAD": "keypoint_rcnn_heads.add_roi_pose_head_v0"}}, "keypoint"),
-    ({"MODEL": {"TYPE": "rpn", "RPN_ONLY": True}}, "RPN-only"),
     ({"FPN": {"FPN_ON": False}}, "single-scale"),
     ({"FAST_RCNN": {"ROI_BOX_HEAD": "fast_rcnn_heads.add_roi_Xconv1fc_gn_head"}}, "box head"),
     ({"FAST_RCNN": {"ROI_XFORM_METHOD": "RoIPoolF"}}, "RoIAlign"),
@@ -309,6 +308,18 @@ def test_unported_models_raise(over, match):
     tc = t_merge(t_merge(tcfg.Config(), TINY), merged)
     with pytest.raises(NotImplementedError, match=match):
         create_model(tc, "cpu")
+
+
+@pytest.mark.parametrize("mtype", ["rpn", "fpn_rpn"])
+def test_rpn_only_model_is_sad_tpus_tree(mtype):
+    """MODEL.TYPE 'rpn' (and sad_tpu's old spelling 'fpn_rpn') builds the
+    GeneralizedRCNN tree sad_tpu builds for it, leaf for leaf."""
+    jc, tc = cfg_pair(TYPE=mtype, RPN_ONLY=True)
+    params = rcnn_params(j_create_model(jc), seed=0)
+    want = {k: tuple(v.shape) for k, v in params_to_state_dict(params).items()}
+    port = create_model(tc, "cpu", torch.Generator().manual_seed(0))
+    assert isinstance(port, GeneralizedRCNN)
+    assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == want
 
 
 def test_keypoint_head_raises():

@@ -1,4 +1,4 @@
-"""Faster / Mask R-CNN serving as a whole: the port's decode and
+"""Fast / Faster / Mask R-CNN serving as a whole: the port's decode and
 make_rcnn_inference_fn against sad_tpu's on converted float32 tiny weights
 (sad_tpu's NMS is its Pallas kernel interpreted on this CPU, its RoIAlign the
 dense form it takes here).
@@ -13,25 +13,32 @@ convolution and product in another order. Over the model seeds 20..31, both
 models, the kept sets were identical (no IoU landed within float32 rounding
 of an NMS threshold, so no seed had to be avoided) and the largest
 differences were 2.8e-5 in a score and 6.2e-4 px in a box; seed 21 is used
-here."""
+here. Fast R-CNN (MODEL.FASTER_RCNN False) serves 40 seeded proposals an
+image in place of the RPN's. The mask and keypoint heads on fixed boxes
+(make_aux_on_boxes_fn) and a test-time-augmentation pass's batch are held
+to sad_tpu's as well."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import sad_tpu.config as jcfg
 from sad_tpu.config import register_dataset
 from sad_tpu.config.config import merge_cfg_from_dict as j_merge
 from sad_tpu.data.dataset import CocoDataset as JCocoDataset
 from sad_tpu.data.synth_coco import generate_synthetic_coco
+from sad_tpu.eval import rcnn_inference as j_rcnn_inference
 from sad_tpu.eval.rcnn_inference import decode_rcnn_detections as j_decode
 from sad_tpu.eval.rcnn_inference import make_rcnn_inference_fn as j_make_rcnn_inference_fn
+from sad_tpu.eval.test_engine import prepare_test_batch as j_prepare_test_batch
 from sad_tpu.eval.test_engine import run_inference_on_roidb as j_run_inference_on_roidb
 from sad_tpu.models import create_model as j_create_model
 import sad_tpu_torch.config as tcfg
 from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.convert import load_params
 from sad_tpu_torch.data.dataset import CocoDataset
+from sad_tpu_torch.data.synthetic import random_proposals
 from sad_tpu_torch.eval import rcnn_inference, test_engine
 from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_detections, make_rcnn_inference_fn
 from sad_tpu_torch.models import GeneralizedRCNN
@@ -93,13 +100,21 @@ def test_cand_topk_cut_keeps_the_full_result_when_few_candidates_pass():
         assert torch.equal(cut[key], full[key]), key
 
 
-@pytest.fixture(scope="module", params=["faster", "mask"])
+@pytest.fixture(scope="module", params=["faster", "mask", "fast_mask"])
 def slice_pair(request):
-    jc, tc = cfg_pair(MASK_ON=request.param == "mask")
+    """Faster R-CNN, Mask R-CNN, and Fast R-CNN with the mask head on 40
+    seeded proposals an image (MODEL.FASTER_RCNN False; a tenth of the slots
+    invalid)."""
+    fast = request.param == "fast_mask"
+    jc, tc = cfg_pair(MASK_ON=request.param != "faster", FASTER_RCNN=not fast)
     jmodel = j_create_model(jc)
     params = rcnn_params(jmodel, seed=21)
     port = load_params(GeneralizedRCNN(tc).eval(), params)
     batch = canvases(0, n=2, canvas=(128, 192))
+    if fast:
+        rng = np.random.RandomState(7)
+        props = np.stack([random_proposals(rng, w, h, 40) for h, w in batch[3]])
+        batch = batch + (props, rng.rand(2, 40) > 0.1)
     ref = j_make_rcnn_inference_fn(jc, jmodel)(params, *(jnp.asarray(a) for a in batch))
     got = make_rcnn_inference_fn(tc, port)(*(torch.from_numpy(a) for a in batch))
     return jc, tc, {k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in got.items()}
@@ -167,7 +182,6 @@ def test_run_inference_on_roidb_box_results(synth_dataset):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"MODEL": {"FASTER_RCNN": False}}, "precomputed proposals"),
     ({"MODEL": {"KEYPOINTS_ON": True}, "FPN": {"FPN_ON": False}}, "single-scale"),
     ({"FPN": {"FPN_ON": False}}, "single-scale"),
 ])
@@ -178,25 +192,62 @@ def test_unported_inference_branches_raise(over, match):
         make_rcnn_inference_fn(tc, None)
 
 
-def test_aux_on_boxes_raises():
-    with pytest.raises(NotImplementedError, match="make_aux_on_boxes_fn"):
-        rcnn_inference.make_aux_on_boxes_fn(cfg_pair()[1], None)
+def test_aux_on_boxes_matches_sad_tpu():
+    """The mask and keypoint heads on fixed boxes (the passes mask and
+    keypoint TTA re-run), in network-input coordinates with invalid slots:
+    mask probabilities within 1e-3 and heatmaps within 1e-3 * max of
+    sad_tpu's make_aux_on_boxes_fn (the tolerances of the whole-slice tests)."""
+    over = dict(TINY, MODEL=dict(TINY["MODEL"], MASK_ON=True, KEYPOINTS_ON=True),
+                KRCNN={"CONV_HEAD_DIM": 16, "NUM_STACKED_CONVS": 2, "NUM_KEYPOINTS": 17,
+                       "ROI_XFORM_RESOLUTION": 14})
+    jc, tc = j_merge(jcfg.Config(), over), t_merge(tcfg.Config(), over)
+    jmodel = j_create_model(jc)
+    params = rcnn_params(jmodel, seed=21)
+    port = load_params(GeneralizedRCNN(tc).eval(), params)
+    data, _, _, content = canvases(1, n=2, canvas=(128, 192))
+    rng = np.random.RandomState(2)
+    boxes = np.stack([random_proposals(rng, w, h, 12) for h, w in content])
+    valid = rng.rand(2, 12) > 0.25
+    args = (data, boxes, valid, content)
+    ref = j_rcnn_inference.make_aux_on_boxes_fn(jc, jmodel)(params, *map(jnp.asarray, args))
+    got = rcnn_inference.make_aux_on_boxes_fn(tc, port)(*map(torch.from_numpy, args))
+    assert sorted(got) == sorted(ref) == ["kps_heatmaps", "mask_prob"]
+    np.testing.assert_allclose(got["mask_prob"].numpy()[valid],
+                               np.asarray(ref["mask_prob"])[valid], rtol=0, atol=1e-3)
+    hm_r, hm_g = np.asarray(ref["kps_heatmaps"])[valid], got["kps_heatmaps"].numpy()[valid]
+    assert np.abs(hm_g - hm_r).max() <= 1e-3 * np.abs(hm_r).max()
+
+
+@pytest.mark.parametrize("scale,max_size,hflip", [(0, 0, False), (0, 0, True), (48, 96, True),
+                                                  (96, 128, False)])
+def test_prepare_test_batch_at_a_tta_transform_matches_sad_tpu(synth_dataset, scale, max_size,
+                                                               hflip):
+    """A TTA pass's batch: the scale clamped to the static canvas (sad_tpu's
+    rule, not Detectron's larger canvas) and the content mirrored, not the
+    canvas: the arrays of sad_tpu's uint8 batch."""
+    jc, tc = cfg_pair()
+    roidb = CocoDataset(synth_dataset).get_roidb(include_gt=False)
+    canvas = test_engine._test_canvas_shapes(tc)[0]
+    ref = j_prepare_test_batch(jc, roidb, canvas, scale, max_size, hflip, as_uint8=True)
+    got = test_engine.prepare_test_batch(tc, roidb, canvas, scale, max_size, hflip)
+    for k in ("data", "im_hw", "im_scale", "content_hw"):
+        np.testing.assert_array_equal(got[k], ref[k])
+    if scale == 96:  # clamped to the canvas's 64 rows or 128 columns
+        assert ((got["content_hw"] == canvas).any(axis=1)).all()
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"TEST": {"BBOX_AUG": {"ENABLED": True}}}, "BBOX_AUG"),
-    ({"TEST": {"SOFT_NMS": {"ENABLED": True}}}, "SOFT_NMS"),
-    ({"TEST": {"BBOX_VOTE": {"ENABLED": True}}}, "BBOX_VOTE"),
-    ({"TEST": {"PROPOSAL_FILES": ("props.pkl",)}}, "PROPOSAL_FILES"),
-    ({"MODEL": {"FASTER_RCNN": False}, "TEST": {"PROPOSAL_FILES": ("props.pkl",)}},
-     "Queue 1 item 8"),
-    ({"MODEL": {"MASK_ON": True}, "TEST": {"MASK_AUG": {"ENABLED": True}}}, "MASK_AUG"),
+    ({"TEST": {"SOFT_NMS": {"ENABLED": True}}}, "SOFT_NMS without TEST.BBOX_AUG"),
+    ({"TEST": {"BBOX_VOTE": {"ENABLED": True}}}, "BBOX_VOTE without TEST.BBOX_AUG"),
+    ({"TEST": {"PROPOSAL_FILES": ("props.pkl",)}}, "PROPOSAL_FILES with MODEL.FASTER_RCNN True"),
     ({"MODEL": {"TYPE": "rfcn"}}, "not ported"),
-    ({"MODEL": {"KEYPOINTS_ON": True}, "TEST": {"KPS_AUG": {"ENABLED": True}}}, "KPS_AUG"),
 ])
 def test_engine_refuses_unported_rcnn_options(over, match):
     """Both entry points refuse before any work: test_net_on_dataset before
-    it reads the dataset. MODEL.MASK_ON is ported (mask results as RLE)."""
+    it reads the dataset. MODEL.MASK_ON is ported (mask results as RLE), and
+    so are TTA, soft-NMS and voting under TEST.BBOX_AUG and proposal files
+    with MODEL.FASTER_RCNN False (tests/test_torch_tta.py,
+    tests/test_torch_fast_rcnn.py)."""
     tc = t_merge(t_merge(tcfg.Config(), TINY),
                  {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
     with pytest.raises(NotImplementedError, match=match):

@@ -8,7 +8,9 @@ Tolerances (float32 on the CPU; the two frameworks sum convolutions and
 reductions in other orders): every metric within 1e-4 relative + 1e-6; every
 tensor of the momentum (LR x effective gradient after one step) within 2e-3
 of that tensor's largest entry + 1e-8; every updated parameter within the
-same bound on its update. No seed is avoided.
+same bound on its update. No seed is avoided. Fast R-CNN (MODEL.FASTER_RCNN
+False): two steps on a batch of seeded proposals, no RPN targets, held the
+same way after each.
 """
 
 import jax
@@ -32,6 +34,7 @@ from sad_tpu_torch.convert import load_params, state_dict_to_params
 from sad_tpu_torch.models import GeneralizedRCNN, bias_mask, trainable_mask
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step
 from sad_tpu_torch.train import rcnn_train
+from sad_tpu_torch.data.synthetic import random_proposals
 from test_torch_rcnn import rcnn_params
 from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
 
@@ -173,7 +176,6 @@ def test_roi_slots_per_im_slices_a_prefix():
 
 @pytest.mark.parametrize("over,what", [
     (dict(TRAIN=dict(TINY["TRAIN"], OHEM=True)), "OHEM"),
-    (dict(MODEL=dict(TINY["MODEL"], FASTER_RCNN=False)), "precomputed"),
     (dict(FPN=dict(TINY["FPN"], MULTILEVEL_ROIS=False)), "single-scale"),
 ])
 def test_branches_left_for_later_raise(over, what):
@@ -186,3 +188,50 @@ def test_branches_left_for_later_raise(over, what):
     kps = t_merge(tcfg.Config(), dict(TINY, MODEL=dict(TINY["MODEL"], KEYPOINTS_ON=True)))
     assert make_rcnn_train_step(kps, GeneralizedRCNN(kps)).kps_cap() == 2
     assert rcnn_train.make_rcnn_train_step is make_rcnn_train_step
+
+
+def test_two_fast_rcnn_steps_on_proposals_match_sad_tpu():
+    """Fast R-CNN: no RPN head or losses, the sampler on 24 seeded proposals
+    an image and the gt boxes, the box branch; after each of two steps the
+    metrics, after both the parameters and momenta (the mask branch after
+    it is the Faster step's, held above)."""
+    over = dict(TINY, MODEL=dict(TINY["MODEL"], FASTER_RCNN=False))
+    jc, tc = j_merge(jcfg.Config(), over), t_merge(tcfg.Config(), over)
+    jmodel = j_create_model(jc)
+    params = rcnn_params(jmodel, seed=21, hw=HW)
+    batch = {k: v for k, v in make_batch(jc, mask=False).items() if not k.startswith("rpn_")}
+    rng = np.random.RandomState(5)
+    batch["proposal_boxes"] = np.stack([
+        random_proposals(rng, HW[1], HW[0], 24, batch["gt_boxes"][i]) for i in range(2)])
+    batch["proposal_valid"] = rng.rand(2, 24) > 0.1
+    jstate = JTrainState(params, init_momentum_state(params).velocity)
+    jstep = jax.jit(j_make_rcnn_train_step(jc, jmodel))
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    port = load_params(GeneralizedRCNN(tc), params)
+    state = TrainState.create(port)
+    step = make_rcnn_train_step(tc, port)
+    tbatch = batch_to_torch(batch, "cpu")
+    p = 24 + batch["gt_boxes"].shape[1]
+    for i in range(2):
+        key = jax.random.PRNGKey(10 + i)
+        jstate, ref = jstep(jstate, jbatch, jnp.float32(LR), key)
+        got = step(state, tbatch, LR, uniforms=jax_uniforms(key, 2, p))
+        assert sorted(got) == sorted(ref)
+        assert not any(k.startswith("loss_rpn") for k in got)
+        for k in ref:
+            r, g = float(ref[k]), float(got[k])
+            assert abs(r - g) <= 1e-4 * abs(r) + 1e-6, (i, k, r, g)
+        assert float(got["loss_cls"]) > 0 and float(got["accuracy_cls"]) > 0
+    old = dict(_tree_items(params))
+    new_ref = dict(_tree_items(jax.tree_util.tree_map(np.asarray, jstate.params)))
+    vel_ref = dict(_tree_items(jax.tree_util.tree_map(np.asarray, jstate.velocity)))
+    new_got = dict(_tree_items(state_dict_to_params(port.state_dict())))
+    vel_got = dict(_tree_items(state_dict_to_params(state.velocity)))
+    assert sorted(new_got) == sorted(new_ref) and sorted(vel_got) == sorted(vel_ref)
+    for name in old:
+        v_r, v_g = vel_ref[name], vel_got[name]
+        assert np.abs(v_r - v_g).max() <= 2e-3 * np.abs(v_r).max() + 1e-8, name
+        d_r, d_g = new_ref[name] - old[name], new_got[name] - old[name]
+        assert np.abs(d_r - d_g).max() <= 2e-3 * np.abs(d_r).max() + 1e-7, name
+    # the RPN head gets no gradient: only its weight decay moves it
+    assert np.abs(vel_got["rpn/conv_rpn_fpn2/kernel"]).max() > 0

@@ -145,8 +145,25 @@ def test_segms_copy_and_flip(tmp_path):
 def test_what_is_left_for_later_raises():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         trm.rpn_anchor_grid(cfgs(FPN=dict(OVER["FPN"], MULTILEVEL_RPN=False))[1], 128, 192)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], FASTER_RCNN=False))[1])
-    # keypoint batches are ported (tests/test_torch_keypoint_rcnn.py holds them)
+    # keypoint and proposal batches are ported (tests/test_torch_keypoint_rcnn.py
+    # and tests/test_torch_fast_rcnn.py hold them)
     assert trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], KEYPOINTS_ON=True))[1]).kps_on
-    assert not hasattr(trm, "pad_proposals")
+    assert trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], FASTER_RCNN=False))[1]
+                                    ).use_proposals
+
+
+@pytest.mark.parametrize("hflip", [False, True])
+def test_pad_proposals_matches_sad_tpu(tmp_path, hflip):
+    """Proposals packed at a cap (fewer, more and none an image), scaled to
+    network input, and mirrored for a flipped TTA pass: sad_tpu's arrays."""
+    ents = entries(tmp_path, 6, n=3)
+    rng = np.random.RandomState(1)
+    ents[0]["proposal_boxes"] = rng.uniform(0, 80, (7, 4)).astype(np.float32)
+    ents[1]["proposal_boxes"] = rng.uniform(0, 80, (30, 4)).astype(np.float32)
+    scales = np.float32([0.5, 1.25, 2.0])
+    ref = jrm.pad_proposals(ents, 12, scales, hflip=hflip)
+    got = trm.pad_proposals(ents, 12, scales, hflip=hflip)
+    for a, b in zip(ref, got):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(b, a)
+    assert got[1].sum(axis=1).tolist() == [7, 12, 0]

@@ -16,6 +16,9 @@ sad_tpu saved as native pickles, loaded through --weights.
   frameworks); on this seed none differs (the count is asserted).
 - The class gather on the device equals sad_tpu's full-array indexing, and
   the results pasted from it are identical.
+- Fast R-CNN on TEST.PROPOSAL_FILES (the Mask R-CNN weights with
+  MODEL.FASTER_RCNN False, 16 seeded proposals an image): detections, bbox
+  and segm stats, masks, as above.
 - --range, --vis, the EXPECTED_RESULTS gate, the default device, and every
   branch that stays unported raising NotImplementedError with its
   ROADMAP.md item.
@@ -23,6 +26,7 @@ sad_tpu saved as native pickles, loaded through --weights.
 
 import json
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -38,6 +42,7 @@ from sad_tpu.utils import segms as j_segms
 from sad_tpu_torch.config.config import cfg_to_yaml
 from sad_tpu_torch.config.config import merge_cfg_from_dict as t_merge
 from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
+from sad_tpu_torch.data.synthetic import random_proposals
 from sad_tpu_torch.eval import test_engine
 from sad_tpu_torch.eval.task_evaluation import ExpectedResultsError
 from sad_tpu_torch.tools import test_net
@@ -283,10 +288,6 @@ def test_expected_results_gate_and_default_device(splits, retina_pair, tmp_path)
     ("voc_2007_tn", "retina", {}, "item 9"),
     ("cityscapes_fine_instanceonly_seg_tn", "mask", {}, "item 9"),
     ("vid_tn", "retina", {}, "item 9"),
-    (None, "mask", {"MODEL": {"FASTER_RCNN": False}, "TEST": {"PROPOSAL_FILES": ("p.pkl",)}},
-     "item 8"),
-    (None, "mask", {"TEST": {"MASK_AUG": {"ENABLED": True}}}, "item 8"),
-    (None, "retina", {"MODEL": {"TYPE": "rpn", "RPN_ONLY": True}}, "item 8"),
 ])
 def test_unported_branches_raise_with_their_item(tmp_path, dataset, base, over, match):
     """Each raises before it reads a dataset or builds a model's output."""
@@ -297,6 +298,58 @@ def test_unported_branches_raise_with_their_item(tmp_path, dataset, base, over, 
     yml = _yaml(tmp_path / "cfg.yaml", cfg)
     with pytest.raises(NotImplementedError, match=match):
         test_net.main(["--cfg", yml, "--device", "cpu", "OUTPUT_DIR", str(tmp_path)])
+
+
+@pytest.fixture(scope="module")
+def fast_pair(splits, tmp_path_factory):
+    """Fast R-CNN with the mask head (MODEL.FASTER_RCNN False) on a proposal
+    file of 30 seeded proposals an image, TEST.PROPOSAL_LIMIT 16: the Mask
+    R-CNN weights of ``mask_pair`` (the same tree), both packages."""
+    tmp = tmp_path_factory.mktemp("test_net_fast")
+    doc = json.load(open(splits[MASK_VAL][1]))
+    rng = np.random.RandomState(4)
+    pkl = str(tmp / "props.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"ids": [im["id"] for im in doc["images"]],
+                     "boxes": [random_proposals(rng, im["width"], im["height"], 30)
+                               for im in doc["images"]]}, f)
+    over = dict(MASK, MODEL=dict(MASK["MODEL"], FASTER_RCNN=False),
+                TEST=dict(MASK["TEST"], PROPOSAL_FILES=(pkl,), PROPOSAL_LIMIT=16))
+    params = rcnn_params(j_create_model(j_merge(jcfg.Config(), MASK)), seed=21)
+    logits = params["mask_head"]["mask_fcn_logits"]
+    logits["kernel"] = logits["kernel"] * 20.0
+    return _run_pair(tmp, over, params)
+
+
+def test_fast_rcnn_detections_on_proposal_files_match_sad_tpu(fast_pair):
+    """test_net with TEST.PROPOSAL_FILES: the proposals attached, the first
+    16 of each image served, the same detections as sad_tpu's."""
+    ref_dir, got_dir, _, _ = fast_pair
+    ref, got = _read(ref_dir, "bbox_results.json"), _read(got_dir, "bbox_results.json")
+    _matched(ref, got)
+    assert len({d["image_id"] for d in got}) == 3
+
+
+def test_fast_rcnn_stats_on_proposal_files_match_sad_tpu(fast_pair):
+    ref_dir, got_dir, _, _ = fast_pair
+    rr, rg = _read(ref_dir, "results.json"), _read(got_dir, "results.json")
+    keys = BBOX_KEYS + tuple(f"segm_{k}" for k in BBOX_KEYS)
+    assert sorted(rg) == sorted(rr) == sorted(keys)
+    for k in keys:
+        assert abs(rg[k] - rr[k]) <= 1e-6, (k, rg[k], rr[k])
+
+
+def test_fast_rcnn_masks_on_proposal_files_match_sad_tpu(fast_pair):
+    ref_dir, got_dir, (rec_ref, rec_got), _ = fast_pair
+    ref, got = _read(ref_dir, "bbox_results.json"), _read(got_dir, "bbox_results.json")
+    for i, j in _matched(ref, got):
+        a = j_segms.rle_to_mask(ref[i]["segmentation"])
+        b = j_segms.rle_to_mask(got[j]["segmentation"])
+        diff = a != b
+        if diff.any():
+            prob = _resized_prob(*rec_ref.calls[i], *a.shape)
+            assert (np.abs(prob[diff] - 0.5) <= 1e-3).all()
+        np.testing.assert_allclose(rec_got.calls[j][0], rec_ref.calls[i][0], rtol=0, atol=1e-3)
 
 
 def test_voc_with_force_json_takes_the_coco_evaluator(splits, tmp_path):
