@@ -2,7 +2,8 @@
 """Smoke run of sad_tpu_torch on one CUDA card: build the kernels, check each
 against its plain PyTorch version, and drive the RetinaNet serving path, the
 joint SAD training step, Fast / Faster / Mask / Keypoint R-CNN serving, the Fast /
-Faster / Mask / Keypoint R-CNN training step, the training workflow (pseudo-labels,
+Faster / Mask / Keypoint R-CNN training step, the single-scale family (Faster /
+Mask R-CNN R-50-C4, VGG16, R-FCN with OHEM: serving, training, test_net), the training workflow (pseudo-labels,
 train_net, checkpoints, resume), the evaluation path (test_net, the COCO
 evaluator, test-time augmentation, RPN-only proposals and the two-stage
 workflow) and the paper's R-101 <- X-101-64x4d pair at scale 500 end to end.
@@ -247,6 +248,53 @@ line each (name, what was checked, time):
                  byte-identical to the plain-twin runs, launches a pass, the
                  dataset imgs/s and timing.json's split of passes, host merge
                  and aux passes, the device's idle share
+
+  c4_rcnn_infer  after the device-time phases, like the single-scale phases below
+                 (two lines, c4_faster_rcnn_infer and c4_mask_rcnn_infer): the
+                 single-scale Faster and Mask R-50-C4 YAMLs (res5 box head,
+                 v0upshare), bs 8 on 800x1344, bf16, spread random weights,
+                 through make_rcnn_inference_fn: shapes, finite, classes in
+                 1..80, mask_prob (8, 100, 14, 14, 81) in [0, 1]; detections
+                 and masks equal to the plain-twin run; the RPN NMS (8 x 6000
+                 -> 1000, sorted) and the decode NMS (8 x 80,000 -> 100) on
+                 the batch's own candidates exactly equal to the plain NMS;
+                 the one-level RoIAlign forward at R = 8000, res 14, C = 1024
+                 on the 50x84 res4 map, rois wider than the staging buffer,
+                 and the cascaded mask's R = 800, each bit-equal to the plain
+                 twin and timed beside its bound; 2 NMS and 1 (Faster) or 2
+                 (Mask) RoIAlign launches a batch; imgs/s, stage device ms
+                 (body, RPN, RoIAlign, res5 head, decode, cascade) and idle
+  c4_rcnn_train  the Mask R-50-C4 step (v0upshare), 8 groups of 1 image (the
+                 reference's 8 GPUs x IMS_PER_BATCH 1): a kernel step and a
+                 plain-twin step from one state and one set of sampler
+                 uniforms (metrics within 1e-5 relative), the training RPN NMS
+                 at 8 x 12,000 -> 2000 on the step's own candidates (every
+                 problem over the sort's 8192 cap: the argmax loop; its path
+                 printed), the RoIAlign backward's trunk gradients within
+                 1e-5 * max + one bf16 ulp of the plain backward's and two
+                 runs bit-equal, the backward and forward on the step's rois
+                 (R = 4096, res 14, C = 1024) and the mask target crop timed;
+                 warm-up + timed steps (NMS 1, RoIAlign forward 2, backward 1
+                 a step), every trainable tensor updated, frozen ones
+                 bit-identical; imgs/s, peak memory, stage ms, idle; then the
+                 v0up head (its own res5 on the fg rois) with the same checks
+                 and one main-path step (NMS 1, forward 3, backward 2)
+  vgg16_rcnn     (vgg16_rcnn_infer, vgg16_rcnn_train) VGG16 Faster R-CNN on
+                 608x1024: serving with the checks of c4_rcnn_infer (RPN 8 x
+                 6000 -> 300, decode 8 x 24,000 -> 100, RoIAlign R = 2400, res
+                 7, C = 512) and one training step with those of c4_rcnn_train
+                 (the argmax loop at 8 x 12,000 -> 2000); the RoIAlign forward
+                 at VGG_CNN_M_1024's shape (C = 1024, res 7) on a seeded map
+  rfcn_ohem      (rfcn_ohem_infer, rfcn_ohem_train) R-FCN R-101 with OHEM on
+                 608x1024: serving (PSRoIPool in plain PyTorch, no RoIAlign
+                 launch; the NMS shapes of vgg16_rcnn), and the step with
+                 OHEM: each image keeps OHEM_ROI_PER_IMG = 128 of its 300 live
+                 rois, metrics of the kernel and plain-twin steps equal
+  c4_test_net    test_net --range 0 8 with the Mask
+                 R-50-C4 YAML on smoke_val (seeded spread weights through
+                 --weights): boxes and RLE masks evaluated (24 finite
+                 metrics), results byte-identical to the plain-twin run, NMS 2
+                 and RoIAlign 2 launches a batch, the host split and idle
 
   cls_loss_kernels_500
                  with the kernel checks: the cls-loss kernels against their
@@ -1121,25 +1169,28 @@ def phase_roi_align(torch, seed, batch, iters, warmup, timers):
 
 
 def phase_roi_align_device(torch, timers, iters, warmup):
-    """The RoIAlign forward's device time at each main-path shape from
-    torch.profiler, into its stats as "device_ms"; the phase's line prints
-    the earlier kernel's (ROI_FWD_EARLIER_MS, other rois of the same shape)
-    beside it. Run after the main paths, as [cls_loss_levels] is (PERF.md
-    section 6)."""
-    from sad_tpu_torch.tools.profile_infer import device_ms
+    """The RoIAlign forward's device time at each main-path shape, into its
+    stats as "device_ms": the mean of iters * 5 calls queued behind a spin
+    kernel, each between two CUDA events (``queued_ms``; torch.profiler lost
+    half of these launches late in the script, PERF.md section 6). The
+    phase's line prints the earlier kernel's (ROI_FWD_EARLIER_MS, other rois
+    of the same shape, torch.profiler) beside it. Run after the main paths,
+    as [cls_loss_levels] is."""
+    from sad_tpu_torch.tools.profile_infer import queued_ms
 
     t0 = time.perf_counter()
     said = []
     for key, (run, stats) in timers.items():
-        ms = sum(device_ms(run, iters * 5, warmup, "roi_align_fwd").values())
+        ms = queued_ms(run, iters * 5, warmup)
         stats["device_ms"] = ms
         earlier = ROI_FWD_EARLIER_MS.get(key)
         said.append(f"{key} {ms:.4f}"
                     + (f" (earlier kernel on profile_roi_align.py's rois: {earlier})"
                        if earlier else "")
                     + (f", bound {stats['bound_ms']:.4f}" if "bound_ms" in stats else ""))
-    _phase("roi_align_device", "device ms a call (torch.profiler, mean of "
-           f"{iters * 5}): " + "; ".join(said), time.perf_counter() - t0)
+    _phase("roi_align_device", "device ms a call (CUDA events around each of "
+           f"{iters * 5} calls queued behind a spin kernel, mean): " + "; ".join(said),
+           time.perf_counter() - t0)
 
 
 def _roi_align_bwd_bound(feats_hw, batch, c, esize, r, res, sr):
@@ -1736,6 +1787,501 @@ def phase_rcnn_train(torch, name, cfg_path, seed, groups, iters, warmup, timers)
            time.perf_counter() - t0)
     return {"imgs_per_s": n / med, "launches": launches, "steps": n_steps,
             "target_stats": target_stats, "stage_ms": stage_ms, "own_stats": own_stats}
+
+
+# the single-scale family (C4, VGG, R-FCN): configs, and the reference's 8 GPUs x 1 image
+C4_FASTER_CFG = "sad_tpu_torch/configs/e2e_faster_rcnn_R-50-C4.yaml"
+C4_MASK_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-C4.yaml"
+VGG16_CFG = "sad_tpu_torch/configs/faster_rcnn_VGG16.yaml"
+RFCN_CFG = "sad_tpu_torch/configs/rfcn_R-101-C4_ohem.yaml"
+V0UP_OPTS = ["MRCNN.ROI_MASK_HEAD", "mask_rcnn_heads.mask_rcnn_fcn_head_v0up"]
+SS_GROUPS = 8  # groups of TRAIN.IMS_PER_BATCH = 1 image
+SS_CANVAS = {C4_FASTER_CFG: RCNN_CANVAS, C4_MASK_CFG: RCNN_CANVAS, VGG16_CFG: (608, 1024),
+             RFCN_CFG: (608, 1024)}
+
+
+def _idle_share(torch, fn, n=3):
+    """(device idle share, kernel ms a call) over n profiled calls of fn:
+    1 - torch.profiler kernel time / the profiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return 1.0 - busy / wall_ms, busy / n
+
+
+def _one_level_case(torch, name, feats, rois5, res, iters, warmup, sr=2):
+    """The RoIAlign forward on one level (the single-scale trunk's map) for
+    every roi: kernel bit-equal to the plain twin, both timed (CUDA events),
+    the bound of this data. Not timed again in roi_align_device, which runs
+    before the single-scale phases."""
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound
+
+    (lvl, feat), = feats.items()
+    r5 = rois5.float().contiguous()
+    lv = torch.full((r5.shape[0],), lvl, dtype=torch.int32, device="cuda")
+    ok = torch.ones((r5.shape[0],), dtype=torch.bool, device="cuda")
+    feats = {lvl: feat.contiguous()}
+    err, _ = _roi_align_check(torch, name, feats, r5, lv, ok, res, sr)
+    ms = _median_ms(torch, lambda: multilevel_roi_align(feats, r5, lv, ok, res, sr),
+                    iters * 2, warmup)
+    plain_ms = _median_ms(torch, lambda: multilevel_roi_align_plain(feats, r5, lv, ok, res, sr),
+                          max(iters // 5, 1), 1)
+    b_, _, _ = roi_align_bound(feats, r5, lv, ok, res, sr)
+    stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_}
+    said = (f"RoIAlign {name} R={r5.shape[0]} res {res} C={feat.shape[-1]} {feat.dtype} on "
+            f"{tuple(feat.shape[1:3])}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_['bound_ms']:.4f} ms by {b_['bound_by']}")
+    return stats, said
+
+
+def phase_ss_infer(torch, name, cfg_path, seed, batch, iters, warmup):
+    """A single-scale R-CNN's serving path (C4, VGG16, R-FCN) at full width
+    on its canvas: shapes and values, detections (and masks) equal to the
+    plain-twin run, the RPN and decode NMS at their own shapes against the
+    plain NMS, the box (and cascaded mask) RoIAlign on the batch's own rois
+    bit-equal to the plain twin, launches, imgs/s, stage ms and idle."""
+    from sad_tpu_torch.eval.inference import device_normalize
+    from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_candidates, kept_box_rois
+    from sad_tpu_torch.models.rcnn import flat_rois
+    from sad_tpu_torch.ops import nms, nms_kernel, roi_align_kernel
+    from sad_tpu_torch.ops.proposals import nms_levels_batched, stack_level_problems
+    from sad_tpu_torch.tools.profile_infer import _event_ms, rcnn_stages, seeded_inference, wall_seconds
+
+    t0 = time.perf_counter()
+    cfg, model, infer, args = seeded_inference(os.path.join(REPO, cfg_path), seed, batch, "cuda")
+    canvas = SS_CANVAS[cfg_path]
+    if tuple(args[0].shape) != (batch, *canvas, 3):
+        raise AssertionError(f"{name}: canvas {tuple(args[0].shape)}")
+    dets = infer(*args)
+    torch.cuda.synchronize()
+    max_out, n_fg = cfg.TEST.DETECTIONS_PER_IM, cfg.MODEL.NUM_CLASSES - 1
+    keys = ("boxes", "scores", "classes", "valid")
+    for key in keys:
+        want = (batch, max_out, 4) if key == "boxes" else (batch, max_out)
+        if tuple(dets[key].shape) != want:
+            raise AssertionError(f"{name}: {key} shape {tuple(dets[key].shape)} != {want}")
+    valid = dets["valid"]
+    if not bool(torch.isfinite(dets["boxes"]).all()) or not bool(torch.isfinite(dets["scores"]).all()):
+        raise AssertionError(f"{name}: non-finite boxes or scores")
+    per_im = valid.sum(dim=1).tolist()
+    cls = dets["classes"][valid]
+    if min(per_im) < 1 or int(cls.min()) < 1 or int(cls.max()) > n_fg:
+        raise AssertionError(f"{name}: detections per image {per_im}, classes outside 1..{n_fg}")
+    mask_on = bool(cfg.MODEL.MASK_ON)
+    if mask_on:
+        keys += ("mask_prob",)
+        m = cfg.MRCNN.RESOLUTION
+        mp = dets["mask_prob"]
+        if tuple(mp.shape) != (batch, max_out, m, m, cfg.MODEL.NUM_CLASSES) or not bool(
+                ((mp >= 0) & (mp <= 1)).all()):
+            raise AssertionError(f"{name}: mask_prob shape {tuple(mp.shape)} or values outside "
+                                 "[0, 1]")
+    counts = nms_kernel.launches, roi_align_kernel.launches
+    with _plain_twins():
+        ref = infer(*args)
+    torch.cuda.synchronize()
+    if (nms_kernel.launches, roi_align_kernel.launches) != counts:
+        raise AssertionError(f"{name}: the plain-twin run launched a kernel")
+    for key in keys:
+        if not torch.equal(dets[key], ref[key]):
+            diff = (dets[key].float() - ref[key].float()).abs()
+            raise AssertionError(f"{name}: {key} differs from the plain-twin run: "
+                                 f"{int((diff > 0).sum())} entries, max {float(diff.max()):.3e}")
+    del ref
+
+    # each kernel at this path's own shapes, on this batch
+    said = []
+    t_, post = cfg.TEST, cfg.TEST.RPN_POST_NMS_TOP_N
+    with torch.inference_mode():
+        x = device_normalize(cfg, args[0], args[3])
+        nchw = model._features(x)
+        pl = model.rpn_candidates(*model.rpn_outputs(nchw), args[1])
+        fill = model.collect(*nms_levels_batched(pl, t_.RPN_NMS_THRESH, post))[2].sum(dim=1)
+        bx, _, msk = stack_level_problems(pl)
+        rpn_stats, _, s = _nms_at(torch, f"{name} RPN", bx, msk, t_.RPN_NMS_THRESH, post,
+                                  iters, warmup)
+        said.append("RPN " + s)
+        out = model(x, args[1])
+        cands = decode_rcnn_candidates(cfg, out["rois"], out["roi_valid"], out["cls_prob"],
+                                       out["bbox_pred"], args[1], args[2])
+        dec_stats, _, s = _nms_at(torch, f"{name} decode", *nms.offset_by_class(*cands),
+                                  t_.NMS, max_out, iters, warmup)
+        said.append("decode " + s)
+        feats = {l: f.permute(0, 2, 3, 1) for l, f in nchw.items()}
+        box_stats = mask_stats = None
+        if not model.is_rfcn:
+            box_stats, s = _one_level_case(torch, f"{name} box", feats, flat_rois(out["rois"]),
+                                           cfg.FAST_RCNN.ROI_XFORM_RESOLUTION, iters, warmup)
+            said.append(s)
+        if cfg_path == C4_FASTER_CFG:
+            # rois wider than the staging buffer: the whole canvas and large boxes
+            # on the 50x84 map, C = 1024, res 14 (column chunks and bands)
+            ch, cw = canvas
+            big = torch.tensor([[0, 0, 0, cw - 1, ch - 1], [1, 100, 50, cw - 30, ch - 10],
+                                [2, -40, -40, cw + 40, ch + 40], [3, 10, 400, cw - 1, 420],
+                                [4, 600, 0, 640, ch - 1], [5, 0, 0, cw - 1, 30]] * 4,
+                               dtype=torch.float32, device="cuda")
+            _, s = _one_level_case(torch, f"{name} wide", feats, big, 14, 1, 1)
+            said.append(s)
+        if mask_on:
+            mask_stats, s = _one_level_case(
+                torch, f"{name} cascaded mask", feats, kept_box_rois(cfg, dets["boxes"],
+                                                                     args[2])[0],
+                cfg.MRCNN.ROI_XFORM_RESOLUTION, iters, warmup)
+            said.append(s)
+        del out, cands, nchw, feats, pl
+
+    # the main path: counts set to 0 just before, read just after
+    nms_kernel.launches = roi_align_kernel.launches = 0
+    times = wall_seconds(lambda: infer(*args), iters, warmup)
+    launches = nms_kernel.launches, roi_align_kernel.launches
+    n_batches = iters + warmup
+    want = (2 * n_batches, ((not model.is_rfcn) + mask_on) * n_batches)
+    if launches != want:
+        raise AssertionError(f"{name}: {launches} NMS / RoIAlign launches in {n_batches} "
+                             f"batches, want {want}")
+    med = statistics.median(times)
+    stages = rcnn_stages(cfg, model, args)
+    per = {n_: [] for n_, _ in stages}
+    with torch.inference_mode():
+        for i in range(iters):
+            _, ms = _event_ms([fn for _, fn in stages])
+            for (n_, _), t in zip(stages, ms):
+                per[n_].append(t)
+    stage_ms = {n_: statistics.median(v) for n_, v in per.items() if n_ != "count"}
+    idle, kernel_ms = _idle_share(torch, lambda: infer(*args))
+    _phase(name, f"{cfg_path}: {batch}x{canvas[0]}x{canvas[1]} uint8, bf16; RPN slots filled "
+           f"{fill.tolist()} of {post}, detections per image {per_im}, classes in 1..{n_fg}, "
+           f"finite" + (", mask_prob (B, 100, 14, 14, 81) in [0, 1]" if mask_on else "")
+           + f"; {', '.join(keys)} equal to the plain-twin run; " + "; ".join(said)
+           + f"; {launches[0]} NMS and {launches[1]} RoIAlign launches in {n_batches} batches; "
+           f"{batch / med:.2f} imgs/s, {1000 * med:.3f} ms a batch (median of {iters} after "
+           f"{warmup} warm-up); stage device ms (CUDA events, median of {iters}): "
+           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+           + f"; kernels {kernel_ms:.2f} ms a batch, device idle {idle:.4f}",
+           time.perf_counter() - t0)
+    return {"imgs_per_s": batch / med, "nms_launches": launches[0],
+            "roi_align_launches": launches[1], "batches": n_batches, "rpn": rpn_stats,
+            "decode": dec_stats, "box": box_stats, "mask": mask_stats, "stage_ms": stage_ms}
+
+
+def _ss_grads(torch, step, nchw, sampled, batch, v0up):
+    """The gradients of the box loss and, for v0up, of the mask loss w.r.t.
+    the detached NHWC trunk map: what each RoIAlign backward alone makes."""
+    leaves = {l: f.detach().permute(0, 2, 3, 1).requires_grad_(True) for l, f in nchw.items()}
+    wrt = [leaves[l] for l in sorted(leaves)]
+    grads = list(torch.autograd.grad(step.box_branch(leaves, sampled)[0], wrt))
+    if v0up:
+        grads += torch.autograd.grad(step.mask_branch(leaves, sampled, batch), wrt)
+    return grads
+
+
+def _ss_step_checks(torch, name, run, seed, iters, warmup):
+    """A kernel step against a plain-twin step from one state and one set of
+    sampler uniforms (metrics), the training RPN NMS on the step's own
+    candidates, the RoIAlign backward's trunk gradients against the plain
+    backward's (two kernel runs bit-equal) and timed on the step's rois, and
+    R-FCN's OHEM keep counts. Returns (said, stats, snapshot restore)."""
+    from sad_tpu_torch.models.rcnn import flat_rois
+    from sad_tpu_torch.ops import roi_align_kernel
+    from sad_tpu_torch.ops.proposals import stack_level_problems
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align_bwd_plain
+    from sad_tpu_torch.tools.profile_train import BENCH_LR
+    from sad_tpu_torch.train.rcnn_train import box_nll, ohem_select
+
+    cfg, step, batch, model = run.cfg, run.step, run.batch, run.model
+    n = run.n_images
+    v0up = bool(cfg.MODEL.MASK_ON) and not model.mask_share_res5
+    params = dict(model.named_parameters())
+    snap = {k: p.detach().clone() for k, p in params.items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(snap[k])
+            for v in run.state.velocity.values():
+                v.zero_()
+
+    p_all = cfg.TRAIN.RPN_POST_NMS_TOP_N + batch["gt_boxes"].shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    uniforms = (torch.rand((n, p_all), generator=gen, device="cuda"),
+                torch.rand((n, p_all), generator=gen, device="cuda"))
+    m_kernel = step(run.state, batch, BENCH_LR, uniforms=uniforms)
+    restore()
+    counts = _kernel_counts()
+    with _plain_twins():
+        m_plain = step(run.state, batch, BENCH_LR, uniforms=uniforms)
+    restore()
+    torch.cuda.synchronize()
+    if _kernel_counts() != counts:
+        raise AssertionError(f"{name}: the plain step launched a kernel")
+    worst = max(float((m_kernel[k] - m_plain[k]).abs() / m_plain[k].abs().clamp_min(1e-6))
+                for k in m_plain)
+    finite = all(bool(torch.isfinite(v)) for v in m_kernel.values())
+    if sorted(m_kernel) != sorted(m_plain) or not worst <= 1e-5 or not finite:
+        raise AssertionError(f"{name}: metrics of the kernel step vs the plain step: worst "
+                             f"rel err {worst:.3e} (limit 1e-5), finite {finite}")
+    said = [f"kernel step vs plain step from one state: metrics finite, within {worst:.2e} rel"]
+
+    with torch.no_grad():
+        nchw = step.backbone(step.inputs(batch))
+        logits, deltas = model.rpn_outputs(nchw)
+        pl = model.rpn_candidates(logits, deltas, batch["im_hw"], train=True)
+        bx, _, msk = stack_level_problems(pl)
+        boxes, valid = step.proposals(logits, deltas, batch)
+        del logits, deltas
+    t = cfg.TRAIN
+    nms_stats, _, s = _nms_at(torch, f"{name} training RPN", bx, msk, t.RPN_NMS_THRESH,
+                              t.RPN_POST_NMS_TOP_N, iters, warmup)
+    said.append("training RPN " + s)
+    del bx, msk, pl
+    sampled = step.sample(boxes, valid, batch, uniforms)
+    fg_per_im = sampled["is_fg"].sum(dim=1).tolist()
+    said.append(f"proposals per image {valid.sum(dim=1).tolist()}, sampled valid "
+                f"{sampled['valid'].sum(dim=1).tolist()}, fg {fg_per_im}")
+    stats = {"rpn": nms_stats}
+    feats = {l: f.permute(0, 2, 3, 1) for l, f in nchw.items()}
+    if model.is_rfcn:
+        # OHEM: each image's kept rois, OHEM_ROI_PER_IMG of its live ones
+        with torch.no_grad():
+            cls_score, bbox_pred = step.box_outputs(feats, sampled)
+            nll, live = box_nll(cls_score, sampled["labels"].reshape(-1),
+                                sampled["valid"].reshape(-1))
+            keep = ohem_select(cfg, nll, live, bbox_pred, *step.box_targets(sampled), n)
+        kept = keep.reshape(n, -1).sum(dim=1).long().tolist()
+        lives = live.reshape(n, -1).sum(dim=1).long().tolist()
+        want = [min(t.OHEM_ROI_PER_IMG, v) for v in lives]
+        if kept != want:
+            raise AssertionError(f"{name}: OHEM kept {kept} rois an image, want {want} "
+                                 f"(live {lives})")
+        said.append(f"OHEM kept {kept} of live {lives} rois an image")
+        stats["ohem_kept"] = kept
+        return said, stats, restore
+    if cfg.MODEL.MASK_ON:
+        # the target crop: the forward kernel over the (B * G, Hm, Wm, 1) rasters at the
+        # mask logits' resolution (2 x 7), the fg prefix's rois
+        rast, cap = batch["gt_mask_rasters"], step.mask_cap()
+        bb, gg, hm, wm = rast.shape
+        lvl_m = int(round(np.log2(float(batch["gt_mask_stride"]))))
+        which = (torch.arange(bb, device="cuda")[:, None] * gg
+                 + sampled["matched_gt"][:, :cap]).reshape(-1, 1).float()
+        r5 = torch.cat([which, sampled["rois"][:, :cap].reshape(-1, 4)], dim=1)
+        m_res = 2 * (cfg.MRCNN.ROI_XFORM_RESOLUTION // max(cfg.MRCNN.ROI_XFORM_RESOLUTION // 7, 1))
+        stats["crop"], s = _one_level_case(
+            torch, f"{name} mask target crop", {lvl_m: rast.reshape(bb * gg, hm, wm, 1).float()},
+            r5, m_res, iters, warmup)
+        said.append(s)
+    g_kernel = _ss_grads(torch, step, nchw, sampled, batch, v0up)
+    again = _ss_grads(torch, step, nchw, sampled, batch, v0up)
+    with _plain_twins():
+        g_plain = _ss_grads(torch, step, nchw, sampled, batch, v0up)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(g_kernel, again)):
+        raise AssertionError(f"{name}: two runs of the RoIAlign backward differ")
+    ref_max = max(float(g.float().abs().max()) for g in g_plain)
+    gworst = 0.0
+    for a, b in zip(g_kernel, g_plain):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        bad = int((err > 1e-5 * ref_max + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())).sum())
+        if bad or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: {bad} trunk gradient elements beyond one bf16 ulp + "
+                                 f"1e-5 * max of the plain backward's")
+        gworst = max(gworst, float(err.max()))
+    said.append(f"the RoIAlign backward's trunk gradients within tolerance of the plain "
+                f"backward's (max abs diff {gworst:.3e} of max {ref_max:.3e}), two runs "
+                f"bit-equal")
+    # the backward kernel, and the forward on the device later, on the step's own rois
+    (lvl, f), = feats.items()
+    dims, c, dtype = [tuple(f.shape[1:3])], f.shape[-1], f.dtype
+    shapes = [("box_train", flat_rois(sampled["rois"]), cfg.FAST_RCNN.ROI_XFORM_RESOLUTION)]
+    if v0up:
+        cap = step.mask_cap()
+        shapes.append(("mask_train", flat_rois(sampled["rois"][:, :cap]),
+                       cfg.MRCNN.ROI_XFORM_RESOLUTION))
+    for key, r5, res in shapes:
+        r5 = r5.contiguous()
+        lv = torch.full((r5.shape[0],), lvl, dtype=torch.int32, device="cuda")
+        ok = torch.ones((r5.shape[0],), dtype=torch.bool, device="cuda")
+        g = torch.randn((r5.shape[0], res, res, c), generator=gen, device="cuda").to(dtype)
+        ms = _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
+            g, dims, lvl, n, r5, lv, ok, 2), iters * 2, warmup)
+        plain_ms = _median_ms(torch, lambda: multilevel_roi_align_bwd_plain(
+            g, {lvl: dims[0]}, n, r5, lv, ok, 2), 1, 1)
+        b_, _ = _roi_align_bwd_bound(dims, n, c, g.element_size(), r5.shape[0], res, 2)
+        stats[f"bwd_{key}"] = {"max_abs_err": gworst, "ms": ms, "plain_ms": plain_ms, **b_}
+        said.append(f"backward {key} R={r5.shape[0]} res {res} C={c}: {ms:.4f} ms (plain "
+                    f"{plain_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms by {b_['bound_by']})")
+        fwd, s = _one_level_case(torch, f"{name} {key}", {lvl: f}, r5, res, iters, warmup)
+        stats[f"fwd_{key}"] = fwd
+        said.append(s)
+    return said, stats, restore
+
+
+def _ss_main_steps(torch, name, run, iters, warmup):
+    """The main path of a single-scale step: counts set to 0 just before
+    iters + warmup steps, read just after; finite metrics, every trainable
+    tensor updated, frozen ones bit-identical. Returns (launches, imgs/s,
+    peak GiB, said)."""
+    from sad_tpu_torch.ops import nms_kernel, roi_align_kernel
+    from sad_tpu_torch.tools.profile_infer import wall_seconds
+    from sad_tpu_torch.tools.profile_train import BENCH_LR
+
+    cfg, step, model = run.cfg, run.step, run.model
+    params = dict(model.named_parameters())
+    snap = {k: p.detach().clone() for k, p in params.items()}
+    frozen = {k: snap[k] for k in params if k not in set(step.names)}
+    losses = []
+    nms_kernel.launches = roi_align_kernel.launches = roi_align_kernel.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = wall_seconds(lambda: losses.append(step(run.state, run.batch, BENCH_LR)), iters,
+                         warmup)
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    n_steps = iters + warmup
+    mask = bool(cfg.MODEL.MASK_ON)
+    v0up = mask and not model.mask_share_res5
+    box = not model.is_rfcn
+    want = (n_steps, (box + mask + v0up) * n_steps, (box + v0up) * n_steps)
+    if launches != want:
+        raise AssertionError(f"{name}: NMS / RoIAlign forward / backward launches {launches} in "
+                             f"{n_steps} steps, want {want}")
+    vals = {k: [float(m[k]) for m in losses] for k in losses[0]}
+    if not all(np.isfinite(v).all() for v in vals.values()):
+        raise AssertionError(f"{name}: non-finite metrics {vals}")
+    still = [k for k in step.names if not bool(run.state.velocity[k].any())]
+    if still:
+        raise AssertionError(f"{name}: {len(still)} trainable tensors got no update, e.g. "
+                             f"{still[:3]}")
+    moved = [k for k in frozen if not torch.equal(params[k], frozen[k])]
+    if moved:
+        raise AssertionError(f"{name}: frozen tensors changed: {moved[:3]}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    said = (f"{n_steps} steps, loss {vals['loss'][0]:.4f} -> {vals['loss'][-1]:.4f}"
+            + (f", loss_mask {vals['loss_mask'][-1]:.4f}" if mask else "")
+            + f", all {len(step.names)} trainable tensors updated, {len(frozen)} frozen "
+            f"bit-identical; launches NMS {launches[0]}, RoIAlign forward {launches[1]}, "
+            f"backward {launches[2]}; {run.n_images / med:.2f} imgs/s, {1000 * med:.3f} ms a "
+            f"step (median of {iters} after {warmup} warm-up), peak {peak:.2f} GiB")
+    return launches, run.n_images / med, peak, said
+
+
+def phase_ss_train(torch, name, cfg_path, seed, groups, iters, warmup, v0up_too=False):
+    """A single-scale R-CNN's training step at full width and depth on its
+    canvas, bf16, LR 1e-6 (profile_train.seeded_rcnn_train_step): the checks
+    of _ss_step_checks, then the main path, stage ms and idle; with
+    ``v0up_too`` the same model with the v0up mask head runs its checks and
+    one main-path step as well."""
+    from sad_tpu_torch.tools.profile_train import BENCH_LR, rcnn_stage_ms, seeded_rcnn_train_step
+
+    t0 = time.perf_counter()
+    canvas = SS_CANVAS[cfg_path]
+    run = seeded_rcnn_train_step(os.path.join(REPO, cfg_path), seed=seed, n_groups=groups,
+                                 device="cuda")
+    n = run.n_images
+    if tuple(run.batch["data_u8"].shape) != (n, *canvas, 3):
+        raise AssertionError(f"{name}: canvas {tuple(run.batch['data_u8'].shape)}")
+    said, stats, restore = _ss_step_checks(torch, name, run, seed, iters, warmup)
+    restore()
+    per = [rcnn_stage_ms(run, BENCH_LR) for _ in range(iters)]
+    restore()
+    stage_ms = {k: statistics.median(p[k] for p in per) for k in per[0]}
+    idle, kernel_ms = _idle_share(torch, lambda: run.step(run.state, run.batch, BENCH_LR))
+    launches, imgs, peak, s = _ss_main_steps(torch, name, run, iters, warmup)
+    said.append(s)
+    said.append("stage device ms (CUDA events, median of "
+                f"{iters}): " + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+                + f"; kernels {kernel_ms:.2f} ms a step, device idle {idle:.4f}")
+    out = {"imgs_per_s": imgs, "launches": launches, "steps": iters + warmup, "peak": peak,
+           "stage_ms": stage_ms, **stats}
+    del run
+    torch.cuda.empty_cache()
+    if v0up_too:
+        run = seeded_rcnn_train_step(os.path.join(REPO, cfg_path), seed=seed + 1,
+                                     n_groups=groups, device="cuda", opts=V0UP_OPTS)
+        s_v0up, st, restore = _ss_step_checks(torch, f"{name} v0up", run, seed + 1, iters,
+                                              warmup)
+        restore()
+        la, imgs_v, peak_v, s = _ss_main_steps(torch, f"{name} v0up", run, 1, 0)
+        said.append("v0up (its own res5 on the fg rois): " + "; ".join(s_v0up) + "; " + s)
+        out["v0up"] = {"launches": la, "steps": 1, **st}
+        del run
+        torch.cuda.empty_cache()
+    _phase(name, f"{cfg_path}: {n}x{canvas[0]}x{canvas[1]} uint8, G={groups}, bf16, LR "
+           f"{BENCH_LR}; " + "; ".join(said), time.perf_counter() - t0)
+    return out
+
+
+def phase_c4_test_net(torch, seed, data_root):
+    """The Mask R-50-C4 through test_net on the synthetic val split's first
+    8 images (--range 0 8), boxes and masks evaluated; byte-identical to the
+    plain-twin run. Runs go to a temporary directory under ``data_root``."""
+    import tempfile
+
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.tools.profile_infer import spread_rcnn_outputs
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0, ("smoke_val",))
+    cfg = load_cfg(os.path.join(REPO, C4_MASK_CFG))
+    model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+    b = random_canvases(np.random.RandomState(seed), 8, _test_canvas_shapes(cfg)[0], "cuda")
+    spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+    del b
+    with tempfile.TemporaryDirectory(prefix="c4_test_net_", dir=data_root) as tmp:
+        r = _test_net_run(torch, "c4_mask", C4_MASK_CFG, model, tmp, (0, 8))
+    del model
+    torch.cuda.empty_cache()
+    res, t = r["results"], r["timing"]
+    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs", "ARm",
+            "ARl")
+    want = list(keys) + [f"segm_{k}" for k in keys]
+    if sorted(res) != sorted(want) or not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"c4_test_net: results.json {res}")
+    nms_l, roi_l = r["launches"]
+    if (nms_l, roi_l) != (2 * t["batches"], 2 * t["batches"]):
+        raise AssertionError(f"c4_test_net: {nms_l} NMS / {roi_l} RoIAlign launches in "
+                             f"{t['batches']} batches, want 2 and 2 a batch")
+    imgs = t["images"] / t["wall"]
+    _phase("c4_test_net", f"{C4_MASK_CFG} through test_net --range 0 8 on smoke_val (seeded "
+           f"weights, output layers spread, a native pickle through --weights): "
+           f"{t['images']} images in {t['batches']} batches, {r['n_dets']} detections with "
+           f"RLE masks; bbox_results.json and results.json byte-identical to the plain-twin "
+           f"run; the 24 bbox and segm metrics finite (AP {res['AP']:.4f}, segm AP "
+           f"{res['segm_AP']:.4f}); launches NMS {nms_l}, RoIAlign {roi_l}; dataset {imgs:.2f} "
+           f"imgs/s; ms a batch: {_split_line(t)}; eval bbox {t['eval_bbox']:.2f} s, segm "
+           f"{t['eval_segm']:.2f} s; device idle {r['idle']:.4f}", time.perf_counter() - t0)
+    return {"launches": r["launches"], "batches": t["batches"], "imgs_per_s": imgs}
+
+
+def phase_vgg16(torch, seed, batch, iters, warmup):
+    """VGG16 Faster R-CNN serving and one training step, and the RoIAlign
+    forward at VGG_CNN_M_1024's shape (C = 1024, res 7) on a seeded map of
+    the 608x1024 canvas (no main path serves that body here)."""
+    t0 = time.perf_counter()
+    infer = phase_ss_infer(torch, "vgg16_rcnn_infer", VGG16_CFG, seed, batch, iters, warmup)
+    train = phase_ss_train(torch, "vgg16_rcnn_train", VGG16_CFG, seed + 1, SS_GROUPS, 1, 0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feat = torch.randn((batch, 38, 64, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    rois, _ = _edge_rois(torch, np.random.RandomState(seed), batch, (608, 1024), 2400)
+    vggm, s = _one_level_case(torch, "VGG_CNN_M_1024 shape", {4: feat}, rois, 7, iters, warmup)
+    _phase("vgg16_rcnn", s, time.perf_counter() - t0)
+    return {"infer": infer, "train": train, "vgg_cnn_m": vggm}
 
 
 LOOP_WORKERS = 6  # DATA_LOADER.NUM_PROCESSES: the card's host has 8 cores
@@ -3578,6 +4124,22 @@ PARTIAL = {
     "proposal_pipeline": lambda torch, a, rng: phase_proposal_pipeline(
         torch, a.seed + 16, a.loop_data, a.iters, a.warmup),
     "tta_test_net": lambda torch, a, rng: phase_tta_test_net(torch, a.seed + 17, a.loop_data),
+    "c4_rcnn_infer": lambda torch, a, rng: {
+        "faster": phase_ss_infer(torch, "c4_faster_rcnn_infer", C4_FASTER_CFG, a.seed + 18,
+                                 a.batch, a.iters, a.warmup),
+        "mask": phase_ss_infer(torch, "c4_mask_rcnn_infer", C4_MASK_CFG, a.seed + 19, a.batch,
+                               a.iters, a.warmup)},
+    "c4_rcnn_train": lambda torch, a, rng: phase_ss_train(
+        torch, "c4_rcnn_train", C4_MASK_CFG, a.seed + 20, SS_GROUPS, a.iters, a.warmup,
+        v0up_too=True),
+    "vgg16_rcnn": lambda torch, a, rng: phase_vgg16(torch, a.seed + 21, a.batch, a.iters,
+                                                    a.warmup),
+    "rfcn_ohem": lambda torch, a, rng: {
+        "infer": phase_ss_infer(torch, "rfcn_ohem_infer", RFCN_CFG, a.seed + 22, a.batch,
+                                a.iters, a.warmup),
+        "train": phase_ss_train(torch, "rfcn_ohem_train", RFCN_CFG, a.seed + 23, SS_GROUPS,
+                                a.iters, a.warmup)},
+    "c4_test_net": lambda torch, a, rng: phase_c4_test_net(torch, a.seed + 24, a.loop_data),
     "ddp_joint_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_joint_step", a.seed,
                                                            a.groups, DDP_TIMED_STEPS, a.gpu),
     "ddp_rcnn_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_rcnn_step", a.seed + 5,
@@ -3760,6 +4322,19 @@ def _main(torch, args) -> int:
             k.split(":")[1].split(" ")[0]: st["device_ms"] for k, (_, st) in ROI_TIMERS.items()
             if k.startswith(f"{key}_train:")}
     train_steps = faster_t["steps"] + mask_t["steps"]
+    # the single-scale family (C4, VGG16, R-FCN with OHEM), after the device-time
+    # phases: its profiled idle shares would come before them otherwise, and late in
+    # a process the profiler drops records (PERF.md section 6). The counts are set
+    # to 0 inside, after the comparisons, just before each main path, read just after
+    c4 = PARTIAL["c4_rcnn_infer"](torch, args, rng)
+    c4_t = PARTIAL["c4_rcnn_train"](torch, args, rng)
+    if _kernel_counts() != c4_t["v0up"]["launches"]:
+        raise AssertionError("a kernel was launched after the C4 training runs")
+    vgg = PARTIAL["vgg16_rcnn"](torch, args, rng)
+    rfcn = PARTIAL["rfcn_ohem"](torch, args, rng)
+    if _kernel_counts() != rfcn["train"]["launches"]:
+        raise AssertionError("a kernel was launched after the R-FCN training run")
+    c4_eval = PARTIAL["c4_test_net"](torch, args, rng)
     # data parallelism, last: W ranks, processes of their own, each setting
     # its counts to 0 just before its run and reading them just after; in
     # this process only ddp_test_net's one-process references launch (its
@@ -3903,6 +4478,76 @@ def _main(torch, args) -> int:
         "keypoint_train_loop_launches": kps_loop[2] // 2,
         "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
         **roi_bwd_stats["mask"], **roi_bwd_entry,
+    }, {
+        # the single-scale family. C4 serving's RPN: 8 x 6000 -> 1000 (sorted), one
+        # launch a batch of the Faster and the Mask R-50-C4 runs and of c4_test_net's batches
+        "name": "greedy_nms_sorted@c4_rpn", **c4["faster"]["rpn"], **nms_entry,
+        "launches": (c4["faster"]["nms_launches"] + c4["mask"]["nms_launches"]) // 2,
+        "test_net_launches": c4_eval["launches"][0] // 2,
+    }, {
+        # C4 serving's decode: 8 x (1000 rois x 80 classes) -> 100
+        "name": "greedy_nms_sorted@c4_decode", **c4["faster"]["decode"], **nms_entry,
+        "launches": (c4["faster"]["nms_launches"] + c4["mask"]["nms_launches"]) // 2,
+        "test_net_launches": c4_eval["launches"][0] // 2,
+    }, {
+        # the C4 and VGG16 training RPN: 8 x 12,000 -> 2000, over the sort's 8192 cap: the
+        # argmax loop; one a step (C4 v0upshare steps, the v0up step, the VGG16 step)
+        "name": "greedy_nms_argmax@ss_rpn_train", **c4_t["rpn"], **nms_entry,
+        "launches": c4_t["launches"][0] + c4_t["v0up"]["launches"][0]
+        + vgg["train"]["launches"][0],
+        "v0up_launches": c4_t["v0up"]["launches"][0],
+        "vgg16_launches": vgg["train"]["launches"][0],
+    }, {
+        # VGG16 and R-FCN serving's RPN, 8 x 6000 -> 300 (sorted), and R-FCN's training
+        # RPN at the same shape
+        "name": "greedy_nms_sorted@ss_rpn_300", **vgg["infer"]["rpn"], **nms_entry,
+        "launches": (vgg["infer"]["nms_launches"] + rfcn["infer"]["nms_launches"]) // 2
+        + rfcn["train"]["launches"][0],
+        "rfcn_launches": rfcn["infer"]["nms_launches"] // 2,
+        "rfcn_train_launches": rfcn["train"]["launches"][0],
+    }, {
+        # VGG16 and R-FCN serving's decode: 8 x (300 rois x 80 classes) -> 100
+        "name": "greedy_nms_sorted@ss_decode_24000", **rfcn["infer"]["decode"], **nms_entry,
+        "launches": (vgg["infer"]["nms_launches"] + rfcn["infer"]["nms_launches"]) // 2,
+        "rfcn_launches": rfcn["infer"]["nms_launches"] // 2,
+    }, {
+        # C4 serving's box RoIAlign: R = 8000, res 14, C = 1024 on the 50x84 res4 map
+        "name": "roi_align_fwd@c4_box", **c4["faster"]["box"], **roi_entry,
+        "launches": c4["faster"]["roi_align_launches"] + c4["mask"]["roi_align_launches"] // 2,
+        "test_net_launches": c4_eval["launches"][1] // 2,
+    }, {
+        # the cascaded mask branch: R = 800 kept boxes, res 14
+        "name": "roi_align_fwd@c4_mask", **c4["mask"]["mask"], **roi_entry,
+        "launches": c4["mask"]["roi_align_launches"] // 2,
+        "test_net_launches": c4_eval["launches"][1] // 2,
+    }, {
+        # the C4 step's box rois (R = 4096, res 14) and the v0up step's
+        "name": "roi_align_fwd@c4_box_train", **c4_t["fwd_box_train"], **roi_entry,
+        "launches": c4_t["steps"] + 1, "v0up_launches": 1,
+    }, {
+        # the C4 mask target crop (C = 1, res 14, the fg prefix), one a Mask step
+        "name": "roi_align_fwd@c4_mask_targets", **c4_t["crop"], **roi_entry,
+        "launches": c4_t["steps"] + 1, "v0up_launches": 1,
+    }, {
+        # v0up's own RoIAlign on the fg prefix (R = 8 x 128, res 14)
+        "name": "roi_align_fwd@c4_v0up_mask_train", **c4_t["v0up"]["fwd_mask_train"],
+        **roi_entry, "launches": 1,
+    }, {
+        # VGG16: serving R = 8 x 300, res 7, C = 512; the step's 8 x 128 rois
+        "name": "roi_align_fwd@vgg16", **vgg["infer"]["box"], **roi_entry,
+        "launches": vgg["infer"]["roi_align_launches"],
+    }, {
+        "name": "roi_align_fwd@vgg16_train", **vgg["train"]["fwd_box_train"], **roi_entry,
+        "launches": vgg["train"]["launches"][1],
+    }, {
+        "name": "roi_align_bwd_gather@c4_box_train", **c4_t["bwd_box_train"], **roi_bwd_entry,
+        "launches": c4_t["steps"] + 1, "v0up_launches": 1,
+    }, {
+        "name": "roi_align_bwd_gather@c4_v0up_mask_train", **c4_t["v0up"]["bwd_mask_train"],
+        **roi_bwd_entry, "launches": 1,
+    }, {
+        "name": "roi_align_bwd_gather@vgg16_train", **vgg["train"]["bwd_box_train"],
+        **roi_bwd_entry, "launches": vgg["train"]["launches"][2],
     }, {
         # P3's shape; "levels" holds every level's device time, bound and the launches
         # counted at that level's shape in the joint step

@@ -13,9 +13,10 @@ content extent for the train step to normalise on the device, as
 RetinaNetMinibatchBuilder does.
 
 Capability-equivalent to detectron/lib/roi_data/rpn.py add_rpn_blobs +
-_get_rpn_blobs (FPN path):
-- anchors: 1 size per level (RPN_ANCHOR_START_SIZE * 2^(lvl-min)), all
-  RPN_ASPECT_RATIOS (FPN.py/rpn_heads.py FPN wiring),
+_get_rpn_blobs:
+- anchors: with FPN 1 size per level (RPN_ANCHOR_START_SIZE * 2^(lvl-min)),
+  all RPN_ASPECT_RATIOS (FPN.py/rpn_heads.py FPN wiring); single-scale, every
+  RPN.SIZES x RPN.ASPECT_RATIOS at RPN.STRIDE, one level log2(RPN.STRIDE),
 - straddle filter: anchors crossing the image border by more than
   TRAIN.RPN_STRADDLE_THRESH are excluded (-1) from assignment
   (rpn.py inds_inside; thresh < 0 keeps all),
@@ -40,25 +41,31 @@ from .anchors import (
 
 
 def rpn_anchor_grid(cfg: Config, canvas_h: int, canvas_w: int) -> AnchorGrid:
-    """FPN: one size per level x RPN_ASPECT_RATIOS."""
+    """FPN: one size per level x RPN_ASPECT_RATIOS. Single-scale (no FPN):
+    all RPN.SIZES x RPN.ASPECT_RATIOS at RPN.STRIDE (rpn_heads.py:55-123),
+    keyed at level log2(RPN.STRIDE)."""
     fields, strides, hw, levels = [], [], [], []
-    if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN):
-        raise NotImplementedError(
-            "the single-scale (C4 / R-FCN) RPN anchor grid is not ported to "
-            "sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
-    lvl_range = range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1)
-    specs = [
-        (
-            lvl,
-            2.0 ** lvl,
-            [
-                (cfg.FPN.RPN_ANCHOR_START_SIZE
-                 * (2 ** (lvl - cfg.FPN.RPN_MIN_LEVEL)), ar)
-                for ar in cfg.FPN.RPN_ASPECT_RATIOS
-            ],
-        )
-        for lvl in lvl_range
-    ]
+    if cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN:
+        lvl_range = range(cfg.FPN.RPN_MIN_LEVEL, cfg.FPN.RPN_MAX_LEVEL + 1)
+        specs = [
+            (
+                lvl,
+                2.0 ** lvl,
+                [
+                    (cfg.FPN.RPN_ANCHOR_START_SIZE
+                     * (2 ** (lvl - cfg.FPN.RPN_MIN_LEVEL)), ar)
+                    for ar in cfg.FPN.RPN_ASPECT_RATIOS
+                ],
+            )
+            for lvl in lvl_range
+        ]
+    else:
+        stride = float(cfg.RPN.STRIDE)
+        lvl = int(np.log2(stride))
+        specs = [
+            (lvl, stride,
+             [(s, ar) for s in cfg.RPN.SIZES for ar in cfg.RPN.ASPECT_RATIOS])
+        ]
     for lvl, stride, size_ars in specs:
         cell = np.concatenate(
             [generate_cell_anchors(stride, (s,), (ar,)) for s, ar in size_ars]

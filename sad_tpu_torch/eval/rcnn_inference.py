@@ -16,8 +16,15 @@ runs on the (B, P, 4) proposals handed in. ``make_aux_on_boxes_fn`` runs
 the mask and keypoint heads on fixed boxes, the passes that mask and
 keypoint test-time augmentation re-run (test.py:410-478, 582-665).
 
-Not ported yet (ROADMAP.md Queue 1 item 8): the single-scale (C4) cascaded
-mask branch, which raises NotImplementedError.
+Single-scale models (models/single_scale.SingleScaleRCNN: C4, VGG, R-FCN;
+sad_tpu/eval/rcnn_inference.py:190-207): the box path of the model's
+forward; with MODEL.MASK_ON the cascaded mask branch re-runs RoIAlign at
+MRCNN.ROI_XFORM_RESOLUTION and res5 (the box head's for v0upshare, its own
+for v0up) on the kept boxes, every slot pooled as sad_tpu pools it. Fast
+R-CNN runs ``box_forward`` on the proposals. KEYPOINTS_ON on a single-scale
+model is refused (models/model_builder.check_single_scale; ROADMAP.md
+Queue 3); so is R-FCN without MODEL.CLS_AGNOSTIC_BBOX_REG, whose (R, 8) box
+outputs the class-specific decode cannot read.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Dict
 
 import torch
 
+from ..models.model_builder import check_single_scale
 from ..models.rcnn import flat_rois
 from ..ops.box_transforms import bbox_transform, clip_boxes
 from ..ops.nms import NEG_INF, batched_nms_multi
@@ -130,11 +138,15 @@ def keypoint_roi_features(cfg, model, features, boxes, valid, im_scale) -> torch
 def _aux_heads(cfg, model, features, rois5, lvls, valid, b: int, k: int) -> Dict:
     """The mask head ('mask_prob' (B, K, m, m, C)) and the keypoint head
     ('kps_heatmaps' (B, K, S, S, J) float32 logits) that are on, over the
-    (B*K, 5) rois."""
+    (B*K, 5) rois; a single-scale model's cascaded mask branch pools every
+    roi."""
     out = {}
     if cfg.MODEL.MASK_ON:
-        logits = model.mask_heads(
-            _aux_roi_features(cfg, model, features, rois5, lvls, valid, "mask"))
+        if single_scale(cfg):
+            logits = model.mask_heads(features, rois5)
+        else:
+            logits = model.mask_heads(
+                _aux_roi_features(cfg, model, features, rois5, lvls, valid, "mask"))
         out["mask_prob"] = torch.sigmoid(logits).reshape((b, k) + logits.shape[1:])
     if cfg.MODEL.KEYPOINTS_ON:
         hm = model.keypoint_heads(
@@ -143,18 +155,39 @@ def _aux_heads(cfg, model, features, rois5, lvls, valid, b: int, k: int) -> Dict
     return out
 
 
+def single_scale(cfg) -> bool:
+    """A SingleScaleRCNN's config: no FPN, or R-FCN."""
+    return not cfg.FPN.FPN_ON or cfg.MODEL.TYPE == "rfcn"
+
+
+def _check_serving(cfg) -> None:
+    """Refuse, before any work, what the single-scale serving path does not
+    serve."""
+    if not single_scale(cfg):
+        return
+    check_single_scale(cfg)
+    if cfg.MODEL.TYPE == "rfcn" and not cfg.MODEL.CLS_AGNOSTIC_BBOX_REG:
+        raise ValueError("R-FCN's box outputs are class-agnostic (R, 8): set "
+                         "MODEL.CLS_AGNOSTIC_BBOX_REG True")
+
+
 def fast_rcnn_outputs(cfg, model, images, proposals, prop_valid) -> Dict[str, torch.Tensor]:
     """Fast R-CNN's box head on precomputed (B, P, 4) proposals in
     network-input coordinates (sad_tpu/eval/rcnn_inference.py:127-178):
-    backbone, RoI levels, RoIAlign, box head, softmax; the dict of
-    ``GeneralizedRCNN.forward`` without the RPN's scores."""
+    backbone, RoI levels, RoIAlign, box head, softmax (a single-scale model:
+    ``box_forward`` on every proposal); the dict of ``GeneralizedRCNN.forward``
+    without the RPN's scores."""
     feats = model.backbone(images)
     b, r = proposals.shape[:2]
-    f = cfg.FPN
-    lvls = map_rois_to_fpn_levels(proposals, f.ROI_MIN_LEVEL, f.ROI_MAX_LEVEL,
-                                  f.ROI_CANONICAL_SCALE, f.ROI_CANONICAL_LEVEL)
-    cls_score, bbox_pred = model.box_head(
-        model.box_roi_features(feats, proposals, lvls, prop_valid))
+    if single_scale(cfg):
+        lvls = torch.full((b, r), model.level, dtype=torch.int32, device=proposals.device)
+        cls_score, bbox_pred = model.box_forward(feats, flat_rois(proposals))
+    else:
+        f = cfg.FPN
+        lvls = map_rois_to_fpn_levels(proposals, f.ROI_MIN_LEVEL, f.ROI_MAX_LEVEL,
+                                      f.ROI_CANONICAL_SCALE, f.ROI_CANONICAL_LEVEL)
+        cls_score, bbox_pred = model.box_head(
+            model.box_roi_features(feats, proposals, lvls, prop_valid))
     cls_score = cls_score.reshape(b, r, -1)
     return {"rois": proposals, "roi_valid": prop_valid, "roi_levels": lvls,
             "cls_score": cls_score, "cls_prob": torch.softmax(cls_score, dim=-1),
@@ -174,11 +207,9 @@ def make_rcnn_inference_fn(cfg, model, aux_heads: bool = True) -> Callable:
     take the RPN's place. With ``aux_heads`` False the mask and keypoint
     heads do not run: the box passes of test-time augmentation, whose
     heads run on the merged boxes instead."""
-    if not cfg.FPN.FPN_ON:
-        raise NotImplementedError(
-            "single-scale (C4) R-CNN inference, with its cascaded mask branch, is not "
-            "ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
-    precomputed = not cfg.MODEL.FASTER_RCNN
+    _check_serving(cfg)
+    # sad_tpu serves Fast R-CNN for MODEL.TYPE generalized_rcnn only
+    precomputed = not cfg.MODEL.FASTER_RCNN and cfg.MODEL.TYPE == "generalized_rcnn"
 
     @torch.inference_mode()
     def infer(images, im_hw, im_scale, content_hw=None, proposals=None, prop_valid=None):
@@ -206,15 +237,13 @@ def make_rcnn_inference_fn(cfg, model, aux_heads: bool = True) -> Callable:
 def make_aux_on_boxes_fn(cfg, model) -> Callable:
     """The mask / keypoint heads on fixed boxes: the cascaded passes that
     mask and keypoint test-time augmentation re-run on transformed images
-    (sad_tpu/eval/rcnn_inference.py:262-332, its FPN branch).
+    (sad_tpu/eval/rcnn_inference.py:262-332; a single-scale model runs its
+    cascaded mask branch on every slot).
 
     aux(images, net_boxes (B, K, 4) in network-input coordinates, valid
     (B, K), content_hw=None) -> {'mask_prob': (B, K, m, m, C),
     'kps_heatmaps': (B, K, S, S, J)}, each under its MODEL switch."""
-    if not cfg.FPN.FPN_ON:
-        raise NotImplementedError(
-            "make_aux_on_boxes_fn for single-scale (C4) models, the cascaded mask branch on "
-            "fixed boxes, is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+    _check_serving(cfg)
 
     @torch.inference_mode()
     def aux(images, net_boxes, valid, content_hw=None):

@@ -3,8 +3,11 @@ sad_tpu/eval/test_engine.py; detectron/lib/core/test_engine.py).
 
 Images are batched onto the static test canvases as uint8 with their
 content extents, normalised and decoded on the device, and the (N, 100)
-results come back as COCO-format detection dicts: for RetinaNet, and for
-Faster / Mask / Keypoint R-CNN (generalized_rcnn with FPN). Mask R-CNN's
+results come back as COCO-format detection dicts: for RetinaNet, for Fast /
+Faster / Mask / Keypoint R-CNN (generalized_rcnn, with FPN or single-scale:
+C4, VGG) and for R-FCN ('rfcn', served as an R-CNN; sad_tpu's test_net sends
+it to the RetinaNet decode, ROADMAP.md Queue 3). The canvases are those of
+sad_tpu, FPN.COARSEST_STRIDE multiples for every model. Mask R-CNN's
 kept masks are gathered to each detection's own class on the card, pasted
 into the image frame and RLE-encoded on the host. Keypoint R-CNN's kept
 heatmaps are decoded on the host (utils/keypoints.heatmaps_to_keypoints,
@@ -68,7 +71,8 @@ from ..utils.segms import mask_to_rle, paste_mask_into_image
 from .coco_eval import COCOEvaluator
 from .inference import make_inference_fn
 from . import test_augmentation
-from .rcnn_inference import make_aux_on_boxes_fn, make_rcnn_inference_fn
+from ..models.model_builder import check_single_scale
+from .rcnn_inference import make_aux_on_boxes_fn, make_rcnn_inference_fn, single_scale
 
 logger = logging.getLogger(__name__)
 
@@ -126,6 +130,10 @@ def prepare_test_batch(cfg, entries: List[dict], canvas, target_scale: int = 0,
     return {"data": data, "im_hw": im_hw, "im_scale": scales, "content_hw": content_hw}
 
 
+# the R-CNN model types run_inference_on_roidb serves through make_rcnn_inference_fn
+RCNN_SERVED = ("generalized_rcnn", "rfcn")
+
+
 def _refuse_unported_inference(cfg) -> None:
     """Raise for what run_inference_on_roidb does not serve, before any work
     (dispatch by model type, sad_tpu/eval/test_engine.py:109-124; ref:
@@ -135,9 +143,11 @@ def _refuse_unported_inference(cfg) -> None:
     if cfg.MODEL.TYPE == "rpn":
         raise ValueError("MODEL.TYPE 'rpn' makes proposals, not detections: serve it through "
                          "tools/test_net or eval/rpn_generator.generate_rpn_on_dataset")
-    if cfg.MODEL.TYPE != "generalized_rcnn":
-        raise NotImplementedError(f"MODEL.TYPE={cfg.MODEL.TYPE!r} inference is not ported "
-                                  "to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+    if cfg.MODEL.TYPE not in RCNN_SERVED:
+        raise NotImplementedError(f"MODEL.TYPE={cfg.MODEL.TYPE!r} is not a model type of "
+                                  "sad_tpu")
+    if single_scale(cfg):
+        check_single_scale(cfg)
     t = cfg.TEST
     if not t.BBOX_AUG.ENABLED:
         alone = [n for n, on in (("TEST.SOFT_NMS", t.SOFT_NMS.ENABLED),
@@ -171,7 +181,7 @@ def _make_infer_fn(cfg, model):
         raise ValueError("KRCNN.KEYPOINT_CONFIDENCE must be 'logit', 'prob', or 'bbox'; got "
                          f"{cfg.KRCNN.KEYPOINT_CONFIDENCE!r}")
     _refuse_unported_inference(cfg)
-    if cfg.MODEL.TYPE == "generalized_rcnn":
+    if cfg.MODEL.TYPE in RCNN_SERVED:
         # under TEST.BBOX_AUG the heads run on the merged boxes, not in the box passes
         return make_rcnn_inference_fn(cfg, model, aux_heads=not cfg.TEST.BBOX_AUG.ENABLED)
     return make_inference_fn(cfg, model)
@@ -325,10 +335,10 @@ def run_inference_on_roidb(cfg, model, roidb: List[dict],
     ``timing``, when given, receives the loop's wall seconds, its batches
     and images, and the seconds of each stage of SPLIT_KEYS."""
     infer = _make_infer_fn(cfg, model)
-    rcnn = cfg.MODEL.TYPE == "generalized_rcnn"
+    rcnn = cfg.MODEL.TYPE in RCNN_SERVED
     # Fast R-CNN: precomputed proposals attached to the roidb (test.py
     # im_detect_all passes entry['boxes'] when not FASTER_RCNN)
-    precomputed = rcnn and not cfg.MODEL.FASTER_RCNN and any(
+    precomputed = cfg.MODEL.TYPE == "generalized_rcnn" and not cfg.MODEL.FASTER_RCNN and any(
         "proposal_boxes" in e for e in roidb)
     t = cfg.TEST
     bbox_aug = rcnn and t.BBOX_AUG.ENABLED

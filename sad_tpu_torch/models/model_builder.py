@@ -1,4 +1,4 @@
-"""Model creation (ref: sad_tpu/models/model_builder.py:25-54), seeded
+"""Model creation (ref: sad_tpu/models/model_builder.py:25-95), seeded
 random initialisation, and the parameter-role masks of training (ref:
 sad_tpu/models/model_builder.py:139-182).
 
@@ -8,8 +8,16 @@ config. 'generalized_rcnn' with FPN builds a GeneralizedRCNN (Fast / Faster /
 Mask / Keypoint R-CNN), and so does 'rpn' (RPN-only proposals: the same tree,
 of which test_net runs the proposal stage), as sad_tpu's create_model does
 (sad_tpu/models/model_builder.py:40-46); the old type spellings that
-sad_tpu's config aliases to them normalise here too. The single-scale (C4)
-and VGG bodies and R-FCN are not ported yet.
+sad_tpu's config aliases to them normalise here too. Without FPN, and for
+'rfcn', a SingleScaleRCNN (models/single_scale.py): the C4, VGG16 and
+VGG_CNN_M_1024 bodies, the res5 or fc6 / fc7 box head, the v0upshare / v0up
+mask heads, R-FCN.
+
+Refused where sad_tpu builds something other than what the config names or
+ignores the option (ROADMAP.md Queue 3): a single-scale model with
+KEYPOINTS_ON, ROI_XFORM_METHOD other than RoIAlign or ROI_XFORM_SAMPLING_RATIO
+0, a v1up mask head on a single-scale body, a mask head without the res5 box
+head, R-FCN with MASK_ON.
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ from ..device import get_device
 from .arch import arch_from_config
 from .rcnn import GeneralizedRCNN
 from .retinanet import RetinaNet, cls_bias_init
+from .single_scale import SingleScaleRCNN
+
+_QUEUE3 = " (ROADMAP.md Queue 3)"
 
 
 def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
@@ -50,12 +61,13 @@ def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
         elif mtype in ("generalized_rcnn", "rpn") and cfg.FPN.FPN_ON:
             _check_head_strings_fpn(cfg)
             model = GeneralizedRCNN(cfg)
+        elif mtype in ("generalized_rcnn", "rpn", "rfcn"):
+            if mtype != "rfcn":
+                _check_head_strings_c4(cfg)
+            check_single_scale(cfg)
+            model = SingleScaleRCNN(cfg)
         else:
-            raise NotImplementedError(
-                f"MODEL.TYPE={mtype!r} (FPN_ON={cfg.FPN.FPN_ON}) is not ported to "
-                "sad_tpu_torch yet: single-scale (C4) and VGG bodies and R-FCN wait "
-                "(ROADMAP.md Queue 1 item 8)"
-            )
+            raise NotImplementedError(f"MODEL.TYPE={mtype!r} is not a model type of sad_tpu")
     init_weights(model, generator)
     return model.eval()
 
@@ -77,6 +89,51 @@ def _check_head_strings_fpn(cfg) -> None:
             f"FPN mask head {cfg.MRCNN.ROI_MASK_HEAD!r} (v0up/v0upshare are C4 heads)")
     if cfg.MODEL.KEYPOINTS_ON and "v1convX" not in cfg.KRCNN.ROI_KEYPOINTS_HEAD:
         raise NotImplementedError(f"keypoint head {cfg.KRCNN.ROI_KEYPOINTS_HEAD!r}")
+
+
+def _check_head_strings_c4(cfg) -> None:
+    """sad_tpu/models/model_builder.py:81-95: a single-scale box head must
+    be the res5 head, a 2mlp head or a VGG body's; a mask head v0up* or v1up*."""
+    body = cfg.MODEL.CONV_BODY or ""
+    head = cfg.FAST_RCNN.ROI_BOX_HEAD
+    if not ("ResNet" in head or "resnet" in head or "VGG16" in body or "VGG_CNN" in body
+            or "2mlp" in head):
+        raise NotImplementedError(f"C4 box head {head!r}")
+    if cfg.MODEL.MASK_ON and not ("v0up" in cfg.MRCNN.ROI_MASK_HEAD
+                                  or "v1up" in cfg.MRCNN.ROI_MASK_HEAD):
+        raise NotImplementedError(f"C4 mask head {cfg.MRCNN.ROI_MASK_HEAD!r}")
+
+
+def check_single_scale(cfg) -> None:
+    """Refuse the single-scale options that sad_tpu's SingleScaleRCNN builds
+    as something else or ignores, before any work."""
+    m = cfg.MODEL
+    if m.KEYPOINTS_ON:
+        raise NotImplementedError("KEYPOINTS_ON on a single-scale (C4) model: sad_tpu's "
+                                  "SingleScaleRCNN has no keypoint head" + _QUEUE3)
+    xforms = [("FAST_RCNN", cfg.FAST_RCNN)] + ([("MRCNN", cfg.MRCNN)] if m.MASK_ON else [])
+    for name, c in xforms:
+        if c.ROI_XFORM_METHOD != "RoIAlign":
+            raise NotImplementedError(
+                f"{name}.ROI_XFORM_METHOD {c.ROI_XFORM_METHOD!r} on a single-scale model: "
+                "sad_tpu's SingleScaleRCNN always aligns" + _QUEUE3)
+        if c.ROI_XFORM_SAMPLING_RATIO <= 0:
+            raise NotImplementedError(
+                f"{name}.ROI_XFORM_SAMPLING_RATIO 0 (Detectron's adaptive grid): sad_tpu "
+                "requires a fixed ratio > 0" + _QUEUE3)
+    if not m.MASK_ON:
+        return
+    if m.TYPE == "rfcn":
+        raise NotImplementedError("R-FCN with MASK_ON: sad_tpu's R-FCN has no mask head and "
+                                  "its step skips the mask loss" + _QUEUE3)
+    if "v1up" in cfg.MRCNN.ROI_MASK_HEAD:
+        raise NotImplementedError(
+            f"mask head {cfg.MRCNN.ROI_MASK_HEAD!r} on a single-scale body: sad_tpu accepts "
+            "it and builds v0up" + _QUEUE3)
+    if "ResNet" not in cfg.FAST_RCNN.ROI_BOX_HEAD:
+        raise NotImplementedError("MASK_ON on a single-scale model without the res5 box head "
+                                  "(ResNet.add_ResNet_roi_conv5_head): the v0up mask heads "
+                                  "need res5" + _QUEUE3)
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -102,14 +159,16 @@ def _variance_scaling(w: torch.Tensor, scale: float, mode: str,
         nn.init.uniform_(w, -lim, lim, generator=generator)
 
 
-def _init_mask_weight(cfg, w: torch.Tensor, leaf: str, generator) -> None:
+def _init_mask_weight(cfg, w: torch.Tensor, leaf: str, generator, fc_output=None) -> None:
     """MRCNN.CONV_INIT (sad_tpu/models/rcnn.py:115-155): N(0, 0.001), or
     MSRAFill = normal with std sqrt(2 / fan_out); the dense output and the
-    class-agnostic logits always take N(0, 0.001)."""
+    class-agnostic logits always take N(0, 0.001). ``fc_output`` defaults to
+    MRCNN.USE_FC_OUTPUT (the v0up output of a single-scale model has none)."""
     if cfg.MRCNN.CONV_INIT not in ("GaussianFill", "MSRAFill"):
         raise ValueError(f"Unknown MRCNN.CONV_INIT: {cfg.MRCNN.CONV_INIT!r}")
+    fc = cfg.MRCNN.USE_FC_OUTPUT if fc_output is None else fc_output
     gauss = cfg.MRCNN.CONV_INIT == "GaussianFill" or (
-        leaf == "mask_fcn_logits" and (cfg.MRCNN.USE_FC_OUTPUT or not cfg.MRCNN.CLS_SPECIFIC_MASK))
+        leaf == "mask_fcn_logits" and (fc or not cfg.MRCNN.CLS_SPECIFIC_MASK))
     if gauss:
         w.normal_(0.0, 0.001, generator=generator)
     else:
@@ -138,31 +197,35 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
     convs, zero biases, the prior-prob cls bias, AffineChannel s=1/b=0; for
     the R-CNN heads Flax's Dense default (lecun normal) on fc6/fc7, N(0,
     0.01) on cls_score, N(0, 0.001) on bbox_pred, MRCNN.CONV_INIT on the
-    mask head, KRCNN.CONV_INIT on the keypoint head."""
+    mask head, KRCNN.CONV_INIT on the keypoint head; for a single-scale
+    model the same by role (the VGG and res5 convs he-normal, R-FCN's N(0,
+    0.01), the v0up output by MRCNN.CONV_INIT)."""
     a = model.arch
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             continue
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("mask_head."):
+        top = name.split(".", 1)[0]
+        if top == "mask_head":
             _init_mask_weight(model.cfg, m.weight, leaf, generator)
-        elif name.startswith("kps_head."):
+        elif top == "mask_out":  # single-scale v0up output
+            _init_mask_weight(model.cfg, m.weight, leaf, generator, fc_output=False)
+        elif top == "kps_head":
             _init_keypoint_weight(model.cfg, m.weight, leaf, generator)
-        elif name.startswith("box_head."):
-            if leaf in ("fc6", "fc7"):
-                _variance_scaling(m.weight, 1.0, "fan_in", "truncated_normal", generator)
-            else:
-                m.weight.normal_(0.0, 0.01 if leaf == "cls_score" else 0.001,
-                                 generator=generator)
-        elif name.startswith("fpn.body."):
+        elif leaf in ("fc6", "fc7") and top in ("box_head", "fc6", "fc7"):
+            _variance_scaling(m.weight, 1.0, "fan_in", "truncated_normal", generator)
+        elif leaf in ("cls_score", "bbox_pred") and top in ("box_head", leaf):
+            m.weight.normal_(0.0, 0.01 if leaf == "cls_score" else 0.001, generator=generator)
+        elif name.startswith("fpn.body.") or top in ("body", "res5_head", "mask_res5"):
+            # he-normal backbone convs (VGG's too), branch2c scaled to 0.01
             scale = 0.01 if leaf.endswith("_branch2c") else 2.0
             _variance_scaling(m.weight, scale, "fan_in", "truncated_normal", generator)
-        elif name.startswith("fpn."):
+        elif top == "fpn":
             if leaf.endswith("_lateral") and a.zero_init_lateral:
                 m.weight.zero_()
             else:
                 _variance_scaling(m.weight, 1.0, "fan_avg", "uniform", generator)
-        else:
+        else:  # RetinaNet and RPN heads, R-FCN's convs
             m.weight.normal_(0.0, 0.01, generator=generator)
         if m.bias is not None:
             m.bias.zero_()
@@ -188,12 +251,13 @@ def trainable_mask(model: nn.Module, freeze_at: int = 2,
     """Parameter name -> trainable. Frozen: AffineChannel s/b everywhere
     (affine_channel_op.cc:70-80), conv1..res{freeze_at}, and with
     freeze_conv_body (TRAIN.FREEZE_CONV_BODY) the whole body and FPN
-    (model_builder.py:200-207)."""
+    (model_builder.py:200-207). The prefix rule takes VGG16's conv1_1 /
+    conv1_2 and VGG_CNN_M's conv1 too, as sad_tpu's does."""
     out = {}
     for name, _ in model.named_parameters():
         path = name.split(".")
         out[name] = not (_is_affine_channel(path) or _is_frozen_stage(path, freeze_at)
-                         or (freeze_conv_body and path[0] == "fpn"))
+                         or (freeze_conv_body and path[0] in ("fpn", "body")))
     return out
 
 

@@ -6,7 +6,10 @@
 ``--cfg`` takes the RetinaNet configs and the R-CNN ones
 (``e2e_faster_rcnn_R-50-FPN.yaml``, ``e2e_mask_rcnn_R-50-FPN.yaml``,
 ``e2e_keypoint_rcnn_R-50-FPN.yaml``, and ``fast_rcnn_R-50-FPN.yaml`` on
-TEST.PROPOSAL_LIMIT seeded proposals an image, spread over its content). Seeded
+TEST.PROPOSAL_LIMIT seeded proposals an image, spread over its content), and
+the single-scale ones (``e2e_faster_rcnn_R-50-C4.yaml``,
+``e2e_mask_rcnn_R-50-C4.yaml``, ``faster_rcnn_VGG16.yaml``,
+``rfcn_R-101-C4_ohem.yaml``). Seeded
 random weights in the config's compute dtype and seeded uint8 canvases of the
 config's landscape test canvas. Prints, and writes as JSON:
 - imgs/s: median and quartiles of --iters timed batches (host clock around
@@ -17,7 +20,11 @@ config's landscape test canvas. Prints, and writes as JSON:
   gather, with MODEL.MASK_ON mask RoIAlign and mask head, and with
   MODEL.KEYPOINTS_ON keypoint RoIAlign and keypoint head; Fast R-CNN:
   normalise, backbone+FPN, RoI levels, RoIAlign, box head, decode, detection
-  NMS, gather;
+  NMS, gather; single-scale: normalise, body (to res4, or VGG's conv5), RPN
+  head, candidates, RPN NMS, RoIAlign (R-FCN: its score maps), box head (res5,
+  fc6 / fc7, or R-FCN's PSRoIPool and vote), decode, detection NMS, gather,
+  and with MODEL.MASK_ON the cascaded mask branch (its RoIAlign, then res5
+  with the deconv and logits);
 - peak device memory of the timed batches (torch.cuda.max_memory_allocated);
 - from a torch.profiler run of 5 batches: kernel time by category (conv,
   matmul, elementwise, top-k/sort, NMS kernel, RoIAlign kernel, other), the
@@ -55,8 +62,8 @@ from sad_tpu_torch.eval.inference import (
     decode_candidates, device_normalize, gather_detections, make_inference_fn,
 )
 from sad_tpu_torch.eval.rcnn_inference import (
-    decode_rcnn_candidates, fast_rcnn_outputs, keypoint_roi_features, make_rcnn_inference_fn,
-    mask_roi_features, rcnn_gather_detections,
+    decode_rcnn_candidates, fast_rcnn_outputs, keypoint_roi_features, kept_box_rois,
+    make_rcnn_inference_fn, mask_roi_features, rcnn_gather_detections, single_scale,
 )
 from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
 from sad_tpu_torch.models import compute_dtype, create_model
@@ -117,6 +124,7 @@ def spread_rcnn_outputs(cfg, model, images, im_hw, content_hw, proposals=None,
     feats = model._features(x)
     logits, deltas = model.rpn_outputs(feats)
     _, cls_name, bbox_name = model.rpn.names
+    cls_out, bbox_out = box_output_layers(model)
     factors = {
         "rpn_cls": rescale(getattr(model.rpn, cls_name),
                            torch.cat([v.reshape(-1) for v in logits.values()]),
@@ -127,15 +135,24 @@ def spread_rcnn_outputs(cfg, model, images, im_hw, content_hw, proposals=None,
     }
     out = (model(x, im_hw) if proposals is None
            else fast_rcnn_outputs(cfg, model, x, proposals, prop_valid))
-    factors["cls_score"] = rescale(model.box_head.cls_score, out["cls_score"],
-                                   _SPREAD_STD["cls_score"])
-    factors["bbox_pred"] = rescale(model.box_head.bbox_pred, out["bbox_pred"],
-                                   _SPREAD_STD["bbox_pred"])
+    factors["cls_score"] = rescale(cls_out, out["cls_score"], _SPREAD_STD["cls_score"])
+    factors["bbox_pred"] = rescale(bbox_out, out["bbox_pred"], _SPREAD_STD["bbox_pred"])
     return factors
 
 
+def box_output_layers(model):
+    """The layers whose outputs are an R-CNN's class scores and box deltas:
+    the box head's two linear layers, or R-FCN's two score-map convs (the
+    vote is a mean of their pooled outputs, so it scales with them)."""
+    if getattr(model, "is_rfcn", False):
+        return model.rfcn.rfcn_cls, model.rfcn.rfcn_bbox
+    head = getattr(model, "box_head", None)
+    head = head if isinstance(head, torch.nn.Module) else model
+    return head.cls_score, head.bbox_pred
+
+
 def is_rcnn(cfg) -> bool:
-    return cfg.MODEL.TYPE == "generalized_rcnn"
+    return cfg.MODEL.TYPE in ("generalized_rcnn", "rfcn")
 
 
 def seeded_proposals(rng: np.random.RandomState, content_hw: torch.Tensor, n: int, device):
@@ -216,6 +233,8 @@ def rcnn_stages(cfg, model, x):
         st[key] = value
         return value
 
+    if single_scale(cfg):
+        return single_scale_stages(cfg, model, x)
     if not cfg.MODEL.FASTER_RCNN:  # Fast R-CNN: x holds the proposals
         f = cfg.FPN
         levels = lambda _: map_rois_to_fpn_levels(  # noqa: E731
@@ -271,6 +290,71 @@ def rcnn_stages(cfg, model, x):
     return stages
 
 
+def single_scale_stages(cfg, model, x):
+    """(name, fn) stages of one single-scale R-CNN batch (C4, VGG, R-FCN):
+    the steps of SingleScaleRCNN.forward and make_rcnn_inference_fn one by
+    one; the last, untimed, returns the number of valid detection-NMS
+    candidates."""
+    from sad_tpu_torch.models.rcnn import flat_rois
+
+    data, im_hw, im_scale, content_hw = x[:4]
+    st = {}
+
+    def keep(key, value):
+        st[key] = value
+        return value
+
+    def transform(props):
+        st["props"] = props
+        st["nhwc"] = {l: f.permute(0, 2, 3, 1) for l, f in st["nchw"].items()}
+        if model.is_rfcn:  # the score maps take RoIAlign's place
+            return model.rfcn.score_maps(st["nchw"][model.level])
+        f = cfg.FAST_RCNN
+        return model.pool(st["nhwc"], flat_rois(props[0]), f.ROI_XFORM_RESOLUTION,
+                          f.ROI_XFORM_SAMPLING_RATIO)
+
+    def head(t):
+        if model.is_rfcn:
+            return model.rfcn.vote(*t, flat_rois(st["props"][0]))
+        return model.box_head(t)
+
+    def decode(head_out):
+        cls_score, bbox_pred = head_out
+        boxes, _, valid, _ = st["props"]
+        b, r = boxes.shape[:2]
+        prob = torch.softmax(cls_score.reshape(b, r, -1), dim=-1)
+        return keep("cands", decode_rcnn_candidates(
+            cfg, boxes, valid, prob, bbox_pred.reshape(b, r, -1), im_hw, im_scale))
+
+    m = cfg.MRCNN
+    stages = [
+        ("normalize", lambda _: device_normalize(cfg, data, content_hw)),
+        ("body", lambda im: keep("nchw", model._features(im))),
+        ("rpn_head", lambda feats: model.rpn_outputs(feats)),
+        ("candidates", lambda o: model.rpn_candidates(*o, im_hw)),
+        ("rpn_nms", lambda pl: nms_levels_batched(pl, cfg.TEST.RPN_NMS_THRESH,
+                                                  cfg.TEST.RPN_POST_NMS_TOP_N)),
+        ("collect", lambda kept: model.collect(*kept)),
+        ("psroi_score_maps" if model.is_rfcn else "roi_align", transform),
+        ("psroipool_vote" if model.is_rfcn else ("res5_head" if model.has_res5 else "fc6_fc7"),
+         head),
+        ("decode", decode),
+        ("detection_nms", lambda c: batched_nms_multi(*c, cfg.TEST.NMS,
+                                                      cfg.TEST.DETECTIONS_PER_IM)),
+        ("gather", lambda k: keep("dets", rcnn_gather_detections(st["cands"], *k))),
+    ]
+    if cfg.MODEL.MASK_ON:
+        stages += [
+            ("cascaded_mask_roi_align", lambda d: model.pool(
+                st["nhwc"], kept_box_rois(cfg, d["boxes"], im_scale)[0],
+                m.ROI_XFORM_RESOLUTION, m.ROI_XFORM_SAMPLING_RATIO)),
+            ("cascaded_mask_res5_head", lambda mf: torch.sigmoid(
+                model.mask_out(model.mask_res5_maps(mf)))),
+        ]
+    stages.append(("count", lambda _: st["cands"][3].sum()))
+    return stages
+
+
 def wall_seconds(fn, iters: int, warmup: int):
     """Host-clock seconds of each of ``iters`` calls of fn after ``warmup``
     untimed calls, each timed call between two torch.cuda.synchronize()."""
@@ -288,6 +372,13 @@ def wall_seconds(fn, iters: int, warmup: int):
 
 DEVICE_MS_SESSIONS = 3  # profiler sessions device_ms tries before it raises
 DEVICE_MS_KEPT = 0.5  # the least share of a named kernel's launches a session must record
+# spin kernels (torch.cuda._sleep(0)) launched at the start and at the end of each
+# profiled session of device_ms, outside fn's calls and left out of its result: late
+# in a long process the profiler loses about the first 20-30 kernel records of a
+# session, whatever kernels they are (PERF.md section 6)
+DEVICE_MS_PAD = (256, 64)
+PAD_KERNEL = "spin_kernel"  # the name of torch.cuda._sleep's kernel
+QUEUED_HOLD_CYCLES = 200_000_000  # ~0.1 s of the H100's clock: queued_ms's first hold
 
 
 def kernel_ms_a_call(records, iters: int, named: bool):
@@ -311,12 +402,13 @@ def device_ms(fn, iters: int, warmup: int, name: str = "") -> dict:
     """Device ms a call of each of fn's CUDA kernels whose names hold `name`,
     from torch.profiler over ``iters`` calls after ``warmup``: the kernels'
     own time, without the host's share that a CUDA-event interval around a
-    small kernel holds. The profiler on the card does not always record
-    every launch (late in a long process 40-47 of 50, now and then none:
-    PERF.md section 6), so each kernel is timed from its recorded launches
-    (``kernel_ms_a_call``), and a session is measured again, up to
-    DEVICE_MS_SESSIONS in all, when it saw no such kernel or, with
-    ``name``, recorded fewer than DEVICE_MS_KEPT of a named kernel's
+    small kernel holds. Each session opens and closes with DEVICE_MS_PAD
+    spin kernels, which the result leaves out. The profiler on the card does
+    not always record every launch (late in a long process 40-47 of 50, now
+    and then none: PERF.md section 6), so each kernel is timed from its
+    recorded launches (``kernel_ms_a_call``), and a session is measured
+    again, up to DEVICE_MS_SESSIONS in all, when it saw no such kernel or,
+    with ``name``, recorded fewer than DEVICE_MS_KEPT of a named kernel's
     launches; then device_ms raises, naming what the last session saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -326,14 +418,18 @@ def device_ms(fn, iters: int, warmup: int, name: str = "") -> dict:
     torch.cuda.synchronize()
     for session in range(DEVICE_MS_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(DEVICE_MS_PAD[0]):
+                torch.cuda._sleep(0)
             for _ in range(iters):
                 fn()
+            for _ in range(DEVICE_MS_PAD[1]):
+                torch.cuda._sleep(0)
             torch.cuda.synchronize()
         events = prof.key_averages()
         cuda = [e for e in events if e.device_type == DeviceType.CUDA]
         ms, least = kernel_ms_a_call(
-            [(e.key, e.count, e.self_device_time_total) for e in cuda if name in e.key], iters,
-            bool(name))
+            [(e.key, e.count, e.self_device_time_total) for e in cuda
+             if name in e.key and PAD_KERNEL not in e.key], iters, bool(name))
         if sum(ms.values()) > 0 and (not name or least >= DEVICE_MS_KEPT):
             if session or least < 1.0:
                 logger.warning("device_ms *%s*: %d session(s) measured again; this one recorded "
@@ -344,6 +440,36 @@ def device_ms(fn, iters: int, warmup: int, name: str = "") -> dict:
         f"{DEVICE_MS_SESSIONS} sessions of {iters} calls; the last saw {len(cuda)} CUDA kernels "
         f"{sorted((e.key[:60], e.count) for e in cuda)[:8]}, {len(events)} events, "
         f"{len(prof.events())} raw")
+
+
+def queued_ms(fn, iters: int, warmup: int, hold_cycles: int = QUEUED_HOLD_CYCLES) -> float:
+    """Mean device ms of a call of fn from CUDA events, without the host's
+    share and without the profiler: a spin kernel (torch.cuda._sleep) holds
+    the stream while all ``iters`` calls are enqueued, each between two
+    events, so each pair brackets only what fn launched, back to back on the
+    device. When the spin has ended before the last call was enqueued (fn
+    synchronises, or the host is slower than the hold) the calls are
+    enqueued again behind a hold twice as long, up to three holds; then
+    queued_ms raises."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        held = torch.cuda.Event()
+        torch.cuda._sleep(hold_cycles << attempt)
+        held.record()
+        for start, end in zip(starts, ends):
+            start.record()
+            fn()
+            end.record()
+        in_time = not held.query()
+        torch.cuda.synchronize()
+        if in_time:
+            return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    raise RuntimeError(f"queued_ms: the stream's hold of {hold_cycles << 2} cycles ended before "
+                       f"{iters} calls were enqueued")
 
 
 def main(argv=None):

@@ -32,7 +32,14 @@ or NUM_KEYPOINTS keypoints (Keypoint) each on the 800x1344 canvas, built by
 the port's RCNNMinibatchBuilder, the output layers rescaled by
 profile_infer.spread_rcnn_outputs so that the RPN fills its slots; stages:
 normalise, backbone+FPN, RPN head + losses, proposals, sampling, RoIAlign +
-box head + losses, mask branch, keypoint branch, backward, SGD.
+box head + losses, mask branch, keypoint branch, backward, SGD. With a
+single-scale YAML (``e2e_{faster,mask}_rcnn_R-50-C4.yaml``,
+``faster_rcnn_VGG16.yaml``, ``rfcn_R-101-C4_ohem.yaml``) the step of that
+model on its own canvas, in the stages of SS_STAGES: normalise, body (to res4
+or VGG's conv5), RPN head + losses, proposals, sampling, RoIAlign (R-FCN:
+its score maps), box head (res5, fc6 / fc7, or PSRoIPool and the vote), box
+losses with the OHEM selection, mask branch (v0upshare on the box branch's
+res5 maps, or v0up), backward, SGD.
 
 Needs a CUDA card; raises without one. chip_smoke.py builds its training
 runs with ``seeded_train_step`` and ``seeded_rcnn_train_step``.
@@ -188,7 +195,9 @@ RCNN_STAGES = ("normalize", "backbone_fpn", "rpn_head_losses", "proposals", "sam
 
 def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
     """Device ms of each stage of one R-CNN step, from CUDA events (for Fast
-    R-CNN the RPN stages are empty)."""
+    R-CNN the RPN stages are empty; a single-scale model's are SS_STAGES)."""
+    if run.step.single:
+        return single_scale_stage_ms(run, lr)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(RCNN_STAGES) + 1)]
     step, batch = run.step, run.batch
     ev[0].record()
@@ -223,6 +232,54 @@ def rcnn_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
     ev[10].record()
     torch.cuda.synchronize()
     return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(RCNN_STAGES)}
+
+
+SS_STAGES = ("normalize", "body", "rpn_head_losses", "proposals", "sample", "roi_align",
+             "box_head", "box_losses_ohem", "mask_branch", "backward", "sgd")
+
+
+def single_scale_stage_ms(run: SeededRCNNTrainStep, lr: float) -> Dict[str, float]:
+    """Device ms of each stage of SS_STAGES in one single-scale step (C4,
+    VGG, R-FCN), from CUDA events; R-FCN's 'roi_align' is its score maps
+    and its 'box_head' the PSRoIPool vote."""
+    from sad_tpu_torch.models.rcnn import flat_rois
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(SS_STAGES) + 1)]
+    step, batch, model, cfg = run.step, run.batch, run.model, run.cfg
+    mask = cfg.MODEL.MASK_ON and "gt_mask_rasters" in batch
+    share = mask and model.mask_share_res5
+    ev[0].record()
+    data = step.inputs(batch)
+    ev[1].record()
+    nchw = step.backbone(data)
+    ev[2].record()
+    logits, deltas, total, _ = step.rpn(nchw, batch)
+    ev[3].record()
+    boxes, valid = step.proposals(logits, deltas, batch)
+    ev[4].record()
+    sampled = step.sample(boxes, valid, batch)
+    ev[5].record()
+    feats = {l: f.permute(0, 2, 3, 1) for l, f in nchw.items()}
+    rois5 = flat_rois(sampled["rois"])
+    f = cfg.FAST_RCNN
+    if model.is_rfcn:
+        t = model.rfcn.score_maps(nchw[model.level])
+    else:
+        t = model.pool(feats, rois5, f.ROI_XFORM_RESOLUTION, f.ROI_XFORM_SAMPLING_RATIO)
+    ev[6].record()
+    out = model.rfcn.vote(*t, rois5) if model.is_rfcn else model.box_head(t, share)
+    ev[7].record()
+    total = total + step.box_loss(sampled, out[0], out[1])[0]
+    ev[8].record()
+    if mask:
+        total = total + step.mask_branch(feats, sampled, batch, res5=out[2] if share else None)
+    ev[9].record()
+    grads = step.grads(total)
+    ev[10].record()
+    step.apply(run.state, grads, lr)
+    ev[11].record()
+    torch.cuda.synchronize()
+    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(SS_STAGES)}
 
 
 def stage_ms(run: SeededTrainStep, lr: float) -> Dict[str, float]:

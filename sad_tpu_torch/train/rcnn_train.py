@@ -1,7 +1,8 @@
-"""The Faster / Mask / Keypoint R-CNN end-to-end training step on an FPN backbone (ref:
-sad_tpu/train/rcnn_train.py, the FPN branch of make_rcnn_train_step; the
-reference's generalized_rcnn training graph, model_builder.py:74-92, with
-the GenerateProposalLabels Python op on the device).
+"""The Fast / Faster / Mask / Keypoint R-CNN and R-FCN end-to-end training step (ref:
+sad_tpu/train/rcnn_train.py make_rcnn_train_step, its FPN and single-scale
+branches; the reference's generalized_rcnn training graph,
+model_builder.py:74-92, with the GenerateProposalLabels Python op on the
+device).
 
 One step: images -> ResNet-FPN -> RPN head and RPN losses -> train-mode
 proposals (per-level top-k, decode, ONE batched NMS over all level x image
@@ -36,8 +37,25 @@ sad_tpu/train/rcnn_train.py:224-270): no RPN head and no RPN losses; the
 sampler draws from the precomputed proposals and the gt boxes, then the box
 branch and the mask branch as above.
 
-Not ported yet, each raising NotImplementedError (ROADMAP.md Queue 1 item 8):
-the single-scale (C4) and R-FCN branches, TRAIN.OHEM.
+Single-scale models (models/single_scale.SingleScaleRCNN: C4, VGG, R-FCN;
+ref: sad_tpu/train/rcnn_train.py:206-450): one feature map at level
+log2(RPN.STRIDE), the RPN losses at that level, the NMS picks as the rois,
+``box_forward`` (RoIAlign of every sampled roi and the res5 or fc6 / fc7
+head, or R-FCN's PSRoIPool vote with its class-agnostic (R, 8) targets,
+``_rfcn_targets`` / ``_rfcn_weights``); the C4 mask branch on the fg prefix
+of ``sampled_fg_cap`` slots: v0upshare from the box branch's res5 maps of
+those slots, v0up through ``mask_heads`` on their rois, targets at the
+logits' resolution (2 x MRCNN.ROI_XFORM_RESOLUTION).
+
+TRAIN.OHEM (fast_rcnn_heads.py:70-109; sad_tpu/train/rcnn_train.py:128-160)
+in both steps: per-roi softmax-CE + smooth-L1 rank each image's sampled rois,
+the TRAIN.OHEM_ROI_PER_IMG hardest keep a weight of 1 (ties to the lower
+slot; padding ranks last), and the box losses are the weighted per-group
+means (a group whose images have fewer live rois keeps fewer).
+
+Refused where sad_tpu ignores the option or fails (ROADMAP.md Queue 3): an FPN
+model without FPN.MULTILEVEL_RPN and MULTILEVEL_ROIS, and MRCNN.ROI_SLOTS_PER_IM
+on a single-scale model (sad_tpu's single-scale step takes the whole fg prefix).
 
 Batch (tensors on the model's device, NHWC; data/rpn_minibatch.py):
   data (B, H, W, 3) float32 normalised, or data_u8 (B, H, W, 3) uint8 +
@@ -60,6 +78,8 @@ from torch import nn
 
 from ..models import bias_mask, trainable_mask
 from ..models.rcnn import flat_rois
+from ..models.single_scale import SingleScaleRCNN
+from ..ops.detectron_ops import ohem_keep, smooth_l1_loss_per_roi
 from ..ops.image_norm import content_mask, normalize_u8_on_device
 from ..ops.losses import smooth_l1_loss
 from ..ops.proposals import (
@@ -72,7 +92,22 @@ from .mask_keypoint import (
 from .optimizer import momentum_sgd_update
 from .train_step import Metrics, TrainState
 
-_LATER = " is not ported to sad_tpu_torch yet (ROADMAP.md Queue 1 item 8)"
+_QUEUE3 = " (ROADMAP.md Queue 3)"
+
+
+def _rfcn_targets(sampled, r: int) -> torch.Tensor:
+    """R-FCN's class-agnostic (R, 8) targets: the fg class's 4 targets in
+    columns 4:8 (sad_tpu/train/rcnn_train.py:45-51)."""
+    t = sampled["bbox_targets"].reshape(r, -1, 4)
+    w = sampled["bbox_inside_weights"].reshape(r, -1, 4)
+    fg_t = (t * w).sum(dim=1)
+    return torch.cat([torch.zeros_like(fg_t), fg_t], dim=1)
+
+
+def _rfcn_weights(sampled, r: int) -> torch.Tensor:
+    w = sampled["bbox_inside_weights"].reshape(r, -1, 4)
+    fg_w = (w.sum(dim=1) > 0).float()
+    return torch.cat([torch.zeros_like(fg_w), fg_w], dim=1)
 
 
 def rpn_losses(cfg, logits: Dict[int, torch.Tensor], deltas: Dict[int, torch.Tensor],
@@ -104,27 +139,50 @@ def rpn_losses(cfg, logits: Dict[int, torch.Tensor], deltas: Dict[int, torch.Ten
     return total, metrics
 
 
+def box_nll(cls_score, labels, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-roi softmax-CE of the box head, zero where a roi is not live
+    (padding, label -1), and the live mask."""
+    logp = torch.log_softmax(cls_score.float(), dim=-1)
+    nll = -torch.gather(logp, 1, labels.long().clamp_min(0)[:, None])[:, 0]
+    live = valid & (labels >= 0)
+    return torch.where(live, nll, 0.0), live
+
+
+def ohem_select(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w,
+                n_images: int) -> torch.Tensor:
+    """TRAIN.OHEM's (R,) 0 / 1 weights: each image's OHEM_ROI_PER_IMG live
+    rois of highest softmax-CE + smooth-L1 (padding ranks last, ties to the
+    lower slot); no gradient flows through the selection."""
+    per_box = smooth_l1_loss_per_roi(bbox_pred, bbox_targets, inside_w, outside_w)
+    per_total = torch.where(live, nll + per_box, -1.0).detach()
+    k = min(cfg.TRAIN.OHEM_ROI_PER_IMG, per_total.numel() // n_images)
+    return ohem_keep(per_total.reshape(n_images, -1), k).reshape(-1) * live.float()
+
+
 def fast_rcnn_losses(cfg, cls_score, labels, bbox_pred, bbox_targets, inside_w, outside_w,
-                     valid, n_groups: int, total_groups: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, Metrics]:
+                     valid, n_groups: int, total_groups: Optional[int] = None,
+                     n_images: int = 0) -> Tuple[torch.Tensor, Metrics]:
     """Box-head losses (fast_rcnn_heads.py add_fast_rcnn_losses):
     SoftmaxWithLoss as the average of per-group means over the live rois
     (rows are n_groups consecutive blocks) and SmoothL1Loss, whose
     denominator is its static dim 0, scaled by MODEL.BBOX_REG_WEIGHT_SCALE.
-    With ``total_groups`` (the groups of every rank) above ``n_groups``, the
-    groups and rows of all ranks, and the accuracy over their live rois."""
+    With TRAIN.OHEM and ``n_images`` (the rows are that many images' blocks)
+    only the rois of ``ohem_select`` count: the per-group means over them and
+    their smooth-L1. With ``total_groups`` (the groups of every rank) above
+    ``n_groups``, the groups and rows of all ranks, and the accuracy over
+    their live rois."""
     ranks = (total_groups or n_groups) // n_groups
-    if cfg.TRAIN.OHEM:
-        raise NotImplementedError("TRAIN.OHEM" + _LATER)
-    logp = torch.log_softmax(cls_score.float(), dim=-1)
-    nll = -torch.gather(logp, 1, labels.long().clamp_min(0)[:, None])[:, 0]
-    live = valid & (labels >= 0)
-    nll = torch.where(live, nll, 0.0)
+    nll, live = box_nll(cls_score, labels, valid)
     live_f = live.float()
-    sum_g = nll.reshape(n_groups, -1).sum(dim=1)
-    cnt_g = torch.clamp_min(live_f.reshape(n_groups, -1).sum(dim=1), 1.0)
+    weight, out_w = live_f, outside_w
+    if cfg.TRAIN.OHEM and n_images:
+        weight = ohem_select(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w,
+                             n_images)
+        out_w = outside_w * weight[:, None]
+    sum_g = (nll * weight).reshape(n_groups, -1).sum(dim=1)  # exact for weight = live_f
+    cnt_g = torch.clamp_min(weight.reshape(n_groups, -1).sum(dim=1), 1.0)
     cls_loss = (sum_g / cnt_g).sum() / (n_groups * ranks)
-    bbox_loss = smooth_l1_loss(bbox_pred, bbox_targets, inside_w, outside_w, beta=1.0,
+    bbox_loss = smooth_l1_loss(bbox_pred, bbox_targets, inside_w, out_w, beta=1.0,
                                scale=cfg.MODEL.BBOX_REG_WEIGHT_SCALE / ranks)
     hit = (cls_score.argmax(dim=-1) == labels) & valid
     # the live rois of every rank: the ranks' accuracies then sum to the batch's
@@ -136,11 +194,11 @@ def fast_rcnn_losses(cfg, cls_score, labels, bbox_pred, bbox_targets, inside_w, 
 
 class RCNNTrainStep:
     """``step(state, batch, lr) -> metrics``: one training step of a
-    GeneralizedRCNN, which updates the model's parameters and
+    GeneralizedRCNN or a SingleScaleRCNN, which updates the model's parameters and
     ``state.velocity`` in place and returns the metrics as 0-d tensors on the
     device. Its stages are methods, so that a profiler can time each one:
-    inputs -> backbone -> rpn -> proposals -> sample -> box_branch ->
-    mask_branch / keypoint_branch -> grads -> apply.
+    inputs -> backbone -> rpn -> proposals -> sample -> box_branch (box_outputs,
+    box_loss) -> mask_branch / keypoint_branch -> grads -> apply.
 
     The sampler's random priorities come from ``generator`` (a
     torch.Generator on the model's device), or are handed to the step as
@@ -150,11 +208,16 @@ class RCNNTrainStep:
 
     def __init__(self, cfg, model: nn.Module, n_groups: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, rank: int = 0, world: int = 1):
-        if not (cfg.FPN.FPN_ON and cfg.FPN.MULTILEVEL_RPN and cfg.FPN.MULTILEVEL_ROIS):
-            raise NotImplementedError("the single-scale (C4 / R-FCN) R-CNN training step"
-                                      + _LATER)
-        if cfg.TRAIN.OHEM:
-            raise NotImplementedError("TRAIN.OHEM" + _LATER)
+        self.single = isinstance(model, SingleScaleRCNN)
+        if not self.single and not (cfg.FPN.MULTILEVEL_RPN and cfg.FPN.MULTILEVEL_ROIS):
+            raise NotImplementedError(
+                "an FPN R-CNN step without FPN.MULTILEVEL_RPN and FPN.MULTILEVEL_ROIS: sad_tpu "
+                "ignores MULTILEVEL_ROIS and takes its single-scale branch, which fails on an "
+                "FPN model, without MULTILEVEL_RPN" + _QUEUE3)
+        if self.single and cfg.MODEL.MASK_ON and cfg.MRCNN.ROI_SLOTS_PER_IM > 0:
+            raise NotImplementedError(
+                "MRCNN.ROI_SLOTS_PER_IM on a single-scale model: sad_tpu's single-scale step "
+                "ignores it and takes the whole fg prefix" + _QUEUE3)
         self.cfg = cfg
         self.model = model
         self.n_groups = n_groups or cfg.NUM_GPUS
@@ -215,22 +278,40 @@ class RCNNTrainStep:
         return map_rois_to_fpn_levels(rois5[:, 1:], f.ROI_MIN_LEVEL, f.ROI_MAX_LEVEL,
                                       f.ROI_CANONICAL_SCALE, f.ROI_CANONICAL_LEVEL)
 
-    def box_branch(self, feats, sampled) -> Tuple[torch.Tensor, Metrics]:
-        """RoIAlign of the sampled rois from the NHWC ``feats``, the box head
-        and its losses."""
+    def box_outputs(self, feats, sampled, return_res5: bool = False):
+        """The box head on the sampled rois from the NHWC ``feats``:
+        (cls_score, bbox_pred) and, for a single-scale model with
+        ``return_res5``, the res5 RoI maps."""
         cfg = self.cfg
         rois5 = flat_rois(sampled["rois"])
+        if self.single:
+            return self.model.box_forward(feats, rois5, return_res5)
         roi_feats = multilevel_roi_align(
             feats, rois5, self._roi_levels(rois5), sampled["valid"].reshape(-1),
             cfg.FAST_RCNN.ROI_XFORM_RESOLUTION, cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO)
-        cls_score, bbox_pred = self.model.box_head(roi_feats)
-        n = cls_score.shape[0]
+        return self.model.box_head(roi_feats)
+
+    def box_targets(self, sampled) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(targets, inside weights, outside weights) of the sampled rois as
+        (R, 4C) rows, or R-FCN's class-agnostic (R, 8) for an 'rfcn' model."""
+        n = sampled["labels"].numel()
+        if self.cfg.MODEL.TYPE == "rfcn":
+            w = _rfcn_weights(sampled, n)
+            return _rfcn_targets(sampled, n), w, w
+        return tuple(sampled[k].reshape(n, -1) for k in (
+            "bbox_targets", "bbox_inside_weights", "bbox_outside_weights"))
+
+    def box_loss(self, sampled, cls_score, bbox_pred) -> Tuple[torch.Tensor, Metrics]:
+        """fast_rcnn_losses of the box outputs against ``box_targets``."""
         return fast_rcnn_losses(
-            cfg, cls_score, sampled["labels"].reshape(-1), bbox_pred,
-            sampled["bbox_targets"].reshape(n, -1),
-            sampled["bbox_inside_weights"].reshape(n, -1),
-            sampled["bbox_outside_weights"].reshape(n, -1),
-            sampled["valid"].reshape(-1), self.n_groups, self.n_groups * self.world)
+            self.cfg, cls_score, sampled["labels"].reshape(-1), bbox_pred,
+            *self.box_targets(sampled), sampled["valid"].reshape(-1), self.n_groups,
+            self.n_groups * self.world, n_images=sampled["rois"].shape[0])
+
+    def box_branch(self, feats, sampled) -> Tuple[torch.Tensor, Metrics]:
+        """RoIAlign (or R-FCN's PSRoIPool) of the sampled rois from the NHWC
+        ``feats``, the box head and its losses."""
+        return self.box_loss(sampled, *self.box_outputs(feats, sampled))
 
     def _aux_cap(self, knob: int) -> int:
         """Slots an image of an aux branch: the fg prefix of the sampler's
@@ -269,11 +350,29 @@ class RCNNTrainStep:
         return p, multilevel_roi_align(feats, flat_rois(p["rois"]), p["levels"].reshape(-1),
                                        p["is_fg"], res, sr)
 
-    def mask_branch(self, feats, sampled, batch, prefix=None) -> torch.Tensor:
+    def mask_branch(self, feats, sampled, batch, prefix=None, res5=None) -> torch.Tensor:
         """The mask loss on the leading ``mask_cap`` slots of every image:
         RoIAlign, mask head, targets cropped from the gt rasters on the
-        device."""
+        device. A single-scale model's v0up head runs ``mask_heads`` on
+        those slots' rois; v0upshare takes ``res5``, the box branch's res5
+        maps of every sampled roi (or, without it, runs the box head's res5
+        on the slots)."""
         cfg = self.cfg
+        if self.single:
+            cap = self.mask_cap()
+            rois = sampled["rois"][:, :cap]
+            if res5 is not None:
+                b = rois.shape[0]
+                fg = res5.reshape((b, -1) + tuple(res5.shape[1:]))[:, :cap]
+                mlogits = self.model.mask_from_res5(fg.reshape((-1,) + tuple(res5.shape[1:])))
+            else:
+                mlogits = self.model.mask_heads(feats, flat_rois(rois))
+            targets = mask_targets_on_device(
+                batch["gt_mask_rasters"], rois, sampled["matched_gt"][:, :cap],
+                mlogits.shape[1], float(batch["gt_mask_stride"]))
+            return mask_loss(cfg, mlogits, targets, sampled["labels"][:, :cap].reshape(-1),
+                             sampled["is_fg"][:, :cap].reshape(-1), self.n_groups,
+                             self.n_groups * self.world)
         p, mfeats = self._branch(feats, sampled, prefix, self.mask_cap(),
                                  cfg.MRCNN.ROI_XFORM_RESOLUTION,
                                  cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
@@ -311,12 +410,25 @@ class RCNNTrainStep:
             boxes, valid = self.proposals(logits, deltas, batch)
         sampled = self.sample(boxes, valid, batch, uniforms)
         feats = self.model.roi_features({l: f.permute(0, 2, 3, 1) for l, f in nchw.items()})
-        box_total, box_metrics = self.box_branch(feats, sampled)
-        total = total + box_total
-        metrics.update(box_metrics)
         m = self.cfg.MODEL
         mask = m.MASK_ON and "gt_mask_rasters" in batch
         kps = m.KEYPOINTS_ON and "gt_keypoints" in batch
+        if self.single:
+            # v0upshare: the mask head reads the box branch's res5 maps
+            share = mask and self.model.mask_share_res5
+            cls_score, bbox_pred, *res5 = self.box_outputs(feats, sampled, share)
+            box_total, box_metrics = self.box_loss(sampled, cls_score, bbox_pred)
+            total = total + box_total
+            metrics.update(box_metrics)
+            if mask:
+                metrics["loss_mask"] = self.mask_branch(feats, sampled, batch,
+                                                        res5=res5[0] if share else None)
+                total = total + metrics["loss_mask"]
+            metrics["loss"] = total
+            return total, metrics
+        box_total, box_metrics = self.box_branch(feats, sampled)
+        total = total + box_total
+        metrics.update(box_metrics)
         if mask or kps:
             prefix = self.fg_prefix(sampled)
             aux = []
@@ -357,7 +469,7 @@ class RCNNTrainStep:
 def make_rcnn_train_step(cfg, model: nn.Module, n_groups: Optional[int] = None,
                          generator: Optional[torch.Generator] = None, rank: int = 0,
                          world: int = 1) -> RCNNTrainStep:
-    """The training step of a Fast / Faster / Mask / Keypoint R-CNN ``model`` (ref: sad_tpu
-    make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS; over
+    """The training step of a Fast / Faster / Mask / Keypoint R-CNN or R-FCN ``model`` (ref:
+    sad_tpu make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS; over
     ``world`` ranks it is the rank's own count."""
     return RCNNTrainStep(cfg, model, n_groups, generator, rank, world)

@@ -543,3 +543,17 @@ def test_a_named_backend_that_is_missing_raises_on_the_card(cuda, tmp_path):
         pd.init_distributed(0, 1, 0, backend="no_such_backend",
                             init_method="file://" + str(tmp_path / "store"))
     assert pd.current().world == 1
+
+
+def test_queued_ms_reads_the_profilers_kernel_time_and_refuses_a_synchronising_fn(cuda):
+    """profile_infer.queued_ms (CUDA events around calls queued behind a spin
+    kernel) agrees with torch.profiler's kernel time of a matmul, and raises
+    when fn synchronises, so the hold ends before the calls are enqueued."""
+    from sad_tpu_torch.tools.profile_infer import device_ms, queued_ms
+
+    a = torch.randn(4096, 4096, device=cuda)
+    queued = queued_ms(lambda: a @ a, 20, 3)
+    profiled = sum(device_ms(lambda: a @ a, 20, 3).values())
+    assert queued == pytest.approx(profiled, rel=0.15)
+    with pytest.raises(RuntimeError, match="hold"):
+        queued_ms(lambda: (a @ a).sum().item(), 5, 1, hold_cycles=1_000_000)

@@ -297,7 +297,9 @@ def test_full_width_state_dict_matches_flax_tree():
 @pytest.mark.parametrize("over,match", [
     ({"MODEL": {"KEYPOINTS_ON": True},
       "KRCNN": {"ROI_KEYPOINTS_HEAD": "keypoint_rcnn_heads.add_roi_pose_head_v0"}}, "keypoint"),
-    ({"FPN": {"FPN_ON": False}}, "single-scale"),
+    # a single-scale model builds (tests/test_torch_single_scale.py); with
+    # keypoints it is refused: SingleScaleRCNN has no keypoint head
+    ({"FPN": {"FPN_ON": False}, "MODEL": {"KEYPOINTS_ON": True}}, "single-scale"),
     ({"FAST_RCNN": {"ROI_BOX_HEAD": "fast_rcnn_heads.add_roi_Xconv1fc_gn_head"}}, "box head"),
     ({"FAST_RCNN": {"ROI_XFORM_METHOD": "RoIPoolF"}}, "RoIAlign"),
     ({"MODEL": {"MASK_ON": True}, "MRCNN": {"ROI_MASK_HEAD": "mask_rcnn_heads.mask_rcnn_fcn_head_v0upshare"}},

@@ -183,7 +183,10 @@ def test_run_inference_on_roidb_box_results(synth_dataset):
 
 @pytest.mark.parametrize("over,match", [
     ({"MODEL": {"KEYPOINTS_ON": True}, "FPN": {"FPN_ON": False}}, "single-scale"),
-    ({"FPN": {"FPN_ON": False}}, "single-scale"),
+    # single-scale serving is ported (tests/test_torch_single_scale_serving.py); a
+    # v1up mask head on its body is refused: sad_tpu would build v0up
+    ({"FPN": {"FPN_ON": False}, "MODEL": {"MASK_ON": True},
+      "MRCNN": {"ROI_MASK_HEAD": "mask_rcnn_heads.mask_rcnn_fcn_head_v1up4convs"}}, "single-scale"),
 ])
 def test_unported_inference_branches_raise(over, match):
     tc = t_merge(t_merge(tcfg.Config(), TINY),
@@ -240,14 +243,15 @@ def test_prepare_test_batch_at_a_tta_transform_matches_sad_tpu(synth_dataset, sc
     ({"TEST": {"SOFT_NMS": {"ENABLED": True}}}, "SOFT_NMS without TEST.BBOX_AUG"),
     ({"TEST": {"BBOX_VOTE": {"ENABLED": True}}}, "BBOX_VOTE without TEST.BBOX_AUG"),
     ({"TEST": {"PROPOSAL_FILES": ("props.pkl",)}}, "PROPOSAL_FILES with MODEL.FASTER_RCNN True"),
-    ({"MODEL": {"TYPE": "rfcn"}}, "not ported"),
+    ({"MODEL": {"TYPE": "rfcn", "MASK_ON": True}}, "R-FCN with MASK_ON"),
 ])
 def test_engine_refuses_unported_rcnn_options(over, match):
     """Both entry points refuse before any work: test_net_on_dataset before
     it reads the dataset. MODEL.MASK_ON is ported (mask results as RLE), and
-    so are TTA, soft-NMS and voting under TEST.BBOX_AUG and proposal files
+    so are TTA, soft-NMS and voting under TEST.BBOX_AUG, proposal files
     with MODEL.FASTER_RCNN False (tests/test_torch_tta.py,
-    tests/test_torch_fast_rcnn.py)."""
+    tests/test_torch_fast_rcnn.py) and R-FCN (tests/test_torch_single_scale_serving.py),
+    which has no mask head."""
     tc = t_merge(t_merge(tcfg.Config(), TINY),
                  {k: dict(TINY.get(k, {}), **v) for k, v in over.items()})
     with pytest.raises(NotImplementedError, match=match):

@@ -126,15 +126,6 @@ def test_fast_rcnn_losses(n_groups):
     grad_close(p.grad.numpy(), g_box)
 
 
-def test_fast_rcnn_losses_ohem_is_left_for_later():
-    tc = t_merge(tcfg.Config(), {"TRAIN": {"OHEM": True}})
-    z = torch.zeros(2, 5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trt.fast_rcnn_losses(tc, z, torch.zeros(2, dtype=torch.int32), torch.zeros(2, 20),
-                             torch.zeros(2, 20), torch.zeros(2, 20), torch.zeros(2, 20),
-                             torch.ones(2, dtype=torch.bool), 1)
-
-
 def _mask_scene(seed, b=2, g=3, stride=4, hm=24, wm=32):
     """Blocky gt rasters (rectangles and an ellipse) and rois around them."""
     rng = np.random.RandomState(seed)

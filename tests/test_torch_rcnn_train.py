@@ -175,15 +175,21 @@ def test_roi_slots_per_im_slices_a_prefix():
 
 
 @pytest.mark.parametrize("over,what", [
-    (dict(TRAIN=dict(TINY["TRAIN"], OHEM=True)), "OHEM"),
-    (dict(FPN=dict(TINY["FPN"], MULTILEVEL_ROIS=False)), "single-scale"),
+    (dict(FPN=dict(TINY["FPN"], MULTILEVEL_RPN=False)), "MULTILEVEL_RPN"),
+    (dict(FPN=dict(TINY["FPN"], MULTILEVEL_ROIS=False)), "MULTILEVEL_ROIS"),
 ])
 def test_branches_left_for_later_raise(over, what):
+    """An FPN model's step without MULTILEVEL_RPN / MULTILEVEL_ROIS is
+    refused (sad_tpu ignores MULTILEVEL_ROIS, and fails on an FPN model
+    without MULTILEVEL_RPN); TRAIN.OHEM and the single-scale step are ported
+    (tests/test_torch_single_scale_train.py)."""
     tc = t_merge(tcfg.Config(), dict(TINY, **over))
     port = GeneralizedRCNN(t_merge(tcfg.Config(), TINY))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8") as e:
+    with pytest.raises(NotImplementedError, match="Queue 3") as e:
         make_rcnn_train_step(tc, port)
     assert what in str(e.value)
+    ohem = t_merge(tcfg.Config(), dict(TINY, TRAIN=dict(TINY["TRAIN"], OHEM=True)))
+    assert make_rcnn_train_step(ohem, port).cfg.TRAIN.OHEM
     # keypoints are ported: the same config with KEYPOINTS_ON builds its step
     kps = t_merge(tcfg.Config(), dict(TINY, MODEL=dict(TINY["MODEL"], KEYPOINTS_ON=True)))
     assert make_rcnn_train_step(kps, GeneralizedRCNN(kps)).kps_cap() == 2

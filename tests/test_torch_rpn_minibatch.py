@@ -143,8 +143,13 @@ def test_segms_copy_and_flip(tmp_path):
 
 
 def test_what_is_left_for_later_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trm.rpn_anchor_grid(cfgs(FPN=dict(OVER["FPN"], MULTILEVEL_RPN=False))[1], 128, 192)
+    """Nothing is left: the single-scale grid (no MULTILEVEL_RPN) is
+    sad_tpu's, one level at log2(RPN.STRIDE) (more in
+    tests/test_torch_single_scale.py)."""
+    jc, tc = cfgs(FPN=dict(OVER["FPN"], MULTILEVEL_RPN=False))
+    ref, got = jrm.rpn_anchor_grid(jc, 128, 192), trm.rpn_anchor_grid(tc, 128, 192)
+    assert got.levels == ref.levels == (4,) and got.field_hw == ref.field_hw
+    np.testing.assert_array_equal(got.anchors[0], ref.anchors[0])
     # keypoint and proposal batches are ported (tests/test_torch_keypoint_rcnn.py
     # and tests/test_torch_fast_rcnn.py hold them)
     assert trm.RCNNMinibatchBuilder(cfgs(MODEL=dict(OVER["MODEL"], KEYPOINTS_ON=True))[1]).kps_on
