@@ -4,9 +4,11 @@ against its plain PyTorch version, and drive the RetinaNet serving path, the
 joint SAD training step, Fast / Faster / Mask / Keypoint R-CNN serving, the Fast /
 Faster / Mask / Keypoint R-CNN training step, the single-scale family (Faster /
 Mask R-CNN R-50-C4, VGG16, R-FCN with OHEM: serving, training, test_net), the training workflow (pseudo-labels,
-train_net, checkpoints, resume), the evaluation path (test_net, the COCO
-evaluator, test-time augmentation, RPN-only proposals and the two-stage
-workflow) and the paper's R-101 <- X-101-64x4d pair at scale 500 end to end.
+train_net, checkpoints, resume), the evaluation path (test_net, the COCO, VOC,
+Cityscapes and VID evaluators, test-time augmentation, RPN-only proposals and
+the two-stage workflow), the serving export (torch.export, reloaded in a
+process of its own) and the paper's R-101 <- X-101-64x4d pair at scale 500 end
+to end.
 
     python3 chip_smoke.py [--seed 0] [--batch 8] [--groups 4] [--iters 10] [--warmup 3]
 
@@ -295,6 +297,41 @@ line each (name, what was checked, time):
                  --weights): boxes and RLE masks evaluated (24 finite
                  metrics), results byte-identical to the plain-twin run, NMS 2
                  and RoIAlign 2 launches a batch, the host split and idle
+
+  export_serving after c4_test_net: the R-50 student's serving (device
+                 normalisation, model, decode) exported with torch.export at bs 8 on
+                 640x1024 (eval/export.py), the .pt2 reloaded and served in a child
+                 process that imports torch and sad_tpu_torch.eval.export only: classes
+                 and valid equal to live serving, boxes and scores bit-equal or within
+                 1e-5 x max|live| (the line says which), one NMS kernel launch a call of
+                 the exported program (the custom op sad_tpu_torch::nms_multi), live
+                 serving after the export unchanged; imgs/s of both, and the host ms to
+                 enqueue a batch beside its wall for both loaded in this process; the
+                 decode NMS (8 x 5000 -> 100) on the batch's own candidates against the
+                 plain NMS; host microseconds a call through the custom op and through
+                 nms_cuda
+  voc_test_net   a seeded VOC2007 devkit (16 JPEGs 500x375, 1-6 objects of the 20
+                 classes, some difficult) converted by VOCDataset.as_coco_gt; its ground
+                 truth as detections mAP 1.0; test_net with faster_rcnn_VGG16_voc07.yaml
+                 (seeded spread weights through --weights): the VOC07 11-point per-class
+                 APs and mAP, byte-identical to the plain-twin run, NMS 2 and RoIAlign 1
+                 a batch; TEST.FORCE_JSON_DATASET_EVAL gives the COCO keys; on the split's
+                 first 8 images the RPN NMS (8 x 6000 -> 300), the decode NMS (8 x 6000
+                 -> 100) and the box RoIAlign (R = 2400, res 7, C = 512) held to their
+                 twins and timed; dataset imgs/s, ms a batch, idle
+  cityscapes_test_net
+                 a seeded gtFine val tree (8 PNGs 2048x1024, the 8 instance classes plus
+                 crowd, non-instance and degenerate polygons) through
+                 tools/convert_cityscapes_to_coco; its ground truth as detections bbox
+                 and segm AP 1.0; test_net with e2e_mask_rcnn_R-50-FPN_cityscapes.yaml on
+                 the 1024x2048 canvas: a pred.txt an image and a PNG a detection, the 24
+                 bbox and segm metrics finite, NMS 2 and RoIAlign 2 a batch; the served
+                 batch equal to the plain-twin run; the RPN NMS (40 x 1000 -> 1000), the
+                 decode NMS (8 x 8000 -> 100), the box (R = 8000) and mask (R = 800, res
+                 14) RoIAlign held to their twins and timed; ms a batch, host split, idle
+  vid_test_net   the R-50 student through test_net --range 0 16 on smoke_val registered
+                 as vid_smoke_val: its ground truth as detections VID AP 1.0, the VID
+                 protocol's 12 metrics, byte-identical to the plain-twin run
 
   cls_loss_kernels_500
                  with the kernel checks: the cls-loss kernels against their
@@ -2668,12 +2705,12 @@ def _read_json(path):
 
 
 def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smoke_val",
-                  opts=(), profile=True):
+                  opts=(), profile=True, twin=True):
     """test_net.main on ``model`` (saved as a native pickle, loaded through
     --weights) over ``dataset`` or its ``im_range`` with the config options
-    ``opts``, with the kernels and then with their plain twins: the kernel
-    run's launches, results, detections' bytes and timing, and with
-    ``profile`` the device's kernel ms over the same inference loop,
+    ``opts``, with the kernels and then (with ``twin``) with their plain
+    twins: the kernel run's launches, results, detections' bytes and timing,
+    and with ``profile`` the device's kernel ms over the same inference loop,
     profiled."""
     from sad_tpu_torch.config import load_cfg
     from sad_tpu_torch.data.dataset import CocoDataset
@@ -2698,17 +2735,20 @@ def _test_net_run(torch, name, cfg_path, model, tmp, im_range=None, dataset="smo
     _reset_counts()
     got_dir = run(os.path.join(tmp, f"{name}_kernels"))
     launches = nms_kernel.launches, roi_align_kernel.launches
-    with _plain_twins():
-        twin_dir = run(os.path.join(tmp, f"{name}_plain"))
-    if (nms_kernel.launches, roi_align_kernel.launches) != launches:
-        raise AssertionError(f"test_net {name}: the plain-twin run launched a kernel")
     files = {}
     for fname in ("bbox_results.json", "results.json"):
         with open(os.path.join(got_dir, fname), "rb") as f:
             files[fname] = f.read()
-        with open(os.path.join(twin_dir, fname), "rb") as f:
-            if f.read() != files[fname]:
-                raise AssertionError(f"test_net {name}: {fname} differs from the plain-twin run")
+    if twin:
+        with _plain_twins():
+            twin_dir = run(os.path.join(tmp, f"{name}_plain"))
+        if (nms_kernel.launches, roi_align_kernel.launches) != launches:
+            raise AssertionError(f"test_net {name}: the plain-twin run launched a kernel")
+        for fname, got in files.items():
+            with open(os.path.join(twin_dir, fname), "rb") as f:
+                if f.read() != got:
+                    raise AssertionError(f"test_net {name}: {fname} differs from the plain-twin "
+                                         "run")
     timing = _read_json(os.path.join(got_dir, "timing.json"))
     out = {"launches": launches, "results": json.loads(files["results.json"]),
            "n_dets": len(json.loads(files["bbox_results.json"])), "timing": timing,
@@ -3717,6 +3757,471 @@ def phase_softmax_step(torch, seed, groups, iters, warmup):
     return run.n_images / med
 
 
+# --------------------------------------------------------------------------- #
+# The rest of the evaluation surface: the serving export, and the VOC,
+# Cityscapes and VID evaluators through test_net
+# --------------------------------------------------------------------------- #
+
+VOC_CFG = "sad_tpu_torch/configs/faster_rcnn_VGG16_voc07.yaml"
+CS_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN_cityscapes.yaml"
+EXPORT_CALLS = 10  # timed calls of the exported and of the live program
+EXPORT_TOL = 1e-5  # boxes and scores, relative to max |live|, where not bit-equal
+
+# the exported program in a process of its own: it imports torch and the export
+# module only, serves the saved batch, and counts the NMS kernel's launches of
+# its timed calls
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+import sad_tpu_torch.eval.export as export
+path, inputs_path, out_path, calls = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+inputs = torch.load(inputs_path)
+serve = export.load_exported(path)
+out = serve(*inputs)
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in out.items()}, out_path)
+serve(*inputs)  # warm-up
+nms_kernel = sys.modules["sad_tpu_torch.ops.nms_kernel"]
+nms_kernel.launches = 0
+times = []
+for _ in range(calls):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(*inputs)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+seen = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "flax", "sad_tpu"})
+print("EXPORT_CHILD " + json.dumps({"launches": nms_kernel.launches, "times": times,
+                                    "imported": seen}))
+"""
+
+
+def _enqueue_ms(torch, fn, n):
+    """Median host ms until fn returns over n calls, each started on an idle
+    card (the work it enqueued may still run), and the median wall ms a call
+    to the end of that work."""
+    fn()
+    host, wall = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
+
+
+def _dispatch_us(torch, boxes, scores, thr, max_out, calls=200, rounds=5):
+    """Host microseconds a call of the custom op sad_tpu_torch::nms_multi
+    (ops.nms.nms_multi) and of a direct nms_kernel.nms_cuda on the same
+    inputs: the medians over ``rounds`` alternating blocks of ``calls``
+    enqueued calls (one synchronize a block, after its clock stops)."""
+    from sad_tpu_torch.ops import nms, nms_kernel
+
+    fns = {"op": lambda: nms.nms_multi(boxes, scores, thr, max_out),
+           "direct": lambda: nms_kernel.nms_cuda(boxes, scores, thr, max_out)}
+    per = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per[k].append((time.perf_counter() - t0) * 1e6 / calls)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def phase_export_serving(torch, seed, batch, iters, warmup, data_root):
+    """The R-50 student's serving exported with torch.export, reloaded in a
+    child process that imports only torch and the export module, against
+    live serving on the same batch."""
+    import subprocess
+    import tempfile
+
+    from sad_tpu_torch.eval.export import export_retinanet_inference, load_exported
+    from sad_tpu_torch.eval.inference import decode_candidates, device_normalize
+    from sad_tpu_torch.ops import nms, nms_kernel
+    from sad_tpu_torch.tools.profile_infer import seeded_inference, wall_seconds
+
+    t0 = time.perf_counter()
+    cfg, model, infer, args = seeded_inference(os.path.join(REPO, STUDENT_CFG), seed, batch,
+                                               "cuda")
+    canvas = tuple(args[0].shape[1:3])
+    live = infer(*args)
+    torch.cuda.synchronize()
+    keys = ("boxes", "scores", "classes", "valid")
+    with tempfile.TemporaryDirectory(prefix="export_", dir=data_root) as tmp:
+        path = os.path.join(tmp, "retinanet_R-50-FPN_student.pt2")
+        t_exp = time.perf_counter()
+        export_retinanet_inference(cfg, model, batch, canvas, path)
+        export_s = time.perf_counter() - t_exp
+        size_mb = os.path.getsize(path) / 1e6
+        # live serving in this process after the export
+        again = infer(*args)
+        torch.cuda.synchronize()
+        for k in keys:
+            if not torch.equal(again[k], live[k]):
+                raise AssertionError(f"export_serving: live {k} changed after the export")
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save(tuple(args), inputs)
+        out_path = os.path.join(tmp, "out.pt")
+        proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path, inputs, out_path,
+                               str(EXPORT_CALLS)], capture_output=True, text=True, timeout=600,
+                              cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+        if proc.returncode != 0:
+            raise AssertionError(f"export_serving: the child process failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("EXPORT_CHILD ")]
+        child = json.loads(line[-1][len("EXPORT_CHILD "):])
+        got = torch.load(out_path)
+        exported_here = load_exported(path)  # for the host's share of a call, below
+    if child["imported"]:
+        raise AssertionError(f"export_serving: the child imported {child['imported']}")
+    if child["launches"] != EXPORT_CALLS:
+        raise AssertionError(f"export_serving: {child['launches']} NMS kernel launches in "
+                             f"{EXPORT_CALLS} calls of the exported program, want one a call")
+    held = "bit-equal"
+    for k in keys:
+        a, b = got[k], live[k].cpu()
+        if k in ("classes", "valid") and not torch.equal(a, b):
+            raise AssertionError(f"export_serving: {k} differ from live serving in "
+                                 f"{int((a != b).sum())} entries")
+        if k in ("boxes", "scores") and not torch.equal(a, b):
+            err = float((a - b).abs().max())
+            if err > EXPORT_TOL * float(b.abs().max()):
+                raise AssertionError(f"export_serving: {k} differ from live serving by {err:.3e}")
+            held = f"within {EXPORT_TOL} x max|live|"
+    if not bool(live["valid"].any()):
+        raise AssertionError("export_serving: no detection kept")
+    exp_s = statistics.median(child["times"])
+    live_s = statistics.median(wall_seconds(lambda: infer(*args), EXPORT_CALLS, 1))
+    # where the exported program's time goes: the host's time to enqueue a call
+    # beside the call's wall, for it (loaded in this process) and for live serving
+    exp_host, exp_wall = _enqueue_ms(torch, lambda: exported_here(*args), EXPORT_CALLS)
+    live_host, live_wall = _enqueue_ms(torch, lambda: infer(*args), EXPORT_CALLS)
+    del exported_here
+
+    # the NMS kernel on this batch's own candidates (8 x 5000 -> 100), and the
+    # custom op's dispatch against a direct call of the kernel's wrapper
+    with torch.inference_mode():
+        out = model(device_normalize(cfg, args[0], args[3]))
+        cands = decode_candidates(cfg, out, args[1], args[2])
+        boxes, scores = (t.float().contiguous() for t in nms.offset_by_class(*cands))
+    nms_stats, _, said = _nms_at(torch, "export_serving decode", boxes, scores, cfg.TEST.NMS,
+                                 cfg.TEST.DETECTIONS_PER_IM, iters, warmup)
+    counts = nms_kernel.launches
+    us = _dispatch_us(torch, boxes, scores, cfg.TEST.NMS, cfg.TEST.DETECTIONS_PER_IM)
+    if nms_kernel.launches == counts:
+        raise AssertionError("export_serving: the dispatch timing launched no kernel")
+    del out, cands, boxes, scores
+    _phase("export_serving", f"{STUDENT_CFG}: torch.export of device normalisation + model + "
+           f"decode at {batch}x{canvas[0]}x{canvas[1]} uint8, bf16 ({export_s:.2f} s, "
+           f"{size_mb:.1f} MB .pt2); reloaded in a child process importing torch and "
+           f"sad_tpu_torch.eval.export only (no jax, no sad_tpu): classes and valid equal to "
+           f"live serving, boxes and scores {held}; live serving after the export unchanged; "
+           f"{child['launches']} NMS kernel launches in {EXPORT_CALLS} calls of the exported "
+           f"program; exported {batch / exp_s:.2f} imgs/s, live {batch / live_s:.2f} imgs/s "
+           f"(median of {EXPORT_CALLS}); host ms to enqueue a batch / wall ms a batch (loaded in "
+           f"this process): exported {exp_host:.2f} / {exp_wall:.2f}, live {live_host:.2f} / "
+           f"{live_wall:.2f}; decode {said}; host us a call: custom op "
+           f"{us['op']:.1f}, direct nms_cuda {us['direct']:.1f} (dispatch "
+           f"{us['op'] - us['direct']:.1f})", time.perf_counter() - t0)
+    return {"launches": child["launches"], "nms_stats": nms_stats, "dispatch_us": us,
+            "imgs_per_s": batch / exp_s, "live_imgs_per_s": batch / live_s,
+            "enqueue_ms": {"exported": exp_host, "live": live_host}}
+
+
+def _ml_roi_case(torch, name, feats, rois5, lv, ok, res, sr, iters, warmup):
+    """The multilevel RoIAlign forward on these rois: bit-equal to the plain
+    twin, both timed (CUDA events), the bound of this data."""
+    from sad_tpu_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_plain
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound
+
+    rois5, lv, ok = rois5.float().contiguous(), lv.int().contiguous(), ok.contiguous()
+    err, _ = _roi_align_check(torch, name, feats, rois5, lv, ok, res, sr)
+    ms = _median_ms(torch, lambda: multilevel_roi_align(feats, rois5, lv, ok, res, sr),
+                    iters * 2, warmup)
+    plain_ms = _median_ms(torch, lambda: multilevel_roi_align_plain(feats, rois5, lv, ok, res, sr),
+                          max(iters // 5, 1), 1)
+    b_, _, _ = roi_align_bound(feats, rois5, lv, ok, res, sr)
+    c = feats[min(feats)].shape[-1]
+    said = (f"RoIAlign {name} R={rois5.shape[0]} res {res} C={c}: bit-equal, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms by {b_['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b_}, said
+
+
+def _dataset_batch(torch, cfg, dataset, n):
+    """The first ``n`` images of ``dataset`` as one batch of the config's
+    landscape test canvas, on the card: (data, im_hw, im_scale, content_hw)."""
+    from sad_tpu_torch.data.dataset import CocoDataset
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes, prepare_test_batch
+
+    entries = CocoDataset(dataset).get_roidb(include_gt=False)[:n]
+    b = prepare_test_batch(cfg, entries, _test_canvas_shapes(cfg)[0])
+    return tuple(torch.from_numpy(np.ascontiguousarray(b[k])).cuda()
+                 for k in ("data", "im_hw", "im_scale", "content_hw"))
+
+
+def _rcnn_kernels_on_batch(torch, name, cfg, model, args, iters, warmup):
+    """An R-CNN test path's kernels on one batch of its own images: the RPN
+    NMS and the decode NMS exactly equal to the plain NMS, the box (and mask)
+    RoIAlign forward bit-equal to the plain twin, each timed beside its
+    bound."""
+    from sad_tpu_torch.eval.inference import device_normalize
+    from sad_tpu_torch.eval.rcnn_inference import (decode_rcnn_candidates, kept_box_rois,
+                                                   make_rcnn_inference_fn)
+    from sad_tpu_torch.models.rcnn import flat_rois
+    from sad_tpu_torch.ops import nms
+    from sad_tpu_torch.ops.proposals import stack_level_problems
+
+    t_ = cfg.TEST
+    rows, said = {}, []
+    with torch.inference_mode():
+        dets = make_rcnn_inference_fn(cfg, model)(*args)
+        x = device_normalize(cfg, args[0], args[3])
+        nchw = model._features(x)
+        pl = model.rpn_candidates(*model.rpn_outputs(nchw), args[1])
+        bx, _, msk = stack_level_problems(pl)
+        rows["rpn"], _, s = _nms_at(torch, f"{name} RPN", bx, msk, t_.RPN_NMS_THRESH,
+                                    t_.RPN_POST_NMS_TOP_N, iters, warmup)
+        said.append("RPN " + s)
+        out = model(x, args[1])
+        cands = decode_rcnn_candidates(cfg, out["rois"], out["roi_valid"], out["cls_prob"],
+                                       out["bbox_pred"], args[1], args[2])
+        rows["decode"], _, s = _nms_at(torch, f"{name} decode", *nms.offset_by_class(*cands),
+                                       t_.NMS, t_.DETECTIONS_PER_IM, iters, warmup)
+        said.append("decode " + s)
+        res, sr = cfg.FAST_RCNN.ROI_XFORM_RESOLUTION, cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO
+        rois5 = flat_rois(out["rois"])
+        if cfg.FPN.FPN_ON:
+            feats = {l: f.contiguous() for l, f in model.roi_features(
+                {l: f.permute(0, 2, 3, 1) for l, f in nchw.items()}).items()}
+            rows["box"], s = _ml_roi_case(torch, f"{name} box", feats, rois5,
+                                          out["roi_levels"].reshape(-1),
+                                          out["roi_valid"].reshape(-1), res, sr, iters, warmup)
+        else:
+            feats = {l: f.permute(0, 2, 3, 1) for l, f in nchw.items()}
+            rows["box"], s = _one_level_case(torch, f"{name} box", feats, rois5, res, iters,
+                                             warmup, sr)
+        said.append(s)
+        if cfg.MODEL.MASK_ON:
+            mrois, mlv = kept_box_rois(cfg, dets["boxes"], args[2])
+            rows["mask"], s = _ml_roi_case(torch, f"{name} mask", feats, mrois, mlv,
+                                           dets["valid"].reshape(-1),
+                                           cfg.MRCNN.ROI_XFORM_RESOLUTION,
+                                           cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO, iters, warmup)
+            said.append(s)
+        del out, cands, nchw, feats, pl, dets
+    return rows, "; ".join(said)
+
+
+def phase_voc_test_net(torch, seed, data_root, iters, warmup):
+    """Faster R-CNN VGG16 of the VOC 2007 YAML through test_net on a seeded
+    VOC2007 devkit converted by VOCDataset.as_coco_gt, evaluated by the VOC07
+    11-point protocol."""
+    import tempfile
+
+    from sad_tpu_torch.config import load_cfg, register_dataset
+    from sad_tpu_torch.data.synth_devkits import write_voc_devkit
+    from sad_tpu_torch.data.voc_dataset import VOCDataset
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.eval.voc_eval import voc_eval_boxes
+    from sad_tpu_torch.models import compute_dtype, create_model
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.tools import test_net
+    from sad_tpu_torch.tools.profile_infer import spread_rcnn_outputs
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="voc_", dir=data_root) as tmp:
+        voc = write_voc_devkit(tmp, "2007", "test", 16, seed=seed)
+        ds = VOCDataset(tmp, "2007", "test")
+        gt = ds.as_coco_gt()
+        js = os.path.join(tmp, "voc_2007_test.json")
+        with open(js, "w") as f:
+            json.dump(gt, f)
+        register_dataset("voc_2007_test", os.path.join(voc, "JPEGImages"), js,
+                         allow_override=True)
+        n_diff = sum(a["difficult"] for a in gt["annotations"])
+        gt_dets = [{"image_id": a["image_id"], "category_id": a["category_id"],
+                    "bbox": a["bbox"], "score": 1.0} for a in gt["annotations"]]
+        gt_map = voc_eval_boxes(gt, gt_dets, use_07_metric=True)["mAP"]
+        if abs(gt_map - 1.0) > 1e-12:
+            raise AssertionError(f"voc_test_net: the ground truth as detections scores mAP "
+                                 f"{gt_map}, want 1.0")
+        cfg = load_cfg(os.path.join(REPO, VOC_CFG))
+        model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+        b = random_canvases(np.random.RandomState(seed), 8, _test_canvas_shapes(cfg)[0], "cuda")
+        spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+        del b
+        r = _test_net_run(torch, "voc", VOC_CFG, model, tmp, dataset="voc_2007_test")
+        res, t = r["results"], r["timing"]
+        aps = {k: v for k, v in res.items() if k.startswith("AP_cat")}
+        if "mAP" not in res or not aps or "AP75" in res or not all(
+                np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"voc_test_net: results.json {res}")
+        nms_l, roi_l = r["launches"]
+        if (nms_l, roi_l) != (2 * t["batches"], t["batches"]):
+            raise AssertionError(f"voc_test_net: {nms_l} NMS / {roi_l} RoIAlign launches in "
+                                 f"{t['batches']} batches, want 2 and 1 a batch")
+        # TEST.FORCE_JSON_DATASET_EVAL: the COCO evaluator on the same split
+        out = os.path.join(tmp, "force_json")
+        coco = test_net.main(["--cfg", os.path.join(REPO, VOC_CFG), "--weights",
+                              os.path.join(tmp, "voc.pkl"), "TEST.FORCE_JSON_DATASET_EVAL",
+                              "True", "OUTPUT_DIR", out])
+        keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs",
+                "ARm", "ARl")
+        if sorted(coco) != sorted(keys):
+            raise AssertionError(f"voc_test_net: FORCE_JSON_DATASET_EVAL gave {sorted(coco)}")
+        model.to(compute_dtype(cfg))
+        args = _dataset_batch(torch, cfg, "voc_2007_test", 8)
+        rows, said = _rcnn_kernels_on_batch(torch, "voc", cfg, model, args, iters, warmup)
+        del model
+    torch.cuda.empty_cache()
+    _phase("voc_test_net", f"{VOC_CFG} through test_net on a seeded VOC2007 devkit (16 JPEGs "
+           f"500x375, {len(gt['annotations'])} objects of the 20 classes, {n_diff} difficult) "
+           f"converted by VOCDataset.as_coco_gt: the ground truth as detections mAP "
+           f"{gt_map:.1f}; seeded spread weights through --weights: VOC07 11-point mAP "
+           f"{res['mAP']:.4f} over {len(aps)} classes, bbox_results.json and results.json "
+           f"byte-identical to the plain-twin run, launches NMS {nms_l}, RoIAlign {roi_l} in "
+           f"{t['batches']} batches; TEST.FORCE_JSON_DATASET_EVAL gives the 12 COCO keys (AP "
+           f"{coco['AP']:.4f}); dataset {t['images'] / t['wall']:.2f} imgs/s, "
+           f"{1e3 * t['wall'] / t['batches']:.1f} ms a batch, device idle {r['idle']:.4f}; on "
+           f"the split's first 8 images: {said}", time.perf_counter() - t0)
+    return {"launches": r["launches"], "batches": t["batches"], **rows}
+
+
+CS_IMAGES = 8  # the Cityscapes val tree: one batch of 2048x1024 images
+
+
+def phase_cityscapes_test_net(torch, seed, data_root, iters, warmup):
+    """Mask R-CNN R-50-FPN of the Cityscapes YAML through test_net on a
+    seeded gtFine val tree converted by convert_cityscapes_to_coco: the
+    Cityscapes result export, then COCO bbox and segm."""
+    import tempfile
+
+    from sad_tpu_torch.config import load_cfg, register_dataset
+    from sad_tpu_torch.data.synth_devkits import write_cityscapes_tree
+    from sad_tpu_torch.data.synthetic import random_canvases
+    from sad_tpu_torch.eval.coco_eval import COCOEvaluator
+    from sad_tpu_torch.eval.rcnn_inference import make_rcnn_inference_fn
+    from sad_tpu_torch.eval.test_engine import _test_canvas_shapes
+    from sad_tpu_torch.models import compute_dtype, create_model
+    from sad_tpu_torch.tools.convert_cityscapes_to_coco import convert_cityscapes_instance_only
+    from sad_tpu_torch.tools.profile_infer import spread_rcnn_outputs
+
+    name = "cityscapes_fine_instanceonly_seg_val"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cityscapes_", dir=data_root) as tmp:
+        img_dir, _ = write_cityscapes_tree(tmp, "val", CS_IMAGES, seed=seed)
+        js = convert_cityscapes_instance_only(tmp, os.path.join(tmp, "annotations"),
+                                              ["gtFine_val"])["gtFine_val"]
+        register_dataset(name, img_dir, js, allow_override=True)
+        doc = _read_json(js)
+        gt_dets = _gt_as_detections(doc)
+        gt_box = COCOEvaluator(doc).evaluate(gt_dets)["AP"]
+        gt_segm = COCOEvaluator(doc, iou_type="segm").evaluate(gt_dets)["AP"]
+        if gt_box != 1.0 or gt_segm != 1.0:
+            raise AssertionError(f"cityscapes_test_net: the ground truth as detections scores "
+                                 f"bbox AP {gt_box}, segm AP {gt_segm}, want 1.0")
+        cfg = load_cfg(os.path.join(REPO, CS_CFG))
+        model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+        b = random_canvases(np.random.RandomState(seed), 8, _test_canvas_shapes(cfg)[0], "cuda")
+        spread_rcnn_outputs(cfg, model, b["data"], b["im_hw"], b["content_hw"])
+        del b
+        # the plain twins are held on the served batch below: a second test_net
+        # run would spend a minute more on the host (RLE, PNGs, segm) for the same
+        # bytes
+        r = _test_net_run(torch, "cityscapes", CS_CFG, model, tmp, dataset=name, twin=False)
+        res, t = r["results"], r["timing"]
+        keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs",
+                "ARm", "ARl")
+        want = list(keys) + [f"segm_{k}" for k in keys]
+        if sorted(res) != sorted(want) or not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"cityscapes_test_net: results.json {res}")
+        nms_l, roi_l = r["launches"]
+        if (nms_l, roi_l) != (2 * t["batches"], 2 * t["batches"]):
+            raise AssertionError(f"cityscapes_test_net: {nms_l} NMS / {roi_l} RoIAlign launches "
+                                 f"in {t['batches']} batches, want 2 and 2 a batch")
+        got_dir = os.path.join(tmp, "cityscapes_kernels", "test", name)
+        txts = sorted(f for f in os.listdir(got_dir) if f.endswith("pred.txt"))
+        lines = [ln.split() for f in txts for ln in open(os.path.join(got_dir, f))]
+        pngs = os.listdir(os.path.join(got_dir, "results"))
+        if len(txts) != CS_IMAGES or len(lines) != r["n_dets"] or len(pngs) != r["n_dets"] or any(
+                not os.path.exists(os.path.join(got_dir, p)) for p, _, _ in lines):
+            raise AssertionError(f"cityscapes_test_net: {len(txts)} pred.txt, {len(lines)} lines, "
+                                 f"{len(pngs)} PNGs for {r['n_dets']} detections")
+        labels = sorted({int(lb) for _, lb, _ in lines})
+        model.to(compute_dtype(cfg))
+        args = _dataset_batch(torch, cfg, name, CS_IMAGES)
+        infer = make_rcnn_inference_fn(cfg, model)
+        dets = infer(*args)
+        with _plain_twins():
+            ref = infer(*args)
+        for k in ("boxes", "scores", "classes", "valid", "mask_prob"):
+            if not torch.equal(dets[k], ref[k]):
+                raise AssertionError(f"cityscapes_test_net: {k} of the served batch differs "
+                                     "from the plain-twin run")
+        del dets, ref
+        rows, said = _rcnn_kernels_on_batch(torch, "cityscapes", cfg, model, args, iters, warmup)
+        del model
+    torch.cuda.empty_cache()
+    _phase("cityscapes_test_net", f"{CS_CFG} through test_net on a seeded gtFine val tree "
+           f"({CS_IMAGES} PNGs 2048x1024, {len(doc['annotations'])} instances after the "
+           f"converter dropped crowd, non-instance and degenerate polygons): the ground truth as "
+           f"detections bbox AP {gt_box:.1f}, segm AP {gt_segm:.1f}; seeded spread weights "
+           f"through --weights on the 1024x2048 canvas: {r['n_dets']} detections, one pred.txt "
+           f"an image and one PNG a detection (label ids {labels}), the served batch's boxes, "
+           f"scores, classes, valid and mask_prob equal to the plain-twin run's, the 24 bbox "
+           f"and segm metrics "
+           f"finite (AP {res['AP']:.4f}, segm AP {res['segm_AP']:.4f}); launches NMS {nms_l}, "
+           f"RoIAlign {roi_l} in {t['batches']} batches; {1e3 * t['wall'] / t['batches']:.1f} "
+           f"ms a batch (ms a batch: {_split_line(t)}; export {t['export_cityscapes']:.2f} s, "
+           f"eval bbox {t['eval_bbox']:.2f} s, segm {t['eval_segm']:.2f} s), device idle "
+           f"{r['idle']:.4f}; on the batch: {said}", time.perf_counter() - t0)
+    return {"launches": r["launches"], "batches": t["batches"], **rows}
+
+
+def phase_vid_test_net(torch, seed, data_root):
+    """The R-50 student through test_net on smoke_val registered under a vid_
+    name: the VID protocol's 12 metrics."""
+    import tempfile
+
+    from sad_tpu_torch.config import load_cfg, register_dataset
+    from sad_tpu_torch.eval.vid_eval import evaluate_vid_detections
+    from sad_tpu_torch.models import create_model
+
+    t0 = time.perf_counter()
+    img_dir = _smoke_coco(data_root, 0, ("smoke_val",))
+    js = os.path.join(data_root, "instances_val.json")
+    register_dataset("vid_smoke_val", img_dir, js, allow_override=True)
+    doc = _read_json(js)
+    gt_ap = evaluate_vid_detections(doc, _gt_as_detections(doc))["AP"]
+    if gt_ap != 1.0:
+        raise AssertionError(f"vid_test_net: the ground truth as detections scores AP {gt_ap}")
+    cfg = load_cfg(os.path.join(REPO, STUDENT_CFG))
+    model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
+    with tempfile.TemporaryDirectory(prefix="vid_", dir=data_root) as tmp:
+        r = _test_net_run(torch, "vid", STUDENT_CFG, model, tmp, (0, 16), dataset="vid_smoke_val",
+                          profile=False)
+    del model
+    torch.cuda.empty_cache()
+    res, t = r["results"], r["timing"]
+    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs", "ARm",
+            "ARl")
+    if sorted(res) != sorted(keys) or not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"vid_test_net: results.json {res}")
+    if r["launches"] != (t["batches"], 0):
+        raise AssertionError(f"vid_test_net: launches {r['launches']} in {t['batches']} batches")
+    _phase("vid_test_net", f"{STUDENT_CFG} through test_net --range 0 16 on smoke_val registered "
+           f"as vid_smoke_val: the ground truth as detections VID AP {gt_ap:.1f}; the VID "
+           f"protocol's 12 metrics finite (AP {res['AP']:.4f}), bbox_results.json and "
+           f"results.json byte-identical to the plain-twin run, {r['launches'][0]} NMS launches "
+           f"in {t['batches']} batches", time.perf_counter() - t0)
+    return {"launches": r["launches"], "batches": t["batches"]}
+
+
 # phases that can be run alone with --only
 # --------------------------------------------------------------------------- #
 # Data parallelism: W ranks, each a process of its own (parallel.launch.spawn)
@@ -4140,6 +4645,13 @@ PARTIAL = {
         "train": phase_ss_train(torch, "rfcn_ohem_train", RFCN_CFG, a.seed + 23, SS_GROUPS,
                                 a.iters, a.warmup)},
     "c4_test_net": lambda torch, a, rng: phase_c4_test_net(torch, a.seed + 24, a.loop_data),
+    "export_serving": lambda torch, a, rng: phase_export_serving(
+        torch, a.seed + 25, a.batch, a.iters, a.warmup, a.loop_data),
+    "voc_test_net": lambda torch, a, rng: phase_voc_test_net(torch, a.seed + 26, a.loop_data,
+                                                             a.iters, a.warmup),
+    "cityscapes_test_net": lambda torch, a, rng: phase_cityscapes_test_net(
+        torch, a.seed + 27, a.loop_data, a.iters, a.warmup),
+    "vid_test_net": lambda torch, a, rng: phase_vid_test_net(torch, a.seed + 28, a.loop_data),
     "ddp_joint_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_joint_step", a.seed,
                                                            a.groups, DDP_TIMED_STEPS, a.gpu),
     "ddp_rcnn_step": lambda torch, a, rng: phase_ddp_step(torch, "ddp_rcnn_step", a.seed + 5,
@@ -4335,6 +4847,13 @@ def _main(torch, args) -> int:
     if _kernel_counts() != rfcn["train"]["launches"]:
         raise AssertionError("a kernel was launched after the R-FCN training run")
     c4_eval = PARTIAL["c4_test_net"](torch, args, rng)
+    # the serving export and the VOC, Cityscapes and VID evaluators through
+    # test_net: each main path's counts set to 0 just before it and read just
+    # after (the exported program's in the child process that serves it)
+    exported = PARTIAL["export_serving"](torch, args, rng)
+    voc = PARTIAL["voc_test_net"](torch, args, rng)
+    cs = PARTIAL["cityscapes_test_net"](torch, args, rng)
+    vid = PARTIAL["vid_test_net"](torch, args, rng)
     # data parallelism, last: W ranks, processes of their own, each setting
     # its counts to 0 just before its run and reading them just after; in
     # this process only ddp_test_net's one-process references launch (its
@@ -4375,6 +4894,36 @@ def _main(torch, args) -> int:
         # RetinaNet decode shape; launches of the two RetinaNet serving runs
         "name": "greedy_nms_sorted", "launches": nms_launches, **nms_stats["decode"], **nms_entry,
         "test_net_launches": eval_nms, "ddp_test_net_launches": ddp_eval["launches"],
+        "vid_test_net_launches": vid["launches"][0],
+    }, {
+        # the exported student program (8 x 5000 -> 100) in its child process, timed on
+        # the batch's own candidates; dispatch_us: host microseconds a call through the
+        # custom op and through nms_cuda directly
+        "name": "nms@export", "launches": exported["launches"], **exported["nms_stats"],
+        **nms_entry, "dispatch_us": exported["dispatch_us"],
+    }, {
+        # VOC2007 test_net with the VGG16 YAML: RPN 8 x 6000 -> 300, decode 8 x (300 x 20)
+        # -> 100, the box RoIAlign R = 8 x 300, res 7, C = 512 on the stride-16 map
+        "name": "nms@voc_rpn", "launches": voc["launches"][0] // 2, **voc["rpn"], **nms_entry,
+    }, {
+        "name": "nms@voc_decode", "launches": voc["launches"][0] // 2, **voc["decode"],
+        **nms_entry,
+    }, {
+        "name": "roi_align_fwd@voc_box", "launches": voc["launches"][1], **voc["box"],
+        **roi_entry,
+    }, {
+        # Cityscapes test_net with Mask R-CNN R-50-FPN on 1024x2048: RPN 40 x 1000 -> 1000,
+        # decode 8 x (1000 x 8) -> 100, box RoIAlign R = 8000 res 7, mask R = 800 res 14
+        "name": "nms@cs_rpn", "launches": cs["launches"][0] // 2, **cs["rpn"], **nms_entry,
+    }, {
+        "name": "nms@cs_decode", "launches": cs["launches"][0] // 2, **cs["decode"],
+        **nms_entry,
+    }, {
+        "name": "roi_align_fwd@cs_box", "launches": cs["launches"][1] // 2, **cs["box"],
+        **roi_entry,
+    }, {
+        "name": "roi_align_fwd@cs_mask", "launches": cs["launches"][1] // 2, **cs["mask"],
+        **roi_entry,
     }, {
         # the same decode shape (8 x 5 levels x 1000 -> 100): the X-101 teacher at scale 500
         "name": "greedy_nms_sorted@decode_500", "launches": x101_nms, **nms_stats["decode"],

@@ -42,9 +42,15 @@ option (a refusal is no different result): TEST.SOFT_NMS or TEST.BBOX_VOTE
 without TEST.BBOX_AUG (sad_tpu applies them only in its bbox-aug branch),
 TEST.PROPOSAL_FILES with MODEL.FASTER_RCNN True, aspect-ratio TTA (sad_tpu
 refuses it too). RetinaNet ignores TTA, soft-NMS and voting, as sad_tpu's
-RetinaNet branch does. Not ported yet, raising NotImplementedError naming
-their ROADMAP.md item: the VOC, Cityscapes-mask and VID evaluators (Queue 1
-item 9).
+RetinaNet branch does.
+
+The evaluator follows the dataset's name (task_evaluation.py:256-266;
+sad_tpu/eval/test_engine.py:578-607): ``cityscapes_*`` under MODEL.MASK_ON
+first exports the Cityscapes result files (eval/cityscapes_eval.py) and
+then takes the COCO bbox and segm evaluation; ``vid*`` the VID protocol
+(eval/vid_eval.py); ``voc_*`` the VOC protocol (eval/voc_eval.py, VOC07's
+11-point AP before 2010) unless TEST.FORCE_JSON_DATASET_EVAL; every other
+dataset the COCO evaluator.
 
 Dataset I/O is the port's copy of sad_tpu's host modules (sad_tpu_torch.data).
 """
@@ -532,21 +538,37 @@ def _dump_results_json(output_dir, results):
             json.dump({k: float(v) for k, v in results.items()}, f, indent=1)
 
 
-def _refuse_unported_evaluator(cfg, name: str) -> None:
-    """The evaluator dispatch by dataset name (ref: task_evaluation.py:256-266
-    _use_cityscapes/_use_voc/_use_vid_evaluator; sad_tpu/eval/test_engine.py:
-    578-607): the COCO evaluator is ported, the others raise."""
+def _evaluate_by_name(cfg, name: str, ds, roidb, dets, output_dir, timing
+                      ) -> Optional[Dict[str, float]]:
+    """The evaluators other than COCO's, chosen by the dataset's name
+    (task_evaluation.py:256-266 _use_cityscapes/_use_voc/_use_vid_evaluator;
+    sad_tpu/eval/test_engine.py:578-607). Returns the results of the VID or
+    VOC protocol, or None where the COCO evaluation follows (after the
+    Cityscapes export)."""
+    t0 = time.perf_counter()
     if "cityscapes_" in name and cfg.MODEL.MASK_ON:
-        evaluator = "the Cityscapes mask evaluator (eval/cityscapes_eval.py)"
-    elif name.startswith("vid"):
-        evaluator = "the VID evaluator (eval/vid_eval.py)"
+        from .cityscapes_eval import evaluate_masks
+
+        # dets carry the json category ids (mapped in run_inference_on_roidb)
+        id_to_name = {c["id"]: c["name"] for c in ds.dataset["categories"]}
+        evaluate_masks(roidb, dets, id_to_name,
+                       output_dir or os.path.join(get_output_dir(cfg, training=False),
+                                                  "cityscapes"))
+        timing["export_cityscapes"] = time.perf_counter() - t0
+    if name.startswith("vid"):
+        from .vid_eval import evaluate_vid_detections
+
+        results = evaluate_vid_detections(ds.dataset, dets)
     elif name.startswith("voc_") and not cfg.TEST.FORCE_JSON_DATASET_EVAL:
-        evaluator = "the VOC evaluator (eval/voc_eval.py; TEST.FORCE_JSON_DATASET_EVAL " \
-                    "takes the COCO one)"
+        from .voc_eval import voc_eval_boxes
+
+        year = name.split("_")[1]
+        results = voc_eval_boxes(ds.dataset, dets,
+                                 use_07_metric=year.isdigit() and int(year) < 2010)
     else:
-        return
-    raise NotImplementedError(f"dataset {name!r}: {evaluator} is not ported to sad_tpu_torch "
-                              "yet (ROADMAP.md Queue 1 item 9)")
+        return None
+    timing["eval_bbox"] = time.perf_counter() - t0
+    return results
 
 
 def attach_test_proposals(cfg, roidb: List[dict], name: str) -> None:
@@ -572,14 +594,17 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
                         output_dir: Optional[str] = None,
                         im_range: Optional[Tuple[int, int]] = None,
                         multi_gpu: bool = False) -> Dict[str, float]:
-    """Run inference + COCO evaluation on cfg.TEST.DATASETS[0] (or
-    ``dataset_name``): the 12 bbox metrics, under MODEL.MASK_ON the 12 segm
-    ones with the ``segm_`` prefix and under MODEL.KEYPOINTS_ON the 10
-    keypoint ones with the ``keypoints_`` prefix (ranked by 'kps_score').
-    Writes bbox_results.json, results.json and timing.json
-    (run_inference_on_roidb's split and the seconds of each evaluation,
-    'eval_bbox', 'eval_segm', 'eval_keypoints') into ``output_dir`` when one
-    is given.
+    """Run inference + evaluation on cfg.TEST.DATASETS[0] (or
+    ``dataset_name``). The COCO evaluator gives the 12 bbox metrics, under
+    MODEL.MASK_ON the 12 segm ones with the ``segm_`` prefix and under
+    MODEL.KEYPOINTS_ON the 10 keypoint ones with the ``keypoints_`` prefix
+    (ranked by 'kps_score'); a ``vid*`` dataset gets the VID protocol's 12
+    and a ``voc_*`` one the VOC protocol's per-class APs and mAP
+    (``_evaluate_by_name``). Writes bbox_results.json, results.json and
+    timing.json (run_inference_on_roidb's split and the seconds of each
+    evaluation, 'eval_bbox', 'eval_segm', 'eval_keypoints',
+    'export_cityscapes') into ``output_dir`` when one is given; a
+    Cityscapes mask run writes its result files there too.
 
     im_range=(start, end) evaluates only that slice of the dataset's images
     (ref test_net.py --range, the reference's subprocess-sharding unit).
@@ -588,7 +613,6 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
     rank returns its results."""
     name = dataset_name or cfg.TEST.DATASETS[0]
     _refuse_unported_inference(cfg)
-    _refuse_unported_evaluator(cfg, name)
     ds = CocoDataset(name)
     roidb = ds.get_roidb(include_gt=False)
     if im_range is not None:
@@ -612,6 +636,9 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
         os.makedirs(output_dir, exist_ok=True)
         with open(os.path.join(output_dir, "bbox_results.json"), "w") as f:
             json.dump(dets, f)
+    results = _evaluate_by_name(cfg, name, ds, roidb, dets, output_dir, timing)
+    if results is not None:
+        return _write_results(output_dir, results, timing, sharded)
     t0 = time.perf_counter()
     results = COCOEvaluator(ds.dataset).evaluate(dets, verbose=True)
     timing["eval_bbox"] = time.perf_counter() - t0
@@ -629,6 +656,12 @@ def test_net_on_dataset(cfg, model, dataset_name: Optional[str] = None, batch_si
         kps = COCOEvaluator(ds.dataset, iou_type="keypoints").evaluate(kp_dets, verbose=True)
         timing["eval_keypoints"] = time.perf_counter() - t0
         results.update({f"keypoints_{k}": v for k, v in kps.items()})
+    return _write_results(output_dir, results, timing, sharded)
+
+
+def _write_results(output_dir, results, timing, sharded):
+    """results.json and timing.json into ``output_dir``; the results,
+    broadcast to every rank when the run was sharded."""
     _dump_results_json(output_dir, results)
     if output_dir:
         with open(os.path.join(output_dir, "timing.json"), "w") as f:

@@ -46,7 +46,9 @@ def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
     that device) with the JAX model's initialiser distributions. Layers run
     in cfg.COMPUTE_DTYPE with the float32 parameters cast per layer; for
     inference the model may be cast once with ``model.to(compute_dtype(cfg))``
-    after loading weights."""
+    after loading weights. ``device="meta"`` builds the module tree alone,
+    parameters with shapes and no values, for tools that need only names and
+    shapes (tools/net_drawer.py)."""
     # deprecated type spellings normalise at load_cfg; here too, for configs
     # assembled without it
     mtype = _TYPE_ALIASES.get(cfg.MODEL.TYPE, cfg.MODEL.TYPE)
@@ -55,7 +57,8 @@ def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
             "MODEL.RPN_ONLY with MODEL.TYPE 'generalized_rcnn': sad_tpu dispatches "
             "RPN-only on MODEL.TYPE 'rpn' alone and ignores the flag; set MODEL.TYPE 'rpn' "
             "(ROADMAP.md Queue 3)")
-    with torch.device(get_device(device)):
+    meta = str(device) == "meta"
+    with torch.device("meta" if meta else get_device(device)):
         if mtype in ("retinanet", "distillation"):
             model = RetinaNet(arch_from_config(cfg))
         elif mtype in ("generalized_rcnn", "rpn") and cfg.FPN.FPN_ON:
@@ -68,6 +71,8 @@ def create_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
             model = SingleScaleRCNN(cfg)
         else:
             raise NotImplementedError(f"MODEL.TYPE={mtype!r} is not a model type of sad_tpu")
+    if meta:
+        return model.eval()
     init_weights(model, generator)
     return model.eval()
 

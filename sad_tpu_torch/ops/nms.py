@@ -10,8 +10,15 @@ are moved apart by a per-problem span, so they never suppress each other.
 
 Dispatch is by tensor device: CUDA tensors go to the hand-written kernel
 (ops/nms_kernel.py, csrc/nms.cu), CPU tensors to ``nms_multi_plain`` below.
-There is no flag and no fallback between them. ``soft_nms`` (TTA only) is
-not ported yet.
+There is no flag and no fallback between them. The dispatch is the custom
+op ``sad_tpu_torch::nms_multi`` (``torch.library.custom_op``): its CUDA
+implementation is ``nms_kernel.nms_cuda``, its CPU one ``nms_multi_plain``,
+and its fake implementation gives the (N, max_out) int32 / bool outputs
+without running either. So ``torch.export`` (eval/export.py) records one op
+node where it would otherwise unroll the plain loop's max_out steps, or
+fail on the kernel's ctypes call, and a program reloaded with
+``torch.export.load`` launches the kernel on the card. Soft-NMS (TTA only)
+is the host's g++ ``native.soft_nms`` (eval/test_augmentation.py).
 """
 
 from __future__ import annotations
@@ -60,23 +67,44 @@ def nms_multi_plain(
     return out_idx, out_valid
 
 
+@torch.library.custom_op("sad_tpu_torch::nms_multi", mutates_args=())
+def _nms_multi_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                  max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    raise ValueError(f"nms has no path for device {boxes.device}")
+
+
+@_nms_multi_op.register_kernel("cuda")
+def _nms_multi_cuda(boxes, scores, iou_threshold, max_out):
+    from . import nms_kernel
+
+    return nms_kernel.nms_cuda(boxes, scores, iou_threshold, max_out)
+
+
+@_nms_multi_op.register_kernel("cpu")
+def _nms_multi_cpu(boxes, scores, iou_threshold, max_out):
+    return nms_multi_plain(boxes, scores, iou_threshold, max_out)
+
+
+@_nms_multi_op.register_fake
+def _nms_multi_fake(boxes, scores, iou_threshold, max_out):
+    n = scores.shape[0]
+    return (scores.new_empty((n, max_out), dtype=torch.int32),
+            scores.new_empty((n, max_out), dtype=torch.bool))
+
+
 def nms_multi(
     boxes: torch.Tensor,  # (N, K, 4)
     masked_scores: torch.Tensor,  # (N, K); invalid carry NEG_INF
     iou_threshold: float,
     max_out: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain (classless) greedy NMS over N independent problems."""
-    if boxes.device.type == "cuda":
-        from . import nms_kernel
-
-        return nms_kernel.nms_cuda(
-            boxes.float().contiguous(), masked_scores.float().contiguous(),
-            iou_threshold, max_out,
-        )
-    if boxes.device.type != "cpu":
+    """Plain (classless) greedy NMS over N independent problems, through the
+    custom op ``sad_tpu_torch::nms_multi``."""
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms has no path for device {boxes.device}")
-    return nms_multi_plain(boxes, masked_scores, iou_threshold, max_out)
+    return torch.ops.sad_tpu_torch.nms_multi(
+        boxes.float().contiguous(), masked_scores.float().contiguous(),
+        float(iou_threshold), int(max_out))
 
 
 def nms_fixed(boxes, scores, iou_threshold: float, max_out: int):

@@ -283,7 +283,12 @@ def run_compare(build: Callable, build_kwargs: Dict[str, Any], world: int, steps
                 held: Optional[int] = None) -> Dict[str, Any]:
     """``rank_steps`` on one process (a world of 1 with ``one_backend``,
     NCCL on the card by default) and on ``world`` ranks, both within
-    ``timeout_s``; their comparison (``compare``, over ``held`` steps)."""
+    ``timeout_s``; their comparison (``compare``, over ``held`` steps). On
+    the card the two worlds run one after the other, so that neither's step
+    times hold the other's work; on the CPU, where no time is read, at
+    once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sad_tpu_torch.parallel.launch import spawn
 
     deadline = time.monotonic() + timeout_s
@@ -293,10 +298,22 @@ def run_compare(build: Callable, build_kwargs: Dict[str, Any], world: int, steps
     else:
         backend, local, note = "gloo", [0] * world, f"{world} ranks on the CPU over gloo"
     args = (build, build_kwargs, steps, lr, iters)
-    (one,) = spawn(rank_steps, 1, args, device=device, backend=one_backend,
-                   local_ranks=[0], timeout_s=timeout_s, threads=threads)
-    ranks = spawn(rank_steps, world, args, device=device, backend=backend, local_ranks=local,
-                  timeout_s=deadline - time.monotonic(), threads=threads)
+
+    def one_world():
+        return spawn(rank_steps, 1, args, device=device, backend=one_backend, local_ranks=[0],
+                     timeout_s=timeout_s, threads=threads)[0]
+
+    def ranks_world():
+        return spawn(rank_steps, world, args, device=device, backend=backend, local_ranks=local,
+                     timeout_s=deadline - time.monotonic(), threads=threads)
+
+    if device == "cuda":
+        one = one_world()
+        ranks = ranks_world()
+    else:
+        with ThreadPoolExecutor(2) as pool:
+            one_f, ranks_f = pool.submit(one_world), pool.submit(ranks_world)
+            one, ranks = one_f.result(), ranks_f.result()
     return {"one": one, "ranks": ranks, "layout": note, **compare(one, ranks, held)}
 
 

@@ -156,6 +156,40 @@ def _fc_cols_to_port(w: np.ndarray, res: int) -> np.ndarray:
     return w[:, perm]
 
 
+def _fc_cols_to_ref(w: np.ndarray, res: int) -> np.ndarray:
+    """(out, C*res*res) with HWC-ordered input columns -> CHW order (the
+    inverse of _fc_cols_to_port)."""
+    c = w.shape[1] // (res * res)
+    perm = np.arange(res * res * c).reshape(res, res, c).transpose(2, 0, 1).ravel()
+    return w[:, perm]
+
+
+def _is_flattening_fc(arr: np.ndarray, res: Optional[int]) -> bool:
+    return bool(arr.ndim == 2 and res and arr.shape[1] % (res * res) == 0
+                and arr.shape[1] > res * res)
+
+
+def state_dict_to_reference_blobs(
+    sd: Dict[str, torch.Tensor], fc_resolutions: Optional[Dict[str, int]] = None
+) -> Dict[str, np.ndarray]:
+    """A state_dict in the reference's blob naming and layout (the
+    counterpart of sad_tpu/train/checkpoint.py:166 flax_to_reference_blobs):
+    the port's layouts are Caffe2's, so only the flattening FCs of
+    ``fc_resolutions`` have their input columns permuted back to CHW order.
+    An entry without a blob name raises."""
+    blobs: Dict[str, np.ndarray] = {}
+    for key, t in sd.items():
+        name = blob_name(key)
+        if name is None:
+            raise ValueError(f"Cannot map state_dict entry {key} to a blob name")
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        res = (fc_resolutions or {}).get(key.split(".")[-2] if "." in key else "")
+        if _is_flattening_fc(arr, res):
+            arr = _fc_cols_to_ref(arr, res)
+        blobs[name] = np.ascontiguousarray(arr)
+    return blobs
+
+
 def reference_blobs_to_state_dict(
     blobs: Dict[str, np.ndarray],
     model: nn.Module,
@@ -179,8 +213,7 @@ def reference_blobs_to_state_dict(
         arr = np.asarray(blobs[name], dtype=np.float32)
         module = key.split(".")[-2] if "." in key else ""
         res = (fc_resolutions or {}).get(module)
-        if (arr.ndim == 2 and res and arr.shape[1] % (res * res) == 0
-                and arr.shape[1] > res * res):
+        if _is_flattening_fc(arr, res):
             arr = _fc_cols_to_port(arr, res)
         if tuple(arr.shape) != tuple(t.shape):
             skipped.append(f"{key} (shape {arr.shape} != {tuple(t.shape)})")

@@ -131,6 +131,29 @@ def _segm_scenario(seed, h=48, w=64):
     return {"images": images, "annotations": anns, "categories": cats}, dets
 
 
+@pytest.mark.parametrize("iou_type", ["bbox", "segm"])
+@pytest.mark.parametrize("seed", range(3))
+def test_vid_protocol_stats_match_sad_tpu(seed, iou_type):
+    """The VID protocol (eval/vid_eval.py: the COCO evaluator with every area
+    range capped at 1e5^2) beside the COCO evaluator's cases: the same 12
+    stats as sad_tpu's vid_eval within 1e-12, and its parameters."""
+    from sad_tpu.eval import vid_eval as j_vid
+    from sad_tpu_torch.eval import vid_eval
+
+    if iou_type == "bbox":
+        gt, dets = _random_scenario(np.random.RandomState(seed))
+    else:
+        gt, dets = _segm_scenario(seed)
+    got = vid_eval.evaluate_vid_detections(gt, dets, iou_type)
+    ref = j_vid.evaluate_vid_detections(gt, dets, iou_type)
+    assert sorted(got) == sorted(ref) == sorted(BBOX_KEYS)
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-12, (k, got[k], ref[k])
+    assert 0 < got["AP"] < 1
+    ev = vid_eval.vid_evaluator(gt, iou_type)
+    assert ev.area_rngs == j_vid.VID_AREA_RNGS and ev.max_dets == j_vid.VID_MAX_DETS
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_segm_stats_match_sad_tpu(seed):
     gt, dets = _segm_scenario(seed)

@@ -37,6 +37,7 @@ Each world is spawned once a module; the cases read its outputs.
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -126,13 +127,27 @@ def joint_setup(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def joint(joint_setup):
+def joint_runs(joint_setup):
+    """The worlds of the joint step's comparison, and sad_tpu's mesh step,
+    which this process jits and runs while the worlds run."""
     _, path = joint_setup
-    return _compare(profile_ddp.load_run, {"path": path})
+    with ThreadPoolExecutor(1) as pool:
+        joint = pool.submit(_compare, profile_ddp.load_run, {"path": path})
+        mesh = _mesh_ref(joint_setup)
+        return joint.result(), mesh
 
 
 @pytest.fixture(scope="module")
-def mesh_ref(joint_setup):
+def joint(joint_runs):
+    return joint_runs[0]
+
+
+@pytest.fixture(scope="module")
+def mesh_ref(joint_runs):
+    return joint_runs[1]
+
+
+def _mesh_ref(joint_setup):
     """sad_tpu's jitted joint step over a 2-device 'data' mesh, two steps
     from the same weights and batch."""
     (s_arch, t_arch, sp, tp, over, batch), _ = joint_setup

@@ -29,6 +29,7 @@ import json
 import os
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -105,12 +106,19 @@ def runs(data, tmp_path_factory):
     root = tmp_path_factory.mktemp("ddp_loop")
     _yaml(root / "student.yaml")
     _yaml(root / "teacher.yaml", TEACHER)
-    whole = _ranks("train_net", _argv(root, root / "whole"), regs, deadline)
-    os.makedirs(_train_dir(root / "resumed"))
-    shutil.copy(os.path.join(_train_dir(root / "whole"), "model_iter1.pkl"),
-                _train_dir(root / "resumed"))
-    resumed = _ranks("train_net", _argv(root, root / "resumed", test=True), regs, deadline)
-    one = train_net.main(_argv(root, root / "one"))
+    # the ranks' worlds run while this process trains the one-process run
+    with ThreadPoolExecutor(1) as pool:
+        def both_worlds():
+            whole = _ranks("train_net", _argv(root, root / "whole"), regs, deadline)
+            os.makedirs(_train_dir(root / "resumed"))
+            shutil.copy(os.path.join(_train_dir(root / "whole"), "model_iter1.pkl"),
+                        _train_dir(root / "resumed"))
+            return whole, _ranks("train_net", _argv(root, root / "resumed", test=True), regs,
+                                 deadline)
+
+        worlds = pool.submit(both_worlds)
+        one = train_net.main(_argv(root, root / "one"))
+        whole, resumed = worlds.result()
     return root, whole, resumed, one
 
 
@@ -209,19 +217,24 @@ def served(data, tmp_path_factory):
         f.write(cfg_to_yaml(cfg))
     common = ["--cfg", str(root / "cfg.yaml"), "--weights", pkl, "--device", "cpu",
               "--batch-size", "2"]
-    out = {}
-    for key, extra in (("eval", ["--range", "1", "7"]),
-                       ("pseudo", ["--pseudo-out", str(root / "{}" / "pseudo.json"),
-                                   "--pseudo-score-thresh", "0.0"])):
-        for n in (1, W):
-            d = root / f"{key}{n}"
-            argv = common + [a.format(f"{key}{n}") for a in extra]
-            if n == 1:
-                test_net.main(argv + ["OUTPUT_DIR", str(d)])
-            else:
-                _ranks("test_net", argv + ["--multi-gpu-testing", "OUTPUT_DIR", str(d)], regs,
-                       deadline)
-            out[(key, n)] = d
+    out, worlds = {}, []
+    # the ranks' worlds run while this process serves the one-process runs
+    with ThreadPoolExecutor(2) as pool:
+        for key, extra in (("eval", ["--range", "1", "7"]),
+                           ("pseudo", ["--pseudo-out", str(root / "{}" / "pseudo.json"),
+                                       "--pseudo-score-thresh", "0.0"])):
+            for n in (W, 1):
+                d = root / f"{key}{n}"
+                argv = common + [a.format(f"{key}{n}") for a in extra]
+                if n == 1:
+                    test_net.main(argv + ["OUTPUT_DIR", str(d)])
+                else:
+                    worlds.append(pool.submit(
+                        _ranks, "test_net", argv + ["--multi-gpu-testing", "OUTPUT_DIR", str(d)],
+                        regs, deadline))
+                out[(key, n)] = d
+        for w in worlds:
+            w.result()
     return root, out
 
 

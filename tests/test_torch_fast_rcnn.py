@@ -25,6 +25,7 @@ tests/test_torch_rcnn.py and tests/test_torch_rcnn_train.py (CHANNEL_RATIO
 import json
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -279,9 +280,13 @@ def test_fast_rcnn_step_over_two_ranks_matches_one_process():
     kw = dict(cfg_yaml=os.path.join(CONFIGS, "fast_rcnn_R-50-FPN.yaml"), seed=0, n_groups=G,
               device="cpu", opts=RCNN_OPTS)
     build = profile_train.seeded_rcnn_train_step
-    one = profile_ddp.rank_steps(build, kw, STEPS, LR)
-    ranks = spawn(profile_ddp.rank_steps, W, (build, kw, STEPS, LR, 0), device="cpu",
-                  backend="gloo", local_ranks=[0] * W, timeout_s=TIMEOUT_S, threads=1)
+    # the ranks' world runs while this process takes its own steps
+    with ThreadPoolExecutor(1) as pool:
+        ranks_f = pool.submit(spawn, profile_ddp.rank_steps, W, (build, kw, STEPS, LR, 0),
+                              device="cpu", backend="gloo", local_ranks=[0] * W,
+                              timeout_s=TIMEOUT_S, threads=1)
+        one = profile_ddp.rank_steps(build, kw, STEPS, LR)
+        ranks = ranks_f.result()
     res = {"one": one, "ranks": ranks, **profile_ddp.compare(one, ranks)}
     assert [r["n_images"] for r in res["ranks"]] == [4, 4]
     _check_against_one(res, 1e-4)

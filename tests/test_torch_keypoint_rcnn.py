@@ -23,6 +23,7 @@ weights and seeded numpy inputs. sad_tpu's RoIAlign runs its dense form here
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -395,20 +396,22 @@ def test_net_pair(kps_split, tmp_path_factory):
     lowres["kernel"] = lowres["kernel"] * 4.0
     pkl = str(tmp / "model.pkl")
     jck.save_checkpoint(pkl, params)
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jkp, "_cv2", None)
-    try:
-        ref_dir = str(tmp / "jax")
-        j_engine.test_net_on_dataset(jc, j_create_model(jc), params, batch_size=2,
-                                     output_dir=ref_dir)
-    finally:
-        mp.undo()
     cfg_path = str(tmp / "cfg.yaml")
     with open(cfg_path, "w") as f:
         f.write(cfg_to_yaml(t_merge(tcfg.Config(), over)))
-    out = str(tmp / "torch")
-    test_net.main(["--cfg", cfg_path, "--weights", pkl, "--device", "cpu", "--batch-size", "2",
-                   "--vis", "VIS_TH", "0.0", "OUTPUT_DIR", out])
+    ref_dir, out = str(tmp / "jax"), str(tmp / "torch")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jkp, "_cv2", None)
+    try:
+        # sad_tpu's run (tracing and compiling its jitted model) beside the port's
+        with ThreadPoolExecutor(1) as pool:
+            ref = pool.submit(j_engine.test_net_on_dataset, jc, j_create_model(jc), params,
+                              batch_size=2, output_dir=ref_dir)
+            test_net.main(["--cfg", cfg_path, "--weights", pkl, "--device", "cpu",
+                           "--batch-size", "2", "--vis", "VIS_TH", "0.0", "OUTPUT_DIR", out])
+            ref.result()
+    finally:
+        mp.undo()
     return ref_dir, os.path.join(out, "test", kps_split)
 
 

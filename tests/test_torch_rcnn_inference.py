@@ -18,6 +18,8 @@ image in place of the RPN's. The mask and keypoint heads on fixed boxes
 (make_aux_on_boxes_fn) and a test-time-augmentation pass's batch are held
 to sad_tpu's as well."""
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,10 +170,13 @@ def test_run_inference_on_roidb_box_results(synth_dataset):
     params = rcnn_params(jmodel, seed=21)
     port = load_params(GeneralizedRCNN(tc).eval(), params)
     jds, tds = JCocoDataset(synth_dataset), CocoDataset(synth_dataset)
-    ref = j_run_inference_on_roidb(jc, jmodel, params, jds.get_roidb(include_gt=False),
-                                   jds.contiguous_to_json, batch_size=2)
-    got = test_engine.run_inference_on_roidb(tc, port, tds.get_roidb(include_gt=False),
-                                             tds.contiguous_to_json, batch_size=2)
+    # sad_tpu's engine (tracing and compiling its jitted model) beside the port's
+    with ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(j_run_inference_on_roidb, jc, jmodel, params,
+                          jds.get_roidb(include_gt=False), jds.contiguous_to_json, batch_size=2)
+        got = test_engine.run_inference_on_roidb(tc, port, tds.get_roidb(include_gt=False),
+                                                 tds.contiguous_to_json, batch_size=2)
+        ref = ref.result()
     assert len(got) == len(ref) > 5
     key = lambda d: (d["image_id"], d["category_id"], -d["score"])  # noqa: E731
     for a, b in zip(sorted(ref, key=key), sorted(got, key=key)):

@@ -15,6 +15,7 @@ sad_tpu's selection, ties included.
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -68,14 +69,19 @@ def _step_pair(over, n_groups=2, seed=21):
     batch = make_batch(jc, mask=mask)
     key = jax.random.PRNGKey(3)
     jstate = JTrainState(params, init_momentum_state(params).velocity)
-    new_state, ref = jax.jit(j_make_rcnn_train_step(jc, jmodel, n_groups=n_groups))(
-        jstate, jax.tree_util.tree_map(jnp.asarray, batch), jnp.float32(LR), key)
     single = not tc.FPN.FPN_ON
     port = load_params((SingleScaleRCNN if single else GeneralizedRCNN)(tc), params)
     state = TrainState.create(port)
-    step = make_rcnn_train_step(tc, port, n_groups=n_groups)
     p = tc.TRAIN.RPN_POST_NMS_TOP_N + batch["gt_boxes"].shape[1]
-    got = step(state, batch_to_torch(batch, "cpu"), LR, uniforms=jax_uniforms(key, 2, p))
+    uniforms = jax_uniforms(key, 2, p)
+    # sad_tpu's step (traced and compiled) beside the port's
+    with ThreadPoolExecutor(1) as pool:
+        jstep = jax.jit(j_make_rcnn_train_step(jc, jmodel, n_groups=n_groups))
+        ref = pool.submit(jstep, jstate, jax.tree_util.tree_map(jnp.asarray, batch),
+                          jnp.float32(LR), key)
+        step = make_rcnn_train_step(tc, port, n_groups=n_groups)
+        got = step(state, batch_to_torch(batch, "cpu"), LR, uniforms=uniforms)
+        new_state, ref = ref.result()
     return ref, new_state, got, port, state, params
 
 

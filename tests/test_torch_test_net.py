@@ -19,14 +19,15 @@ sad_tpu saved as native pickles, loaded through --weights.
 - Fast R-CNN on TEST.PROPOSAL_FILES (the Mask R-CNN weights with
   MODEL.FASTER_RCNN False, 16 seeded proposals an image): detections, bbox
   and segm stats, masks, as above.
-- --range, --vis, the EXPECTED_RESULTS gate, the default device, and every
-  branch that stays unported raising NotImplementedError with its
-  ROADMAP.md item.
+- --range, --vis, the EXPECTED_RESULTS gate, the default device.
+- The evaluators chosen by the dataset's name (VOC, Cityscapes, VID) on the
+  same detections as sad_tpu's test_net_on_dataset.
 """
 
 import json
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -122,13 +123,15 @@ def _run_pair(tmp, over, params, extra=()):
     mp = pytest.MonkeyPatch()
     mp.setattr(j_segms, "paste_mask_into_image", recs[0])
     mp.setattr(test_engine, "paste_mask_into_image", recs[1])
+    ref_dir, out = str(tmp / "jax"), str(tmp / "torch")
     try:
-        ref_dir = str(tmp / "jax")
-        j_engine.test_net_on_dataset(jc, j_create_model(jc), params, batch_size=2,
-                                     output_dir=ref_dir)
-        out = str(tmp / "torch")
-        test_net.main(["--cfg", _yaml(tmp / "cfg.yaml", over), "--weights", pkl, "--device", "cpu",
-                       "--batch-size", "2", *extra, "OUTPUT_DIR", out])
+        # sad_tpu's run (tracing and compiling its jitted model) beside the port's
+        with ThreadPoolExecutor(1) as pool:
+            ref = pool.submit(j_engine.test_net_on_dataset, jc, j_create_model(jc), params,
+                              batch_size=2, output_dir=ref_dir)
+            test_net.main(["--cfg", _yaml(tmp / "cfg.yaml", over), "--weights", pkl, "--device",
+                           "cpu", "--batch-size", "2", *extra, "OUTPUT_DIR", out])
+            ref.result()
     finally:
         mp.undo()
     got_dir = os.path.join(out, "test", over["TEST"]["DATASETS"][0])
@@ -284,20 +287,74 @@ def test_expected_results_gate_and_default_device(splits, retina_pair, tmp_path)
         test_net.main(["--cfg", yml, "--weights", pkl])
 
 
-@pytest.mark.parametrize("dataset,base,over,match", [
-    ("voc_2007_tn", "retina", {}, "item 9"),
-    ("cityscapes_fine_instanceonly_seg_tn", "mask", {}, "item 9"),
-    ("vid_tn", "retina", {}, "item 9"),
+@pytest.mark.parametrize("dataset,base", [
+    pytest.param("voc_2007_tn", "retina", id="voc_2007_tn-retina-over0-item 9"),
+    pytest.param("cityscapes_fine_instanceonly_seg_tn", "mask",
+                 id="cityscapes_fine_instanceonly_seg_tn-mask-over1-item 9"),
+    pytest.param("vid_tn", "retina", id="vid_tn-retina-over2-item 9"),
 ])
-def test_unported_branches_raise_with_their_item(tmp_path, dataset, base, over, match):
-    """Each raises before it reads a dataset or builds a model's output."""
+def test_unported_branches_raise_with_their_item(splits, tmp_path, dataset, base, request):
+    """The evaluators chosen by the dataset's name, which raised until they
+    were ported (the IDs are kept): VOC07's 11-point protocol, the
+    Cityscapes export followed by the COCO bbox and segm evaluation, and the
+    VID protocol. The pair's split and weights are registered under each
+    name; the port's test_net --device cpu runs whole, and sad_tpu's
+    test_net_on_dataset runs its dispatch and evaluator on the detections
+    its own inference made of those images in the pair's run (its
+    run_inference_on_roidb returns them, so no model is traced again)."""
+    ref_pair, got_pair, _, pkl = request.getfixturevalue(f"{base}_pair")
     cfg = {"retina": RETINA, "mask": MASK}[base]
-    if dataset:
-        over = dict(over, TEST={"DATASETS": (dataset,)})
-    cfg = dict(cfg, **{k: {**cfg.get(k, {}), **v} for k, v in over.items()})
-    yml = _yaml(tmp_path / "cfg.yaml", cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        test_net.main(["--cfg", yml, "--device", "cpu", "OUTPUT_DIR", str(tmp_path)])
+    img_dir, js = splits[cfg["TEST"]["DATASETS"][0]]
+    if dataset.startswith("cityscapes"):
+        # the split's 8 categories under the names of Cityscapes' 8 instance classes
+        doc = json.load(open(js))
+        for c, name in zip(doc["categories"], ("person", "rider", "car", "truck", "bus", "train",
+                                               "motorcycle", "bicycle")):
+            c["name"] = name
+        js = str(tmp_path / "cityscapes.json")
+        with open(js, "w") as f:
+            json.dump(doc, f)
+    _register(dataset, img_dir, js)
+    cfg = dict(cfg, TEST=dict(cfg["TEST"], DATASETS=(dataset,)))
+    out = str(tmp_path / "torch")
+    test_net.main(["--cfg", _yaml(tmp_path / "cfg.yaml", cfg), "--weights", pkl, "--device",
+                   "cpu", "--batch-size", "2", "OUTPUT_DIR", out])
+    got_dir = os.path.join(out, "test", dataset)
+    ref_dir = str(tmp_path / "jax")
+    jc = j_merge(jcfg.Config(), cfg)
+    ref_dets = _read(ref_pair, "bbox_results.json")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_engine, "run_inference_on_roidb", lambda *a, **k: ref_dets)
+        j_engine.test_net_on_dataset(jc, j_create_model(jc), None, batch_size=2,
+                                     output_dir=ref_dir)
+    _matched(ref_dets, _read(got_dir, "bbox_results.json"))
+    rr, rg = _read(ref_dir, "results.json"), _read(got_dir, "results.json")
+    want = {"voc_2007_tn": ("mAP",), "vid_tn": BBOX_KEYS,
+            "cityscapes_fine_instanceonly_seg_tn": BBOX_KEYS + tuple(
+                f"segm_{k}" for k in BBOX_KEYS)}[dataset]
+    assert sorted(rg) == sorted(rr) and set(want) <= set(rg)
+    for k in rr:
+        assert abs(rg[k] - rr[k]) <= 1e-6, (k, rg[k], rr[k])
+    if not dataset.startswith("cityscapes"):
+        return
+    # the export: a manifest an image, the same lines (scores within the
+    # detections' 1e-4), each PNG the same mask
+    txts = sorted(f for f in os.listdir(ref_dir) if f.endswith("pred.txt"))
+    assert len(txts) == 3 and sorted(f for f in os.listdir(got_dir) if f.endswith("pred.txt")) \
+        == txts
+    n = 0
+    for t in txts:
+        ref_lines = open(os.path.join(ref_dir, t)).read().splitlines()
+        got_lines = open(os.path.join(got_dir, t)).read().splitlines()
+        assert len(got_lines) == len(ref_lines)
+        for a, b in zip(ref_lines, got_lines):
+            (pa, la, sa), (pb, lb, sb) = a.split(), b.split()
+            assert (pa, la) == (pb, lb) and abs(float(sa) - float(sb)) <= 1e-4
+            with open(os.path.join(ref_dir, pa), "rb") as fa, \
+                    open(os.path.join(got_dir, pb), "rb") as fb:
+                assert fa.read() == fb.read()
+            n += 1
+    assert n == len(ref_dets)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,8 @@ the two runs (TTA, soft-NMS and voting are host steps), so each is jitted
 once and the runs share its compile.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -247,11 +249,15 @@ def served(request, models):
     timing = {}
     try:
         jds, tds = JCocoDataset(TTA_VAL), CocoDataset(TTA_VAL)
-        ref = j_engine.run_inference_on_roidb(jc, jmodel, params, jds.get_roidb(include_gt=False),
-                                              jds.contiguous_to_json, batch_size=2)
-        got = test_engine.run_inference_on_roidb(tc, port, tds.get_roidb(include_gt=False),
-                                                 tds.contiguous_to_json, batch_size=2,
-                                                 timing=timing)
+        # sad_tpu's engine (tracing and compiling its jitted functions) beside the port's
+        with ThreadPoolExecutor(1) as pool:
+            ref = pool.submit(j_engine.run_inference_on_roidb, jc, jmodel, params,
+                              jds.get_roidb(include_gt=False), jds.contiguous_to_json,
+                              batch_size=2)
+            got = test_engine.run_inference_on_roidb(tc, port, tds.get_roidb(include_gt=False),
+                                                     tds.contiguous_to_json, batch_size=2,
+                                                     timing=timing)
+            ref = ref.result()
     finally:
         mp.undo()
     return tc, ref, got, recs, timing
