@@ -411,6 +411,31 @@ line each (name, what was checked, time):
                  a fresh directory bit-identical; iteration ms and CPU ms by
                  rank
 
+  spatial_infer  last: sad_tpu's 'model' mesh axis (parallel/mesh.py, spatial.py,
+                 halo.py), two ranks, each a process of its own (a card a rank over
+                 NCCL, else both on cuda:0 over gloo with the halo rows staged through
+                 pinned host memory; the line names the layout and the transport): the
+                 R-50 student at full width, bs --batch on 640x1024, height-sharded over
+                 n_model = 2 (P7's 5 rows split 3 / 2), through make_inference_fn(cfg,
+                 model, mesh) at float32 with TF32 and cuDNN off, against one process's
+                 serving on the first rank: each level's gathered cls_prob and bbox_pred
+                 within 1e-5 x max, classes and valid equal, boxes and scores within
+                 1e-5 x max; the NMS kernel once a batch on the first rank, never on the
+                 other; 3 timed batches with cuDNN (SPATIAL_TIMED): forward, halo (ms,
+                 bytes), gather and batch ms by rank, peak memory against one process;
+                 the decode NMS on the gathered batch's candidates against the plain NMS
+  spatial_joint_step
+                 the R-50 <- R-101 joint step at full width, bs 4 (G = 2) on 640x1024, on
+                 a 2 x 2 mesh (sad_tpu's dryrun phase-2 layout: every loss group spans
+                 two ranks; the normalizers reduced over the ranks), 4 ranks, against one
+                 process from the same seeded state and batch: 2 steps at float32, TF32
+                 and cuDNN off, metrics within 1e-5 relative, the worst parameter tensor
+                 within 1e-5 relative L2, parameters and momenta bit-equal across the
+                 ranks, one cls-loss forward and backward a level a step at each rank's
+                 band rows; 3 timed steps with cuDNN: step, halo (ms, bytes) and gradient
+                 all-reduce ms by rank, peak memory; the cls-loss kernels against their
+                 twin on the first rank's band of P3 (92,160 rows, a group an image)
+
 Then a JSON line with every kernel of the paths (with the loops' launches
 as train_loop_launches, the evaluation's as test_net_launches, Keypoint
 R-CNN's share as keypoint_launches, keypoint_test_net_launches and
@@ -4338,6 +4363,217 @@ def phase_ddp_step(torch, name, seed, groups, iters, gpu):
     return {"summary": s, "launches": per_rank}
 
 
+# --------------------------------------------------------------------------- #
+# sad_tpu's 'model' mesh axis: image height over ranks (parallel/spatial.py)
+# --------------------------------------------------------------------------- #
+
+SPATIAL_TIMED = 3  # timed batches / steps of [spatial_infer] and [spatial_joint_step]
+SPATIAL_TOL = 1e-5  # level maps, boxes and scores (of max), metrics, parameters (relative L2)
+# the compute dtype of [spatial_joint_step]'s compared steps: on the H100 at float32 a banded
+# R-50 of random weights differs from the whole canvas's by 6.4e-6 of max in a forward
+# ([spatial_infer]) and a zero-initialised bias's update by 4.4e-3 relative L2 after two steps,
+# while at float64 every gradient of a banded R-50 agrees within 1.6e-14 (tools/profile_spatial;
+# PERF.md section 6)
+SPATIAL_CMP_DTYPE = "float64"
+
+
+def _ms(xs):
+    return _fmt([statistics.median(xs)]) if xs else "[]"
+
+
+def phase_spatial_infer(torch, seed, batch, iters, warmup, gpu):
+    """[spatial_infer]: the R-50 student at full width, bs ``batch`` on the
+    640x1024 canvas, height-sharded over n_model = 2 ranks (P7's 5 rows split
+    3 / 2): make_inference_fn(cfg, model, mesh) at float32 (TF32 and cuDNN
+    off) against one process's serving of the same batch on the first rank;
+    each level's gathered maps within SPATIAL_TOL * max, classes and valid
+    equal, boxes and scores within SPATIAL_TOL * max; the NMS kernel once a
+    batch on the first rank, never on the other; SPATIAL_TIMED batches with
+    cuDNN. Then the decode NMS on the gathered batch's own candidates against
+    the plain NMS (nms@spatial_decode)."""
+    from sad_tpu_torch.parallel.launch import spawn
+    from sad_tpu_torch.tools import profile_spatial
+    from sad_tpu_torch.tools.profile_ddp import card_layout
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    backend, local, note = card_layout(2)
+    kw = {"cfg_path": os.path.join(REPO, STUDENT_CFG), "seed": seed, "batch": batch,
+          "opts": ["COMPUTE_DTYPE", "float32"]}
+    job = ("infer", {"build": profile_spatial.seeded_serving, "build_kwargs": kw, "n_data": 1,
+                     "n_model": 2, "iters": SPATIAL_TIMED, "reference": True})
+    first, other = (r[0] for r in spawn(profile_spatial.rank_jobs, 2, ([job],), device="cuda",
+                                        backend=backend, local_ranks=local,
+                                        timeout_s=DDP_TIMEOUT_S))
+    bad = [f"{k} {v:.3e}" for k, v in first["level_rel"].items() if not v <= SPATIAL_TOL]
+    for key in ("boxes_rel", "scores_rel"):
+        if not first[key] <= SPATIAL_TOL:
+            bad.append(f"{key} {first[key]:.3e}")
+    if first["untied"]:
+        bad.append(f"{len(first['untied'])} kept boxes differ at no tie: {first['untied'][:3]}")
+    if not (first["classes_equal"] and first["valid_equal"]):
+        bad.append("classes or valid differ from one process's")
+    want = 1 + 2 * SPATIAL_TIMED
+    if first["launches"]["nms"] != want or any(other["launches"][k] for k in ("nms", "cls_fwd")):
+        bad.append(f"NMS launches {first['launches']['nms']} / {other['launches']['nms']}, want "
+                   f"{want} / 0")
+    if "dets" in other:
+        bad.append("the second rank returned detections")
+    if bad:
+        raise AssertionError("spatial_infer: " + "; ".join(bad))
+    ni = first["nms_inputs"]
+    stats, _, said = _nms_at(torch, "nms@spatial_decode", torch.from_numpy(ni["boxes"]).cuda(),
+                             torch.from_numpy(ni["scores"]).cuda(), ni["thr"], ni["max_out"],
+                             iters, warmup)
+    worst = max(first["level_rel"], key=first["level_rel"].get)
+    ranks = [first, other]
+    _phase("spatial_infer", f"{STUDENT_CFG} at float32, bs {batch} on 640x1024 over n_model = 2 "
+           f"({note}; halo transport {first['transport']}), bands {first['band_rows']} / "
+           f"{other['band_rows']}: the gathered level maps within {SPATIAL_TOL:g} x max of one "
+           f"process's (worst {worst} {first['level_rel'][worst]:.3e}), classes and valid equal, "
+           f"boxes {first['boxes_rel']:.3e} and scores {first['scores_rel']:.3e} of max, "
+           f"{first['n_valid']} detections, of which {len(first['tied'])} kept another of "
+           f"tied candidates (the one process's decode holds at least two of the class within "
+           f"{SPATIAL_TOL:g} x max of the score, one of them the kept box: {first['tied'][:2]}); NMS kernel {first['launches']['nms']}x on the first "
+           f"rank in {want} batches and 0x on the other; {SPATIAL_TIMED} timed batches with "
+           f"cuDNN, medians by rank: forward ms {[_ms(r['fwd_ms']) for r in ranks]}, batch ms "
+           f"{[_ms(r['batch_ms']) for r in ranks]} against one process's "
+           f"{_ms(first['one_batch_ms'])}; {SPATIAL_TIMED} more with each exchange timed (a "
+           f"device sync around each): halo ms {[_ms(r['halo_ms']) for r in ranks]} and bytes a "
+           f"batch {[r['halo_bytes_per_batch'] for r in ranks]}, gather ms "
+           f"{[_ms(r['gather_ms']) for r in ranks]}; peak GiB of the compared batch {[round(r['peak_gib'], 3) for r in ranks]} against "
+           f"one process's {first['one_peak_gib']:.3f}; {said}; {gpu}", time.perf_counter() - t0)
+    return {"launches": first["launches"]["nms"], "other_launches": other["launches"]["nms"],
+            "nms_stats": stats}
+
+
+def _band_cls_rows(torch, got, iters, warmup):
+    """The cls-loss kernels against their plain twin on a rank's own inputs
+    at its band of P3 (per-image groups, the cotangents its backward got):
+    sums within 1e-5 relative, dx within 1e-5 * max|dx|; both timed after an
+    L2 flush, and their bounds."""
+    from sad_tpu_torch.ops import cls_loss_kernel as K
+    from sad_tpu_torch.ops.fused_losses import cls_losses_bwd_plain, cls_losses_fwd_plain
+
+    x, pt, labels, gf, gd = (torch.from_numpy(got[k]).cuda()
+                             for k in ("x", "pt", "labels", "g_focal", "g_distill"))
+    g, p = got["groups"], K.ClsLossParams(*got["params"])
+    sums, ref = K.cls_losses_fwd(x, pt, labels, g, p), cls_losses_fwd_plain(x, pt, labels, g, p)
+    dx, dref = (K.cls_losses_bwd(x, pt, labels, gf, gd, p),
+                cls_losses_bwd_plain(x, pt, labels, gf, gd, p))
+    torch.cuda.synchronize()
+    rel = float(((sums - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    drel = float((dx - dref).abs().max() / dref.abs().max())
+    if not rel <= 1e-5 or not drel <= 1e-5:
+        raise AssertionError(f"cls losses at the band's P3: sums rel err {rel:.3e}, dx err "
+                             f"{drel:.3e} of max|dx| (limits 1e-5)")
+    flush = _l2_flush(torch)
+    ms = [_median_ms(torch, fn, n, warmup, flush) for fn, n in (
+        (lambda: K.cls_losses_fwd(x, pt, labels, g, p), iters * 5),
+        (lambda: K.cls_losses_bwd(x, pt, labels, gf, gd, p), iters * 5),
+        (lambda: cls_losses_fwd_plain(x, pt, labels, g, p), iters),
+        (lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, p), iters))]
+    del flush
+    b_fwd, b_bwd = _cls_bounds(x.shape[0], x.shape[1], g)
+    said = (f"the cls-loss kernels at the band's P3 ({x.shape[0]} rows x {x.shape[1]}, G={g} "
+            f"images): sums {rel:.2e} relative, dx {drel:.2e} of max|dx|; fwd {ms[0]:.4f} ms "
+            f"(plain {ms[2]:.4f}, bound {b_fwd['bound_ms']:.4f}), bwd {ms[1]:.4f} ms (plain "
+            f"{ms[3]:.4f}, bound {b_bwd['bound_ms']:.4f}), CUDA-event medians after an L2 flush")
+    return ({"max_abs_err": float((sums - ref).abs().max()), "ms": ms[0], "plain_ms": ms[2],
+             **b_fwd, "rows": x.shape[0]},
+            {"max_abs_err": float((dx - dref).abs().max()), "ms": ms[1], "plain_ms": ms[3],
+             **b_bwd, "rows": x.shape[0]}, said)
+
+
+def phase_spatial_joint_step(torch, seed, iters, warmup, gpu):
+    """[spatial_joint_step]: the R-50 <- R-101 joint step at full width, bs 4
+    (G = 2) on 640x1024, on a 2 x 2 mesh (sad_tpu's dryrun phase-2 layout:
+    every loss group spans two ranks), against one process (a world of 1
+    over NCCL) from the same seeded state and batch: DDP_STEPS steps at
+    float32 with TF32 and cuDNN off, metrics within SPATIAL_TOL relative and
+    the worst parameter tensor within SPATIAL_TOL relative L2, parameters and
+    momenta bit-equal across the four ranks, one cls-loss forward and
+    backward a level a step on each rank at its band's rows; SPATIAL_TIMED
+    timed steps with cuDNN. Then the cls-loss kernels against their twin at
+    the first rank's band of P3 (cls_losses_fwd@band_p3, _bwd@band_p3)."""
+    from sad_tpu_torch.parallel.launch import spawn
+    from sad_tpu_torch.parallel.mesh import row_band
+    from sad_tpu_torch.tools import profile_ddp, profile_spatial, profile_train
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    backend, local, note = profile_ddp.card_layout(4)
+    # compared at float64 compute (the parameters and the cls-loss kernels stay float32):
+    # at float32 a band's convolutions sum in another order than the whole canvas's, and
+    # the random full-depth network amplifies that past the tolerance (SPATIAL_CMP_DTYPE);
+    # timed at float32
+    kw = {"seed": seed, "n_groups": 2, "device": "cuda",
+          "opts": ["COMPUTE_DTYPE", SPATIAL_CMP_DTYPE]}
+    kw32 = {**kw, "opts": ["COMPUTE_DTYPE", "float32"]}
+    build, lr = profile_train.seeded_train_step, profile_train.BENCH_LR
+    one = spawn(profile_spatial.one_process_steps, 1, (build, kw, DDP_STEPS, lr, SPATIAL_TIMED,
+                                                       kw32),
+                device="cuda", local_ranks=[0], timeout_s=DDP_TIMEOUT_S)[0]
+    job = ("steps", {"build": build, "build_kwargs": kw, "n_data": 2, "n_model": 2,
+                     "steps": DDP_STEPS, "lr": lr, "iters": SPATIAL_TIMED, "capture": True,
+                     "timed_kwargs": kw32})
+    ranks = [r[0] for r in spawn(profile_spatial.rank_jobs, 4, ([job],), device="cuda",
+                                 backend=backend, local_ranks=local, timeout_s=DDP_TIMEOUT_S)]
+    res = profile_ddp.compare(one, ranks)
+    bad = []
+    if not res["metric_rel"] <= SPATIAL_TOL:
+        bad.append(f"metric {res['metric_key']} {res['metric_rel']:.3e}")
+    if not res["param_rel_l2"] <= SPATIAL_TOL:
+        bad.append(f"parameter {res['param_key']} {res['param_rel_l2']:.3e} (worst "
+                   f"{res['param_worst']}, momenta {res['velocity_worst']})")
+    if res["unequal_across_ranks"]:
+        bad.append(f"not bit-equal across the ranks: {res['unequal_across_ranks'][:3]}")
+    for r in ranks:
+        bands = [row_band(h, 2, r["rank"] % 2) for h, _ in LEVEL_HW.values()]
+        rows = sorted(r["n_images"] * (b - a) * w * 9
+                      for (a, b), (_, w) in zip(bands, LEVEL_HW.values()) if b > a)
+        want = [(x, DDP_STEPS) for x in rows]
+        la = r["launches"]
+        got = (sorted(la["cls_fwd_by_rows"].items()), sorted(la["cls_bwd_by_rows"].items()),
+               la["nms"], la["roi_align_fwd"])
+        if got != (want, want, 0, 0):
+            bad.append(f"rank {r['rank']} launches {got}, want {(want, want, 0, 0)}")
+    if bad:
+        raise AssertionError("spatial_joint_step: " + "; ".join(bad))
+    fwd, bwd, said = _band_cls_rows(torch, ranks[0]["band_p3"], iters, warmup)
+    p3 = ranks[0]["n_images"] * (LEVEL_HW[3][0] // 2) * LEVEL_HW[3][1] * 9
+    if fwd["rows"] != p3:
+        raise AssertionError(f"spatial_joint_step: the band's P3 has {fwd['rows']} rows, want {p3}")
+    med = statistics.median
+    _phase("spatial_joint_step", f"R-50 <- R-101 compared at {SPATIAL_CMP_DTYPE} compute "
+           f"(float32 parameters and cls-loss kernels), timed at float32, bs 4 (G = 2) on "
+           f"640x1024 over a "
+           f"2 x 2 mesh ({note}; halo transport {ranks[0]['transport']}; every loss group over "
+           f"two ranks, bands {[r['band_rows'] for r in ranks[:2]]}) against one process (NCCL, "
+           f"world 1), TF32 and cuDNN off, {DDP_STEPS} steps: worst metric {res['metric_key']} "
+           f"{res['metric_rel']:.3e} relative, worst parameter {res['param_key']} "
+           f"{res['param_rel_l2']:.3e} relative L2 (momentum {res['velocity_key']} "
+           f"{res['velocity_rel_l2']:.3e}); parameters and momenta bit-equal across the 4 ranks; "
+           f"one cls-loss forward and backward a level a step on each rank at its band's rows; "
+           f"{SPATIAL_TIMED} timed steps with cuDNN, medians by rank: step ms "
+           f"{_fmt([med(r['step_ms']) for r in ranks])} against one process's "
+           f"{med(one['step_ms']):.2f}, gradient all-reduce ms "
+           f"{_fmt([med(r['reduce_ms']) for r in ranks])} for {one['grad_bytes'] / 1e6:.1f} MB; "
+           f"{SPATIAL_TIMED} more with each exchange timed (a device sync around each): step ms "
+           f"{_fmt([med(r['instrumented_step_ms']) for r in ranks])}, halo ms "
+           f"{_fmt([med(r['halo_ms']) for r in ranks])} and bytes a step "
+           f"{[r['halo_bytes'][-1] for r in ranks]} ({[int(r['halo_bytes_per_step']) for r in ranks]}"
+           f" at {SPATIAL_CMP_DTYPE})"
+           f"; peak GiB of the timed steps {_fmt([r['timed_peak_gib'] for r in ranks], 3)} against "
+           f"one process's {one['timed_peak_gib']:.3f} (of the compared steps "
+           f"{_fmt([r['peak_gib'] for r in ranks], 3)} against {one['peak_gib']:.3f}); {said}; {gpu}",
+           time.perf_counter() - t0)
+    # every rank's band of P3 holds 40 of its 80 rows: the launches at that shape
+    return {"launches": [(r["launches"]["cls_fwd_by_rows"].get(p3, 0),
+                          r["launches"]["cls_bwd_by_rows"].get(p3, 0)) for r in ranks],
+            "fwd": fwd, "bwd": bwd}
+
+
 def _spec(name):
     from sad_tpu_torch.config import get_dataset_spec
 
@@ -4662,6 +4898,10 @@ PARTIAL = {
     "ddp_train_loop": lambda torch, a, rng: phase_ddp_train_loop(
         torch, a.loop_data, a.ddp if "pseudo" in a.ddp else (
             PARTIAL["ddp_test_net"](torch, a, rng) and a.ddp), a.gpu),
+    "spatial_infer": lambda torch, a, rng: phase_spatial_infer(torch, a.seed + 29, a.batch,
+                                                               a.iters, a.warmup, a.gpu),
+    "spatial_joint_step": lambda torch, a, rng: phase_spatial_joint_step(
+        torch, a.seed + 30, a.iters, a.warmup, a.gpu),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -4871,6 +5111,11 @@ def _main(torch, args) -> int:
                              f"{_all_counts()} beside the one-process test_net's "
                              f"{ddp_eval['one_launches']}")
     ddp_rows = ddp_rcnn["launches"]
+    # the 'model' mesh axis: ranks, processes of their own, each setting its
+    # counts to 0 just before its main path and reading them just after; in
+    # this process only the kernel rows' comparisons launch, after them
+    sp_infer = PARTIAL["spatial_infer"](torch, args, rng)
+    sp_step = PARTIAL["spatial_joint_step"](torch, args, rng)
 
     nms_entry = {
         "route": "cuda",
@@ -5117,6 +5362,29 @@ def _main(torch, args) -> int:
         "ddp_launches": [la["cls_bwd"] for la in ddp_joint["launches"]],
         "ddp_train_loop_launches": [b for _, b in ddp_loop["launches"]],
         **bwd_stats, "library_ms": None,
+    }, {
+        # height-sharded serving (n_model = 2): the first rank's decode of the gathered
+        # maps, 8 x 5000 -> 100, timed on its own candidates; the other rank launches none
+        "name": "nms@spatial_decode", "launches": sp_infer["launches"],
+        "other_rank_launches": sp_infer["other_launches"], **sp_infer["nms_stats"],
+        **nms_entry,
+    }, {
+        # the joint step on a 2 x 2 mesh: a rank's band of P3 (2 images x 40 of 80 rows,
+        # 92,160 rows x 80, G = its 2 images), on the first rank's own inputs;
+        # launches: each rank's at that shape
+        "name": "cls_losses_fwd@band_p3", "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:152 (_fwd_kernel) and :284 (_fwd_kernel_aligned)",
+        "launches": sp_step["launches"][0][0],
+        "ranks_launches": [f for f, _ in sp_step["launches"]], **sp_step["fwd"],
+        "library_ms": None,
+    }, {
+        "name": "cls_losses_bwd@band_p3", "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
+        "launches": sp_step["launches"][0][1],
+        "ranks_launches": [b for _, b in sp_step["launches"]], **sp_step["bwd"],
+        "library_ms": None,
     }, {
         # the R-101 <- X-101 joint step at scale 500: P3 at 516,096 rows; "levels" as above
         "name": "cls_losses_fwd@500",

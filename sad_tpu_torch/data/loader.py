@@ -27,6 +27,7 @@ Every wait has a timeout and shutdown is bounded.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -118,30 +119,59 @@ class _Stream:
 
 
 class RankShard:
-    """A minibatch builder that builds only rank ``rank``'s contiguous block
-    of each batch (``rows`` of the wrapped builder's ``build``): the
-    batch's seed and its per-image draws stay the whole batch's."""
+    """A minibatch builder that builds only rank ``rank``'s share of each
+    batch: the contiguous block of images (``rows`` of the wrapped builder's
+    ``build``) of its data index, rank // n_model, over world / n_model data
+    ranks; with ``n_model`` > 1 (a mesh's 'model' axis, parallel/mesh.py) only
+    its band of rows of each canvas and of each level's targets, and the
+    canvas height as ``canvas_h``. The batch's seed and per-image draws stay
+    the whole batch's, and fg_num is taken over whole images: the ranks'
+    bands, joined by rows, are the data shard's batch."""
 
-    def __init__(self, builder, rank: int, world: int):
-        self.builder, self.rank, self.world = builder, rank, world
+    def __init__(self, builder, rank: int, world: int, n_model: int = 1):
+        if n_model > 1 and not isinstance(builder, RetinaNetMinibatchBuilder):
+            raise NotImplementedError(
+                f"{type(builder).__name__} on a mesh with n_model > 1: height-sharded R-CNN "
+                "batches are not ported (ROADMAP.md item 7b)")
+        self.builder, self.rank, self.world, self.n_model = builder, rank, world, n_model
 
     def canvas_for(self, entry: dict):
         return self.builder.canvas_for(entry)
 
     def build(self, entries: List[dict], seed: int = 0, **kwargs):
-        k = len(entries) // self.world
-        return self.builder.build(entries, seed=seed,
-                                  rows=(self.rank * k, (self.rank + 1) * k), **kwargs)
+        n_data = self.world // self.n_model
+        d = self.rank // self.n_model
+        k = len(entries) // n_data
+        built = self.builder.build(entries, seed=seed, rows=(d * k, (d + 1) * k), **kwargs)
+        if self.n_model == 1:
+            return built
+        from ..parallel.mesh import row_band
+
+        def band(x):
+            if x is None:
+                return None
+            r0, r1 = row_band(x.shape[1], self.n_model, self.rank % self.n_model)
+            return x[:, r0:r1]
+
+        canvas = built.data_u8 if built.data_u8 is not None else built.data
+        return dataclasses.replace(
+            built, data=band(built.data), teacher_data=band(built.teacher_data),
+            data_u8=band(built.data_u8), canvas_h=int(canvas.shape[1]),
+            labels={lvl: band(x) for lvl, x in built.labels.items()},
+            bbox_targets={lvl: band(x) for lvl, x in built.bbox_targets.items()},
+            fg_mask={lvl: band(x) for lvl, x in built.fg_mask.items()})
 
 
-def rank_builder(builder, batch_images: int, rank: int, world: int):
+def rank_builder(builder, batch_images: int, rank: int, world: int, n_model: int = 1):
     """``builder`` itself at world 1, else its RankShard; the batch must
-    split into whole blocks."""
+    split into whole blocks over the world / n_model data ranks."""
     if world == 1:
         return builder
-    if batch_images % world:
-        raise ValueError(f"a batch of {batch_images} images does not split over {world} ranks")
-    return RankShard(builder, rank, world)
+    n_data = world // n_model
+    if n_data * n_model != world or batch_images % n_data:
+        raise ValueError(f"a batch of {batch_images} images does not split over "
+                         f"{world // max(n_model, 1)} x {n_model} ranks")
+    return RankShard(builder, rank, world, n_model)
 
 
 def fast_forward_streams(labeled, unlabeled, skip_batches: int) -> None:
@@ -167,7 +197,8 @@ class TrainingLoader:
     numpy arrays). ``build_seconds`` holds (stream, host seconds) of every
     batch built, ``served`` the stream of every batch handed out. With
     ``world`` > 1 each batch holds rank ``rank``'s block of
-    ``batch_images`` / world images."""
+    ``batch_images`` / world images; over a mesh of ``n_model`` > 1 (world /
+    n_model data ranks), each of its images' band of rows (RankShard)."""
 
     def __init__(
         self,
@@ -183,6 +214,7 @@ class TrainingLoader:
         skip_batches: int = 0,
         rank: int = 0,
         world: int = 1,
+        n_model: int = 1,
     ):
         self.cfg = cfg
         self.batch_images = batch_images or (cfg.TRAIN.IMS_PER_BATCH * cfg.NUM_GPUS)
@@ -190,7 +222,7 @@ class TrainingLoader:
         # RetinaNetMinibatchBuilder by default; RCNNMinibatchBuilder for the
         # Faster/Mask R-CNN path (data/rpn_minibatch.py)
         self.builder = rank_builder(builder or RetinaNetMinibatchBuilder(cfg, teacher_cfg),
-                                    self.batch_images, rank, world)
+                                    self.batch_images, rank, world, n_model)
         self.labeled = _Stream(roidb, self.batch_images, seed)
         self.unlabeled = (
             _Stream(unlabeled_roidb, self.batch_images, seed + 1)

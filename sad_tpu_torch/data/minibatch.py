@@ -234,6 +234,7 @@ class RetinaNetBatch:
     im_scale: np.ndarray  # (B,)
     data_u8: Optional[np.ndarray] = None  # (B,H,W,3) uint8 shared canvas
     content_hw: Optional[np.ndarray] = None  # (B,2) resized content extents
+    canvas_h: Optional[int] = None  # the canvas height, when the arrays are bands of rows
 
     def as_pytree(self) -> Dict:
         d = {
@@ -249,6 +250,8 @@ class RetinaNetBatch:
             d["data"] = self.data
             if self.teacher_data is not None:
                 d["teacher_data"] = self.teacher_data
+        if self.canvas_h is not None:
+            d["canvas_h"] = self.canvas_h
         return d
 
 

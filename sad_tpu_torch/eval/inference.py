@@ -151,18 +151,23 @@ def decode_detections(cfg, outputs, im_hw, im_scale, use_bbox_reg: bool = True
     return gather_detections(cands, keep_idx, keep_valid)
 
 
-def device_normalize(cfg, images: torch.Tensor, content_hw=None) -> torch.Tensor:
+def device_normalize(cfg, images: torch.Tensor, content_hw=None, row0: int = 0
+                     ) -> torch.Tensor:
     """uint8 canvases -> normalised float32 on their device, padding outside
-    content_hw forced to 0.0. Float inputs (already normalised on the host)
-    pass through."""
+    content_hw forced to 0.0 (``images`` rows [row0, row0 + rows) of the
+    canvases when they are a band). Float inputs (already normalised on the
+    host) pass through."""
     if images.dtype != torch.uint8:
         return images
     return normalize_u8_on_device(
-        images, cfg.PIXEL_MEANS, cfg.PIXEL_DIV, cfg.PIXEL_STD, content_hw
+        images, cfg.PIXEL_MEANS, cfg.PIXEL_DIV, cfg.PIXEL_STD, content_hw, row0=row0
     )
 
 
-def make_inference_fn(cfg, model) -> Callable:
+SERVING_OUTPUTS = ("cls_prob", "bbox_pred")
+
+
+def make_inference_fn(cfg, model, mesh=None) -> Callable:
     """images -> top-DETECTIONS_PER_IM detections, end to end.
 
     fn(images (N,H,W,3), im_hw (N,2), im_scale (N,), content_hw=None) ->
@@ -170,12 +175,33 @@ def make_inference_fn(cfg, model) -> Callable:
     on the device (content_hw required then); float32 inputs are taken as
     already normalised. With TEST.SAVE_RES the raw per-level maps come back
     too (the teacher dump of the pseudo-label pipeline,
-    test_retinanet.py:97-101)."""
+    test_retinanet.py:97-101).
+
+    With a ``mesh`` (parallel/mesh.py) of n_model > 1, ``images`` are the
+    rank's data shard's canvases: every rank of a model group runs the
+    forward on its band of rows (parallel/spatial.py), the group all-gathers
+    each level's cls_prob and bbox_pred by rows, and its first rank decodes
+    and returns the detections; the others return None."""
+    banded = mesh is not None and mesh.n_model > 1
+    if banded:
+        from ..parallel.halo import gather_rows
+        from ..parallel.spatial import spatialize
+
+        run = spatialize(model, mesh)
 
     @torch.inference_mode()
     def infer(images, im_hw, im_scale, content_hw=None):
-        images = device_normalize(cfg, images, content_hw)
-        out = model(images)
+        if banded:
+            height = images.shape[1]
+            r0, r1 = mesh.band(height)
+            band = device_normalize(cfg, images[:, r0:r1], content_hw, row0=r0)
+            rows = run.level_heights(height, SERVING_OUTPUTS, band.dtype, band.device)
+            out = {k: {lvl: gather_rows(t, rows[k][lvl], mesh) for lvl, t in v.items()}
+                   for k, v in run(band, outputs=SERVING_OUTPUTS, height=height).items()}
+            if not mesh.is_model_first:
+                return None
+        else:
+            out = model(device_normalize(cfg, images, content_hw))
         dets = decode_detections(cfg, out, im_hw, im_scale, cfg.TEST.BBOX_REG)
         if cfg.TEST.SAVE_RES:
             dets["raw_cls_prob"] = out["cls_prob"]

@@ -14,11 +14,13 @@ from typing import Optional, Sequence
 import torch
 
 
-def content_mask(shape, content_hw: torch.Tensor) -> torch.Tensor:
-    """(N,H,W,1) float32 mask: 1 inside each image's (h, w) content extent."""
+def content_mask(shape, content_hw: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """(N,H,W,1) float32 mask: 1 inside each image's (h, w) content extent.
+    ``shape`` may be a band of rows [row0, row0 + H) of the canvas (a rank's
+    band on a mesh's 'model' axis): the mask is then that band's."""
     h, w = shape[1], shape[2]
     dev = content_hw.device
-    yy = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1, 1)
+    yy = torch.arange(row0, row0 + h, dtype=torch.float32, device=dev).view(1, h, 1, 1)
     xx = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w, 1)
     chw = content_hw.float()
     m = (yy < chw[:, 0, None, None, None]) & (xx < chw[:, 1, None, None, None])
@@ -32,6 +34,7 @@ def normalize_u8_on_device(
     pixel_std: Sequence[float],
     content_hw: Optional[torch.Tensor] = None,  # (N,2) resized content h, w
     mask: Optional[torch.Tensor] = None,  # precomputed content_mask
+    row0: int = 0,  # the canvas row of images' first row (a band)
 ) -> torch.Tensor:
     dev = images.device
     bias = torch.tensor([m * pixel_div for m in pixel_means], dtype=torch.float32, device=dev)
@@ -39,7 +42,7 @@ def normalize_u8_on_device(
                        dtype=torch.float32, device=dev)
     out = (images.float() - bias) * inv
     if mask is None and content_hw is not None:
-        mask = content_mask(images.shape, content_hw)
+        mask = content_mask(images.shape, content_hw, row0)
     if mask is not None:
         out = out * mask
     return out

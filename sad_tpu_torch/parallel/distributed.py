@@ -9,9 +9,12 @@ PyTorch's multi-process idiom, one process a card, launched by
 ``torchrun --nproc_per_node W``:
 
 - every rank draws the same global batch schedule and builds only its own
-  contiguous block of images (``shard_rows``), which holds whole loss
-  groups (``check_group_layout``: W divides NUM_GPUS, as each reference GPU
-  holds its own minibatch);
+  contiguous block of images (``shard_rows``; ``check_group_layout``: W
+  divides the batch's images). With W dividing NUM_GPUS the block holds
+  whole loss groups, as each reference GPU holds its own minibatch; a
+  group may also span ranks (W > NUM_GPUS, or groups split unevenly) on the
+  steps that take a ``Mesh`` (parallel/mesh.py), which reduce the groups'
+  normalizers over the ranks (train/train_step.mesh_losses);
 - each rank's loss is that of its own groups, scaled by 1 / G_global;
 - the gradients are SUMMED over the ranks (``all_reduce_grads``), not
   averaged, and every rank applies the same momentum SGD.
@@ -36,6 +39,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..config.config import _TYPE_ALIASES
 from ..device import get_device
 
 # flat gradient buckets of this many bytes: a few collectives a step, not one
@@ -43,8 +47,11 @@ from ..device import get_device
 BUCKET_BYTES = 25 * 2 ** 20
 # metrics whose per-rank value is a mean over the rank's groups: the mean of
 # the ranks' values is the global mean (every rank holds G / W groups); every
-# other metric is a sum over groups or rows and is summed
+# other metric is a sum over groups or rows and is summed (a step on a Mesh
+# returns the global metrics itself)
 MEAN_METRICS = ("distill_normalizer",)
+# MODEL.TYPEs of the R-CNN family
+RCNN_TYPES = ("generalized_rcnn", "rpn", "rfcn")
 
 
 @dataclass(frozen=True)
@@ -138,16 +145,23 @@ def world_size() -> int:
 
 
 def check_group_layout(cfg, world: int) -> None:
-    """Each rank must hold whole loss groups, as each reference GPU holds its
-    own TRAIN.IMS_PER_BATCH-image minibatch: W must divide NUM_GPUS (the
+    """The batch's images must divide over the ``world`` data ranks (the
     counterpart of shard_batch_tree's refusal of a misshaped batch,
-    sad_tpu/parallel/mesh.py:87-111)."""
-    groups = cfg.NUM_GPUS
-    if world < 1 or groups % world:
+    sad_tpu/parallel/mesh.py:87-111). A loss group may span ranks on the
+    RetinaNet and SAD steps, which reduce its normalizers over them
+    (train/train_step.mesh_losses); the R-CNN step still needs whole groups
+    a rank, W dividing NUM_GPUS."""
+    groups, per = cfg.NUM_GPUS, cfg.TRAIN.IMS_PER_BATCH
+    if world < 1 or (groups * per) % world:
         raise ValueError(
-            f"{world} ranks cannot split NUM_GPUS = {groups} loss groups of "
-            f"TRAIN.IMS_PER_BATCH = {cfg.TRAIN.IMS_PER_BATCH} images into whole groups; "
-            "the world size must divide NUM_GPUS (loss groups do not span ranks)")
+            f"{world} ranks cannot split the batch of NUM_GPUS = {groups} loss groups of "
+            f"TRAIN.IMS_PER_BATCH = {per} images; the world size must divide its "
+            f"{groups * per} images")
+    if groups % world and _TYPE_ALIASES.get(cfg.MODEL.TYPE, cfg.MODEL.TYPE) in RCNN_TYPES:
+        raise ValueError(
+            f"{world} ranks split NUM_GPUS = {groups} loss groups of MODEL.TYPE "
+            f"{cfg.MODEL.TYPE!r}: R-CNN loss groups that span ranks are not ported "
+            "(ROADMAP.md item 7b); the world size must divide NUM_GPUS")
 
 
 def shard_rows(x, rank: int, world: int):

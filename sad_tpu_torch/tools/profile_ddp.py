@@ -123,7 +123,8 @@ def rank_steps(build: Callable, build_kwargs: Dict[str, Any], steps: int, lr: fl
     """On this rank: ``build(**build_kwargs)`` (a seeded run of the whole
     batch), cut to the rank's share, ``steps`` compared steps (after each:
     the metrics reduced over the ranks, the parameters and momentum, the
-    R-CNN sampler's generator state; and this rank's kernel launches), then
+    R-CNN sampler's generator state; and this rank's kernel launches and
+    peak memory), then
     ``iters`` timed steps. TF32 is off: the comparison holds float32
     arithmetic. The compared steps run PyTorch's own convolutions (cuDNN
     off): cuDNN's float32 convolutions do not sum a batch of 4 as they sum
@@ -137,6 +138,8 @@ def rank_steps(build: Callable, build_kwargs: Dict[str, Any], steps: int, lr: fl
     cuda = next(_model(run).parameters()).device.type == "cuda"
     gen = getattr(run.step, "generator", None)
     reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     metrics, trees, gen_states = [], [], []
     torch.backends.cudnn.enabled = False
     try:
@@ -152,6 +155,7 @@ def rank_steps(build: Callable, build_kwargs: Dict[str, Any], steps: int, lr: fl
         "n_images": run.n_images, "n_groups": run.step.n_groups, "metrics": metrics,
         "launches": _counts(), "trees": trees, **trees[-1], "generator": gen_states,
         "grad_bytes": grad_bytes(run.step.params),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
     }
     host_ms, reduce_ms, cpu_s = [], [], []
     for _ in range(iters):

@@ -58,8 +58,8 @@ from ..data.dataset import combined_roidb_for_training
 from ..data.loader import DevicePrefetcher, TrainingLoader
 from ..models import create_model, trainable_mask
 from ..parallel.distributed import (
-    all_reduce_metrics, barrier, broadcast_module, broadcast_tensors, check_group_layout,
-    init_distributed, rank_device,
+    RCNN_TYPES, all_reduce_metrics, barrier, broadcast_module, broadcast_tensors,
+    check_group_layout, init_distributed, rank_device,
 )
 from ..utils.net_info import print_model_summary
 from ..utils.stats import TrainingStats
@@ -73,8 +73,6 @@ from .rcnn_train import make_rcnn_train_step
 from .train_step import TrainState, make_train_step
 
 logger = logging.getLogger(__name__)
-
-RCNN_TYPES = ("generalized_rcnn", "rpn", "rfcn")
 
 
 @dataclass
@@ -252,6 +250,11 @@ def train_model(
     returns the final student, momentum and the loop's measurements."""
     dist_info = init_distributed(device=device)
     check_group_layout(cfg, dist_info.world)
+    if cfg.NUM_GPUS % dist_info.world:
+        raise NotImplementedError(
+            f"train_model holds whole loss groups a rank, and {dist_info.world} ranks split "
+            f"NUM_GPUS = {cfg.NUM_GPUS}: a group that spans ranks trains through "
+            "make_train_step(..., mesh=create_mesh(...)) (ROADMAP.md item 7b)")
     main = dist_info.is_main
     distill = cfg.DISTILLATION.DISTILLATION_ON and teacher_cfg is not None
     is_rcnn = cfg.MODEL.TYPE in RCNN_TYPES

@@ -7,8 +7,18 @@
 - Over W ranks (parallel/distributed.py) a step holds the rank's G / W
   groups (``n_groups`` is that local count), scales its losses by 1 / G all
   the same (the loss functions' ``total_groups``), and sums the gradients
-  over the ranks before the update; the per-group normalizers (fg_num, PowSum) are never reduced
-  across ranks.
+  over the ranks before the update; each rank holds whole groups, so their
+  normalizers (fg_num, PowSum) are its own.
+- On a ``Mesh`` (parallel/mesh.py; ``n_groups`` is then the batch's G) a
+  rank holds its data shard's images, or with n_model > 1 a band of rows of
+  each (the models run through parallel/spatial.py), and a loss group may
+  span ranks: the fused kernels run with one group a local image, the
+  per-image PowSum is added into the batch's G groups and one all-reduce of
+  the (2, G) partial fg_num and PowSum makes both global (fg_num exactly:
+  its counts are integers). Every loss is linear in a group's raw sums once
+  the normalizers are global, so the ranks' losses sum to one process's and
+  so do their gradients (``mesh_losses``). Its metrics are the global ones,
+  the same on every rank.
 - The frozen teacher runs under ``torch.no_grad()`` on its own pixel
   normalisation of the same uint8 canvas (minibatch.py:74-82); its probs
   come from its float32 logits.
@@ -31,6 +41,7 @@ Batch (tensors on the model's device, NHWC):
   bbox_targets:  {lvl: (B, H_l, W_l, A, 4) float32}
   fg_mask:       {lvl: (B, H_l, W_l, A) bool}
   fg_num:        (G,) float32 per-group fg counts
+  canvas_h:      int, the canvas height (bands on a mesh with n_model > 1)
 """
 
 from __future__ import annotations
@@ -50,7 +61,9 @@ from ..ops.losses import (
     pow_sum, select_smooth_l1_loss, sigmoid_adaptive_distill_loss, sigmoid_focal_loss,
     softmax_focal_loss,
 )
-from ..parallel.distributed import all_reduce_grads
+from ..parallel.distributed import all_reduce_grads, all_reduce_sum
+from ..parallel.mesh import Mesh
+from ..parallel.spatial import spatialize
 from .optimizer import init_velocity, momentum_sgd_update
 
 Metrics = Dict[str, torch.Tensor]
@@ -201,6 +214,99 @@ def fused_distill_losses(cfg, student_out, teacher_probs, batch, n_groups: int,
     return total, metrics
 
 
+def _tied_zero(x: torch.Tensor) -> torch.Tensor:
+    """0, tied to ``x`` in the graph (an empty band's output still takes part
+    in the backward, whose halo exchanges every rank of the group joins)."""
+    return x.sum() * 0.0
+
+
+def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
+                cls_losses: Callable = fused_cls_losses_raw, normalizers: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Metrics]:
+    """The losses of this rank's images, or bands of them, on ``mesh``, of a
+    batch of ``n_groups`` loss groups, and the batch's global metrics.
+
+    Local image j is the batch's image d B_loc + j (d the data index) and
+    belongs to group (d B_loc + j) // (B / G). ``batch['fg_num']`` holds all
+    G counts (replicated) or the data shard's G / n_data (sliced), as
+    ``mesh.shard_batch_tree`` leaves it. The per-image raw sums of the fused
+    kernels (or the unfused focal and box losses of the plain step) are
+    normalised by their group's global fg_num and PowSum, which one
+    all-reduce of the (2, G) partial counts over the world makes: fg_num from
+    one rank a group, PowSum from every band of every image (both kept in
+    ``normalizers`` as 'fg_num' and 'powsum' when it is given). The returned
+    loss is this rank's share: the ranks' shares and their gradients sum to
+    one process's."""
+    d_cfg, levels = cfg.DISTILLATION, cfg.fpn_levels()
+    a = cfg.num_anchors_per_cell()
+    logits0 = out["cls_logits"][levels[0]]
+    b_loc, dev = logits0.shape[0], logits0.device
+    images = b_loc * mesh.n_data
+    if images % n_groups:
+        raise ValueError(f"a batch of {images} images does not hold {n_groups} loss groups")
+    gidx = (mesh.data_index * b_loc + torch.arange(b_loc, device=dev)) // (images // n_groups)
+    fg = batch["fg_num"].float()
+    fg_part = torch.zeros(n_groups, dtype=torch.float32, device=dev)
+    if fg.shape[0] == n_groups:
+        if mesh.rank == 0:
+            fg_part = fg.clone()
+    elif fg.shape[0] * mesh.n_data == n_groups:
+        if mesh.model_index == 0:
+            k = fg.shape[0]
+            fg_part[mesh.data_index * k:(mesh.data_index + 1) * k] = fg
+    else:
+        raise ValueError(f"fg_num of {fg.shape[0]} groups on a batch of {n_groups} over "
+                         f"{mesh.n_data} data ranks")
+    distill = teacher_probs is not None
+    raw = {}
+    if distill:
+        p = cls_loss_params(cfg)
+        for lvl in levels:
+            x = out["cls_logits"][lvl]
+            raw[lvl] = (cls_losses(_split_anchor_axis(x, a), _split_anchor_axis(
+                teacher_probs[lvl], a), batch["labels"][lvl], b_loc, p) if x.numel() else None)
+    pow_img = torch.zeros(b_loc, dtype=torch.float32, device=dev)
+    if distill and d_cfg.ADAPTIVE_NORMALIZER:
+        for r in raw.values():
+            if r is not None:
+                pow_img = pow_img + r[2]
+    sums = torch.stack([fg_part, torch.zeros_like(fg_part).index_add_(0, gidx, pow_img)])
+    fg_g, pow_g = all_reduce_sum(sums)
+    if normalizers is not None:
+        normalizers.update(fg_num=fg_g.detach(), powsum=pow_g.detach())
+    fg_img = fg_g[gidx]
+    img_batch = {**batch, "fg_num": fg_img}
+    metrics: Metrics = {}
+    if not distill:
+        total, metrics = retinanet_losses(cfg, out, img_batch, b_loc, n_groups)
+    else:
+        norms = pow_g if d_cfg.ADAPTIVE_NORMALIZER else fg_g
+        loss_scale = 1.0 / n_groups
+        distill_scale = loss_scale * d_cfg.TEMPERATURE * d_cfg.TEMPERATURE
+        fg_np, dn_np = torch.clamp_min(fg_img, 1.0), torch.clamp_min(norms[gidx], 1.0)
+        total = 0.0
+        for lvl in levels:
+            if raw[lvl] is None:
+                focal = distill_l = _tied_zero(out["cls_logits"][lvl])
+            else:
+                focal_raw, distill_raw, _ = raw[lvl]
+                focal = loss_scale * (focal_raw / fg_np).sum()
+                distill_l = distill_scale * (distill_raw / dn_np).sum()
+            bbox = _bbox_loss(cfg, out, img_batch, lvl, b_loc, n_groups).sum()
+            metrics[f"fl_fpn{lvl}"] = focal
+            metrics[f"fl_distill_fpn{lvl}"] = distill_l
+            metrics[f"retnet_loss_bbox_fpn{lvl}"] = bbox
+            total = total + focal + distill_l + bbox
+    metrics["loss"] = total
+    names = sorted(metrics)
+    shares = all_reduce_sum(torch.stack([metrics[k].detach().float() for k in names]))
+    metrics = dict(zip(names, shares))
+    if distill and d_cfg.ADAPTIVE_NORMALIZER:
+        metrics["distill_normalizer"] = pow_g.mean()
+    metrics["retnet_fg_num"] = fg_g.sum()
+    return total, metrics
+
+
 class TrainStep:
     """``step(state, batch, lr) -> metrics``: one training step, which
     updates the student's parameters and ``state.velocity`` in place and
@@ -208,11 +314,15 @@ class TrainStep:
     card). Its stages are methods, so that a profiler can time each one:
     inputs -> teacher_probs -> forward -> losses -> grads -> reduce -> apply.
     ``world`` > 1: the step of one of that many ranks, which holds
-    ``n_groups`` of the batch's groups."""
+    ``n_groups`` of the batch's groups. ``mesh``: the step of this rank of a
+    (data, model) mesh, ``n_groups`` the batch's G (cfg.NUM_GPUS by
+    default), on the piece of the batch ``mesh.shard_batch_tree`` cuts
+    (``mesh_losses``); its metrics are the batch's."""
 
     def __init__(self, cfg, student: nn.Module, teacher: Optional[nn.Module] = None,
                  n_groups: Optional[int] = None, teacher_cfg=None,
-                 cls_losses: Callable = fused_cls_losses_raw, world: int = 1):
+                 cls_losses: Callable = fused_cls_losses_raw, world: int = 1,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.tcfg = teacher_cfg if teacher_cfg is not None else cfg
         self.student = student
@@ -220,6 +330,16 @@ class TrainStep:
         self.n_groups = n_groups
         self.cls_losses = cls_losses
         self.world = world
+        self.mesh = mesh
+        self.height = None  # the canvas height of the batch last given to inputs (bands)
+        self.normalizers: Dict[str, torch.Tensor] = {}  # a mesh step's last global (G,) ones
+        if mesh is not None:
+            if world != 1:
+                raise ValueError("a step takes a world or a mesh, not both")
+            self.world = mesh.world
+            self.n_groups = n_groups if n_groups is not None else cfg.NUM_GPUS
+            self.banded = [spatialize(m, mesh) if m is not None else None
+                           for m in (student, teacher)]
         t_mask = trainable_mask(student, cfg.TRAIN.FREEZE_AT, cfg.TRAIN.FREEZE_CONV_BODY)
         b_mask = bias_mask(student)
         named = dict(student.named_parameters())
@@ -230,10 +350,12 @@ class TrainStep:
     def inputs(self, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The student's and the teacher's normalised images: one uint8 canvas
         normalised twice on the device, or the batch's float images."""
+        self.height = batch.get("canvas_h")
         if "data_u8" not in batch:
             return batch["data"], batch.get("teacher_data")
         u8 = batch["data_u8"]
-        mask = content_mask(u8.shape, batch["content_hw"])
+        row0 = 0 if self.mesh is None or self.height is None else self.mesh.band(self.height)[0]
+        mask = content_mask(u8.shape, batch["content_hw"], row0)
         c, tc = self.cfg, self.tcfg
         s_data = normalize_u8_on_device(u8, c.PIXEL_MEANS, c.PIXEL_DIV, c.PIXEL_STD, mask=mask)
         t_data = None
@@ -242,16 +364,26 @@ class TrainStep:
                                             mask=mask)
         return s_data, t_data
 
+    def _run(self, which: int, x, outputs):
+        """The student (0) or the teacher (1) on ``x``: on its bands on a
+        mesh with n_model > 1."""
+        if self.mesh is None or self.mesh.n_model == 1:
+            return (self.student, self.teacher)[which](x, outputs=outputs)
+        return self.banded[which](x, outputs=outputs, height=self.height)
+
     def teacher_probs(self, t_data) -> Optional[Dict[int, torch.Tensor]]:
         if self.teacher is None:
             return None
         with torch.no_grad():
-            return self.teacher(t_data, outputs=("cls_prob",))["cls_prob"]
+            return self._run(1, t_data, ("cls_prob",))["cls_prob"]
 
     def forward(self, s_data):
-        return self.student(s_data, outputs=("cls_logits", "bbox_pred"))
+        return self._run(0, s_data, ("cls_logits", "bbox_pred"))
 
     def losses(self, out, teacher_probs, batch) -> Tuple[torch.Tensor, Metrics]:
+        if self.mesh is not None:
+            return mesh_losses(self.cfg, out, teacher_probs, batch, self.n_groups, self.mesh,
+                               self.cls_losses, self.normalizers)
         groups = self.n_groups if self.n_groups is not None else batch["fg_num"].shape[0]
         if teacher_probs is None:
             total, metrics = retinanet_losses(self.cfg, out, batch, groups, groups * self.world)
@@ -263,7 +395,11 @@ class TrainStep:
         return total, metrics
 
     def grads(self, total: torch.Tensor):
-        return torch.autograd.grad(total, self.params)
+        if self.mesh is None:
+            return torch.autograd.grad(total, self.params)
+        # a rank whose band of a level is empty does not use that level's convs
+        grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
 
     def reduce(self, grads):
         """The gradients summed over the ranks (none to sum over at world 1)."""
@@ -285,11 +421,13 @@ class TrainStep:
 
 def make_train_step(cfg, student: nn.Module, teacher: Optional[nn.Module] = None,
                     n_groups: Optional[int] = None, teacher_cfg=None,
-                    cls_losses: Callable = fused_cls_losses_raw, world: int = 1) -> TrainStep:
+                    cls_losses: Callable = fused_cls_losses_raw, world: int = 1,
+                    mesh: Optional[Mesh] = None) -> TrainStep:
     """The train step of ``student`` (ref: sad_tpu make_train_step).
     Distillation is on iff ``teacher`` is given; ``teacher_cfg`` supplies the
     teacher's pixel normalisation of a uint8 batch. ``cls_losses`` is the
     fused cls-loss function of the distillation step (the plain twin,
     ``fused_cls_losses_raw_plain``, to hold the kernels against it). Over
-    ``world`` ranks, ``n_groups`` is the rank's own count."""
-    return TrainStep(cfg, student, teacher, n_groups, teacher_cfg, cls_losses, world)
+    ``world`` ranks, ``n_groups`` is the rank's own count; on a ``mesh`` it
+    is the batch's, and loss groups may span ranks."""
+    return TrainStep(cfg, student, teacher, n_groups, teacher_cfg, cls_losses, world, mesh)

@@ -347,13 +347,19 @@ def test_rank_shards_concatenate_to_the_one_rank_batches(roidbs, kind, family):
 
 
 def test_group_layout_needs_whole_groups_a_rank():
+    """The batch's images must divide over the ranks; a loss group may span
+    ranks on the RetinaNet and SAD steps (8 images, one a rank: each group
+    over two), while the R-CNN step still needs whole groups a rank."""
     cfg = t_merge(tcfg.Config(), {"NUM_GPUS": 4, "TRAIN": {"IMS_PER_BATCH": 2}})
     check_group_layout(cfg, 2)
     check_group_layout(cfg, 4)
     with pytest.raises(ValueError, match="NUM_GPUS = 4.*IMS_PER_BATCH = 2"):
         check_group_layout(cfg, 3)
-    with pytest.raises(ValueError, match="NUM_GPUS = 4"):
-        check_group_layout(cfg, 8)
+    check_group_layout(cfg, 8)
+    rcnn = t_merge(cfg, {"MODEL": {"TYPE": "generalized_rcnn"}})
+    check_group_layout(rcnn, 4)
+    with pytest.raises(ValueError, match="NUM_GPUS = 4.*item 7b"):
+        check_group_layout(rcnn, 8)
 
 
 def test_shard_rows_takes_contiguous_blocks_and_refuses_ragged_ones():
