@@ -429,12 +429,17 @@ line each (name, what was checked, time):
                  a 2 x 2 mesh (sad_tpu's dryrun phase-2 layout: every loss group spans
                  two ranks; the normalizers reduced over the ranks), 4 ranks, against one
                  process from the same seeded state and batch: 2 steps at float32, TF32
-                 and cuDNN off, metrics within 1e-5 relative, the worst parameter tensor
-                 within 1e-5 relative L2, parameters and momenta bit-equal across the
+                 and cuDNN off, metrics within 1e-5 relative, every parameter tensor
+                 within 1e-5 relative L2 or, beyond it, its relative L2 error against one
+                 process's float64-compute run within 2x the worst of one process's
+                 float32 step there (SPATIAL_F64_FACTOR; the phase names each such
+                 tensor), parameters and momenta bit-equal across the
                  ranks, one cls-loss forward and backward a level a step at each rank's
                  band rows; 3 timed steps with cuDNN: step, halo (ms, bytes) and gradient
-                 all-reduce ms by rank, peak memory; the cls-loss kernels against their
-                 twin on the first rank's band of P3 (92,160 rows, a group an image)
+                 all-reduce ms by rank, peak memory; the same 2 steps at float64 compute
+                 against one process's, metrics and parameters within 1e-5; the
+                 cls-loss kernels against their twin on the first rank's band of P3
+                 (92,160 rows, a group an image)
 
 Then a JSON line with every kernel of the paths (with the loops' launches
 as train_loop_launches, the evaluation's as test_net_launches, Keypoint
@@ -4369,12 +4374,13 @@ def phase_ddp_step(torch, name, seed, groups, iters, gpu):
 
 SPATIAL_TIMED = 3  # timed batches / steps of [spatial_infer] and [spatial_joint_step]
 SPATIAL_TOL = 1e-5  # level maps, boxes and scores (of max), metrics, parameters (relative L2)
-# the compute dtype of [spatial_joint_step]'s compared steps: on the H100 at float32 a banded
-# R-50 of random weights differs from the whole canvas's by 6.4e-6 of max in a forward
-# ([spatial_infer]) and a zero-initialised bias's update by 4.4e-3 relative L2 after two steps,
-# while at float64 every gradient of a banded R-50 agrees within 1.6e-14 (tools/profile_spatial;
-# PERF.md section 6)
-SPATIAL_CMP_DTYPE = "float64"
+# [spatial_joint_step]: a parameter tensor beyond SPATIAL_TOL between the float32 mesh step and
+# one process's is held against one process's step at float64 compute: its relative L2 error
+# there may be at most SPATIAL_F64_FACTOR times the largest error that one process's own
+# float32 step shows on any parameter tensor (a value that nearly cancels, such as a
+# zero-initialised bias after two steps, takes most of float32's error from how its terms are
+# summed, in either run; profile_spatial.against_float64)
+SPATIAL_F64_FACTOR = 2.0
 
 
 def _ms(xs):
@@ -4491,11 +4497,15 @@ def phase_spatial_joint_step(torch, seed, iters, warmup, gpu):
     every loss group spans two ranks), against one process (a world of 1
     over NCCL) from the same seeded state and batch: DDP_STEPS steps at
     float32 with TF32 and cuDNN off, metrics within SPATIAL_TOL relative and
-    the worst parameter tensor within SPATIAL_TOL relative L2, parameters and
-    momenta bit-equal across the four ranks, one cls-loss forward and
-    backward a level a step on each rank at its band's rows; SPATIAL_TIMED
-    timed steps with cuDNN. Then the cls-loss kernels against their twin at
-    the first rank's band of P3 (cls_losses_fwd@band_p3, _bwd@band_p3)."""
+    every parameter tensor within SPATIAL_TOL relative L2 or, beyond it,
+    its error against one process's float64-compute run within
+    SPATIAL_F64_FACTOR times the worst of one process's float32 step there;
+    parameters and momenta bit-equal across the four ranks, one cls-loss
+    forward and backward a level a step on each rank at its band's rows;
+    SPATIAL_TIMED timed steps with cuDNN. Then the same compared steps at
+    float64 compute against one process's, within SPATIAL_TOL. Then the
+    cls-loss kernels against their twin at the first rank's band of P3
+    (cls_losses_fwd@band_p3, _bwd@band_p3)."""
     from sad_tpu_torch.parallel.launch import spawn
     from sad_tpu_torch.parallel.mesh import row_band
     from sad_tpu_torch.tools import profile_ddp, profile_spatial, profile_train
@@ -4503,31 +4513,38 @@ def phase_spatial_joint_step(torch, seed, iters, warmup, gpu):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     backend, local, note = profile_ddp.card_layout(4)
-    # compared at float64 compute (the parameters and the cls-loss kernels stay float32):
-    # at float32 a band's convolutions sum in another order than the whole canvas's, and
-    # the random full-depth network amplifies that past the tolerance (SPATIAL_CMP_DTYPE);
-    # timed at float32
-    kw = {"seed": seed, "n_groups": 2, "device": "cuda",
-          "opts": ["COMPUTE_DTYPE", SPATIAL_CMP_DTYPE]}
-    kw32 = {**kw, "opts": ["COMPUTE_DTYPE", "float32"]}
+    kw = {"seed": seed, "n_groups": 2, "device": "cuda", "opts": ["COMPUTE_DTYPE", "float32"]}
+    kw64 = {**kw, "opts": ["COMPUTE_DTYPE", "float64"]}
     build, lr = profile_train.seeded_train_step, profile_train.BENCH_LR
-    one = spawn(profile_spatial.one_process_steps, 1, (build, kw, DDP_STEPS, lr, SPATIAL_TIMED,
-                                                       kw32),
-                device="cuda", local_ranks=[0], timeout_s=DDP_TIMEOUT_S)[0]
-    job = ("steps", {"build": build, "build_kwargs": kw, "n_data": 2, "n_model": 2,
-                     "steps": DDP_STEPS, "lr": lr, "iters": SPATIAL_TIMED, "capture": True,
-                     "timed_kwargs": kw32})
-    ranks = [r[0] for r in spawn(profile_spatial.rank_jobs, 4, ([job],), device="cuda",
-                                 backend=backend, local_ranks=local, timeout_s=DDP_TIMEOUT_S)]
-    res = profile_ddp.compare(one, ranks)
+    one_jobs = [("one", {"build": build, "build_kwargs": kw, "steps": DDP_STEPS, "lr": lr,
+                         "iters": SPATIAL_TIMED}),
+                ("one", {"build": build, "build_kwargs": kw64, "steps": DDP_STEPS, "lr": lr})]
+    one, one64 = spawn(profile_spatial.rank_jobs, 1, (one_jobs,), device="cuda", local_ranks=[0],
+                       timeout_s=DDP_TIMEOUT_S)[0]
+    jobs = [("steps", {"build": build, "build_kwargs": kw, "n_data": 2, "n_model": 2,
+                       "steps": DDP_STEPS, "lr": lr, "iters": SPATIAL_TIMED, "capture": True}),
+            ("steps", {"build": build, "build_kwargs": kw64, "n_data": 2, "n_model": 2,
+                       "steps": DDP_STEPS, "lr": lr})]
+    out = spawn(profile_spatial.rank_jobs, 4, (jobs,), device="cuda", backend=backend,
+                local_ranks=local, timeout_s=DDP_TIMEOUT_S)
+    ranks, ranks64 = [r[0] for r in out], [r[1] for r in out]
+    res, res64 = profile_ddp.compare(one, ranks), profile_ddp.compare(one64, ranks64)
+    f64 = profile_spatial.against_float64(one, ranks, one64, SPATIAL_TOL)
+    beyond, (one_err, one_key) = f64["beyond"], f64["one_worst"]
     bad = []
-    if not res["metric_rel"] <= SPATIAL_TOL:
-        bad.append(f"metric {res['metric_key']} {res['metric_rel']:.3e}")
-    if not res["param_rel_l2"] <= SPATIAL_TOL:
-        bad.append(f"parameter {res['param_key']} {res['param_rel_l2']:.3e} (worst "
-                   f"{res['param_worst']}, momenta {res['velocity_worst']})")
-    if res["unequal_across_ranks"]:
-        bad.append(f"not bit-equal across the ranks: {res['unequal_across_ranks'][:3]}")
+    for tag, r in (("float32", res), ("float64", res64)):
+        if not r["metric_rel"] <= SPATIAL_TOL:
+            bad.append(f"{tag} metric {r['metric_key']} {r['metric_rel']:.3e}")
+        if r["unequal_across_ranks"]:
+            bad.append(f"{tag} not bit-equal across the ranks: {r['unequal_across_ranks'][:3]}")
+    if not res64["param_rel_l2"] <= SPATIAL_TOL:
+        bad.append(f"float64 parameter {res64['param_key']} {res64['param_rel_l2']:.3e}")
+    for k, e in beyond.items():
+        if not e["mesh_vs_f64"] <= SPATIAL_F64_FACTOR * one_err:
+            bad.append(f"float32 parameter {k} {e['mesh_vs_one']:.3e} from one process's and "
+                       f"{e['mesh_vs_f64']:.3e} from the float64 run, where one process's "
+                       f"float32 step is at most {one_err:.3e} ({one_key}; limit "
+                       f"{SPATIAL_F64_FACTOR:g}x)")
     for r in ranks:
         bands = [row_band(h, 2, r["rank"] % 2) for h, _ in LEVEL_HW.values()]
         rows = sorted(r["n_images"] * (b - a) * w * 9
@@ -4545,15 +4562,25 @@ def phase_spatial_joint_step(torch, seed, iters, warmup, gpu):
     if fwd["rows"] != p3:
         raise AssertionError(f"spatial_joint_step: the band's P3 has {fwd['rows']} rows, want {p3}")
     med = statistics.median
-    _phase("spatial_joint_step", f"R-50 <- R-101 compared at {SPATIAL_CMP_DTYPE} compute "
-           f"(float32 parameters and cls-loss kernels), timed at float32, bs 4 (G = 2) on "
-           f"640x1024 over a "
+    held = "; ".join(f"{k} {e['mesh_vs_one']:.3e} from one process's, against the float64 run "
+                     f"{e['mesh_vs_f64']:.3e} (one process {e['one_vs_f64']:.3e})"
+                     for k, e in sorted(beyond.items(),
+                                        key=lambda kv: -kv[1]["mesh_vs_one"])[:6])
+    _phase("spatial_joint_step", f"R-50 <- R-101 at float32, bs 4 (G = 2) on 640x1024 over a "
            f"2 x 2 mesh ({note}; halo transport {ranks[0]['transport']}; every loss group over "
            f"two ranks, bands {[r['band_rows'] for r in ranks[:2]]}) against one process (NCCL, "
            f"world 1), TF32 and cuDNN off, {DDP_STEPS} steps: worst metric {res['metric_key']} "
            f"{res['metric_rel']:.3e} relative, worst parameter {res['param_key']} "
            f"{res['param_rel_l2']:.3e} relative L2 (momentum {res['velocity_key']} "
-           f"{res['velocity_rel_l2']:.3e}); parameters and momenta bit-equal across the 4 ranks; "
+           f"{res['velocity_rel_l2']:.3e}); against one process's step at float64 compute the "
+           f"worst parameter of one process's float32 step is {one_key} {one_err:.3e} relative "
+           f"L2, of the mesh's {f64['mesh_worst'][1]} {f64['mesh_worst'][0]:.3e}; "
+           f"{len(beyond)} parameter tensors beyond {SPATIAL_TOL:g} from one process's, each "
+           f"held there to {SPATIAL_F64_FACTOR:g}x one process's worst"
+           f"{': ' + held if held else ''}; at float64 compute worst "
+           f"metric {res64['metric_key']} {res64['metric_rel']:.3e}, parameter "
+           f"{res64['param_key']} {res64['param_rel_l2']:.3e}; parameters and momenta bit-equal "
+           f"across the 4 ranks at both; "
            f"one cls-loss forward and backward a level a step on each rank at its band's rows; "
            f"{SPATIAL_TIMED} timed steps with cuDNN, medians by rank: step ms "
            f"{_fmt([med(r['step_ms']) for r in ranks])} against one process's "
@@ -4562,8 +4589,7 @@ def phase_spatial_joint_step(torch, seed, iters, warmup, gpu):
            f"{SPATIAL_TIMED} more with each exchange timed (a device sync around each): step ms "
            f"{_fmt([med(r['instrumented_step_ms']) for r in ranks])}, halo ms "
            f"{_fmt([med(r['halo_ms']) for r in ranks])} and bytes a step "
-           f"{[r['halo_bytes'][-1] for r in ranks]} ({[int(r['halo_bytes_per_step']) for r in ranks]}"
-           f" at {SPATIAL_CMP_DTYPE})"
+           f"{[int(r['halo_bytes_per_step']) for r in ranks]}"
            f"; peak GiB of the timed steps {_fmt([r['timed_peak_gib'] for r in ranks], 3)} against "
            f"one process's {one['timed_peak_gib']:.3f} (of the compared steps "
            f"{_fmt([r['peak_gib'] for r in ranks], 3)} against {one['peak_gib']:.3f}); {said}; {gpu}",

@@ -197,8 +197,7 @@ class TrainingLoader:
     numpy arrays). ``build_seconds`` holds (stream, host seconds) of every
     batch built, ``served`` the stream of every batch handed out. With
     ``world`` > 1 each batch holds rank ``rank``'s block of
-    ``batch_images`` / world images; over a mesh of ``n_model`` > 1 (world /
-    n_model data ranks), each of its images' band of rows (RankShard)."""
+    ``batch_images`` / world images."""
 
     def __init__(
         self,
@@ -214,7 +213,6 @@ class TrainingLoader:
         skip_batches: int = 0,
         rank: int = 0,
         world: int = 1,
-        n_model: int = 1,
     ):
         self.cfg = cfg
         self.batch_images = batch_images or (cfg.TRAIN.IMS_PER_BATCH * cfg.NUM_GPUS)
@@ -222,7 +220,7 @@ class TrainingLoader:
         # RetinaNetMinibatchBuilder by default; RCNNMinibatchBuilder for the
         # Faster/Mask R-CNN path (data/rpn_minibatch.py)
         self.builder = rank_builder(builder or RetinaNetMinibatchBuilder(cfg, teacher_cfg),
-                                    self.batch_images, rank, world, n_model)
+                                    self.batch_images, rank, world)
         self.labeled = _Stream(roidb, self.batch_images, seed)
         self.unlabeled = (
             _Stream(unlabeled_roidb, self.batch_images, seed + 1)

@@ -17,7 +17,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import spatial
 from .arch import ModelArch
 from .resnet import ResNetBody, conv
 
@@ -62,7 +61,7 @@ class FPNRetinaNetBackbone(nn.Module):
         inners = [getattr(self, f"fpn_inner_{top}")(body_out[top])]
         for name in self.laterals[1:]:
             lat = getattr(self, f"fpn_inner_{name}_lateral")(body_out[name])
-            inners.append(lat + spatial.upsample_nearest2x(inners[-1]))
+            inners.append(lat + F.interpolate(inners[-1], scale_factor=2, mode="nearest"))
         pyramid: Dict[int, torch.Tensor] = {}
         for i, name in enumerate(self.laterals):
             pyramid[5 - i] = getattr(self, f"fpn_{name}")(inners[i])
@@ -75,5 +74,5 @@ class FPNRetinaNetBackbone(nn.Module):
                     feat = getattr(self, f"fpn_{lvl}")(feat)
                     pyramid[lvl] = feat
             else:
-                pyramid[6] = spatial.max_pool2d(pyramid[5], 1, stride=2)
+                pyramid[6] = F.max_pool2d(pyramid[5], 1, stride=2)
         return {lvl: pyramid[lvl] for lvl in a.levels}

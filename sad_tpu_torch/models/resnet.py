@@ -43,7 +43,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import spatial
 from .arch import ModelArch
 
 
@@ -69,12 +68,6 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
-
-    def _conv_forward(self, x, weight, bias):
-        # on row bands inside a spatial run (parallel/spatial.py)
-        if spatial.active():
-            return spatial.conv2d(self, x, weight, bias)
-        return super()._conv_forward(x, weight, bias)
 
 
 def conv_affine(conv: Conv2d, affine: AffineChannel, x: torch.Tensor,
@@ -171,7 +164,7 @@ class ResNetBody(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(getattr(torch, self.arch.compute_dtype))
         p = F.relu(conv_affine(self.conv1, self.res_conv1_bn, x, self.arch.fold_affine))
-        p = spatial.max_pool2d(p, 3, stride=2, padding=1)
+        p = F.max_pool2d(p, 3, stride=2, padding=1)
         outputs = {}
         for stage_idx, names in enumerate(self.stages, start=2):
             for name in names:

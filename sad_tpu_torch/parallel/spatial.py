@@ -13,10 +13,12 @@ rank's band of the canvas:
 Every level of the forward (the canvas, each stride of the body, P3..P7) is
 split over the model group by ``mesh.row_band``: band m of an N-row level
 holds rows [m c, min((m + 1) c, N)), c = ceil(N / n), so a band may be empty
-(P7 of a 128-row canvas is 1 row). The ops that mix rows are routed here by
-the model code (``conv2d`` from ``resnet.Conv2d``, ``max_pool2d``,
-``upsample_nearest2x``); every other op of the path is row-wise and runs on
-the band as it is. An op's output band [o0, o1) needs the input rows
+(P7 of a 128-row canvas is 1 row). The ops that mix rows, ``F.conv2d``,
+``F.max_pool2d`` and the nearest 2x ``F.interpolate``, are taken from the
+model's forward by a ``TorchFunctionMode`` that is active only inside the
+run (``_Routed``), so the model code knows nothing of bands; every other op
+of the path is row-wise and runs on the band as it is. An op's output band
+[o0, o1) needs the input rows
 
     kernel k, stride s, padding p, dilation d:  [o0 s - p, (o1 - 1) s - p + (k - 1) d + 1)
     nearest 2x upsample:                        [o0 // 2, (o1 - 1) // 2 + 1)
@@ -40,18 +42,15 @@ module on the path raises, and an R-CNN model on an n_model > 1 mesh raises
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from .halo import Rows, halo
 from .mesh import Mesh, row_band
-
-_STATE = threading.local()
-
 
 def needed_rows(out_rows: Rows, k: int, s: int, p: int, d: int = 1) -> Rows:
     """Input rows [lo, hi) that output rows [o0, o1) of a window op need
@@ -122,13 +121,8 @@ class _Banded:
         return halo(x, op.h_in, needs, pad, self.mesh), bands[self.mesh.model_index]
 
 
-def _run():
-    return getattr(_STATE, "run", None)
-
-
-def active() -> bool:
-    """Whether a banded or record run routes this thread's ops."""
-    return _run() is not None
+def _pair(v) -> Tuple[int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
 def _empty_out(x, ext, c_out: int, w_out: int):
@@ -137,74 +131,72 @@ def _empty_out(x, ext, c_out: int, w_out: int):
     return out + ext.sum() * 0 if ext.requires_grad else out
 
 
-def conv2d(module, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]
-           ) -> torch.Tensor:
-    """``module._conv_forward(x, weight, bias)`` (resnet.Conv2d's) in the
-    active run: recorded, or on bands."""
-    run = _run()
-    (k, kw), (s, sw), (p, pw), (d, dw) = (module.kernel_size, module.stride, module.padding,
-                                          module.dilation)
-    window = (k, s, p, d)
+def _conv2d(run, func, x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    """``F.conv2d`` in the run: recorded, or on bands."""
+    (k, kw), (s, sw), (p, pw), (d, dw) = (tuple(weight.shape[2:]), _pair(stride),
+                                          _pair(padding), _pair(dilation))
     if isinstance(run, _Record):
-        return run.add("conv", window, x, F.conv2d(
-            x, weight, bias, module.stride, module.padding, module.dilation, module.groups))
-    op = run.next("conv", window)
+        return run.add("conv", (k, s, p, d), x,
+                       func(x, weight, bias, stride, padding, dilation, groups))
+    op = run.next("conv", (k, s, p, d))
     ext, (o0, o1) = run.extended(x, op, lambda b: needed_rows(b, k, s, p, d), 0.0)
     if o1 <= o0:
         return _empty_out(x, ext, weight.shape[0], out_height(x.shape[3], kw, sw, pw, dw))
-    return F.conv2d(ext, weight, bias, (s, sw), (0, pw), module.dilation, module.groups)
+    return func(ext, weight, bias, (s, sw), (0, pw), (d, dw), groups)
 
 
-def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
-    """``F.max_pool2d(x, kernel, stride, padding)``, on bands while a banded
-    run is active (the rows outside the image are -inf, as the op pads)."""
-    run = _run()
-    if run is None:
-        return F.max_pool2d(x, kernel, stride=stride, padding=padding)
-    window = (kernel, stride, padding, 1)
+def _max_pool2d(run, func, x, kernel_size, stride=None, padding=0, dilation=1,
+                ceil_mode=False, return_indices=False):
+    """``F.max_pool2d`` in the run (the rows outside the image are -inf, as
+    the op pads)."""
+    if _pair(dilation) != (1, 1) or ceil_mode or return_indices:
+        raise NotImplementedError("a max pool with dilation, ceil_mode or indices has no "
+                                  "banded form")
+    (k, kw), (p, pw) = _pair(kernel_size), _pair(padding)
+    s, sw = _pair(kernel_size if stride is None else stride)
     if isinstance(run, _Record):
-        return run.add("pool", window, x,
-                       F.max_pool2d(x, kernel, stride=stride, padding=padding))
-    op = run.next("pool", window)
-    ext, (o0, o1) = run.extended(
-        x, op, lambda b: needed_rows(b, kernel, stride, padding), float("-inf"))
+        return run.add("pool", (k, s, p, 1), x, func(x, (k, kw), (s, sw), (p, pw)))
+    op = run.next("pool", (k, s, p, 1))
+    ext, (o0, o1) = run.extended(x, op, lambda b: needed_rows(b, k, s, p), float("-inf"))
     if o1 <= o0:
-        w_out = out_height(x.shape[3], kernel, stride, padding)
-        return _empty_out(x, ext, x.shape[1], w_out)
-    return F.max_pool2d(ext, kernel, stride=stride, padding=(0, padding))
+        return _empty_out(x, ext, x.shape[1], out_height(x.shape[3], kw, sw, pw))
+    return func(ext, (k, kw), (s, sw), (0, pw))
 
 
-def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
-    """``F.interpolate(x, scale_factor=2, mode='nearest')``, on bands while
-    a banded run is active."""
-    run = _run()
-    if run is None:
-        return F.interpolate(x, scale_factor=2, mode="nearest")
-    window = (1, 1, 0, 1)
+def _interpolate(run, func, x, size=None, scale_factor=None, mode="nearest", **kwargs):
+    """``F.interpolate`` in the run: the nearest 2x upsample only."""
+    if size is not None or mode != "nearest" or _pair(scale_factor) != (2, 2):
+        raise NotImplementedError(f"interpolate(size={size}, scale_factor={scale_factor}, "
+                                  f"mode={mode!r}) has no banded form; the nearest 2x has")
     if isinstance(run, _Record):
-        return run.add("up", window, x,
-                       F.interpolate(x, scale_factor=2, mode="nearest"))
-    op = run.next("up", window)
+        return run.add("up", (1, 1, 0, 1), x, func(x, scale_factor=2, mode="nearest"))
+    op = run.next("up", (1, 1, 0, 1))
     ext, (a, b) = run.extended(x, op, upsample_rows, 0.0)
     if b <= a:
         return _empty_out(x, ext, x.shape[1], 2 * x.shape[3])
     c0 = upsample_rows((a, b))[0]
-    up = F.interpolate(ext, scale_factor=2, mode="nearest")
+    up = func(ext, scale_factor=2, mode="nearest")
     return up[:, :, a - 2 * c0:b - 2 * c0]
 
 
-class _Active:
+_ROUTES = {F.conv2d: _conv2d, F.max_pool2d: _max_pool2d, F.interpolate: _interpolate}
+
+
+class _Routed(TorchFunctionMode):
+    """While active, the model's ``F.conv2d``, ``F.max_pool2d`` and
+    ``F.interpolate`` calls go to ``run`` (a record or a banded run); every
+    other op runs as it is. A mode leaves its own stack while it handles a
+    call, so the op the route calls runs plainly."""
+
     def __init__(self, run):
+        super().__init__()
         self.run = run
 
-    def __enter__(self):
-        if _run() is not None:
-            raise RuntimeError("a banded or record run is already active on this thread")
-        _STATE.run = self.run
-        return self.run
-
-    def __exit__(self, *exc):
-        _STATE.run = None
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        route = _ROUTES.get(func)
+        if route is None:
+            return func(*args, **(kwargs or {}))
+        return route(self.run, func, *args, **(kwargs or {}))
 
 
 def band_modules():
@@ -254,7 +246,7 @@ class SpatialModel:
             strip = torch.zeros((1, height, 2 ** self.module.arch.max_level, 3), dtype=dtype,
                                 device=device)
             rec = _Record()
-            with torch.no_grad(), _Active(rec):
+            with torch.no_grad(), _Routed(rec):
                 out = self.module(strip, outputs=outputs)
             heights = {k: {lvl: t.shape[1] for lvl, t in v.items()} for k, v in out.items()}
             self._plans[key] = (rec.ops, heights)
@@ -275,7 +267,7 @@ class SpatialModel:
                              f"{self.mesh.model_index} holds rows [{r0}, {r1}) of {height}")
         ops, _ = self.plan(height, outputs, images.dtype, images.device)
         run = _Banded(ops, self.mesh)
-        with _Active(run):
+        with _Routed(run):
             out = self.module(images, outputs=outputs)
         if run.i != len(ops):
             raise RuntimeError(f"the banded run routed {run.i} ops, the record run {len(ops)}")

@@ -114,8 +114,12 @@ def _step(run, lr: float, events=None) -> Dict[str, torch.Tensor]:
 
 
 def _trees(run) -> Dict[str, Dict[str, np.ndarray]]:
-    return {"params": {n: p.detach().cpu().numpy() for n, p in _model(run).named_parameters()},
-            "velocity": {n: v.detach().cpu().numpy() for n, v in run.state.velocity.items()}}
+    """Copies of the parameters and momenta (a CPU tensor's numpy view would
+    follow later steps)."""
+    return {"params": {n: p.detach().cpu().numpy().copy()
+                       for n, p in _model(run).named_parameters()},
+            "velocity": {n: v.detach().cpu().numpy().copy()
+                         for n, v in run.state.velocity.items()}}
 
 
 def rank_steps(build: Callable, build_kwargs: Dict[str, Any], steps: int, lr: float,

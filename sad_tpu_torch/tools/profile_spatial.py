@@ -400,16 +400,44 @@ def output_scalar(out, full_shapes, rows=None, data=None) -> torch.Tensor:
     return total
 
 
+def against_float64(one, ranks, ref, tol: float) -> Dict[str, Any]:
+    """The float32 mesh run (``ranks[0]``) and one process's (``one``) after
+    their last compared step, each against ``ref``, one process's run of the
+    same seeded state at float64 compute: 'one_worst' and 'mesh_worst', the
+    largest relative L2 error of a parameter tensor of each against ``ref``
+    (value, name), and 'beyond', the tensors whose relative L2 difference
+    between the mesh and one process exceeds ``tol``, each with that
+    difference and both runs' error against ``ref`` ('mesh_vs_one',
+    'mesh_vs_f64', 'one_vs_f64'). A tensor whose value nearly cancels (a
+    zero-initialised bias after two steps) takes most of float32's error,
+    in either run, from how its many terms are summed."""
+    from sad_tpu_torch.tools.profile_ddp import rel_l2
+
+    mesh, one32, f64 = (r["trees"][-1]["params"] for r in (ranks[0], one, ref))
+    err_one = {k: rel_l2(v, f64[k]) for k, v in one32.items()}
+    err_mesh = {k: rel_l2(mesh[k], f64[k]) for k in one32}
+    beyond = {}
+    for k, want in one32.items():
+        d = rel_l2(mesh[k], want)
+        if d > tol:
+            beyond[k] = {"mesh_vs_one": d, "mesh_vs_f64": err_mesh[k], "one_vs_f64": err_one[k]}
+    worst = [max((v, k) for k, v in e.items()) for e in (err_one, err_mesh)]
+    return {"one_worst": worst[0], "mesh_worst": worst[1], "beyond": beyond}
+
+
 def rank_forward(path: str, n_data: int, n_model: int, grads: bool = True) -> Dict[str, Any]:
     """On this rank of an (n_data, n_model) mesh, n_model > 1: the RetinaNet
     and whole images (B, H, W, 3) that ``torch.save`` wrote to ``path`` as
     {'model', 'images'}, the forward of this rank's images' band
     (parallel/spatial.py) and, with ``grads``, the gradients of
     ``output_scalar`` with respect to the band and to every parameter that
-    takes one (zeros for one this band's rows do not use)."""
+    takes one (zeros for one this band's rows do not use). TF32 and cuDNN
+    are off, as in the one process it is held against (``gradient_parity``)."""
+    from sad_tpu_torch.device import set_tf32
     from sad_tpu_torch.models.retinanet import ALL_OUTPUTS
     from sad_tpu_torch.parallel.spatial import spatialize
 
+    set_tf32(False)
     saved = torch.load(path, weights_only=False)
     model, images = saved["model"], saved["images"]
     mesh = create_mesh(n_data, n_model)
@@ -419,28 +447,34 @@ def rank_forward(path: str, n_data: int, n_model: int, grads: bool = True) -> Di
     r0, r1 = mesh.band(height)
     x = images[data[0]:data[1], r0:r1].clone().requires_grad_(grads)
     run = spatialize(model, mesh)
-    out = run(x, height=height)
-    heights = run.level_heights(height, ALL_OUTPUTS, x.dtype, x.device)
-    result = {"rank": current().rank, "band": (r0, r1), "data": data, "out": _numpy(out)}
-    if grads:
-        shapes = {key: {lvl: (images.shape[0], h) + tuple(out[key][lvl].shape[2:])
-                        for lvl, h in hs.items()} for key, hs in heights.items()}
-        rows = {key: {lvl: mesh.band(h) for lvl, h in hs.items()} for key, hs in heights.items()}
-        scalar = output_scalar(out, shapes, rows, data)
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        got = torch.autograd.grad(scalar, [x] + [p for _, p in named], allow_unused=True)
-        result["grad_x"] = got[0].cpu().numpy()
-        result["grads"] = {n: (torch.zeros_like(p) if g is None else g).cpu().numpy()
-                           for (n, p), g in zip(named, got[1:])}
+    torch.backends.cudnn.enabled = False
+    try:
+        out = run(x, height=height)
+        heights = run.level_heights(height, ALL_OUTPUTS, x.dtype, x.device)
+        result = {"rank": current().rank, "band": (r0, r1), "data": data, "out": _numpy(out)}
+        if grads:
+            shapes = {key: {lvl: (images.shape[0], h) + tuple(out[key][lvl].shape[2:])
+                            for lvl, h in hs.items()} for key, hs in heights.items()}
+            rows = {key: {lvl: mesh.band(h) for lvl, h in hs.items()}
+                    for key, hs in heights.items()}
+            scalar = output_scalar(out, shapes, rows, data)
+            named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+            got = torch.autograd.grad(scalar, [x] + [p for _, p in named], allow_unused=True)
+            result["grad_x"] = got[0].cpu().numpy()
+            result["grads"] = {n: (torch.zeros_like(p) if g is None else g).cpu().numpy()
+                               for (n, p), g in zip(named, got[1:])}
+    finally:
+        torch.backends.cudnn.enabled = True
     return result
 
 
 def rank_jobs(jobs) -> list:
     """Each (name, kwargs) of ``jobs`` in order on this rank, name one of
-    'forward', 'steps', 'infer' (rank_forward, rank_mesh_steps,
-    rank_mesh_infer); their results. One world runs them all, each on a
-    mesh of its own."""
-    fns = {"forward": rank_forward, "steps": rank_mesh_steps, "infer": rank_mesh_infer}
+    'forward', 'steps', 'infer', 'one' (rank_forward, rank_mesh_steps,
+    rank_mesh_infer, one_process_steps); their results. One world runs them
+    all, each on a mesh of its own."""
+    fns = {"forward": rank_forward, "steps": rank_mesh_steps, "infer": rank_mesh_infer,
+           "one": one_process_steps}
     return [fns[name](**kwargs) for name, kwargs in jobs]
 
 
@@ -465,7 +499,7 @@ def predicted_halo_bytes(model, canvas, images: int, n_model: int, outputs,
     try:
         for n, p in named.items():  # the step differentiates the trainable tensors only
             p.requires_grad_(backward and mask[n])
-        with torch.device("meta"), spatial._Active(rec):
+        with torch.device("meta"), spatial._Routed(rec):
             model(torch.zeros((images, canvas[0], canvas[1], 3)), outputs=tuple(outputs))
     finally:
         for n, p in named.items():
@@ -485,15 +519,31 @@ def predicted_halo_bytes(model, canvas, images: int, n_model: int, outputs,
     return sent
 
 
-def gradient_parity(cfg_path: str, dtype: str, seed: int = 0, images: int = 2,
-                    n_model: int = 2, timeout_s: float = 600.0) -> Dict[str, Any]:
-    """The config's RetinaNet (random weights from ``seed``, FREEZE_AT 0, at
-    ``dtype`` compute and parameters) on ``images`` random canvases of its
-    training canvas on the card: ``rank_forward`` on ``n_model`` ranks
-    (their backend and cards as ``profile_ddp.card_layout``) against one
-    process's forward and gradients of ``output_scalar``, with TF32 and
-    cuDNN off. Returns the outputs' worst difference over max and the
-    relative L2 of the input's gradient and of the worst parameter's."""
+def _readings(out, grad_x, grads, ref) -> Dict[str, Any]:
+    """Outputs (worst difference over max), input gradient and worst
+    parameter gradient (relative L2) of one run against ``ref``'s."""
+    from sad_tpu_torch.tools.profile_ddp import rel_l2
+
+    params = {n: rel_l2(g, ref["grads"][n]) for n, g in grads.items()}
+    worst = max(params, key=params.get)
+    return {"outputs_rel": max(float(np.abs(v - ref["out"][k][lvl]).max()
+                                     / np.abs(ref["out"][k][lvl]).max())
+                               for k, d in out.items() for lvl, v in d.items()),
+            "grad_x_rel_l2": rel_l2(grad_x, ref["grad_x"]),
+            "param_rel_l2": params[worst], "param_key": worst}
+
+
+def gradient_parity(cfg_path: str, seed: int = 0, images: int = 2, n_model: int = 2,
+                    timeout_s: float = 600.0, device: str = "cuda") -> Dict[str, Any]:
+    """The config's RetinaNet (random weights from ``seed``, FREEZE_AT 0) on
+    ``images`` random canvases of its training canvas on ``device``, at
+    float64 and at float32 compute and parameters: ``rank_forward`` on
+    ``n_model`` ranks (their backend and cards as
+    ``profile_ddp.card_layout``) and one process's forward, each with the
+    gradients of ``output_scalar``, TF32 and cuDNN off in every process.
+    Returns, at each dtype, the banded run against one process's
+    (``_readings``) and, at float32, each of the two against one process's
+    float64 run ('banded_vs_f64', 'one_vs_f64')."""
     import dataclasses
     import os
     import tempfile
@@ -504,46 +554,55 @@ def gradient_parity(cfg_path: str, dtype: str, seed: int = 0, images: int = 2,
     from sad_tpu_torch.models import create_model
     from sad_tpu_torch.models.retinanet import RetinaNet
     from sad_tpu_torch.parallel.launch import spawn
-    from sad_tpu_torch.tools.profile_ddp import card_layout, rel_l2
+    from sad_tpu_torch.tools.profile_ddp import card_layout
 
     set_tf32(False)
     torch.backends.cudnn.enabled = False
     cfg = load_cfg(cfg_path, ["COMPUTE_DTYPE", "float32"])
-    base = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
-    model = RetinaNet(dataclasses.replace(base.arch, compute_dtype=dtype, freeze_at=0)).cuda()
-    model.load_state_dict(base.state_dict())
-    dt = getattr(torch, dtype)
-    model = model.to(dt)
+    base = create_model(cfg, device, torch.Generator(device=device).manual_seed(seed))
     (h, w), _ = canvas_shapes(cfg)
-    x = torch.from_numpy(np.random.RandomState(seed).randn(images, h, w, 3)).to("cuda", dt)
-    backend, local, _ = card_layout(n_model)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "run.pt")
-        torch.save({"model": model, "images": x}, path)
-        ranks = spawn(rank_forward, n_model, (path, 1, n_model), device="cuda", backend=backend,
-                      local_ranks=local, timeout_s=timeout_s)
-    xr = x.clone().requires_grad_(True)
-    out = model(xr)
-    shapes = {k: {lvl: tuple(v.shape) for lvl, v in d.items()} for k, d in out.items()}
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    got = torch.autograd.grad(output_scalar(out, shapes), [xr] + [p for _, p in named])
-    worst_out = max(
-        float(np.abs(np.concatenate([r["out"][k][lvl] for r in ranks], 1) - v.detach().cpu().numpy())
-              .max() / np.abs(v.detach().cpu().numpy()).max())
-        for k, d in out.items() for lvl, v in d.items())
-    params = {n: rel_l2(sum(r["grads"][n] for r in ranks), g.cpu().numpy())
-              for (n, _), g in zip(named, got[1:])}
-    worst = max(params, key=params.get)
-    return {"dtype": dtype, "outputs_rel": worst_out,
-            "grad_x_rel_l2": rel_l2(np.concatenate([r["grad_x"] for r in ranks], 1),
-                                     got[0].cpu().numpy()),
-            "param_rel_l2": params[worst], "param_key": worst}
+    x64 = torch.from_numpy(np.random.RandomState(seed).randn(images, h, w, 3))
+    backend, local, _ = card_layout(n_model) if device == "cuda" else ("gloo", None, "")
+    found = {}
+    for dtype in ("float64", "float32"):
+        dt = getattr(torch, dtype)
+        model = RetinaNet(dataclasses.replace(base.arch, compute_dtype=dtype, freeze_at=0))
+        model.load_state_dict(base.state_dict())
+        model = model.to(device, dt)
+        x = x64.to(device, dt)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "run.pt")
+            torch.save({"model": model, "images": x}, path)
+            ranks = spawn(rank_forward, n_model, (path, 1, n_model), device=device,
+                          backend=backend, local_ranks=local, timeout_s=timeout_s)
+        xr = x.clone().requires_grad_(True)
+        out = model(xr)
+        shapes = {k: {lvl: tuple(v.shape) for lvl, v in d.items()} for k, d in out.items()}
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        got = torch.autograd.grad(output_scalar(out, shapes), [xr] + [p for _, p in named])
+        one = {"out": _numpy(out), "grad_x": got[0].cpu().numpy(),
+               "grads": {n: g.cpu().numpy() for (n, _), g in zip(named, got[1:])}}
+        banded = {"out": {k: {lvl: np.concatenate([r["out"][k][lvl] for r in ranks], 1)
+                              for lvl in d} for k, d in one["out"].items()},
+                  "grad_x": np.concatenate([r["grad_x"] for r in ranks], 1),
+                  "grads": {n: sum(r["grads"][n] for r in ranks) for n in one["grads"]}}
+        found[dtype] = (one, banded)
+        del model, out, got
+    one64 = found["float64"][0]
+    runs = {dt: _readings(b["out"], b["grad_x"], b["grads"], one)
+            for dt, (one, b) in found.items()}
+    one32, banded32 = found["float32"]
+    runs["float32"].update(
+        banded_vs_f64=_readings(banded32["out"], banded32["grad_x"], banded32["grads"], one64),
+        one_vs_f64=_readings(one32["out"], one32["grad_x"], one32["grads"], one64))
+    return runs
 
 
 def main(argv=None):
     """The banded RetinaNet's forward and gradients against one process on
-    the card, at float64 and float32 (``gradient_parity``), beside the
-    card's name and power limit."""
+    the card, at float64 and float32, and at float32 each against one
+    process's float64 run (``gradient_parity``), beside the card's name and
+    power limit."""
     import argparse
     import json
 
@@ -555,8 +614,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_spatial needs a CUDA card")
-    out = {"gpu": nvidia_smi_line(), "runs": [gradient_parity(args.cfg, dt, n_model=args.n_model)
-                                              for dt in ("float64", "float32")]}
+    out = {"gpu": nvidia_smi_line(), "runs": gradient_parity(args.cfg, n_model=args.n_model)}
     print(json.dumps(out, indent=1))
     return out
 

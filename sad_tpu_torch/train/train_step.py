@@ -175,11 +175,16 @@ def cls_loss_params(cfg) -> ClsLossParams:
 
 def fused_distill_losses(cfg, student_out, teacher_probs, batch, n_groups: int,
                          cls_losses: Callable = fused_cls_losses_raw,
-                         total_groups: Optional[int] = None) -> Tuple[torch.Tensor, Metrics]:
+                         total_groups: Optional[int] = None,
+                         normalizers: Optional[Callable] = None) -> Tuple[torch.Tensor, Metrics]:
     """Focal + adaptive distillation + PowSum per level in one pass of
     ``cls_losses`` (the fused kernels), the 1/Np of each group applied on
     (G,) scalars afterwards; plus the bbox loss. Scaled by 1 /
-    ``total_groups`` (the groups of every rank; ``n_groups`` by default)."""
+    ``total_groups`` (the groups of every rank; ``n_groups`` by default).
+    ``normalizers`` maps the (fg_num, PowSum) of the ``n_groups`` groups of
+    this call to the values each is normalised by: the identity by default;
+    ``mesh_losses`` passes the global values of each local image's loss
+    group. A level of no rows (an empty band) adds a 0 tied to its logits."""
     total_groups = total_groups or n_groups
     d = cfg.DISTILLATION
     a = cfg.num_anchors_per_cell()
@@ -187,37 +192,40 @@ def fused_distill_losses(cfg, student_out, teacher_probs, batch, n_groups: int,
     distill_scale = loss_scale * d.TEMPERATURE * d.TEMPERATURE
     p = cls_loss_params(cfg)
     metrics: Metrics = {}
-    fg_num = batch["fg_num"]
+    logits = student_out["cls_logits"]
     raw = {
-        lvl: cls_losses(_split_anchor_axis(student_out["cls_logits"][lvl], a),
+        lvl: cls_losses(_split_anchor_axis(logits[lvl], a),
                         _split_anchor_axis(teacher_probs[lvl], a),
-                        batch["labels"][lvl], n_groups, p)
+                        batch["labels"][lvl], n_groups, p) if logits[lvl].numel() else None
         for lvl in cfg.fpn_levels()
     }
+    fg_num = batch["fg_num"]
+    powsum = sum((r[2] for r in raw.values() if r is not None),
+                 torch.zeros(n_groups, dtype=torch.float32, device=fg_num.device))
+    if normalizers is not None:
+        fg_num, powsum = normalizers(fg_num, powsum)
     if d.ADAPTIVE_NORMALIZER:
-        norms = sum(raw[lvl][2] for lvl in cfg.fpn_levels())
+        norms = powsum
         metrics["distill_normalizer"] = norms.mean()
     else:
         norms = fg_num
     fg_np = torch.clamp_min(fg_num, 1.0)
     dn_np = torch.clamp_min(norms, 1.0)
+    box_batch = {**batch, "fg_num": fg_num}
     total = 0.0
     for lvl in cfg.fpn_levels():
-        focal_raw, distill_raw, _ = raw[lvl]
-        focal = loss_scale * (focal_raw / fg_np).sum()
-        distill = distill_scale * (distill_raw / dn_np).sum()
-        bbox = _bbox_loss(cfg, student_out, batch, lvl, n_groups, total_groups).sum()
+        if raw[lvl] is None:
+            focal = distill = logits[lvl].sum() * 0.0
+        else:
+            focal_raw, distill_raw, _ = raw[lvl]
+            focal = loss_scale * (focal_raw / fg_np).sum()
+            distill = distill_scale * (distill_raw / dn_np).sum()
+        bbox = _bbox_loss(cfg, student_out, box_batch, lvl, n_groups, total_groups).sum()
         metrics[f"fl_fpn{lvl}"] = focal
         metrics[f"fl_distill_fpn{lvl}"] = distill
         metrics[f"retnet_loss_bbox_fpn{lvl}"] = bbox
         total = total + focal + distill + bbox
     return total, metrics
-
-
-def _tied_zero(x: torch.Tensor) -> torch.Tensor:
-    """0, tied to ``x`` in the graph (an empty band's output still takes part
-    in the backward, whose halo exchanges every rank of the group joins)."""
-    return x.sum() * 0.0
 
 
 def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
@@ -229,17 +237,15 @@ def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
     Local image j is the batch's image d B_loc + j (d the data index) and
     belongs to group (d B_loc + j) // (B / G). ``batch['fg_num']`` holds all
     G counts (replicated) or the data shard's G / n_data (sliced), as
-    ``mesh.shard_batch_tree`` leaves it. The per-image raw sums of the fused
-    kernels (or the unfused focal and box losses of the plain step) are
-    normalised by their group's global fg_num and PowSum, which one
-    all-reduce of the (2, G) partial counts over the world makes: fg_num from
-    one rank a group, PowSum from every band of every image (both kept in
-    ``normalizers`` as 'fg_num' and 'powsum' when it is given). The returned
-    loss is this rank's share: the ranks' shares and their gradients sum to
-    one process's."""
-    d_cfg, levels = cfg.DISTILLATION, cfg.fpn_levels()
-    a = cfg.num_anchors_per_cell()
-    logits0 = out["cls_logits"][levels[0]]
+    ``mesh.shard_batch_tree`` leaves it. ``fused_distill_losses`` (or
+    ``retinanet_losses`` for the plain step) runs with one group a local
+    image, each normalised by its loss group's global fg_num and PowSum,
+    which one all-reduce of the (2, G) partial counts over the world makes:
+    fg_num from one rank a group, PowSum from every band of every image
+    (both kept in ``normalizers`` as 'fg_num' and 'powsum' when it is
+    given). The returned loss is this rank's share: the ranks' shares and
+    their gradients sum to one process's."""
+    logits0 = out["cls_logits"][cfg.fpn_levels()[0]]
     b_loc, dev = logits0.shape[0], logits0.device
     images = b_loc * mesh.n_data
     if images % n_groups:
@@ -257,53 +263,29 @@ def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
     else:
         raise ValueError(f"fg_num of {fg.shape[0]} groups on a batch of {n_groups} over "
                          f"{mesh.n_data} data ranks")
-    distill = teacher_probs is not None
-    raw = {}
-    if distill:
-        p = cls_loss_params(cfg)
-        for lvl in levels:
-            x = out["cls_logits"][lvl]
-            raw[lvl] = (cls_losses(_split_anchor_axis(x, a), _split_anchor_axis(
-                teacher_probs[lvl], a), batch["labels"][lvl], b_loc, p) if x.numel() else None)
-    pow_img = torch.zeros(b_loc, dtype=torch.float32, device=dev)
-    if distill and d_cfg.ADAPTIVE_NORMALIZER:
-        for r in raw.values():
-            if r is not None:
-                pow_img = pow_img + r[2]
-    sums = torch.stack([fg_part, torch.zeros_like(fg_part).index_add_(0, gidx, pow_img)])
-    fg_g, pow_g = all_reduce_sum(sums)
-    if normalizers is not None:
-        normalizers.update(fg_num=fg_g.detach(), powsum=pow_g.detach())
-    fg_img = fg_g[gidx]
-    img_batch = {**batch, "fg_num": fg_img}
-    metrics: Metrics = {}
-    if not distill:
-        total, metrics = retinanet_losses(cfg, out, img_batch, b_loc, n_groups)
+    found = {}
+
+    def global_normalizers(_, pow_img):
+        sums = torch.stack([fg_part, torch.zeros_like(fg_part).index_add_(0, gidx, pow_img)])
+        found["fg_num"], found["powsum"] = all_reduce_sum(sums)
+        return found["fg_num"][gidx], found["powsum"][gidx]
+
+    if teacher_probs is None:
+        fg_img, _ = global_normalizers(None, torch.zeros(b_loc, device=dev))
+        total, metrics = retinanet_losses(cfg, out, {**batch, "fg_num": fg_img}, b_loc, n_groups)
     else:
-        norms = pow_g if d_cfg.ADAPTIVE_NORMALIZER else fg_g
-        loss_scale = 1.0 / n_groups
-        distill_scale = loss_scale * d_cfg.TEMPERATURE * d_cfg.TEMPERATURE
-        fg_np, dn_np = torch.clamp_min(fg_img, 1.0), torch.clamp_min(norms[gidx], 1.0)
-        total = 0.0
-        for lvl in levels:
-            if raw[lvl] is None:
-                focal = distill_l = _tied_zero(out["cls_logits"][lvl])
-            else:
-                focal_raw, distill_raw, _ = raw[lvl]
-                focal = loss_scale * (focal_raw / fg_np).sum()
-                distill_l = distill_scale * (distill_raw / dn_np).sum()
-            bbox = _bbox_loss(cfg, out, img_batch, lvl, b_loc, n_groups).sum()
-            metrics[f"fl_fpn{lvl}"] = focal
-            metrics[f"fl_distill_fpn{lvl}"] = distill_l
-            metrics[f"retnet_loss_bbox_fpn{lvl}"] = bbox
-            total = total + focal + distill_l + bbox
+        total, metrics = fused_distill_losses(cfg, out, teacher_probs, batch, b_loc, cls_losses,
+                                              n_groups, global_normalizers)
+    if normalizers is not None:
+        normalizers.update({k: v.detach() for k, v in found.items()})
+    metrics.pop("distill_normalizer", None)
     metrics["loss"] = total
     names = sorted(metrics)
     shares = all_reduce_sum(torch.stack([metrics[k].detach().float() for k in names]))
     metrics = dict(zip(names, shares))
-    if distill and d_cfg.ADAPTIVE_NORMALIZER:
-        metrics["distill_normalizer"] = pow_g.mean()
-    metrics["retnet_fg_num"] = fg_g.sum()
+    if teacher_probs is not None and cfg.DISTILLATION.ADAPTIVE_NORMALIZER:
+        metrics["distill_normalizer"] = found["powsum"].mean()
+    metrics["retnet_fg_num"] = found["fg_num"].sum()
     return total, metrics
 
 
