@@ -244,9 +244,10 @@ line each (name, what was checked, time):
                  its model_final, byte-identical to the plain-twin run;
                  launches counted for each
   tta_test_net   test_net --range 0 8 with e2e_mask_rcnn_R-50-FPN_tta.yaml (box
-                 and mask TTA, 18 box and 17 mask passes a batch, box voting),
-                 the same with soft-NMS, and Keypoint R-CNN with the KPS_AUG
-                 overrides (17 keypoint passes, SCALE_SIZE_DEP) on smoke_kps:
+                 and mask TTA, box voting), the same with soft-NMS, and Keypoint
+                 R-CNN with the KPS_AUG overrides (SCALE_SIZE_DEP) on smoke_kps,
+                 each cut to two of the eight TTA scales (500, and 1100 clamped
+                 to the canvas): 6 box and 6 mask passes, 5 keypoint passes:
                  byte-identical to the plain-twin runs, launches a pass, the
                  dataset imgs/s and timing.json's split of passes, host merge
                  and aux passes, the device's idle share
@@ -440,6 +441,33 @@ line each (name, what was checked, time):
                  against one process's, metrics and parameters within 1e-5; the
                  cls-loss kernels against their twin on the first rank's band of P3
                  (92,160 rows, a group an image)
+  multislice_joint_step
+                 sad_tpu's multislice ('dcn') mesh: the R-50 <- R-101 joint step at full
+                 width, bs 4 (G = 2) on 640x1024, over 4 ranks as 2 nodes x 2 (torchrun's
+                 environment through launch.spawn(nodes=2); create_multislice_mesh(): one
+                 image a rank, each loss group over a node's two ranks, the gradients
+                 summed in the node and then across nodes), against one process: 2 steps
+                 at float32, TF32 and cuDNN off in every rank, held as spatial_joint_step
+                 holds its step; parameters and momenta bit-equal across the 4 ranks after
+                 every step; one cls-loss forward and backward a level a step on each rank
+                 at its image's rows; 3 timed steps with cuDNN (MULTISLICE_TIMED) and as
+                 many instrumented: step ms by rank, the node-level and cross-node ms and
+                 bytes of the two-level sum beside a flat all-reduce of the same gradients
+                 on the same ranks, the count all-reduce's ms; the cls-loss kernels against
+                 their twin on the first rank's P3 (92,160 rows, G = its one image)
+  span_train_loop
+                 train_net with the Mask R-CNN R-50-FPN YAML over smoke_lab on 4 ranks as
+                 2 nodes x 2, NUM_GPUS = 2, TRAIN.IMS_PER_BATCH = 2 (4 images, one a rank:
+                 each R-CNN loss group over a node's two ranks), 4 iterations with a
+                 snapshot after iteration 2 at float32 on PyTorch's own convolutions
+                 (TF32 and cuDNN off: an image's forward does not depend on its batch,
+                 so the counts are held exactly), then a 4-rank run
+                 resumed in a fresh directory from model_iter2.pkl: rank 0's files only,
+                 ranks bit-equal, the resumed run bit-equal to the uninterrupted one, NMS
+                 1, RoIAlign forward 3 and backward 2 a step on each rank, the first
+                 step's per-group counts equal to one process's first iteration exactly;
+                 the NMS and RoIAlign kernels against their twins on the first rank's own
+                 inputs (5 RPN problems -> 2000, its 512 box rois), timed after an L2 flush
 
 Then a JSON line with every kernel of the paths (with the loops' launches
 as train_loop_launches, the evaluation's as test_net_launches, Keypoint
@@ -463,6 +491,7 @@ import shutil
 import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -493,6 +522,83 @@ ROI_FWD_EARLIER_MS = {"box": 0.4639, "mask": 0.1383, "box_train": 0.2470, "mask_
 
 def _phase(name: str, checked: str, seconds: float) -> None:
     print(f"[{name}] {checked} ({seconds:.3f} s)", flush=True)
+    # a phase ends every process it started (multiprocessing's resource tracker
+    # lives to the end of the run); one left is named here and ended at the end
+    left = [p for p in _descendants() if p[1] != "Z" and "resource_tracker" not in p[2]]
+    if left:
+        print(f"chip_smoke: after [{name}] {len(left)} processes still run: {left}",
+              file=sys.stderr, flush=True)
+
+
+def _adopt_orphans() -> bool:
+    """Make this process the child subreaper of all it starts (Linux
+    prctl PR_SET_CHILD_SUBREAPER, on this process only): a process whose
+    parent ends before it is handed to this one and not to init, so that
+    ``_end_descendants`` still finds it."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def _descendants() -> list:
+    """(pid, state, command line) of every process below this one, from /proc."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
+        kids.setdefault(int(ppid), []).append((int(d), state, cmd))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for kid in kids.get(todo.pop(), []):
+            out.append(kid)
+            todo.append(kid[0])
+    return out
+
+
+def _end_descendants(grace_s: float = 5.0) -> list:
+    """End every process below this one that still runs (SIGTERM, then
+    SIGKILL after ``grace_s``); then multiprocessing's own exit (its
+    finalizers, while the resource tracker that the ranks and loaders share
+    still runs), the tracker, and whatever is left; reap what was orphaned
+    here. Returns what ran, the tracker left out."""
+    import signal
+    from multiprocessing import resource_tracker, util
+
+    def running():
+        return [p for p in _descendants() if p[1] != "Z"]
+
+    def end(procs):
+        pids = {pid for pid, _, _ in procs}
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            for pid in pids:
+                with contextlib.suppress(OSError):
+                    os.kill(pid, sig)
+            deadline = time.monotonic() + grace_s
+            while time.monotonic() < deadline and any(p[0] in pids for p in running()):
+                time.sleep(0.05)
+
+    left = [p for p in running() if "resource_tracker" not in p[2]]
+    end(left)
+    util._exit_function()
+    with contextlib.suppress(Exception):
+        resource_tracker._resource_tracker._stop()
+    late = running()
+    end(late)
+    for pid, _, _ in _descendants():
+        with contextlib.suppress(OSError):
+            os.waitpid(pid, os.WNOHANG)
+    return left + late
 
 
 def _median_ms(torch, fn, iters: int, warmup: int, before=None) -> float:
@@ -3016,7 +3122,11 @@ def _keypoint_test_net(torch, seed, data_root, tmp):
 FAST_CFG = "sad_tpu_torch/configs/fast_rcnn_R-50-FPN.yaml"
 RPN_CFG = "sad_tpu_torch/configs/rpn_R-50-FPN.yaml"
 TTA_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN_tta.yaml"
-TTA_SCALES = "(400,500,600,700,900,1000,1100,1200)"
+# the TTA scales cut from the YAML's eight (400..1200) to one under the canvas's
+# 800 and one over it (clamped to fit): every augmentation branch at a third of
+# the passes
+TTA_SCALES = "(500,1100)"
+TTA_OPTS = ("TEST.BBOX_AUG.SCALES", TTA_SCALES, "TEST.MASK_AUG.SCALES", TTA_SCALES)
 SOFT_NMS_OPTS = ("TEST.SOFT_NMS.ENABLED", "True", "TEST.SOFT_NMS.METHOD", "linear",
                  "TEST.SOFT_NMS.SIGMA", "0.5")
 # the KPS_AUG section of Detectron's test_time_aug/keypoint_rcnn_R-50-FPN_1x.yaml
@@ -3371,8 +3481,8 @@ def _tta_test_net(torch, seed, data_root, tmp):
     val, kps = _landscape_eight("smoke_val"), _landscape_eight("smoke_kps")
     runs, lines = {}, []
     for key, cfg_path, dataset, opts, model_seed in (
-            ("tta", TTA_CFG, val, (), seed),
-            ("tta_soft_nms", TTA_CFG, val, SOFT_NMS_OPTS, seed),
+            ("tta", TTA_CFG, val, TTA_OPTS, seed),
+            ("tta_soft_nms", TTA_CFG, val, TTA_OPTS + SOFT_NMS_OPTS, seed),
             ("kps_aug", KEYPOINT_CFG, kps, KPS_AUG_OPTS, seed + 1)):
         cfg = load_cfg(os.path.join(REPO, cfg_path), list(opts))
         model = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(model_seed))
@@ -3402,7 +3512,7 @@ def _tta_test_net(torch, seed, data_root, tmp):
         r.update(box_roi=box_passes * n, aux_roi=want[1] - box_passes * n, nms_each=box_passes * n)
         runs[key] = r
         lines.append(
-            f"{key} ({cfg_path}{' ' + ' '.join(opts[:2]) if opts else ''}; {box_passes} box "
+            f"{key} ({cfg_path}{' ' + ' '.join(opts) if opts else ''}; {box_passes} box "
             f"passes and {aux_passes} {'mask' if cfg.MODEL.MASK_ON else 'keypoint'} passes a "
             f"batch): {r['n_dets']} detections, AP {res['AP']:.4f}"
             + (f", segm AP {res['segm_AP']:.4f}" if "segm_AP" in res else "")
@@ -3411,8 +3521,8 @@ def _tta_test_net(torch, seed, data_root, tmp):
             f"dataset {t['images'] / t['wall']:.2f} imgs/s, {t['wall']:.2f} s a batch; ms a "
             f"batch: {_tta_split_line(t)}")
     _phase("tta_test_net", "test_net on the first 8 landscape images of smoke_val / smoke_kps "
-           "(one batch), --weights (native pickles of seeded weights, output layers spread), "
-           "bbox_results.json and results.json byte-identical to the plain-twin runs, every "
+           f"(one batch), TTA cut to the scales {TTA_SCALES}, --weights (native pickles of "
+           "seeded weights, output layers spread), bbox_results.json and results.json byte-identical to the plain-twin runs, every "
            "metric finite; " + "; ".join(lines),
            time.perf_counter() - t0)
     return runs
@@ -4453,7 +4563,7 @@ def phase_spatial_infer(torch, seed, batch, iters, warmup, gpu):
             "nms_stats": stats}
 
 
-def _band_cls_rows(torch, got, iters, warmup):
+def _band_cls_rows(torch, got, iters, warmup, where="the band's P3"):
     """The cls-loss kernels against their plain twin on a rank's own inputs
     at its band of P3 (per-image groups, the cotangents its backward got):
     sums within 1e-5 relative, dx within 1e-5 * max|dx|; both timed after an
@@ -4481,7 +4591,7 @@ def _band_cls_rows(torch, got, iters, warmup):
         (lambda: cls_losses_bwd_plain(x, pt, labels, gf, gd, p), iters))]
     del flush
     b_fwd, b_bwd = _cls_bounds(x.shape[0], x.shape[1], g)
-    said = (f"the cls-loss kernels at the band's P3 ({x.shape[0]} rows x {x.shape[1]}, G={g} "
+    said = (f"the cls-loss kernels at {where} ({x.shape[0]} rows x {x.shape[1]}, G={g} "
             f"images): sums {rel:.2e} relative, dx {drel:.2e} of max|dx|; fwd {ms[0]:.4f} ms "
             f"(plain {ms[2]:.4f}, bound {b_fwd['bound_ms']:.4f}), bwd {ms[1]:.4f} ms (plain "
             f"{ms[3]:.4f}, bound {b_bwd['bound_ms']:.4f}), CUDA-event medians after an L2 flush")
@@ -4597,7 +4707,358 @@ def phase_spatial_joint_step(torch, seed, iters, warmup, gpu):
     # every rank's band of P3 holds 40 of its 80 rows: the launches at that shape
     return {"launches": [(r["launches"]["cls_fwd_by_rows"].get(p3, 0),
                           r["launches"]["cls_bwd_by_rows"].get(p3, 0)) for r in ranks],
-            "fwd": fwd, "bwd": bwd}
+            "fwd": fwd, "bwd": bwd, "one": one}
+
+
+# --------------------------------------------------------------------------- #
+# sad_tpu's multislice mesh ('dcn') and R-CNN loss groups that span ranks
+# --------------------------------------------------------------------------- #
+
+# timed steps of [multislice_joint_step], and as many instrumented; as [spatial_joint_step]'s,
+# whose one-process run of the same seed it reuses
+MULTISLICE_TIMED = SPATIAL_TIMED
+SPAN_LOOP_ITERS, SPAN_SNAP = 4, 2  # [span_train_loop]: iterations, the snapshot's
+
+
+def _levels_said(r):
+    """A rank's medians of its instrumented steps: the two levels of the
+    gradient sum, the flat all-reduce beside it, the count all-reduce."""
+    from sad_tpu_torch.tools.profile_ddp import reduction_numbers
+
+    n = reduction_numbers(r)
+    return (f"node {n['node_ms']:.2f} ms / {n['node_bytes'] / 1e6:.1f} MB, cross-node "
+            f"{n['cross_ms']:.2f} ms / {n['cross_bytes'] / 1e6:.1f} MB, flat "
+            f"{n['flat_ms']:.2f} ms / {n['flat_bytes'] / 1e6:.1f} MB, counts "
+            f"{n['counts_ms']:.3f} ms / {n['counts_bytes']} B"), n
+
+
+def phase_multislice_joint_step(torch, seed, iters, warmup, gpu, one=None):
+    """[multislice_joint_step]: the R-50 <- R-101 joint step at full width,
+    bs 4 (G = 2) on 640x1024, over 4 ranks as 2 nodes x 2 (spawn(nodes=2):
+    torchrun's environment; create_multislice_mesh(): one image a rank, each
+    loss group over a node's two ranks, the gradients summed in two levels),
+    against one process (a world of 1 over NCCL) from the same seeded state
+    and batch: DDP_STEPS steps at float32 with TF32 and cuDNN off in every
+    rank, metrics within SPATIAL_TOL relative and every parameter tensor
+    within SPATIAL_TOL relative L2 or, beyond it, its error against one
+    process's float64-compute run (made only then) within SPATIAL_F64_FACTOR
+    times the worst of one process's float32 step there; parameters and momenta bit-equal
+    across the four ranks after every step; one cls-loss forward and
+    backward a level a step on each rank at its image's rows;
+    MULTISLICE_TIMED timed steps with cuDNN, then as many instrumented (each
+    level of the sum, a flat all-reduce of the same gradients, the count
+    all-reduce, each between device syncs). Then the cls-loss kernels
+    against their twin at the first rank's P3 (cls_losses_fwd@multislice_p3,
+    _bwd@multislice_p3). ``one``: that one process's run when the caller has
+    it ([spatial_joint_step]'s, of the same seed and batch)."""
+    from sad_tpu_torch.parallel.launch import spawn
+    from sad_tpu_torch.tools import profile_ddp, profile_spatial, profile_train
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    backend, local, note = profile_ddp.card_layout(4)
+    kw = {"seed": seed, "n_groups": 2, "device": "cuda", "opts": ["COMPUTE_DTYPE", "float32"]}
+    build, lr = profile_train.seeded_train_step, profile_train.BENCH_LR
+
+    def one_process(build_kwargs, iters_):
+        job = ("one", {"build": build, "build_kwargs": build_kwargs, "steps": DDP_STEPS,
+                       "lr": lr, "iters": iters_})
+        return spawn(profile_spatial.rank_jobs, 1, ([job],), device="cuda", local_ranks=[0],
+                     timeout_s=DDP_TIMEOUT_S)[0][0]
+
+    one = one or one_process(kw, MULTISLICE_TIMED)
+    jobs = [("steps", {"build": build, "build_kwargs": kw, "n_data": 4, "n_model": 1,
+                       "n_slices": 2, "steps": DDP_STEPS, "lr": lr, "iters": MULTISLICE_TIMED,
+                       "capture": True})]
+    ranks = [r[0] for r in spawn(profile_spatial.rank_jobs, 4, (jobs,), device="cuda",
+                                 backend=backend, local_ranks=local, nodes=2,
+                                 timeout_s=DDP_TIMEOUT_S)]
+    res = profile_ddp.compare(one, ranks)
+    beyond, one_err, one_key, f64 = {}, None, None, None
+    if res["param_rel_l2"] > SPATIAL_TOL:
+        # a tensor beyond the tolerance is held to one process's float64-compute step
+        one64 = one_process({**kw, "opts": ["COMPUTE_DTYPE", "float64"]}, 0)
+        f64 = profile_spatial.against_float64(one, ranks, one64, SPATIAL_TOL)
+        beyond, (one_err, one_key) = f64["beyond"], f64["one_worst"]
+    bad = []
+    if not res["metric_rel"] <= SPATIAL_TOL:
+        bad.append(f"metric {res['metric_key']} {res['metric_rel']:.3e}")
+    if res["unequal_across_ranks"]:
+        bad.append(f"not bit-equal across the ranks: {res['unequal_across_ranks'][:3]}")
+    for k, e in beyond.items():
+        if not e["mesh_vs_f64"] <= SPATIAL_F64_FACTOR * one_err:
+            bad.append(f"parameter {k} {e['mesh_vs_one']:.3e} from one process's and "
+                       f"{e['mesh_vs_f64']:.3e} from the float64 run, where one process's "
+                       f"float32 step is at most {one_err:.3e} ({one_key}; limit "
+                       f"{SPATIAL_F64_FACTOR:g}x)")
+    transport = f"{'nccl' if backend == 'nccl' else 'gloo'} two-level"
+    rows = sorted(h * w * 9 for h, w in LEVEL_HW.values())
+    want = [(x, DDP_STEPS) for x in rows]
+    for r in ranks:
+        la = r["launches"]
+        got = (sorted(la["cls_fwd_by_rows"].items()), sorted(la["cls_bwd_by_rows"].items()),
+               la["nms"], la["roi_align_fwd"])
+        if got != (want, want, 0, 0):
+            bad.append(f"rank {r['rank']} launches {got}, want {(want, want, 0, 0)}")
+        if (r["n_images"], r["reduction_transport"]) != (1, transport):
+            bad.append(f"rank {r['rank']}: {r['n_images']} images, {r['reduction_transport']}")
+    if bad:
+        raise AssertionError("multislice_joint_step: " + "; ".join(bad))
+    fwd, bwd, said = _band_cls_rows(torch, ranks[0]["band_p3"], iters, warmup,
+                                    "the first rank's P3")
+    p3 = LEVEL_HW[3][0] * LEVEL_HW[3][1] * 9
+    if fwd["rows"] != p3:
+        raise AssertionError(f"multislice_joint_step: P3 has {fwd['rows']} rows, want {p3}")
+    med = statistics.median
+    levels = [_levels_said(r) for r in ranks]
+    held = "; ".join(f"{k} {e['mesh_vs_one']:.3e} from one process's, against the float64 run "
+                     f"{e['mesh_vs_f64']:.3e} (one process {e['one_vs_f64']:.3e})"
+                     for k, e in sorted(beyond.items(),
+                                        key=lambda kv: -kv[1]["mesh_vs_one"])[:6])
+    _phase("multislice_joint_step", f"R-50 <- R-101 at float32, bs 4 (G = 2) on 640x1024 over "
+           f"4 ranks as 2 nodes x 2 ({note}; torchrun's environment, create_multislice_mesh(): "
+           f"slices {[r['slice'] for r in ranks]}, one image a rank, each loss group over a "
+           f"node's two ranks; gradient sum {transport}) against one process (NCCL, world 1), "
+           f"TF32 and cuDNN off, {DDP_STEPS} steps: worst metric {res['metric_key']} "
+           f"{res['metric_rel']:.3e} relative, worst parameter {res['param_key']} "
+           f"{res['param_rel_l2']:.3e} relative L2 (momentum {res['velocity_key']} "
+           f"{res['velocity_rel_l2']:.3e}); "
+           + (f"{len(beyond)} parameter tensors beyond {SPATIAL_TOL:g} from one process's, each "
+              f"held to {SPATIAL_F64_FACTOR:g}x one process's worst error against its "
+              f"float64-compute step ({one_key} {one_err:.3e}; the mesh's worst there "
+              f"{f64['mesh_worst'][1]} {f64['mesh_worst'][0]:.3e}){': ' + held if held else ''}; "
+              if f64 else f"every parameter tensor within {SPATIAL_TOL:g} of one process's; ")
+           + f"parameters and momenta bit-equal across the 4 ranks after every step; one cls-loss "
+           f"forward and backward a level a step on each rank at its image's rows; "
+           f"{MULTISLICE_TIMED} timed steps with cuDNN, medians by rank: step ms "
+           f"{_fmt([med(r['step_ms']) for r in ranks])} against one process's bs-4 "
+           f"{med(one['step_ms']):.2f}, gradient sum ms {_fmt([med(r['reduce_ms']) for r in ranks])}"
+           f" for {one['grad_bytes'] / 1e6:.1f} MB; {MULTISLICE_TIMED} instrumented steps (a "
+           f"device sync around each collective), by rank: "
+           + "; ".join(f"rank {r['rank']} {s_}" for r, (s_, _) in zip(ranks, levels))
+           + f"; {said}; {gpu}", time.perf_counter() - t0)
+    return {"launches": [(r["launches"]["cls_fwd_by_rows"].get(p3, 0),
+                          r["launches"]["cls_bwd_by_rows"].get(p3, 0)) for r in ranks],
+            "fwd": fwd, "bwd": bwd, "reduction": [n for _, n in levels],
+            "step_ms": [med(r["step_ms"]) for r in ranks], "one_step_ms": med(one["step_ms"])}
+
+
+def _span_kernel_rows(torch, cap, iters, warmup):
+    """The NMS and RoIAlign kernels against their twins on a rank's own
+    first-step inputs (``profile_ddp.kernel_inputs``): the RPN's NMS exactly,
+    the box RoIAlign forward bit-equal, its backward at float32 within 1e-5 *
+    max|ref|; each timed by CUDA events after an L2 flush, with its bound."""
+    from sad_tpu_torch.ops import nms, nms_kernel, roi_align_kernel
+    from sad_tpu_torch.ops.roi_align import (
+        multilevel_roi_align_bwd_plain, multilevel_roi_align_plain,
+    )
+    from sad_tpu_torch.tools.profile_roi_align import roi_align_bound
+
+    def cuda(x):
+        return x.cuda() if torch.is_tensor(x) else [cuda(y) for y in x] \
+            if isinstance(x, list) else x
+
+    flush = _l2_flush(torch)
+    boxes, scores, thr, max_out = cuda(cap["nms"])
+    ik, vk = nms_kernel.nms_cuda(boxes, scores, thr, max_out)
+    ip, vp = nms.nms_multi_plain(boxes, scores, thr, max_out)
+    torch.cuda.synchronize()
+    if not torch.equal(ik, ip) or not torch.equal(vk, vp):
+        raise AssertionError(f"span_train_loop: NMS kernel != plain on the rank's RPN "
+                             f"({int((ik != ip).sum())} idx differ)")
+    nms_row = {"max_abs_err": float((ik - ip).abs().max()), **_nms_bound(*scores.shape, max_out, vk),
+               "ms": _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, thr, max_out),
+                                iters * 5, warmup, flush),
+               "plain_ms": _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr,
+                                                                          max_out),
+                                      max(iters // 5, 1), 1, flush)}
+    feats, lvl_min, rois, levels, valid, res, sr = cuda(cap["roi_fwd_7"])
+    fmap = {lvl_min + i: f for i, f in enumerate(feats)}
+    err, _ = _roi_align_check(torch, "span box", fmap, rois, levels, valid, res, sr)
+    fwd_row = {"max_abs_err": err, **roi_align_bound(fmap, rois, levels, valid, res, sr)[0],
+               "ms": _median_ms(torch, lambda: roi_align_kernel.roi_align_fwd_cuda(
+                   feats, lvl_min, rois, levels, valid, res, sr), iters * 2, warmup, flush),
+               "plain_ms": _median_ms(torch, lambda: multilevel_roi_align_plain(
+                   fmap, rois, levels, valid, res, sr), max(iters // 5, 1), 1, flush)}
+    g, level_hw, b_lvl, batch, b_rois, b_levels, b_valid, b_sr = cuda(cap["roi_bwd_7"])
+    g = g.float().contiguous()
+    hw = {b_lvl + i: tuple(x) for i, x in enumerate(level_hw)}
+    got = roi_align_kernel.roi_align_bwd_cuda(g, level_hw, b_lvl, batch, b_rois, b_levels,
+                                              b_valid, b_sr)
+    ref = multilevel_roi_align_bwd_plain(g, hw, batch, b_rois, b_levels, b_valid, b_sr)
+    torch.cuda.synchronize()
+    ref_max = max(float(ref[l].abs().max()) for l in hw)
+    bwd_err = max(float((got[i] - ref[l]).abs().max()) for i, l in enumerate(sorted(hw)))
+    if not bwd_err <= 1e-5 * ref_max:
+        raise AssertionError(f"span_train_loop: RoIAlign backward {bwd_err:.3e} from the plain "
+                             f"scatter's, limit 1e-5 * {ref_max:.3e}")
+    bwd_row = {"max_abs_err": bwd_err,
+               **_roi_align_bwd_bound(list(hw.values()), batch, g.shape[-1], 4, g.shape[0],
+                                      g.shape[1], b_sr)[0],
+               "ms": _median_ms(torch, lambda: roi_align_kernel.roi_align_bwd_cuda(
+                   g, level_hw, b_lvl, batch, b_rois, b_levels, b_valid, b_sr),
+                   iters * 2, warmup, flush),
+               "plain_ms": _median_ms(torch, lambda: multilevel_roi_align_bwd_plain(
+                   g, hw, batch, b_rois, b_levels, b_valid, b_sr), max(iters // 5, 1), 1, flush)}
+    del flush
+    said = (f"on the first rank's own inputs, CUDA-event medians after an L2 flush: NMS "
+            f"{scores.shape[0]} x {scores.shape[1]} -> {max_out} (thr {thr}) equal to the plain "
+            f"NMS, {nms_row['ms']:.4f} ms (plain {nms_row['plain_ms']:.4f}, bound "
+            f"{nms_row['bound_ms']:.4f}); RoIAlign forward R={rois.shape[0]} res {res} C="
+            f"{feats[0].shape[-1]} ({feats[0].dtype}) bit-equal, {fwd_row['ms']:.4f} ms (plain "
+            f"{fwd_row['plain_ms']:.4f}, bound {fwd_row['bound_ms']:.4f}); backward at float32 "
+            f"{bwd_err:.3e} of max {ref_max:.3e}, {bwd_row['ms']:.4f} ms (plain "
+            f"{bwd_row['plain_ms']:.4f}, bound {bwd_row['bound_ms']:.4f})")
+    return nms_row, fwd_row, bwd_row, said
+
+
+def _one_process_first_counts(torch, argv):
+    """One process's first iteration of train_net's R-CNN step on ``argv``'s
+    configuration, made as train_model makes it (the model from RNG_SEED, the
+    loader's first batch, the sampler seeded for iteration 0), forward only,
+    on PyTorch's own convolutions: its per-group counts (G,) by name."""
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.tools.train_net import parse_args
+    from sad_tpu_torch.train import batch_to_torch, make_rcnn_train_step
+    from sad_tpu_torch.train.train_loop import _make_loader, rcnn_step_seed
+
+    args = parse_args(argv)
+    cfg = load_cfg(args.cfg_file, args.opts)
+    dev = torch.device("cuda")
+    model = create_model(cfg, dev, torch.Generator(device=dev).manual_seed(cfg.RNG_SEED))
+    step = make_rcnn_train_step(cfg, model, generator=torch.Generator(device=dev).manual_seed(
+        rcnn_step_seed(cfg, 0)))
+    loader = _make_loader(cfg, None, False, True, 0)
+    try:
+        batch = loader.get_next_batch()
+    finally:
+        loader.shutdown()
+    torch.backends.cudnn.enabled = False
+    try:
+        with torch.no_grad():
+            step.losses(batch_to_torch(batch, dev))
+    finally:
+        torch.backends.cudnn.enabled = True
+    counts = {k: v.cpu().numpy() for k, v in step.counts.items()}
+    del step, model
+    return counts
+
+
+def phase_span_train_loop(torch, data_root, iters, warmup, gpu):
+    """[span_train_loop]: train_net with the Mask R-CNN R-50-FPN YAML over
+    smoke_lab on 4 ranks as 2 nodes x 2 (torchrun's environment through
+    spawn(nodes=2)), NUM_GPUS = 2, TRAIN.IMS_PER_BATCH = 2: 4 images, one a
+    rank, each R-CNN loss group over a node's two ranks (the loop builds
+    create_multislice_mesh()). SPAN_LOOP_ITERS iterations with a snapshot
+    after iteration SPAN_SNAP, at float32 with TF32 off on PyTorch's own
+    convolutions (an image's forward then does not depend on the batch
+    beside it, so the counts can be held exactly; deterministic besides);
+    then, in the same world, a 4-rank run resumed in a fresh directory from
+    that snapshot; and meanwhile in this process one process's first
+    iteration
+    (``_one_process_first_counts``). Only rank 0's files; the ranks
+    bit-equal; the resumed run bit-equal to the uninterrupted one; each
+    rank's launches NMS 1, RoIAlign forward 3 and backward 2 a step; the
+    first step's per-group counts equal to one process's exactly. Then the
+    kernels on the first rank's own inputs (``_span_kernel_rows``)."""
+    import tempfile
+
+    from sad_tpu_torch.parallel.launch import spawn
+    from sad_tpu_torch.tools import profile_ddp, profile_spatial
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    backend, local, note = profile_ddp.card_layout(4)
+    _smoke_coco(data_root, 0)
+    tmp = tempfile.mkdtemp(prefix="span_train_loop_", dir=data_root)
+    regs = [_spec("smoke_lab")]
+    n_iter, snap = SPAN_LOOP_ITERS, SPAN_SNAP
+
+    def argv(out_dir, max_iter):
+        # a snapshot every (SNAPSHOT_ITERS / NUM_GPUS) = SPAN_SNAP + 1 iterations
+        return ["--cfg", os.path.join(REPO, MASK_CFG), "--skip-test"] + _loop_opts(
+            out_dir, "NUM_GPUS", "2", "TRAIN.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER",
+            str(max_iter), "TRAIN.SNAPSHOT_ITERS", str(2 * (snap + 1)),
+            "DATA_LOADER.NUM_PROCESSES", "0", "DATA_LOADER.NUM_THREADS", "2",
+            "COMPUTE_DTYPE", "float32")
+
+    def cli(out_dir, **kw):
+        return ("cli", {"tool": "train_net", "argv": argv(out_dir, n_iter), "datasets": regs,
+                        "deterministic": True, "cudnn": False, **kw})
+
+    whole_dir, resumed_dir = os.path.join(tmp, "whole"), os.path.join(tmp, "resumed")
+    # one world: the uninterrupted run, then (rank 0 having copied its snapshot into a fresh
+    # directory) the resumed one; meanwhile this process runs one process's first iteration
+    jobs = [cli(whole_dir, capture=True),
+            cli(resumed_dir, seed_files=[(os.path.join(_run_dir(whole_dir),
+                                                       f"model_iter{snap}.pkl"),
+                                          _run_dir(resumed_dir))])]
+    with ThreadPoolExecutor(1) as pool:
+        ts = time.perf_counter()
+        world_f = pool.submit(spawn, profile_spatial.rank_jobs, 4, (jobs,), device="cuda",
+                              backend=backend, local_ranks=local, nodes=2,
+                              timeout_s=DDP_TIMEOUT_S, log_prefix=os.path.join(tmp, "ranks"))
+        counts = _one_process_first_counts(torch, argv(os.path.join(tmp, "one"), 1))
+        one_s = time.perf_counter() - ts
+        out = world_f.result()
+        world_s = time.perf_counter() - ts
+    whole, resumed = [r[0] for r in out], [r[1] for r in out]
+    lines = _check_run_files("span_train_loop", whole_dir, (snap,))
+    if [ln["iter"] for ln in lines] != [0, n_iter - 1] or "loss_mask" not in lines[-1]:
+        raise AssertionError(f"span_train_loop: stats.jsonl {lines}")
+    bad = []
+    for r in whole + resumed:
+        la, steps = r["launches"], r["iters"]
+        got = (la["nms"], la["roi_align_fwd"], la["roi_align_bwd"], la["cls_fwd"])
+        if got != (steps, 3 * steps, 2 * steps, 0):
+            bad.append(f"rank {r['rank']} launches {got} in {steps} steps")
+    if [(r["start_iter"], r["iters"]) for r in resumed] != [(snap + 1, n_iter - snap - 1)] * 4:
+        bad.append(f"resumed at {[(r['start_iter'], r['iters']) for r in resumed]}")
+    for group in (whole, resumed):
+        for r in group[1:]:
+            for tree in ("params", "velocity"):
+                if any(not np.array_equal(v, group[0][tree][k]) for k, v in r[tree].items()):
+                    bad.append(f"rank {r['rank']} {tree} differ from rank 0's")
+    for a, b in zip(whole, resumed):
+        for tree in ("params", "velocity"):
+            differ = [k for k, v in a[tree].items() if not np.array_equal(v, b[tree][k])]
+            if differ:
+                bad.append(f"rank {a['rank']}: resumed {tree} differ, e.g. {differ[:2]}")
+    if sorted(counts) != ["box", "live", "mask"]:
+        bad.append(f"one process's counts {sorted(counts)}")
+    for r in whole:
+        if sorted(r["first_counts"]) != sorted(counts) or any(
+                not np.array_equal(r["first_counts"][k], v) for k, v in counts.items()):
+            bad.append(f"rank {r['rank']} first-step counts {r['first_counts']} != one "
+                       f"process's {counts}")
+    if bad:
+        raise AssertionError("span_train_loop: " + "; ".join(bad))
+    nms_row, fwd_row, bwd_row, said = _span_kernel_rows(torch, whole[0]["captured"], iters, warmup)
+    iter_ms = [statistics.median(r["iter_ms"][1:]) for r in whole]
+    per_step = {k[:-6]: v / n_iter for k, v in whole[0]["reduction_bytes"].items() if v}
+    _phase("span_train_loop", f"{note}, as 2 nodes x 2 (torchrun's environment); train_net "
+           f"{MASK_CFG} over smoke_lab, NUM_GPUS = 2, bs 4 (one image a rank, each loss group "
+           f"over a node's two ranks), {n_iter} iterations at float32 on PyTorch's own "
+           f"convolutions (TF32 and cuDNN off): files "
+           f"{sorted(os.listdir(_run_dir(os.path.join(tmp, 'whole'))))} (rank 0's only; loss "
+           f"{lines[0]['loss']:.4f} -> {lines[-1]['loss']:.4f}, loss_mask "
+           f"{lines[-1]['loss_mask']:.4f}), the ranks' parameters and momenta bit-equal, a "
+           f"4-rank run resumed from model_iter{snap}.pkl in a fresh directory bit-identical; "
+           f"launches on every rank NMS 1, RoIAlign forward 3 and backward 2 a step; the first "
+           f"step's global per-group counts (box {counts['box'].tolist()}, live "
+           f"{counts['live'].tolist()}, mask {counts['mask'].tolist()}) equal to one process's "
+           f"exactly on every rank; bytes a step on the first rank: "
+           + ", ".join(f"{k} {v / 1e6:.1f} MB" if v > 1e4 else f"{k} {v:.0f} B"
+                       for k, v in per_step.items())
+           + f"; iteration ms by rank {_fmt(iter_ms)} (medians after the "
+           f"first); the world (start, the run, the resumed run) {world_s:.1f} s, one "
+           f"process's first iteration beside it {one_s:.1f} s (loader threads, no worker "
+           f"processes); {said}; "
+           f"{gpu}", time.perf_counter() - t0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": [r["launches"] for r in whole], "nms": nms_row, "fwd": fwd_row,
+            "bwd": bwd_row, "bytes_per_step": per_step}
 
 
 def _spec(name):
@@ -4663,7 +5124,7 @@ def phase_ddp_test_net(torch, seed, data_root, state, gpu):
     from sad_tpu_torch.data.dataset import CocoDataset
     from sad_tpu_torch.models import create_model
     from sad_tpu_torch.parallel.launch import spawn
-    from sad_tpu_torch.tools import profile_ddp, test_net
+    from sad_tpu_torch.tools import profile_spatial, test_net
     from sad_tpu_torch.train.checkpoint import save_checkpoint
 
     t0 = time.perf_counter()
@@ -4680,27 +5141,31 @@ def phase_ddp_test_net(torch, seed, data_root, state, gpu):
     runs = {"eval": ([], []),
             "pseudo": (["--pseudo-out", "{}/pseudo.json", "--pseudo-score-thresh", "0.0"],
                        ["TEST.DETECTIONS_PER_IM", "10"])}
-    out, timing, launches = {}, {}, {}
+    out, argvs, timing, one_launches = {}, {}, {}, {}
     for key, (flags, opts) in runs.items():
         for n in (1, world):
             d = os.path.join(tmp, f"{key}{n}")
-            argv = (["--cfg", os.path.join(REPO, STUDENT_CFG), "--weights", pkl]
-                    + [a.format(d) for a in flags] + (["--multi-gpu-testing"] if n > 1 else [])
-                    + ["TEST.DATASETS", "('smoke_val',)", "COMPUTE_DTYPE", "float32", *opts,
-                       "OUTPUT_DIR", d])
-            ts = time.perf_counter()
-            if n == 1:
-                # the one process runs here: its counts set to 0 just before, read just after
-                _reset_counts()
-                test_net.main(argv)
-                one_launches = _all_counts()
-            else:
-                ranks = spawn(profile_ddp.rank_cli, world, ("test_net", argv, [_spec("smoke_val")]),
-                              device="cuda", backend=backend, local_ranks=local,
-                              timeout_s=DDP_TIMEOUT_S, log_prefix=os.path.join(tmp, key))
-                launches[key] = [r["launches"]["nms"] for r in ranks]
-            timing[(key, n)] = time.perf_counter() - ts
+            argvs[(key, n)] = (
+                ["--cfg", os.path.join(REPO, STUDENT_CFG), "--weights", pkl]
+                + [a.format(d) for a in flags] + (["--multi-gpu-testing"] if n > 1 else [])
+                + ["TEST.DATASETS", "('smoke_val',)", "COMPUTE_DTYPE", "float32", *opts,
+                   "OUTPUT_DIR", d])
             out[(key, n)] = d
+    for key in runs:
+        # the one process runs here: its counts set to 0 just before, read just after
+        ts = time.perf_counter()
+        _reset_counts()
+        test_net.main(argvs[(key, 1)])
+        one_launches[key] = _all_counts()
+        timing[key] = time.perf_counter() - ts
+    # one world of W ranks runs both
+    jobs = [("cli", {"tool": "test_net", "argv": argvs[(key, world)],
+                     "datasets": [_spec("smoke_val")]}) for key in runs]
+    ts = time.perf_counter()
+    ranks = spawn(profile_spatial.rank_jobs, world, (jobs,), device="cuda", backend=backend,
+                  local_ranks=local, timeout_s=DDP_TIMEOUT_S, log_prefix=os.path.join(tmp, "ranks"))
+    world_s = time.perf_counter() - ts
+    launches = {key: [r[i]["launches"]["nms"] for r in ranks] for i, key in enumerate(runs)}
     sub = os.path.join("test", "smoke_val")
     got = _read_json(os.path.join(out[("eval", world)], sub, "bbox_results.json"))
     want = _read_json(os.path.join(out[("eval", 1)], sub, "bbox_results.json"))
@@ -4722,7 +5187,7 @@ def phase_ddp_test_net(torch, seed, data_root, state, gpu):
         raise AssertionError(f"ddp_test_net: NMS launches by rank {launches}, want {want_nms}")
     n_l = sum(e["width"] >= e["height"] for e in roidb)
     want_one = (-(-n_l // 8) + -(-(len(roidb) - n_l) // 8), 0, 0, 0, 0)
-    if one_launches != want_one:
+    if any(v != want_one for v in one_launches.values()):
         raise AssertionError(f"ddp_test_net: the one process launched {one_launches}, want "
                              f"{want_one} (NMS one a batch)")
     t_w = _read_json(os.path.join(out[("eval", world)], sub, "timing.json"))
@@ -4741,10 +5206,11 @@ def phase_ddp_test_net(torch, seed, data_root, state, gpu):
            f"results.json within {d_ap:.2e}; --pseudo-out: {len(p_got['annotations'])} "
            f"annotations, ids equal, {stats['pseudo.json']['moved']} moved; NMS launches by rank {launches['eval']} (one a batch of the shard); rank "
            f"walls {_fmt(t_w['rank_wall'])} s for {t_w['rank_images']} images; command seconds "
-           f"one process {timing[('eval', 1)]:.1f}, {world} ranks {timing[('eval', world)]:.1f} "
-           f"(with their start); {gpu}", time.perf_counter() - t0)
+           f"one process {timing['eval']:.1f} (and {timing['pseudo']:.1f} the --pseudo-out run), "
+           f"the world of {world} ranks (start, both runs) {world_s:.1f}; {gpu}",
+           time.perf_counter() - t0)
     return {"launches": launches["eval"], "pseudo_launches": launches["pseudo"],
-            "one_launches": one_launches}
+            "one_launches": one_launches["pseudo"]}
 
 
 def phase_ddp_train_loop(torch, data_root, state, gpu):
@@ -4760,7 +5226,7 @@ def phase_ddp_train_loop(torch, data_root, state, gpu):
     from sad_tpu_torch.config import load_cfg
     from sad_tpu_torch.config.config import cfg_to_yaml
     from sad_tpu_torch.parallel.launch import spawn
-    from sad_tpu_torch.tools import profile_ddp
+    from sad_tpu_torch.tools import profile_spatial
     from sad_tpu_torch.tools.profile_train import BENCH_OPTS
 
     t0 = time.perf_counter()
@@ -4782,26 +5248,26 @@ def phase_ddp_train_loop(torch, data_root, state, gpu):
             "DISTILLATION.UNLABEL_DATASETS", "('smoke_ddp_pl',)", "SOLVER.MAX_ITER",
             str(max_iter), "DATA_LOADER.NUM_PROCESSES", str(DDP_LOOP_WORKERS))
 
-    def ranks(out_dir, key):
-        return spawn(profile_ddp.rank_cli, world, ("train_net", argv(out_dir), regs, True),
-                     device="cuda", backend=backend, local_ranks=local, timeout_s=DDP_TIMEOUT_S,
-                     log_prefix=os.path.join(tmp, key))
-
+    whole_dir, resumed_dir = os.path.join(tmp, "whole"), os.path.join(tmp, "resumed")
+    # one world: the uninterrupted run, then the resumed one (rank 0 having copied the
+    # snapshot into a fresh directory)
+    jobs = [("cli", {"tool": "train_net", "argv": argv(whole_dir), "datasets": regs,
+                     "deterministic": True}),
+            ("cli", {"tool": "train_net", "argv": argv(resumed_dir), "datasets": regs,
+                     "deterministic": True, "seed_files": [(os.path.join(
+                         _run_dir(whole_dir), f"model_iter{snap}.pkl"), _run_dir(resumed_dir))]})]
     ts = time.perf_counter()
-    whole = ranks(os.path.join(tmp, "whole"), "whole")
-    whole_s = time.perf_counter() - ts
-    files = sorted(os.listdir(_run_dir(os.path.join(tmp, "whole"))))
+    out = spawn(profile_spatial.rank_jobs, world, (jobs,), device="cuda", backend=backend,
+                local_ranks=local, timeout_s=DDP_TIMEOUT_S, log_prefix=os.path.join(tmp, "ranks"))
+    world_s = time.perf_counter() - ts
+    whole, resumed = [r[0] for r in out], [r[1] for r in out]
+    files = sorted(os.listdir(_run_dir(whole_dir)))
     want = ["cfg.yaml", "model_final.pkl", f"model_iter{snap}.pkl", "stats.jsonl"]
     if files != want:
         raise AssertionError(f"ddp_train_loop: run files {files}, want {want} (rank 0's only)")
-    lines = _check_run_files("ddp_train_loop", os.path.join(tmp, "whole"), (snap,))
+    lines = _check_run_files("ddp_train_loop", whole_dir, (snap,))
     if [ln["iter"] for ln in lines] != [0, max_iter - 1]:
         raise AssertionError(f"ddp_train_loop: stats.jsonl iterations {[ln['iter'] for ln in lines]}")
-    resumed_dir = os.path.join(tmp, "resumed")
-    os.makedirs(_run_dir(resumed_dir))
-    shutil.copy(os.path.join(_run_dir(os.path.join(tmp, "whole")), f"model_iter{snap}.pkl"),
-                _run_dir(resumed_dir))
-    resumed = ranks(resumed_dir, "resumed")
     bad = []
     n_rank = 8 // world
     rows = sorted(n_rank * h * w * 9 for h, w in LEVEL_HW.values())
@@ -4836,8 +5302,8 @@ def phase_ddp_train_loop(torch, data_root, state, gpu):
            f"backward a level a step on every rank at its rows, the ranks' parameters and momenta "
            f"bit-equal; a {world}-rank run resumed in a fresh directory from model_iter{snap}.pkl "
            f"ends bit-identical on every rank; iteration ms by rank {_fmt(iter_ms)} (medians), "
-           f"process CPU ms an iteration {_fmt(cpu_ms, 1)}; the uninterrupted command "
-           f"{whole_s:.1f} s with the ranks' start; {gpu}", time.perf_counter() - t0)
+           f"process CPU ms an iteration {_fmt(cpu_ms, 1)}; the world (start, the run, the "
+           f"resumed run) {world_s:.1f} s; {gpu}", time.perf_counter() - t0)
     shutil.rmtree(tmp, ignore_errors=True)
     return {"launches": [(r["launches"]["cls_fwd"], r["launches"]["cls_bwd"]) for r in whole]}
 
@@ -4928,6 +5394,10 @@ PARTIAL = {
                                                                a.iters, a.warmup, a.gpu),
     "spatial_joint_step": lambda torch, a, rng: phase_spatial_joint_step(
         torch, a.seed + 30, a.iters, a.warmup, a.gpu),
+    "multislice_joint_step": lambda torch, a, rng: phase_multislice_joint_step(
+        torch, a.seed + 30, a.iters, a.warmup, a.gpu),
+    "span_train_loop": lambda torch, a, rng: phase_span_train_loop(
+        torch, a.loop_data, a.iters, a.warmup, a.gpu),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -4960,12 +5430,19 @@ def main(argv=None) -> int:
         return 3
     import tempfile
 
+    adopted = _adopt_orphans()
     # the workflow phases' synthetic COCO and runs, removed at the end
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as loop_data:
         args.loop_data = loop_data
         args.batch_imgs = {}  # the serving phases' imgs/s, printed beside test_net's
         args.ddp = {}  # ddp_test_net's pseudo-labels, which ddp_train_loop trains on
-        return _main(torch, args)
+        try:
+            return _main(torch, args)
+        finally:
+            # every process the run started is ended before it returns
+            left = _end_descendants()
+            print(f"chip_smoke: {len(left)} processes still ran at the end (subreaper "
+                  f"{'on' if adopted else 'off'}), ended: {left}", file=sys.stderr, flush=True)
 
 
 def _main(torch, args) -> int:
@@ -5142,6 +5619,11 @@ def _main(torch, args) -> int:
     # this process only the kernel rows' comparisons launch, after them
     sp_infer = PARTIAL["spatial_infer"](torch, args, rng)
     sp_step = PARTIAL["spatial_joint_step"](torch, args, rng)
+    # the multislice mesh and R-CNN loss groups over ranks: the same, each rank
+    # setting its counts to 0 just before its main path and reading them just after
+    ms_step = phase_multislice_joint_step(torch, args.seed + 30, args.iters, args.warmup,
+                                          args.gpu, one=sp_step["one"])
+    span = PARTIAL["span_train_loop"](torch, args, rng)
 
     nms_entry = {
         "route": "cuda",
@@ -5411,6 +5893,38 @@ def _main(torch, args) -> int:
         "launches": sp_step["launches"][0][1],
         "ranks_launches": [b for _, b in sp_step["launches"]], **sp_step["bwd"],
         "library_ms": None,
+    }, {
+        # the joint step on the multislice mesh (4 ranks as 2 nodes): a rank's P3 (one image,
+        # 92,160 rows x 80, G = its image), on the first rank's own inputs; launches: each
+        # rank's at that shape
+        "name": "cls_losses_fwd@multislice_p3", "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:152 (_fwd_kernel) and :284 (_fwd_kernel_aligned)",
+        "launches": ms_step["launches"][0][0],
+        "ranks_launches": [f for f, _ in ms_step["launches"]], **ms_step["fwd"],
+        "library_ms": None,
+    }, {
+        "name": "cls_losses_bwd@multislice_p3", "route": "cuda",
+        "source": "sad_tpu_torch/csrc/cls_losses.cu",
+        "replaces": "sad_tpu/ops/pallas_losses.py:214 (_bwd_kernel) and :320 (_bwd_kernel_aligned)",
+        "launches": ms_step["launches"][0][1],
+        "ranks_launches": [b for _, b in ms_step["launches"]], **ms_step["bwd"],
+        "library_ms": None,
+    }, {
+        # train_net's Mask R-CNN over 4 ranks as 2 nodes, one image a rank: the first rank's
+        # training RPN (5 problems -> 2000, thr 0.7), its box rois' RoIAlign forward and its
+        # backward, on its own first-step inputs; launches: the first rank's over its
+        # iterations, each rank's beside
+        "name": "nms@span_rpn", "launches": span["launches"][0]["nms"],
+        "ranks_launches": [la["nms"] for la in span["launches"]], **span["nms"], **nms_entry,
+    }, {
+        "name": "roi_align_fwd@span", "launches": span["launches"][0]["roi_align_fwd"],
+        "ranks_launches": [la["roi_align_fwd"] for la in span["launches"]], **span["fwd"],
+        **roi_entry,
+    }, {
+        "name": "roi_align_bwd@span", "launches": span["launches"][0]["roi_align_bwd"],
+        "ranks_launches": [la["roi_align_bwd"] for la in span["launches"]], **span["bwd"],
+        **roi_bwd_entry,
     }, {
         # the R-101 <- X-101 joint step at scale 500: P3 at 516,096 rows; "levels" as above
         "name": "cls_losses_fwd@500",

@@ -126,13 +126,16 @@ class RankShard:
     its band of rows of each canvas and of each level's targets, and the
     canvas height as ``canvas_h``. The batch's seed and per-image draws stay
     the whole batch's, and fg_num is taken over whole images: the ranks'
-    bands, joined by rows, are the data shard's batch."""
+    bands, joined by rows, are the data shard's batch. A block that cuts a
+    loss group carries its per-image fg counts (``fg_img``) in place of
+    fg_num, which the mesh step adds into their groups over the ranks."""
 
     def __init__(self, builder, rank: int, world: int, n_model: int = 1):
         if n_model > 1 and not isinstance(builder, RetinaNetMinibatchBuilder):
             raise NotImplementedError(
                 f"{type(builder).__name__} on a mesh with n_model > 1: height-sharded R-CNN "
-                "batches are not ported (ROADMAP.md item 7b)")
+                "batches are not ported; no sad_tpu path runs an R-CNN model under "
+                "spatial_sharding (ROADMAP.md \"Not ported\", after item 7b)")
         self.builder, self.rank, self.world, self.n_model = builder, rank, world, n_model
 
     def canvas_for(self, entry: dict):

@@ -229,20 +229,26 @@ class RetinaNetBatch:
     labels: Dict[int, np.ndarray]
     bbox_targets: Dict[int, np.ndarray]
     fg_mask: Dict[int, np.ndarray]
-    fg_num: np.ndarray
+    fg_num: Optional[np.ndarray]  # (G,) per-group fg counts; None when fg_img holds them
     im_hw: np.ndarray  # (B, 2) original sizes (for inference/debug)
     im_scale: np.ndarray  # (B,)
     data_u8: Optional[np.ndarray] = None  # (B,H,W,3) uint8 shared canvas
     content_hw: Optional[np.ndarray] = None  # (B,2) resized content extents
     canvas_h: Optional[int] = None  # the canvas height, when the arrays are bands of rows
+    # (B,) per-image fg counts of a rank's block that cuts a loss group: each
+    # its part of its group's count, summed over the ranks by the mesh step
+    fg_img: Optional[np.ndarray] = None
 
     def as_pytree(self) -> Dict:
         d = {
             "labels": self.labels,
             "bbox_targets": self.bbox_targets,
             "fg_mask": self.fg_mask,
-            "fg_num": self.fg_num,
         }
+        if self.fg_num is not None:
+            d["fg_num"] = self.fg_num
+        if self.fg_img is not None:
+            d["fg_img"] = self.fg_img
         if self.data_u8 is not None:
             d["data_u8"] = self.data_u8
             d["content_hw"] = self.content_hw
@@ -300,7 +306,9 @@ class RetinaNetMinibatchBuilder:
     ) -> RetinaNetBatch:
         """entries must share one canvas orientation (aspect grouping).
         ``rows`` = (start, stop): build only those images of the batch (a
-        rank's share), as the whole batch's build would make them."""
+        rank's share), as the whole batch's build would make them; a share
+        that cuts a loss group (TRAIN.IMS_PER_BATCH images) carries its
+        per-image fg counts as ``fg_img`` in place of ``fg_num``."""
         cfg = self.cfg
         # per-image random scale index (ref: roi_data/minibatch.py:48-53
         # _get_image_blob samples scale_inds per image)
@@ -317,8 +325,8 @@ class RetinaNetMinibatchBuilder:
         ch, cw = canvas
         n = len(entries)
         ims_per_group = cfg.TRAIN.IMS_PER_BATCH
-        assert n % ims_per_group == 0, (n, ims_per_group)
-        n_groups = n // ims_per_group
+        split = rows is not None and bool(rows[0] % ims_per_group or n % ims_per_group)
+        assert split or n % ims_per_group == 0, (n, ims_per_group)
 
         dev_norm = self.device_normalize
         if dev_norm:
@@ -418,14 +426,16 @@ class RetinaNetMinibatchBuilder:
                 bbox_targets[lvl][i] = tt[:h_l, :w_l]
                 fg_mask[lvl][i] = mm[:h_l, :w_l]
 
-        fg_num = fg_per_image.reshape(n_groups, ims_per_group).sum(axis=1)
+        fg_num = None if split else (
+            fg_per_image.reshape(-1, ims_per_group).sum(axis=1).astype(np.float32))
         return RetinaNetBatch(
             data=data,
             teacher_data=teacher_data,
             labels=labels,
             bbox_targets=bbox_targets,
             fg_mask=fg_mask,
-            fg_num=fg_num.astype(np.float32),
+            fg_num=fg_num,
+            fg_img=fg_per_image.astype(np.float32) if split else None,
             im_hw=im_hw,
             im_scale=im_scales,
             data_u8=data_u8,

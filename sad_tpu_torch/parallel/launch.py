@@ -7,10 +7,12 @@ Ranks run on the card unless ``device="cpu"`` asks for the CPU: with the
 default ``cuda`` on a host without one, ``spawn`` raises before it starts a
 rank.
 
-Each rank process gets torchrun's RANK / WORLD_SIZE / LOCAL_RANK in its
-environment, joins a process group that meets through a ``file://`` store
-in a fresh temporary directory (no port, so runs side by side cannot
-collide), calls ``fn(*args)`` and hands its return value back through a
+Each rank process gets torchrun's RANK / WORLD_SIZE / LOCAL_RANK /
+LOCAL_WORLD_SIZE / GROUP_RANK in its environment, as ``torchrun --nnodes N
+--nproc_per_node W / N`` gives them with ``nodes=N`` (LOCAL_RANK r % (W / N),
+GROUP_RANK r // (W / N)): one host stands in for N nodes. It joins a
+process group that meets through a ``file://`` store in a fresh temporary
+directory (no port, so runs side by side cannot collide), calls ``fn(*args)`` and hands its return value back through a
 file. ``fn`` must be importable by name (a module-level function): ranks
 start with the 'spawn' method. A rank that raises, dies, or outlives the
 timeout fails the whole run: the others are terminated (a rank waiting in a
@@ -19,8 +21,8 @@ each failed rank's traceback. Every process it starts is ended before it
 returns: a rank leads a process group of its own, which also holds the
 processes it starts (the loader's workers), and the whole group is ended.
 
-``local_ranks`` maps ranks to cards: by default rank r uses ``cuda:r``; two
-ranks that share one card (``local_ranks=[0, 0]``) must use gloo, since
+``local_ranks`` maps ranks to cards, whatever the nodes: by default rank r
+uses ``cuda:r``; two ranks that share one card (``local_ranks=[0, 0]``) must use gloo, since
 NCCL refuses two ranks on one device. With ``log_prefix`` each rank's
 standard output and error go to ``<log_prefix>.rank<r>.log``, whose tail a
 failure quotes.
@@ -44,7 +46,8 @@ _TERM_S = 5.0
 
 def _rank_main(rank: int, world: int, local_rank: int, backend: Optional[str],
                init_method: str, device: str, fn: Callable, args: tuple,
-               out_path: str, threads: Optional[int], log_path: Optional[str]) -> None:
+               out_path: str, threads: Optional[int], log_path: Optional[str],
+               nodes: int = 1) -> None:
     os.setpgid(0, 0)
     # a terminated rank unwinds (the loader shuts its workers down)
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
@@ -53,7 +56,9 @@ def _rank_main(rank: int, world: int, local_rank: int, backend: Optional[str],
         os.dup2(fd, 1)
         os.dup2(fd, 2)
         os.close(fd)
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank))
+    per = world // nodes
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank % per),
+                      LOCAL_WORLD_SIZE=str(per), GROUP_RANK=str(rank // per))
     try:
         import torch
 
@@ -104,10 +109,11 @@ def _end(procs) -> None:
 def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda",
           backend: Optional[str] = None, local_ranks: Optional[Sequence[int]] = None,
           timeout_s: float = 120.0, threads: Optional[int] = None,
-          log_prefix: Optional[str] = None) -> List[Any]:
+          log_prefix: Optional[str] = None, nodes: int = 1) -> List[Any]:
     """``fn(*args)`` on ranks 0..world-1; their return values in rank order.
     ``device`` ('cpu' or 'cuda') picks each rank's device and the default
-    backend (gloo, NCCL); ``threads`` sets torch's intra-op threads a rank."""
+    backend (gloo, NCCL); ``threads`` sets torch's intra-op threads a rank;
+    ``nodes`` the nodes the ranks' environment describes."""
     import multiprocessing as mp
 
     from ..device import get_device
@@ -117,6 +123,8 @@ def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda",
     local_ranks = list(range(world)) if local_ranks is None else list(local_ranks)
     if len(local_ranks) != world:
         raise ValueError(f"{len(local_ranks)} local ranks for a world of {world}")
+    if nodes < 1 or world % nodes:
+        raise ValueError(f"{nodes} nodes do not divide a world of {world}")
     tmp = tempfile.mkdtemp(prefix="sad_tpu_torch_ranks_")
     init_method = "file://" + os.path.join(tmp, "store")
     ctx = mp.get_context("spawn")
@@ -127,7 +135,7 @@ def spawn(fn: Callable, world: int, args: tuple = (), *, device: str = "cuda",
         for r in range(world):
             p = ctx.Process(target=_rank_main, name=f"rank{r}", args=(
                 r, world, local_ranks[r], backend, init_method, device, fn, args, paths[r],
-                threads, logs[r]))
+                threads, logs[r], nodes))
             p.start()
             procs.append(p)
         deadline = time.monotonic() + timeout_s

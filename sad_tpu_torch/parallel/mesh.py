@@ -1,5 +1,5 @@
-"""A 2-D mesh of ranks, ('data', 'model') (ref: sad_tpu/parallel/mesh.py:31-43,
-66-111).
+"""A 2-D mesh of ranks, ('data', 'model'), and the multislice mesh,
+('dcn', 'data', 'model') (ref: sad_tpu/parallel/mesh.py:31-111).
 
 sad_tpu lays its devices out as ``reshape(n_data, n_model)`` and shards a
 batch's images over 'data' and their HEIGHT over 'model'; XLA splits every
@@ -17,6 +17,19 @@ The process groups: one model group for each data index (the ranks that
 hold bands of the same images: halo exchanges and gathers), one data group
 for each model index. Every rank creates all of them, in the same order, as
 ``dist.new_group`` requires. Without a process group the mesh is 1 x 1.
+
+The multislice mesh (``create_multislice_mesh``, sad_tpu's replacement for
+the reference's multi-node data_parallel_model and Gloo rendezvous) splits
+the data ranks into ``n_slices`` slices, the nodes of a ``torchrun --nnodes
+N`` job: rank r sits in slice r // L (L ranks a slice) at local index
+r % L, with n_model = 1. Its data index over ('dcn', 'data') is r itself,
+as sad_tpu's batch_sharding shards over both axes, so ``shard_batch_tree``
+cuts the blocks of ``create_mesh(W)``. Its groups add a node group for each
+slice and a cross-node group for each local index, over which
+distributed.all_reduce_grads sums in two levels: within the node, then
+across nodes. With one slice it is ``create_mesh(W)``.
+
+    mesh = create_multislice_mesh()           # the nodes of torchrun's job
 """
 
 from __future__ import annotations
@@ -45,7 +58,8 @@ def row_band(n_rows: int, parts: int, index: int) -> Tuple[int, int]:
 
 @dataclass
 class Mesh:
-    """(n_data, n_model) ranks; this rank's place and its groups."""
+    """(n_data, n_model) ranks, the data ranks in ``n_slices`` slices; this
+    rank's place and its groups."""
 
     n_data: int
     n_model: int
@@ -53,6 +67,9 @@ class Mesh:
     backend: Optional[str] = None
     model_groups: List[Any] = field(default_factory=list, repr=False)
     data_groups: List[Any] = field(default_factory=list, repr=False)
+    n_slices: int = 1
+    node_groups: List[Any] = field(default_factory=list, repr=False)
+    cross_groups: List[Any] = field(default_factory=list, repr=False)
 
     @property
     def world(self) -> int:
@@ -85,6 +102,29 @@ class Mesh:
         """The first rank of its model group (the one that decodes)."""
         return self.model_index == 0
 
+    @property
+    def per_slice(self) -> int:
+        """Ranks a slice (a node's LOCAL_WORLD_SIZE)."""
+        return self.world // self.n_slices
+
+    @property
+    def slice_index(self) -> int:
+        return self.rank // self.per_slice
+
+    @property
+    def local_index(self) -> int:
+        return self.rank % self.per_slice
+
+    @property
+    def node_group(self):
+        """The group of this rank's slice (node)."""
+        return self.node_groups[self.slice_index] if self.node_groups else None
+
+    @property
+    def cross_group(self):
+        """The group of the ranks at this rank's local index on every node."""
+        return self.cross_groups[self.local_index] if self.cross_groups else None
+
     def band(self, n_rows: int, index: Optional[int] = None) -> Tuple[int, int]:
         """This rank's rows (or model index ``index``'s) of a level of
         ``n_rows`` rows."""
@@ -106,12 +146,45 @@ def create_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
                              for d in range(n_data)]
         mesh.data_groups = [dist.new_group([d * n_model + m for d in range(n_data)])
                             for m in range(n_model)]
-        if info.backend == "nccl":
-            # a collective first on each of this rank's groups: NCCL's
-            # point-to-point calls want their communicator made by one
-            dev = torch.device("cuda", torch.cuda.current_device())
-            for g in (mesh.model_group, mesh.data_group):
-                dist.all_reduce(torch.zeros(1, device=dev), group=g)
+        _warm(mesh, (mesh.model_group, mesh.data_group))
+    return mesh
+
+
+def _warm(mesh: Mesh, groups) -> None:
+    """Under NCCL a collective first on each of this rank's ``groups``:
+    NCCL's point-to-point calls want their communicator made by one."""
+    if mesh.backend == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        for g in groups:
+            dist.all_reduce(torch.zeros(1, device=dev), group=g)
+
+
+def slice_groups(world: int, n_slices: int) -> Tuple[List[List[int]], List[List[int]]]:
+    """The ranks of each node group (slice s: [s L, (s + 1) L)) and of each
+    cross-node group (local index i: {i, L + i, ...}) of ``world`` ranks in
+    ``n_slices`` slices of L; raises unless n_slices divides the world."""
+    if n_slices < 1 or world % n_slices:
+        raise ValueError(f"{n_slices} slices do not divide {world} ranks")
+    per = world // n_slices
+    return ([list(range(s * per, (s + 1) * per)) for s in range(n_slices)],
+            [[s * per + i for s in range(n_slices)] for i in range(per)])
+
+
+def create_multislice_mesh(n_slices: Optional[int] = None) -> Mesh:
+    """The ('dcn', 'data', 'model') mesh over the process group's world
+    (ref: sad_tpu/parallel/mesh.py:46-63): ``n_slices`` slices (the nodes of
+    torchrun's job by default, ``DistInfo.nodes``) of world / n_slices data
+    ranks each, n_model = 1; raises unless n_slices divides the world
+    (sad_tpu's assert, :61). Collective: every rank calls it."""
+    info = current()
+    n_slices = info.nodes if n_slices is None else n_slices
+    nodes, crosses = slice_groups(info.world, n_slices)
+    mesh = create_mesh(info.world, 1)
+    mesh.n_slices = n_slices
+    if n_slices > 1:
+        mesh.node_groups = [dist.new_group(r) for r in nodes]
+        mesh.cross_groups = [dist.new_group(r) for r in crosses]
+        _warm(mesh, (mesh.node_group, mesh.cross_group))
     return mesh
 
 

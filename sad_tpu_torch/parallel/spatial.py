@@ -36,8 +36,9 @@ op counted in call order and its input and output heights kept, once per
 the same order; one the record run did not see raises.
 
 Only the RetinaNet path's modules run banded (``band_modules``): another
-module on the path raises, and an R-CNN model on an n_model > 1 mesh raises
-(ROADMAP.md item 7b). With n_model = 1 ``spatialize`` returns the model.
+module on the path raises, and an R-CNN model on an n_model > 1 mesh raises,
+since no sad_tpu path runs one under spatial_sharding (ROADMAP.md "Not
+ported"). With n_model = 1 ``spatialize`` returns the model.
 """
 
 from __future__ import annotations
@@ -211,13 +212,15 @@ def band_modules():
 
 def check_bandable(model) -> None:
     """Raise unless every module of ``model`` runs on bands: an R-CNN model
-    names ROADMAP.md item 7b, any other module its type."""
+    names ROADMAP.md's "Not ported" entry, any other module its type."""
     from ..models import GeneralizedRCNN, SingleScaleRCNN
 
     if isinstance(model, (GeneralizedRCNN, SingleScaleRCNN)):
         raise NotImplementedError(
             f"{type(model).__name__} on a mesh with n_model > 1: height-sharded R-CNN "
-            "models are not ported (ROADMAP.md item 7b); only the RetinaNet path runs on bands")
+            "models are not ported, as no sad_tpu path runs an R-CNN model under "
+            "spatial_sharding (ROADMAP.md \"Not ported\", after item 7b); only the RetinaNet "
+            "path runs on bands")
     allowed = band_modules()
     for name, m in model.named_modules():
         if not isinstance(m, allowed):

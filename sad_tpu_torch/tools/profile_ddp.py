@@ -1,9 +1,11 @@
 """Data parallelism held against one process: the rank functions that
 chip_smoke.py and the CPU tests hand to ``parallel.launch.spawn``
-(``rank_steps``: the joint SAD step or a Faster / Mask R-CNN step on the
-rank's share of one seeded batch; ``rank_cli``: train_net or test_net), the
-comparison of W ranks with one process (``run_compare``, ``compare``), and
-the cuDNN witness (``cudnn_witness``), which is the command line:
+(``rank_steps``: the joint SAD step or an R-CNN step on the rank's share of
+one seeded batch, whole loss groups a rank or, on sad_tpu's multislice mesh,
+groups that span ranks and nodes; ``rank_cli``: train_net or test_net), the
+comparison of W ranks with one process (``run_compare``, ``compare``; with
+``nodes=N`` the ranks' environment is torchrun's over N nodes), and the
+cuDNN witness (``cudnn_witness``), which is the command line:
 
     python -m sad_tpu_torch.tools.profile_ddp [--groups 4] [--steps 2] \
         [--seed 0] [--out witness.json]
@@ -26,8 +28,10 @@ steps.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -35,8 +39,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sad_tpu_torch.parallel import distributed
 from sad_tpu_torch.parallel.distributed import (
-    all_reduce_metrics, current, grad_bytes, shard_batch,
+    all_reduce_grads, all_reduce_metrics, barrier, current, grad_bytes, reduction_transport,
+    shard_batch, shard_rows,
 )
 
 def _counts() -> Dict[str, Any]:
@@ -65,6 +71,7 @@ def shard_run(run, rank: int, world: int):
     if world == 1:
         return run
     run.batch = shard_batch(run.batch, rank, world)
+    _shard_uniforms(run, rank, world)
     step = run.step
     if step.n_groups is not None:
         step.n_groups //= world
@@ -72,6 +79,35 @@ def shard_run(run, rank: int, world: int):
     if hasattr(step, "rank"):
         step.rank = rank
     run.n_images //= world
+    return run
+
+
+def _shard_uniforms(run, index: int, parts: int) -> None:
+    """A run's uniforms (``_losses``), if any, cut to block ``index`` of
+    ``parts`` of their image rows."""
+    if getattr(run, "uniforms", None):
+        run.uniforms = [tuple(shard_rows(u, index, parts) for u in pair)
+                        for pair in run.uniforms]
+
+
+def mesh_run(run, mesh):
+    """A seeded run of the whole batch cut to this rank's piece on ``mesh``
+    (n_model = 1): its data shard's images (``shard_batch_tree``), its step
+    a mesh step of the batch's G groups (for the R-CNN step with the run's
+    sampler generator)."""
+    if not hasattr(run, "model"):
+        from sad_tpu_torch.tools.profile_spatial import mesh_piece
+
+        return mesh_piece(run, mesh)
+    from sad_tpu_torch.parallel.mesh import shard_batch_tree
+    from sad_tpu_torch.train.rcnn_train import make_rcnn_train_step
+
+    step = run.step
+    run.batch = shard_batch_tree(run.batch, mesh)
+    _shard_uniforms(run, mesh.data_index, mesh.n_data)
+    run.step = make_rcnn_train_step(run.cfg, run.model, n_groups=step.n_groups,
+                                    generator=step.generator, mesh=mesh)
+    run.n_images //= mesh.n_data
     return run
 
 
@@ -89,17 +125,25 @@ def _model(run) -> torch.nn.Module:
 def _losses(run):
     step, batch = run.step, run.batch
     if hasattr(run, "model"):
-        return step.losses(batch)
+        # a run may carry the sampler's uniforms of its first steps (the
+        # rank's rows of the whole batch's, one pair a step)
+        given = getattr(run, "uniforms", None)
+        return step.losses(batch, given.pop(0) if given else None)
     s_data, t_data = step.inputs(batch)
     return step.losses(step.forward(s_data), step.teacher_probs(t_data), batch)
 
 
-def _step(run, lr: float, events=None) -> Dict[str, torch.Tensor]:
+def _step(run, lr: float, events=None, flat: bool = False) -> Dict[str, torch.Tensor]:
     """One step through the step's stages; ``events`` (3 CUDA events) are
-    recorded before the gradient all-reduce, after it and after the update."""
+    recorded before the gradient all-reduce, after it and after the update.
+    With ``flat`` the gradients are also summed by one flat all-reduce over
+    the world first, for ``distributed.stats`` to time beside the step's own
+    sum (whose result the step applies)."""
     step = run.step
     total, metrics = _losses(run)
     grads = step.grads(total)
+    if flat:
+        all_reduce_grads(grads)
     if events:
         events[0].record()
     grads = step.reduce(grads)
@@ -109,7 +153,9 @@ def _step(run, lr: float, events=None) -> Dict[str, torch.Tensor]:
     if events:
         events[2].record()
     names = sorted(metrics)
-    vec = all_reduce_metrics(torch.stack([metrics[k].detach().float() for k in names]), names)
+    vec = torch.stack([metrics[k].detach().float() for k in names])
+    if not run.step.global_metrics:
+        vec = all_reduce_metrics(vec, names)
     return dict(zip(names, vec.cpu().numpy().tolist()))
 
 
@@ -123,28 +169,36 @@ def _trees(run) -> Dict[str, Dict[str, np.ndarray]]:
 
 
 def rank_steps(build: Callable, build_kwargs: Dict[str, Any], steps: int, lr: float,
-               iters: int = 0) -> Dict[str, Any]:
+               iters: int = 0, mesh: bool = False) -> Dict[str, Any]:
     """On this rank: ``build(**build_kwargs)`` (a seeded run of the whole
-    batch), cut to the rank's share, ``steps`` compared steps (after each:
-    the metrics reduced over the ranks, the parameters and momentum, the
-    R-CNN sampler's generator state; and this rank's kernel launches and
-    peak memory), then
-    ``iters`` timed steps. TF32 is off: the comparison holds float32
-    arithmetic. The compared steps run PyTorch's own convolutions (cuDNN
-    off): cuDNN's float32 convolutions do not sum a batch of 4 as they sum
-    one of 8 (``cudnn_witness``, PERF.md section 6); the timed steps run
-    cuDNN's."""
+    batch), cut to the rank's share (with ``mesh``, its piece on
+    ``create_multislice_mesh()``: loss groups may span ranks, and over nodes
+    the gradients are summed in two levels), ``steps`` compared steps (after
+    each: the metrics reduced over the ranks, the parameters and momentum,
+    the R-CNN sampler's generator state and the step's global per-group
+    counts; and this rank's kernel launches and peak memory), then ``iters``
+    timed steps and, with ``mesh``, as many instrumented ones
+    (``distributed.stats`` timed: each level of the gradient sum, a flat
+    all-reduce of the same gradients beside a two-level one, the count
+    all-reduce). TF32 is off: the
+    comparison holds float32 arithmetic. The compared steps run PyTorch's
+    own convolutions (cuDNN off): cuDNN's float32 convolutions do not sum a
+    batch of 4 as they sum one of 8 (``cudnn_witness``, PERF.md section 6);
+    the timed steps run cuDNN's."""
     from sad_tpu_torch.device import set_tf32
+    from sad_tpu_torch.parallel.mesh import create_multislice_mesh
 
     set_tf32(False)
     info = current()
-    run = shard_run(build(**build_kwargs), info.rank, info.world)
+    layout = create_multislice_mesh() if mesh else None
+    run = (mesh_run(build(**build_kwargs), layout) if mesh else
+           shard_run(build(**build_kwargs), info.rank, info.world))
     cuda = next(_model(run).parameters()).device.type == "cuda"
     gen = getattr(run.step, "generator", None)
     reset_counts()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    metrics, trees, gen_states = [], [], []
+    metrics, trees, gen_states, counts = [], [], [], []
     torch.backends.cudnn.enabled = False
     try:
         for _ in range(steps):
@@ -152,28 +206,39 @@ def rank_steps(build: Callable, build_kwargs: Dict[str, Any], steps: int, lr: fl
             trees.append(_trees(run))
             if gen is not None:
                 gen_states.append(gen.get_state().numpy())
+            found = getattr(run.step, "counts", None) or getattr(run.step, "normalizers", {})
+            counts.append({k: v.cpu().numpy() for k, v in found.items()})
     finally:
         torch.backends.cudnn.enabled = True
     out = {
         "rank": info.rank, "world": info.world, "backend": info.backend,
-        "n_images": run.n_images, "n_groups": run.step.n_groups, "metrics": metrics,
+        "node": info.node, "local_world": info.local_world,
+        "reduction_transport": reduction_transport(layout), "n_images": run.n_images,
+        "n_groups": run.step.n_groups, "metrics": metrics, "counts": counts,
         "launches": _counts(), "trees": trees, **trees[-1], "generator": gen_states,
         "grad_bytes": grad_bytes(run.step.params),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
     }
-    host_ms, reduce_ms, cpu_s = [], [], []
-    for _ in range(iters):
+    host_ms, reduce_ms, cpu_s, levels = [], [], [], []
+    two_level = out["reduction_transport"] != "flat"
+    for timed in [False] * iters + [True] * (iters if mesh else 0):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else None
+        distributed.reset_stats(timed)
         if cuda:
             torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.process_time()
-        _step(run, lr, ev)
+        _step(run, lr, ev, flat=timed and two_level)
         if cuda:
             torch.cuda.synchronize()
+        if timed:
+            levels.append(dict(distributed.stats))
+            continue
+        if cuda:
             reduce_ms.append(ev[0].elapsed_time(ev[1]))
         host_ms.append(1e3 * (time.perf_counter() - t0))
         cpu_s.append(time.process_time() - c0)
-    out.update(step_ms=host_ms, reduce_ms=reduce_ms, cpu_s=cpu_s)
+    distributed.reset_stats()
+    out.update(step_ms=host_ms, reduce_ms=reduce_ms, cpu_s=cpu_s, reduction=levels)
     return out
 
 
@@ -233,17 +298,63 @@ def compare(one: Dict[str, Any], ranks: Sequence[Dict[str, Any]],
     return out
 
 
+@contextlib.contextmanager
+def kernel_inputs(into: Dict[str, Any]):
+    """The NMS and RoIAlign wrappers (``nms_kernel.nms_cuda``,
+    ``roi_align_kernel.roi_align_fwd_cuda`` / ``roi_align_bwd_cuda``, which
+    their callers read at each call) recording into ``into``, as CPU
+    copies, the arguments of their first call at each shape: 'nms',
+    'roi_fwd_<res>', 'roi_bwd_<res>'; each call then runs as it would."""
+    from sad_tpu_torch.ops import nms_kernel
+    from sad_tpu_torch.ops import roi_align_kernel as k
+
+    saved = nms_kernel.nms_cuda, k.roi_align_fwd_cuda, k.roi_align_bwd_cuda
+
+    def cpu(x):
+        if torch.is_tensor(x):
+            return x.detach().cpu().clone()
+        return [cpu(y) for y in x] if isinstance(x, (list, tuple)) else x
+
+    def nms(*args):
+        into.setdefault("nms", cpu(args))
+        return saved[0](*args)
+
+    def fwd(*args):
+        into.setdefault(f"roi_fwd_{args[5]}", cpu(args))
+        return saved[1](*args)
+
+    def bwd(*args):
+        into.setdefault(f"roi_bwd_{args[0].shape[1]}", cpu(args))
+        return saved[2](*args)
+
+    nms_kernel.nms_cuda, k.roi_align_fwd_cuda, k.roi_align_bwd_cuda = nms, fwd, bwd
+    try:
+        yield into
+    finally:
+        nms_kernel.nms_cuda, k.roi_align_fwd_cuda, k.roi_align_bwd_cuda = saved
+
+
 def rank_cli(tool: str, argv: Sequence[str], datasets: Sequence[Tuple[str, str, str, bool]] = (),
-             deterministic: bool = False, nan_abort_ok: bool = False) -> Dict[str, Any]:
+             deterministic: bool = False, nan_abort_ok: bool = False,
+             capture: bool = False, cudnn: bool = True,
+             seed_files: Sequence[Tuple[str, str]] = ()) -> Dict[str, Any]:
     """On this rank: ``sad_tpu_torch.tools.<tool>.main(argv)`` (train_net or
     test_net) after registering ``datasets`` = (name, image dir, json,
     pseudo-labeled) in the catalog (a rank starts with only the built-in
     entries), with TF32 off as the comparisons of chip_smoke.py run; with
-    ``deterministic``, under deterministic algorithms. Returns
-    this rank's kernel launches and, for train_net, each iteration's host ms
-    and process CPU ms and the final parameters and momentum; with ``nan_abort_ok`` a NaN abort is returned as
-    ``nan_abort`` (its message) instead of raised, so that every rank's
-    abort can be checked."""
+    ``deterministic``, under deterministic algorithms; without ``cudnn``,
+    on PyTorch's own convolutions (whose results for an image do not depend
+    on the batch beside it). Returns
+    this rank's kernel launches, the bytes it handed each level of the
+    gradient sum and the count all-reduces (``distributed.stats``, untimed)
+    and, for train_net, each iteration's host ms
+    and process CPU ms, the first step's per-group counts and the final
+    parameters and momentum; with ``nan_abort_ok`` a NaN abort is returned
+    as ``nan_abort`` (its message) instead of raised, so that every rank's
+    abort can be checked; with ``capture`` rank 0 also returns the inputs
+    of the kernels' first calls (``kernel_inputs``). ``seed_files`` =
+    (file, directory) pairs that rank 0 copies before the tool runs (a
+    snapshot to resume from), every rank waiting for it."""
     import importlib
 
     from sad_tpu_torch.config import register_dataset
@@ -255,23 +366,75 @@ def rank_cli(tool: str, argv: Sequence[str], datasets: Sequence[Tuple[str, str, 
     if deterministic:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
         torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.enabled = cudnn
+    if seed_files:
+        if current().rank == 0:
+            for src, dst in seed_files:
+                os.makedirs(dst, exist_ok=True)
+                shutil.copy(src, dst)
+        barrier()
     main = importlib.import_module(f"sad_tpu_torch.tools.{tool}").main
     reset_counts()
+    distributed.reset_stats()
+    captured: Dict[str, Any] = {}
     try:
-        result = main(list(argv))
+        with kernel_inputs(captured) if capture and current().rank == 0 else \
+                contextlib.nullcontext():
+            result = main(list(argv))
     except FloatingPointError as e:
         if not nan_abort_ok:
             raise
         return {"rank": current().rank, "nan_abort": str(e)}
-    out: Dict[str, Any] = {"rank": current().rank, "launches": _counts()}
+    out: Dict[str, Any] = {"rank": current().rank, "launches": _counts(),
+                           "captured": captured,
+                           "reduction_bytes": {k: v for k, v in distributed.stats.items()
+                                               if k.endswith("_bytes")}}
     if tool == "train_net":
         out.update(start_iter=result.start_iter, iters=len(result.iter_seconds),
+                   first_counts={k: v.cpu().numpy() for k, v in result.first_counts.items()},
                    iter_ms=[1e3 * t for t in result.iter_seconds],
                    iter_process_cpu_ms=[1e3 * t for t in result.iter_process_cpu],
                    params={n: p.detach().cpu().numpy()
                            for n, p in result.model.named_parameters()},
                    velocity={n: v.detach().cpu().numpy()
                              for n, v in result.state.velocity.items()})
+    return out
+
+
+def rank_layout(n_slices: Optional[int] = None) -> Dict[str, Any]:
+    """On this rank: torchrun's variables as the rank's environment holds
+    them, ``current()``'s place and ``create_multislice_mesh(n_slices)``'s
+    (slice, local index, data index, transport)."""
+    from sad_tpu_torch.parallel.mesh import create_multislice_mesh
+
+    info = current()
+    mesh = create_multislice_mesh(n_slices)
+    names = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK")
+    return {"env": {k: os.environ.get(k) for k in names},
+            "info": (info.rank, info.world, info.local_world, info.node, info.nodes),
+            "mesh": (mesh.n_slices, mesh.per_slice, mesh.slice_index, mesh.local_index,
+                     mesh.data_index), "reduction_transport": reduction_transport(mesh)}
+
+
+def reduction_parity(sizes: Sequence[int], seed: int, n_slices: Optional[int] = None
+                     ) -> Dict[str, Any]:
+    """On this rank of ``create_multislice_mesh(n_slices)``: one bucket of
+    each of ``sizes`` elements, rank r's values seeded by (seed, r), summed
+    over the ranks by each sum this process group can run (the flat
+    all-reduce, the gloo two-level, and on a backend with reduce-scatter
+    the NCCL form), at float32 and float64. Returns them by (how, dtype)."""
+    from sad_tpu_torch.parallel.mesh import create_multislice_mesh
+
+    mesh = create_multislice_mesh(n_slices)
+    rng = np.random.RandomState([seed, current().rank])
+    dev = torch.device("cuda", torch.cuda.current_device()) if mesh.backend == "nccl" else "cpu"
+    hows = ["flat", "gloo two-level", "nccl two-level"]
+    out: Dict[str, Any] = {}
+    for dtype in (torch.float32, torch.float64):
+        xs = [torch.from_numpy(rng.randn(n)).to(dev, dtype) for n in sizes]
+        for how in hows:
+            out[(how, str(dtype))] = [
+                distributed.sum_bucket(x.clone(), mesh, how).cpu().numpy() for x in xs]
     return out
 
 
@@ -288,11 +451,14 @@ def card_layout(world: int) -> Tuple[str, List[int], str]:
 def run_compare(build: Callable, build_kwargs: Dict[str, Any], world: int, steps: int,
                 lr: float, iters: int, timeout_s: float, device: str = "cuda",
                 one_backend: Optional[str] = None, threads: Optional[int] = None,
-                held: Optional[int] = None) -> Dict[str, Any]:
+                held: Optional[int] = None, nodes: int = 1) -> Dict[str, Any]:
     """``rank_steps`` on one process (a world of 1 with ``one_backend``,
-    NCCL on the card by default) and on ``world`` ranks, both within
-    ``timeout_s``; their comparison (``compare``, over ``held`` steps). On
-    the card the two worlds run one after the other, so that neither's step
+    NCCL on the card by default) and on ``world`` ranks over ``nodes``
+    nodes (torchrun's environment), both within ``timeout_s``; their
+    comparison (``compare``, over ``held`` steps). The ranks run on
+    ``create_multislice_mesh()`` when there are nodes or the batch's
+    ``n_groups`` do not divide over the ranks. On the
+    card the two worlds run one after the other, so that neither's step
     times hold the other's work; on the CPU, where no time is read, at
     once."""
     from concurrent.futures import ThreadPoolExecutor
@@ -305,6 +471,7 @@ def run_compare(build: Callable, build_kwargs: Dict[str, Any], world: int, steps
         backend, local, note = card_layout(world)
     else:
         backend, local, note = "gloo", [0] * world, f"{world} ranks on the CPU over gloo"
+    mesh = nodes > 1 or build_kwargs.get("n_groups", world) % world != 0
     args = (build, build_kwargs, steps, lr, iters)
 
     def one_world():
@@ -312,8 +479,9 @@ def run_compare(build: Callable, build_kwargs: Dict[str, Any], world: int, steps
                      timeout_s=timeout_s, threads=threads)[0]
 
     def ranks_world():
-        return spawn(rank_steps, world, args, device=device, backend=backend, local_ranks=local,
-                     timeout_s=deadline - time.monotonic(), threads=threads)
+        return spawn(rank_steps, world, args + (mesh,), device=device, backend=backend,
+                     local_ranks=local, timeout_s=deadline - time.monotonic(), threads=threads,
+                     nodes=nodes)
 
     if device == "cuda":
         one = one_world()
@@ -322,7 +490,23 @@ def run_compare(build: Callable, build_kwargs: Dict[str, Any], world: int, steps
         with ThreadPoolExecutor(2) as pool:
             one_f, ranks_f = pool.submit(one_world), pool.submit(ranks_world)
             one, ranks = one_f.result(), ranks_f.result()
+    if nodes > 1:
+        note += f", as {nodes} nodes of {world // nodes}"
     return {"one": one, "ranks": ranks, "layout": note, **compare(one, ranks, held)}
+
+
+def reduction_numbers(rank: Dict[str, Any]) -> Dict[str, Any]:
+    """A rank's instrumented steps (``rank_steps``' 'reduction'): the
+    medians of each stage's ms a step and its bytes: the two levels of the
+    gradient sum ('node', 'cross'), the flat all-reduce of the same
+    gradients ('flat'), the per-group count all-reduce ('counts')."""
+    levels = rank.get("reduction") or []
+    out: Dict[str, Any] = {"transport": rank["reduction_transport"]}
+    for k in ("node", "cross", "flat", "counts"):
+        ms = [1e3 * x[f"{k}_s"] for x in levels]
+        out[f"{k}_ms"] = statistics.median(ms) if ms else None
+        out[f"{k}_bytes"] = levels[0][f"{k}_bytes"] if levels else None
+    return out
 
 
 def summary(res: Dict[str, Any]) -> Dict[str, Any]:
@@ -349,6 +533,7 @@ def summary(res: Dict[str, Any]) -> Dict[str, Any]:
         "one_cpu_s_per_step": med(res["one"]["cpu_s"]),
         "rank_images": [r["n_images"] for r in res["ranks"]],
         "rank_launches": [{k: v for k, v in r["launches"].items()} for r in res["ranks"]],
+        "reduction": [reduction_numbers(r) for r in res["ranks"]],
     }
 
 

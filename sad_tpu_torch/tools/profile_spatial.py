@@ -27,9 +27,11 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from sad_tpu_torch.parallel import halo
-from sad_tpu_torch.parallel.distributed import current
-from sad_tpu_torch.parallel.mesh import create_mesh, row_band, shard_batch_tree
+from sad_tpu_torch.parallel import distributed, halo
+from sad_tpu_torch.parallel.distributed import all_reduce_grads, current, reduction_transport
+from sad_tpu_torch.parallel.mesh import (
+    create_mesh, create_multislice_mesh, row_band, shard_batch_tree,
+)
 from sad_tpu_torch.tools.profile_ddp import _counts, _trees, reset_counts
 from sad_tpu_torch.train import make_train_step
 
@@ -75,14 +77,17 @@ class _Capture:
         return out
 
 
-def _mesh_step(run, lr: float, events=None) -> Dict[str, float]:
+def _mesh_step(run, lr: float, events=None, flat: bool = False) -> Dict[str, float]:
     """One mesh step through the step's stages (its metrics are already the
     batch's); ``events`` (3 CUDA events) recorded around the gradient
-    all-reduce and after the update."""
+    all-reduce and after the update; with ``flat`` the gradients also summed
+    by one flat all-reduce first, for ``distributed.stats`` to time."""
     step = run.step
     s_data, t_data = step.inputs(run.batch)
     total, metrics = step.losses(step.forward(s_data), step.teacher_probs(t_data), run.batch)
     grads = step.grads(total)
+    if flat:
+        all_reduce_grads(grads)
     if events:
         events[0].record()
     grads = step.reduce(grads)
@@ -96,7 +101,8 @@ def _mesh_step(run, lr: float, events=None) -> Dict[str, float]:
 
 def rank_mesh_steps(build: Callable, build_kwargs: Dict[str, Any], n_data: int, n_model: int,
                     steps: int, lr: float, iters: int = 0, capture: bool = False,
-                    timed_kwargs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                    timed_kwargs: Optional[Dict[str, Any]] = None,
+                    n_slices: Optional[int] = None) -> Dict[str, Any]:
     """On this rank of an (n_data, n_model) mesh: ``build(**build_kwargs)``
     cut to the rank's piece (``mesh_piece``), the kernel counts set to 0,
     ``steps`` compared steps (TF32 and cuDNN off) with the metrics, the
@@ -104,13 +110,17 @@ def rank_mesh_steps(build: Callable, build_kwargs: Dict[str, Any], n_data: int, 
     after them, then ``iters`` timed steps with cuDNN, of a fresh
     ``build(**timed_kwargs)`` when given (the compared run at another compute
     dtype), and as many with the exchanges timed: their halo ms and bytes,
-    and the peak memory. With ``capture`` the cls-loss kernels' inputs of the first step
-    at this rank's band of P3 come back too."""
+    each level of the gradient sum, a flat all-reduce of the same gradients
+    beside a two-level one and the count all-reduce (``distributed.stats``),
+    and the peak memory. With ``capture`` the cls-loss kernels' inputs of
+    the first step at this rank's band of P3 come back too. With
+    ``n_slices`` the mesh is ``create_multislice_mesh(n_slices)`` over the
+    n_data ranks (n_model = 1)."""
     from sad_tpu_torch.device import set_tf32
 
     set_tf32(False)
     info = current()
-    mesh = create_mesh(n_data, n_model)
+    mesh = create_multislice_mesh(n_slices) if n_slices else create_mesh(n_data, n_model)
     run = mesh_piece(build(**build_kwargs), mesh)
     dev = next(run.student.parameters()).device
     cap = _Capture(run.step.cls_losses) if capture else None
@@ -134,6 +144,7 @@ def rank_mesh_steps(build: Callable, build_kwargs: Dict[str, Any], n_data: int, 
     out = {
         "rank": info.rank, "world": info.world, "backend": info.backend,
         "transport": halo.transport(mesh, dev), "n_images": run.n_images,
+        "reduction_transport": reduction_transport(mesh), "slice": mesh.slice_index,
         "band_rows": list(mesh.band(run.batch["canvas_h"])) if n_model > 1 else None,
         "metrics": metrics, "launches": launches, "trees": trees, **trees[-1],
         "generator": [], "normalizers": norms, "halo_bytes_per_step": halo_bytes,
@@ -142,7 +153,8 @@ def rank_mesh_steps(build: Callable, build_kwargs: Dict[str, Any], n_data: int, 
     if cap is not None and cap.got is not None:
         out["band_p3"] = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
                           for k, v in cap.got.items()}
-    step_ms, reduce_ms, halo_ms, halo_bytes = [], [], [], []
+    step_ms, reduce_ms, halo_ms, halo_bytes, levels = [], [], [], [], []
+    two_level = reduction_transport(mesh) != "flat"
     if iters and timed_kwargs is not None:
         del run, cap
         run = mesh_piece(build(**timed_kwargs), mesh)
@@ -154,20 +166,24 @@ def rank_mesh_steps(build: Callable, build_kwargs: Dict[str, Any], n_data: int, 
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if dev.type == "cuda" \
             else None
         halo.reset_stats(timed=timed)
+        distributed.reset_stats(timed=timed)
         _sync(dev)
         t0 = time.perf_counter()
-        _mesh_step(run, lr, ev)
+        _mesh_step(run, lr, ev, flat=timed and two_level)
         _sync(dev)
         if timed:
             halo_ms.append(1e3 * halo.stats["seconds"])
             halo_bytes.append(halo.stats["bytes"])
+            levels.append(dict(distributed.stats))
             out.setdefault("instrumented_step_ms", []).append(1e3 * (time.perf_counter() - t0))
             continue
         step_ms.append(1e3 * (time.perf_counter() - t0))
         if ev:
             reduce_ms.append(ev[0].elapsed_time(ev[1]))
     halo.reset_stats()
+    distributed.reset_stats()
     out.update(step_ms=step_ms, reduce_ms=reduce_ms, halo_ms=halo_ms, halo_bytes=halo_bytes,
+               reduction=levels,
                timed_peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
                                if dev.type == "cuda" and iters else None))
     return out
@@ -471,10 +487,16 @@ def rank_forward(path: str, n_data: int, n_model: int, grads: bool = True) -> Di
 def rank_jobs(jobs) -> list:
     """Each (name, kwargs) of ``jobs`` in order on this rank, name one of
     'forward', 'steps', 'infer', 'one' (rank_forward, rank_mesh_steps,
-    rank_mesh_infer, one_process_steps); their results. One world runs them
-    all, each on a mesh of its own."""
+    rank_mesh_infer, one_process_steps) or 'rank_steps', 'layout', 'parity',
+    'cli' (profile_ddp's rank_steps, rank_layout, reduction_parity,
+    rank_cli); their results. One world runs them all, each on a mesh of
+    its own."""
+    from sad_tpu_torch.tools import profile_ddp
+
     fns = {"forward": rank_forward, "steps": rank_mesh_steps, "infer": rank_mesh_infer,
-           "one": one_process_steps}
+           "one": one_process_steps, "rank_steps": profile_ddp.rank_steps,
+           "layout": profile_ddp.rank_layout, "parity": profile_ddp.reduction_parity,
+           "cli": profile_ddp.rank_cli}
     return [fns[name](**kwargs) for name, kwargs in jobs]
 
 

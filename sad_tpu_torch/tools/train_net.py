@@ -14,10 +14,14 @@ re-running on the same directory resumes (TRAIN.AUTO_RESUME). Unless
 same device (test_net's evaluation: bbox_results.json and results.json in
 OUTPUT_DIR/test/<datasets>/) and held to cfg.EXPECTED_RESULTS.
 
-Under torchrun the W ranks train together (one card each, W dividing
-NUM_GPUS; rank 0 writes every file), and the evaluation runs sharded over
-them with or without --multi-gpu-testing: no rank waits in a collective
-while another serves the whole test set.
+Under torchrun the W ranks train together (one card each, W dividing the
+batch's images; over ``--nnodes N`` nodes, or with loss groups over several
+ranks, on sad_tpu's multislice mesh; rank 0 writes every file), and the
+evaluation runs sharded over them with or without --multi-gpu-testing: no
+rank waits in a collective while another serves the whole test set.
+
+    torchrun --nnodes 2 --nproc_per_node 8 --node_rank R --master_addr HOST \
+        -m sad_tpu_torch.tools.train_net --cfg ... NUM_GPUS 8
 """
 
 from __future__ import annotations

@@ -71,12 +71,16 @@ def mask_loss(
     is_fg: torch.Tensor,  # (R,)
     n_groups: int,
     total_groups: Optional[int] = None,
+    counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sigmoid cross-entropy on the gt-class channel at fg rois, the mean
     over fg mask elements per group of consecutive rows, averaged over the
     groups (the reference's per-GPU means scaled by 1 / NUM_GPUS and summed
     by the gradient allreduce), times MRCNN.WEIGHT_LOSS_MASK; divided by
-    ``total_groups`` (the groups of every rank; ``n_groups`` by default)."""
+    ``total_groups`` (the groups of every rank; ``n_groups`` by default).
+    ``counts``: the fg rois each block's mean divides by (its loss group's
+    over every rank, when the blocks are parts of groups that span ranks);
+    each block's own by default."""
     if cfg.MRCNN.CLS_SPECIFIC_MASK:
         idx = roi_labels.long().clamp_min(0)[:, None, None, None]
         sel = torch.gather(mask_logits, 3, idx.expand(-1, *mask_logits.shape[1:3], 1))[..., 0]
@@ -87,8 +91,8 @@ def mask_loss(
     ce = -x * (mask_targets - ge) + torch.log(1.0 + torch.exp(x - 2.0 * x * ge))
     w = is_fg.float()[:, None, None]
     sum_g = (ce * w).reshape(n_groups, -1).sum(dim=1)
-    count_g = torch.clamp_min(w.reshape(n_groups, -1).sum(dim=1) * sel.shape[1] * sel.shape[2],
-                              1.0)
+    fg_g = w.reshape(n_groups, -1).sum(dim=1) if counts is None else counts
+    count_g = torch.clamp_min(fg_g * sel.shape[1] * sel.shape[2], 1.0)
     return cfg.MRCNN.WEIGHT_LOSS_MASK * (sum_g / count_g).sum() / (total_groups or n_groups)
 
 
@@ -129,6 +133,7 @@ def keypoint_loss(
     n_groups: int,
     n_images: int = 0,
     total_groups: Optional[int] = None,
+    counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Softmax cross-entropy over the heatmap per visible keypoint at fg
     rois (keypoint_rcnn_heads.py:110-149): per group of consecutive rows,
@@ -139,7 +144,9 @@ def keypoint_loss(
     a group with no more than MIN_KEYPOINT_COUNT_FOR_VALID_MINIBATCH visible
     keypoints gives 0; the groups summed, times KRCNN.LOSS_WEIGHT, divided
     by ``total_groups`` (the groups of every rank; ``n_groups`` by
-    default)."""
+    default). ``counts``: the visible keypoints of each block's loss group
+    over every rank (the divisor and the gate), when the blocks are parts
+    of groups that span ranks; each block's own by default."""
     kr = cfg.KRCNN
     r, s, _, k = kps_logits.shape
     flat = kps_logits.reshape(r, s * s, k).transpose(1, 2)  # (R, K, S*S)
@@ -147,7 +154,7 @@ def keypoint_loss(
     nll = -torch.gather(logp, 2, heat_labels.long()[..., None])[..., 0]
     w = (heat_valid & is_fg[:, None]).float()
     sum_g = (nll * w).reshape(n_groups, -1).sum(dim=1)
-    nvis_g = w.reshape(n_groups, -1).sum(dim=1)
+    nvis_g = w.reshape(n_groups, -1).sum(dim=1) if counts is None else counts
     if kr.NORMALIZE_BY_VISIBLE_KEYPOINTS:
         per_group = sum_g / torch.clamp_min(nvis_g, 1.0)
     else:

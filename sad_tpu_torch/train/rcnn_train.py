@@ -26,11 +26,21 @@ TRAIN.IMS_PER_BATCH consecutive images):
 - box head: softmax-CE as a per-group mean over sampled rois, smooth-L1 with
   class-specific weights (fast_rcnn_heads.py add_fast_rcnn_losses),
 - mask and keypoints: train/mask_keypoint.py.
-Over W ranks (parallel/distributed.py) each rank holds B / W images and
-G / W groups; every denominator above stays the global one (images, rows,
-groups times W), the box head's accuracy divides by the live rois of all
-ranks, the sampler draws the global (B, P + G) priorities and takes the
-rank's rows, and the gradients are summed over the ranks before the update.
+Over W ranks (parallel/distributed.py; a ``Mesh``, or ``world`` W as the
+(W, 1) mesh) each rank holds its block of B / W images, and a loss group may
+span ranks (sad_tpu's train_loop.py:206-245 trains on gcd(images, devices)
+devices with NUM_GPUS groups; XLA makes the per-group counts global). The
+step counts, an image at a time, what each group's losses divide by (the box
+head's live rois or OHEM keeps, the mask's fg rois, the visible keypoints,
+and the live rois of the accuracy), adds the counts into the batch's G
+groups and makes them global with ONE all-reduce (``group_counts``; integers
+in float32, so exact); each image's sums are divided by its group's global
+count and the losses scaled 1 / G, so the ranks' losses and gradients sum
+to one process's. The static denominators (the RPN's, the box smooth-L1's
+dim 0, the fixed keypoint count) stay the global ones; the sampler draws the
+global (B, P + G) priorities and takes the rank's rows; the gradients are
+summed over the ranks before the update (in two levels on a multislice
+mesh); the metrics are the rank's shares, which sum to the batch's.
 
 Fast R-CNN (MODEL.FASTER_RCNN False, a batch with 'proposal_boxes'; ref:
 sad_tpu/train/rcnn_train.py:224-270): no RPN head and no RPN losses; the
@@ -85,7 +95,8 @@ from ..ops.losses import smooth_l1_loss
 from ..ops.proposals import (
     map_rois_to_fpn_levels, multilevel_roi_align, sample_proposal_labels, sampled_fg_cap,
 )
-from ..parallel.distributed import all_reduce_grads, all_reduce_sum, shard_rows
+from ..parallel.distributed import all_reduce_counts, all_reduce_grads, shard_rows
+from ..parallel.mesh import Mesh
 from .mask_keypoint import (
     keypoint_loss, keypoint_targets_on_device, mask_loss, mask_targets_on_device,
 )
@@ -93,6 +104,10 @@ from .optimizer import momentum_sgd_update
 from .train_step import Metrics, TrainState
 
 _QUEUE3 = " (ROADMAP.md Queue 3)"
+# R-CNN models on row bands: ROADMAP.md "Not ported"
+BANDS_NOT_PORTED = ("R-CNN models on row bands (a mesh with n_model > 1) are not ported: no "
+                    "sad_tpu path runs an R-CNN model under spatial_sharding (ROADMAP.md "
+                    "\"Not ported\", after item 7b)")
 
 
 def _rfcn_targets(sampled, r: int) -> torch.Tensor:
@@ -159,34 +174,46 @@ def ohem_select(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w,
     return ohem_keep(per_total.reshape(n_images, -1), k).reshape(-1) * live.float()
 
 
+def box_weights(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w,
+                n_images: int) -> torch.Tensor:
+    """The (R,) weights of the box losses' rois: the live ones, or with
+    TRAIN.OHEM and ``n_images`` those ``ohem_select`` keeps."""
+    if cfg.TRAIN.OHEM and n_images:
+        return ohem_select(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w,
+                           n_images)
+    return live.float()
+
+
 def fast_rcnn_losses(cfg, cls_score, labels, bbox_pred, bbox_targets, inside_w, outside_w,
                      valid, n_groups: int, total_groups: Optional[int] = None,
-                     n_images: int = 0) -> Tuple[torch.Tensor, Metrics]:
+                     n_images: int = 0, counts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     ranks: Optional[int] = None) -> Tuple[torch.Tensor, Metrics]:
     """Box-head losses (fast_rcnn_heads.py add_fast_rcnn_losses):
     SoftmaxWithLoss as the average of per-group means over the live rois
     (rows are n_groups consecutive blocks) and SmoothL1Loss, whose
     denominator is its static dim 0, scaled by MODEL.BBOX_REG_WEIGHT_SCALE.
     With TRAIN.OHEM and ``n_images`` (the rows are that many images' blocks)
     only the rois of ``ohem_select`` count: the per-group means over them and
-    their smooth-L1. With ``total_groups`` (the groups of every rank) above
-    ``n_groups``, the groups and rows of all ranks, and the accuracy over
-    their live rois."""
-    ranks = (total_groups or n_groups) // n_groups
+    their smooth-L1. Scaled by 1 / ``total_groups`` (the groups of every
+    rank; ``n_groups`` by default). ``counts`` = (the count each block is
+    divided by, the live rois of the whole batch): a loss group's count over
+    every rank, when the blocks are parts of groups that span ranks
+    (RCNNTrainStep.group_counts); by default each block's own and this
+    call's live rois. ``ranks``: the data ranks whose rows share the
+    smooth-L1's denominator (total_groups // n_groups by default)."""
+    ranks = ranks or (total_groups or n_groups) // n_groups
     nll, live = box_nll(cls_score, labels, valid)
     live_f = live.float()
-    weight, out_w = live_f, outside_w
-    if cfg.TRAIN.OHEM and n_images:
-        weight = ohem_select(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w,
-                             n_images)
-        out_w = outside_w * weight[:, None]
+    weight = box_weights(cfg, nll, live, bbox_pred, bbox_targets, inside_w, outside_w, n_images)
+    out_w = outside_w * weight[:, None] if cfg.TRAIN.OHEM and n_images else outside_w
     sum_g = (nll * weight).reshape(n_groups, -1).sum(dim=1)  # exact for weight = live_f
-    cnt_g = torch.clamp_min(weight.reshape(n_groups, -1).sum(dim=1), 1.0)
-    cls_loss = (sum_g / cnt_g).sum() / (n_groups * ranks)
+    cnt_g = torch.clamp_min(weight.reshape(n_groups, -1).sum(dim=1) if counts is None
+                            else counts[0], 1.0)
+    cls_loss = (sum_g / cnt_g).sum() / (total_groups or n_groups)
     bbox_loss = smooth_l1_loss(bbox_pred, bbox_targets, inside_w, out_w, beta=1.0,
                                scale=cfg.MODEL.BBOX_REG_WEIGHT_SCALE / ranks)
     hit = (cls_score.argmax(dim=-1) == labels) & valid
-    # the live rois of every rank: the ranks' accuracies then sum to the batch's
-    live_n = all_reduce_sum(live_f.sum().detach()) if ranks > 1 else live_f.sum()
+    live_n = live_f.sum() if counts is None else counts[1]
     accuracy = hit.float().sum() / torch.clamp_min(live_n, 1.0)
     return cls_loss + bbox_loss, {"loss_cls": cls_loss, "loss_bbox": bbox_loss,
                                   "accuracy_cls": accuracy}
@@ -197,17 +224,25 @@ class RCNNTrainStep:
     GeneralizedRCNN or a SingleScaleRCNN, which updates the model's parameters and
     ``state.velocity`` in place and returns the metrics as 0-d tensors on the
     device. Its stages are methods, so that a profiler can time each one:
-    inputs -> backbone -> rpn -> proposals -> sample -> box_branch (box_outputs,
-    box_loss) -> mask_branch / keypoint_branch -> grads -> apply.
+    inputs -> backbone -> rpn -> proposals -> sample -> box_outputs ->
+    mask_parts / keypoint_parts -> group_counts -> box_loss, mask_branch_loss /
+    keypoint_branch_loss -> grads -> apply (``box_branch``, ``mask_branch`` and
+    ``keypoint_branch`` run a branch's forward and loss in one call).
 
     The sampler's random priorities come from ``generator`` (a
     torch.Generator on the model's device), or are handed to the step as
-    ``uniforms`` = two (B, P + G) tensors. ``rank`` of ``world`` > 1: the step
-    of one rank, which holds ``n_groups`` of the batch's groups; it draws
-    the whole batch's priorities from ``generator`` and takes its rows."""
+    ``uniforms`` = two (B, P + G) tensors. ``mesh``: the step of this rank of
+    a mesh (n_model = 1), ``n_groups`` the batch's G (cfg.NUM_GPUS by
+    default), on its data shard's images; ``rank`` of ``world`` > 1: the
+    step of that rank of the (world, 1) mesh, ``n_groups`` its share of the
+    groups. Either draws the whole batch's priorities from ``generator`` and
+    takes its rows, and counts each loss group over the ranks
+    (``group_counts``). ``counts`` holds the last step's (G,) global counts
+    by name, detached."""
 
     def __init__(self, cfg, model: nn.Module, n_groups: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None, rank: int = 0, world: int = 1):
+                 generator: Optional[torch.Generator] = None, rank: int = 0, world: int = 1,
+                 mesh: Optional[Mesh] = None):
         self.single = isinstance(model, SingleScaleRCNN)
         if not self.single and not (cfg.FPN.MULTILEVEL_RPN and cfg.FPN.MULTILEVEL_ROIS):
             raise NotImplementedError(
@@ -223,12 +258,33 @@ class RCNNTrainStep:
         self.n_groups = n_groups or cfg.NUM_GPUS
         self.generator = generator
         self.rank, self.world = rank, world
+        self.mesh = mesh
+        self.counts: Dict[str, torch.Tensor] = {}
+        if mesh is not None:
+            if world != 1:
+                raise ValueError("a step takes a world or a mesh, not both")
+            if mesh.n_model > 1:
+                raise NotImplementedError(BANDS_NOT_PORTED)
+            self.rank, self.world = mesh.rank, mesh.world
         t_mask = trainable_mask(model, cfg.TRAIN.FREEZE_AT, cfg.TRAIN.FREEZE_CONV_BODY)
         b_mask = bias_mask(model)
         named = dict(model.named_parameters())
         self.names = [n for n in named if t_mask[n]]
         self.params = [named[n] for n in self.names]
         self.is_bias = [b_mask[n] for n in self.names]
+
+    # each rank's metrics are its share of the batch's (summed by the caller)
+    global_metrics = False
+
+    def layout(self) -> Optional[Tuple[int, int, int]]:
+        """(data index, data ranks, the batch's loss groups) of a step over
+        ranks, None for one process: the mesh's, or the (world, 1) mesh's,
+        whose ``n_groups`` is the rank's share."""
+        if self.mesh is not None:
+            return self.mesh.data_index, self.mesh.n_data, self.n_groups
+        if self.world > 1:
+            return self.rank, self.world, self.n_groups * self.world
+        return None
 
     # ---- stages
 
@@ -248,7 +304,8 @@ class RCNNTrainStep:
     def rpn(self, nchw, batch):
         """RPN head and losses: (logits, deltas, total, metrics)."""
         logits, deltas = self.model.rpn_outputs(nchw)
-        images = next(iter(logits.values())).shape[0] * self.world
+        layout = self.layout()
+        images = next(iter(logits.values())).shape[0] * (layout[1] if layout else 1)
         total, metrics = rpn_losses(self.cfg, logits, deltas, batch, images)
         return logits, deltas, total, metrics
 
@@ -262,12 +319,14 @@ class RCNNTrainStep:
     @torch.no_grad()
     def sample(self, boxes, valid, batch, uniforms=None) -> Dict[str, torch.Tensor]:
         t, m = self.cfg.TRAIN, self.cfg.MODEL
-        if uniforms is None and self.world > 1:
+        layout = self.layout()
+        if uniforms is None and layout is not None:
             # the whole batch's draws, in the order one process makes them
-            shape = (boxes.shape[0] * self.world, boxes.shape[1] + batch["gt_boxes"].shape[1])
+            d, n_data, _ = layout
+            shape = (boxes.shape[0] * n_data, boxes.shape[1] + batch["gt_boxes"].shape[1])
             uniforms = tuple(
                 shard_rows(torch.rand(shape, generator=self.generator, device=boxes.device),
-                           self.rank, self.world) for _ in range(2))
+                           d, n_data) for _ in range(2))
         return sample_proposal_labels(
             boxes, valid, batch["gt_boxes"], batch["gt_classes"], t.BATCH_SIZE_PER_IM,
             t.FG_FRACTION, t.FG_THRESH, t.BG_THRESH_HI, t.BG_THRESH_LO, m.NUM_CLASSES,
@@ -301,12 +360,17 @@ class RCNNTrainStep:
         return tuple(sampled[k].reshape(n, -1) for k in (
             "bbox_targets", "bbox_inside_weights", "bbox_outside_weights"))
 
-    def box_loss(self, sampled, cls_score, bbox_pred) -> Tuple[torch.Tensor, Metrics]:
-        """fast_rcnn_losses of the box outputs against ``box_targets``."""
-        return fast_rcnn_losses(
-            self.cfg, cls_score, sampled["labels"].reshape(-1), bbox_pred,
-            *self.box_targets(sampled), sampled["valid"].reshape(-1), self.n_groups,
-            self.n_groups * self.world, n_images=sampled["rois"].shape[0])
+    def box_loss(self, sampled, cls_score, bbox_pred, counts=None) -> Tuple[torch.Tensor, Metrics]:
+        """fast_rcnn_losses of the box outputs against ``box_targets``; with
+        ``counts`` (``group_counts``'), an image a block, each divided by
+        its loss group's global count."""
+        args = (self.cfg, cls_score, sampled["labels"].reshape(-1), bbox_pred,
+                *self.box_targets(sampled), sampled["valid"].reshape(-1))
+        b = sampled["rois"].shape[0]
+        if counts is None:
+            return fast_rcnn_losses(*args, self.n_groups, n_images=b)
+        return fast_rcnn_losses(*args, b, counts["groups"], n_images=b,
+                                counts=(counts["box"], counts["live"]), ranks=counts["ranks"])
 
     def box_branch(self, feats, sampled) -> Tuple[torch.Tensor, Metrics]:
         """RoIAlign (or R-FCN's PSRoIPool) of the sampled rois from the NHWC
@@ -350,13 +414,14 @@ class RCNNTrainStep:
         return p, multilevel_roi_align(feats, flat_rois(p["rois"]), p["levels"].reshape(-1),
                                        p["is_fg"], res, sr)
 
-    def mask_branch(self, feats, sampled, batch, prefix=None, res5=None) -> torch.Tensor:
-        """The mask loss on the leading ``mask_cap`` slots of every image:
-        RoIAlign, mask head, targets cropped from the gt rasters on the
-        device. A single-scale model's v0up head runs ``mask_heads`` on
-        those slots' rois; v0upshare takes ``res5``, the box branch's res5
-        maps of every sampled roi (or, without it, runs the box head's res5
-        on the slots)."""
+    def mask_parts(self, feats, sampled, batch, prefix=None, res5=None):
+        """The mask branch's forward on the leading ``mask_cap`` slots of
+        every image: (logits, targets, roi labels, is_fg), the targets
+        cropped from the gt rasters on the device. A single-scale model's
+        v0up head runs ``mask_heads`` on those slots' rois; v0upshare takes
+        ``res5``, the box branch's res5 maps of every sampled roi (or,
+        without it, runs the box head's res5 on the slots); an FPN model
+        RoIAligns its fg prefix."""
         cfg = self.cfg
         if self.single:
             cap = self.mask_cap()
@@ -370,9 +435,8 @@ class RCNNTrainStep:
             targets = mask_targets_on_device(
                 batch["gt_mask_rasters"], rois, sampled["matched_gt"][:, :cap],
                 mlogits.shape[1], float(batch["gt_mask_stride"]))
-            return mask_loss(cfg, mlogits, targets, sampled["labels"][:, :cap].reshape(-1),
-                             sampled["is_fg"][:, :cap].reshape(-1), self.n_groups,
-                             self.n_groups * self.world)
+            return (mlogits, targets, sampled["labels"][:, :cap].reshape(-1),
+                    sampled["is_fg"][:, :cap].reshape(-1))
         p, mfeats = self._branch(feats, sampled, prefix, self.mask_cap(),
                                  cfg.MRCNN.ROI_XFORM_RESOLUTION,
                                  cfg.MRCNN.ROI_XFORM_SAMPLING_RATIO)
@@ -380,13 +444,24 @@ class RCNNTrainStep:
         targets = mask_targets_on_device(
             batch["gt_mask_rasters"], p["rois"], p["matched_gt"],
             cfg.MRCNN.RESOLUTION, float(batch["gt_mask_stride"]))
-        return mask_loss(cfg, mlogits, targets, p["labels"].reshape(-1), p["is_fg"],
-                         self.n_groups, self.n_groups * self.world)
+        return mlogits, targets, p["labels"].reshape(-1), p["is_fg"]
 
-    def keypoint_branch(self, feats, sampled, batch, prefix=None) -> torch.Tensor:
-        """The keypoint loss on the leading ``kps_cap`` slots of every image:
-        RoIAlign, keypoint head, heatmap labels from the gt keypoints on the
-        device."""
+    def mask_branch_loss(self, parts, counts=None) -> torch.Tensor:
+        """mask_loss of ``mask_parts``; with ``counts`` an image a block."""
+        if counts is None:
+            return mask_loss(self.cfg, *parts, self.n_groups)
+        return mask_loss(self.cfg, *parts, counts["images"], counts["groups"],
+                         counts=counts["mask"])
+
+    def mask_branch(self, feats, sampled, batch, prefix=None, res5=None) -> torch.Tensor:
+        """The mask loss on the leading ``mask_cap`` slots of every image
+        (``mask_parts``, then ``mask_branch_loss``)."""
+        return self.mask_branch_loss(self.mask_parts(feats, sampled, batch, prefix, res5))
+
+    def keypoint_parts(self, feats, sampled, batch, prefix=None):
+        """The keypoint branch's forward on the leading ``kps_cap`` slots of
+        every image: (logits, heatmap labels, their valid flags, is_fg),
+        the labels from the gt keypoints on the device."""
         cfg = self.cfg
         p, kfeats = self._branch(feats, sampled, prefix, self.kps_cap(),
                                  cfg.KRCNN.ROI_XFORM_RESOLUTION,
@@ -394,9 +469,59 @@ class RCNNTrainStep:
         klogits = self.model.keypoint_heads(kfeats)
         labels, valid = keypoint_targets_on_device(batch["gt_keypoints"], p["rois"],
                                                    p["matched_gt"], klogits.shape[1])
-        return keypoint_loss(cfg, klogits, labels, valid, p["is_fg"], self.n_groups,
-                             n_images=p["rois"].shape[0],
-                             total_groups=self.n_groups * self.world)
+        return klogits, labels, valid, p["is_fg"]
+
+    def keypoint_branch_loss(self, parts, counts=None) -> torch.Tensor:
+        """keypoint_loss of ``keypoint_parts``; with ``counts`` an image a
+        block, each a part of a group of ``counts['per_group']`` images."""
+        b = parts[0].shape[0] // self.kps_cap()
+        if counts is None:
+            return keypoint_loss(self.cfg, *parts, self.n_groups, n_images=b)
+        return keypoint_loss(self.cfg, *parts, b, n_images=b * counts["per_group"],
+                             total_groups=counts["groups"], counts=counts["kps"])
+
+    def keypoint_branch(self, feats, sampled, batch, prefix=None) -> torch.Tensor:
+        """The keypoint loss on the leading ``kps_cap`` slots of every image
+        (``keypoint_parts``, then ``keypoint_branch_loss``)."""
+        return self.keypoint_branch_loss(self.keypoint_parts(feats, sampled, batch, prefix))
+
+    @torch.no_grad()
+    def group_counts(self, sampled, cls_score, bbox_pred, mask=None, kps=None
+                     ) -> Optional[Dict[str, Any]]:
+        """What each loss group's losses divide by, counted an image at a
+        time and added into the batch's G groups (``counts``, by name):
+        'box' the box head's live rois (or its OHEM keeps), 'live' its live
+        rois (the accuracy's), 'mask' the fg rois of ``mask`` (mask_parts),
+        'kps' the visible keypoints at fg rois of ``kps`` (keypoint_parts).
+        Over ranks ONE all-reduce makes them global (integers in float32:
+        exact), and the result maps each local image to its group's counts
+        for the losses; for one process None (each loss counts its own
+        groups)."""
+        cfg = self.cfg
+        b = sampled["rois"].shape[0]
+        labels, valid = sampled["labels"].reshape(-1), sampled["valid"].reshape(-1)
+        nll, live = box_nll(cls_score, labels, valid)
+        weight = box_weights(cfg, nll, live, bbox_pred, *self.box_targets(sampled), b)
+        rows = {"box": weight, "live": live.float()}
+        if mask is not None:
+            rows["mask"] = mask[3].float()
+        if kps is not None:
+            rows["kps"] = (kps[2] & kps[3][:, None]).float()
+        part = torch.stack([r.reshape(b, -1).sum(dim=1) for r in rows.values()])
+        layout = self.layout()
+        d, n_data, groups = layout or (0, 1, self.n_groups)
+        gidx = (d * b + torch.arange(b, device=part.device)) // (b * n_data // groups)
+        total = torch.zeros((len(rows), groups), dtype=torch.float32, device=part.device)
+        total.index_add_(1, gidx, part)
+        if layout is not None:
+            total = all_reduce_counts(total)
+        self.counts = dict(zip(rows, total))
+        if layout is None:
+            return None
+        out = {k: v[gidx] for k, v in self.counts.items()}
+        out.update(live=self.counts["live"].sum(), images=b, groups=groups, ranks=n_data,
+                   per_group=b * n_data // groups)
+        return out
 
     def losses(self, batch, uniforms=None) -> Tuple[torch.Tensor, Metrics]:
         """Forward and every loss: (total, metrics)."""
@@ -411,33 +536,34 @@ class RCNNTrainStep:
         sampled = self.sample(boxes, valid, batch, uniforms)
         feats = self.model.roi_features({l: f.permute(0, 2, 3, 1) for l, f in nchw.items()})
         m = self.cfg.MODEL
-        mask = m.MASK_ON and "gt_mask_rasters" in batch
-        kps = m.KEYPOINTS_ON and "gt_keypoints" in batch
+        mask_on = m.MASK_ON and "gt_mask_rasters" in batch
+        kps_on = m.KEYPOINTS_ON and "gt_keypoints" in batch
+        mask = kps = None
         if self.single:
             # v0upshare: the mask head reads the box branch's res5 maps
-            share = mask and self.model.mask_share_res5
+            share = mask_on and self.model.mask_share_res5
             cls_score, bbox_pred, *res5 = self.box_outputs(feats, sampled, share)
-            box_total, box_metrics = self.box_loss(sampled, cls_score, bbox_pred)
-            total = total + box_total
-            metrics.update(box_metrics)
-            if mask:
-                metrics["loss_mask"] = self.mask_branch(feats, sampled, batch,
-                                                        res5=res5[0] if share else None)
-                total = total + metrics["loss_mask"]
-            metrics["loss"] = total
-            return total, metrics
-        box_total, box_metrics = self.box_branch(feats, sampled)
+            if mask_on:
+                mask = self.mask_parts(feats, sampled, batch, res5=res5[0] if share else None)
+        else:
+            cls_score, bbox_pred = self.box_outputs(feats, sampled)
+            prefix = self.fg_prefix(sampled) if mask_on or kps_on else None
+            if mask_on:
+                mask = self.mask_parts(feats, sampled, batch, prefix)
+            if kps_on:
+                kps = self.keypoint_parts(feats, sampled, batch, prefix)
+        counts = self.group_counts(sampled, cls_score, bbox_pred, mask, kps)
+        box_total, box_metrics = self.box_loss(sampled, cls_score, bbox_pred, counts)
         total = total + box_total
         metrics.update(box_metrics)
-        if mask or kps:
-            prefix = self.fg_prefix(sampled)
-            aux = []
-            if mask:
-                metrics["loss_mask"] = self.mask_branch(feats, sampled, batch, prefix)
-                aux.append(metrics["loss_mask"])
-            if kps:
-                metrics["loss_kps"] = self.keypoint_branch(feats, sampled, batch, prefix)
-                aux.append(metrics["loss_kps"])
+        aux = []
+        if mask is not None:
+            metrics["loss_mask"] = self.mask_branch_loss(mask, counts)
+            aux.append(metrics["loss_mask"])
+        if kps is not None:
+            metrics["loss_kps"] = self.keypoint_branch_loss(kps, counts)
+            aux.append(metrics["loss_kps"])
+        if aux:
             total = total + sum(aux)  # the aux losses summed first, as in sad_tpu
         metrics["loss"] = total
         return total, metrics
@@ -450,8 +576,9 @@ class RCNNTrainStep:
         return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, got)]
 
     def reduce(self, grads):
-        """The gradients summed over the ranks (none to sum over at world 1)."""
-        return all_reduce_grads(grads) if self.world > 1 else grads
+        """The gradients summed over the ranks (none to sum over at world
+        1), in two levels on a multislice mesh."""
+        return all_reduce_grads(grads, self.mesh) if self.world > 1 else grads
 
     def apply(self, state: TrainState, grads, lr: float) -> None:
         solver = self.cfg.SOLVER
@@ -468,8 +595,9 @@ class RCNNTrainStep:
 
 def make_rcnn_train_step(cfg, model: nn.Module, n_groups: Optional[int] = None,
                          generator: Optional[torch.Generator] = None, rank: int = 0,
-                         world: int = 1) -> RCNNTrainStep:
+                         world: int = 1, mesh: Optional[Mesh] = None) -> RCNNTrainStep:
     """The training step of a Fast / Faster / Mask / Keypoint R-CNN or R-FCN ``model`` (ref:
     sad_tpu make_rcnn_train_step). ``n_groups`` defaults to cfg.NUM_GPUS; over
-    ``world`` ranks it is the rank's own count."""
-    return RCNNTrainStep(cfg, model, n_groups, generator, rank, world)
+    ``world`` ranks it is the rank's own count, on a ``mesh`` the batch's,
+    and loss groups may span ranks."""
+    return RCNNTrainStep(cfg, model, n_groups, generator, rank, world, mesh)

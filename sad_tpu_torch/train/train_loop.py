@@ -17,14 +17,20 @@ sad_tpu/train/train_loop.py; detectron/tools/train_net.py:104-266).
   alternates with the labeled one by batch parity, behind DevicePrefetcher's
   pinned ``non_blocking`` copies.
 
-Data parallelism (sad_tpu's mesh block, train_loop.py:199-234): launched
-by ``torchrun --nproc_per_node W``, each rank trains on its card
-(``parallel.rank_device``) with G / W of the NUM_GPUS loss groups (W must
-divide NUM_GPUS), builds only its block of each batch from the shared
-schedule, sums the gradients over the ranks, and all-reduces the packed
-metrics, so every rank reads the same loss and a NaN aborts all of them at
-the same iteration; parameters and momentum are broadcast from rank 0 after
-the resume scan and TRAIN.WEIGHTS; rank 0 alone writes stats.jsonl,
+Data parallelism (sad_tpu's mesh block, train_loop.py:199-245): launched
+by ``torchrun --nnodes N --nproc_per_node W / N``, each rank trains on its
+card (``parallel.rank_device``) on its block of each batch, built from the
+shared schedule, on any world W that divides the batch's images, as
+sad_tpu's loop trains on any device count. With W dividing NUM_GPUS on one
+node a rank holds G / W whole loss groups (the steps' ``world``); when
+groups span ranks, or over N > 1 nodes, the loop builds
+``create_multislice_mesh()`` (one slice a node) and both steps run on it:
+each group's normalizers are counted over the ranks, and over nodes the
+gradients are summed in two levels. The gradients are summed over the
+ranks, the packed metrics made global, so every rank reads the same loss
+and a NaN aborts all of them at the same iteration; parameters and momentum
+are broadcast from rank 0 after the resume scan and TRAIN.WEIGHTS; rank 0
+alone writes stats.jsonl,
 cfg.yaml, the snapshots, model_final.pkl, model_nan_abort.pkl and the
 profiler's trace. Without torchrun there is one process on
 ``device.get_device``'s device and no collective. TRAIN.CHECKPOINT_BACKEND
@@ -61,6 +67,7 @@ from ..parallel.distributed import (
     RCNN_TYPES, all_reduce_metrics, barrier, broadcast_module, broadcast_tensors,
     check_group_layout, init_distributed, rank_device,
 )
+from ..parallel.mesh import create_multislice_mesh
 from ..utils.net_info import print_model_summary
 from ..utils.stats import TrainingStats
 from .checkpoint import (
@@ -91,6 +98,9 @@ class TrainResult:
     iter_process_cpu: List[float] = field(default_factory=list)  # the process's CPU s
     feed: Optional[DevicePrefetcher] = None
     loader: Any = None
+    # the first step's per-group normalizer counts, by name (the R-CNN step's
+    # ``counts``, a mesh step's fg_num / PowSum), on the device
+    first_counts: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     def feed_summary(self, first: int = 0, last: Optional[int] = None) -> Dict[str, Any]:
         """The host feed over this run's iterations first..last-1 (counted
@@ -250,11 +260,6 @@ def train_model(
     returns the final student, momentum and the loop's measurements."""
     dist_info = init_distributed(device=device)
     check_group_layout(cfg, dist_info.world)
-    if cfg.NUM_GPUS % dist_info.world:
-        raise NotImplementedError(
-            f"train_model holds whole loss groups a rank, and {dist_info.world} ranks split "
-            f"NUM_GPUS = {cfg.NUM_GPUS}: a group that spans ranks trains through "
-            "make_train_step(..., mesh=create_mesh(...)) (ROADMAP.md item 7b)")
     main = dist_info.is_main
     distill = cfg.DISTILLATION.DISTILLATION_ON and teacher_cfg is not None
     is_rcnn = cfg.MODEL.TYPE in RCNN_TYPES
@@ -322,14 +327,22 @@ def train_model(
         logger.info("Training already complete at iter %d: nothing to do", start_iter)
         return result
 
-    # ----- step: the rank's share of the loss groups, the loss scaled by 1 / NUM_GPUS
-    n_groups = cfg.NUM_GPUS // dist_info.world
-    if is_rcnn:
-        step = make_rcnn_train_step(cfg, student, n_groups=n_groups, rank=dist_info.rank,
-                                    world=dist_info.world)
+    # ----- step: the loss scaled by 1 / NUM_GPUS; whole groups a rank on one
+    # node, else sad_tpu's multislice mesh (one slice a node)
+    mesh = None
+    if dist_info.world > 1 and (cfg.NUM_GPUS % dist_info.world or dist_info.nodes > 1):
+        mesh = create_multislice_mesh()
+        logger.info("loss groups and gradients over %s (%d ranks, %d slices)", mesh,
+                    dist_info.world, mesh.n_slices)
+    if mesh is not None:
+        step = (make_rcnn_train_step(cfg, student, mesh=mesh) if is_rcnn else
+                make_train_step(cfg, student, teacher, teacher_cfg=teacher_cfg, mesh=mesh))
+    elif is_rcnn:
+        step = make_rcnn_train_step(cfg, student, n_groups=cfg.NUM_GPUS // dist_info.world,
+                                    rank=dist_info.rank, world=dist_info.world)
     else:
-        step = make_train_step(cfg, student, teacher, n_groups=n_groups, teacher_cfg=teacher_cfg,
-                               world=dist_info.world)
+        step = make_train_step(cfg, student, teacher, n_groups=cfg.NUM_GPUS // dist_info.world,
+                               teacher_cfg=teacher_cfg, world=dist_info.world)
     trainable = trainable_mask(student, cfg.TRAIN.FREEZE_AT, cfg.TRAIN.FREEZE_CONV_BODY)
     if main:
         logger.info("Model parameter summary (net.py:224 print_net analogue):")
@@ -354,8 +367,9 @@ def train_model(
         itself (CPU)."""
         if not metric_names:
             metric_names.extend(sorted(m))
-        vec = all_reduce_metrics(torch.stack([m[k].float() for k in metric_names]),
-                                 metric_names)
+        vec = torch.stack([m[k].float() for k in metric_names])
+        if not step.global_metrics:
+            vec = all_reduce_metrics(vec, metric_names)
         if dev.type != "cuda":
             return vec, None
         host = torch.empty(vec.shape, dtype=torch.float32, pin_memory=True)
@@ -418,6 +432,9 @@ def train_model(
                 step.generator = torch.Generator(device=dev).manual_seed(rcnn_step_seed(cfg, it))
             metrics = step(state, batch, cur_lr)
             del batch
+            if it == start_iter:
+                found = getattr(step, "counts", None) or getattr(step, "normalizers", {})
+                result.first_counts = {k: v.detach().clone() for k, v in found.items()}
             packed = _pack(metrics)
             # Lagged stats: reading step it's metrics would wait for the
             # card; read step it-1's while step it runs

@@ -40,7 +40,8 @@ Batch (tensors on the model's device, NHWC):
   labels:        {lvl: (B, H_l, W_l, A) int32}
   bbox_targets:  {lvl: (B, H_l, W_l, A, 4) float32}
   fg_mask:       {lvl: (B, H_l, W_l, A) bool}
-  fg_num:        (G,) float32 per-group fg counts
+  fg_num:        (G,) float32 per-group fg counts, or on a mesh
+  fg_img:        (B,) float32 per-image fg counts of a block that cuts a group
   canvas_h:      int, the canvas height (bands on a mesh with n_model > 1)
 """
 
@@ -61,7 +62,7 @@ from ..ops.losses import (
     pow_sum, select_smooth_l1_loss, sigmoid_adaptive_distill_loss, sigmoid_focal_loss,
     softmax_focal_loss,
 )
-from ..parallel.distributed import all_reduce_grads, all_reduce_sum
+from ..parallel.distributed import all_reduce_counts, all_reduce_grads, all_reduce_sum
 from ..parallel.mesh import Mesh
 from ..parallel.spatial import spatialize
 from .optimizer import init_velocity, momentum_sgd_update
@@ -237,8 +238,11 @@ def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
     Local image j is the batch's image d B_loc + j (d the data index) and
     belongs to group (d B_loc + j) // (B / G). ``batch['fg_num']`` holds all
     G counts (replicated) or the data shard's G / n_data (sliced), as
-    ``mesh.shard_batch_tree`` leaves it. ``fused_distill_losses`` (or
-    ``retinanet_losses`` for the plain step) runs with one group a local
+    ``mesh.shard_batch_tree`` leaves it, or ``batch['fg_img']`` the data
+    shard's per-image counts (a loader's block that cuts a group,
+    data/minibatch.py), which are added into their groups.
+    ``fused_distill_losses`` (or ``retinanet_losses`` for the plain step)
+    runs with one group a local
     image, each normalised by its loss group's global fg_num and PowSum,
     which one all-reduce of the (2, G) partial counts over the world makes:
     fg_num from one rank a group, PowSum from every band of every image
@@ -251,9 +255,12 @@ def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
     if images % n_groups:
         raise ValueError(f"a batch of {images} images does not hold {n_groups} loss groups")
     gidx = (mesh.data_index * b_loc + torch.arange(b_loc, device=dev)) // (images // n_groups)
-    fg = batch["fg_num"].float()
     fg_part = torch.zeros(n_groups, dtype=torch.float32, device=dev)
-    if fg.shape[0] == n_groups:
+    fg = batch["fg_num"].float() if "fg_img" not in batch else None
+    if fg is None:
+        if mesh.model_index == 0:
+            fg_part.index_add_(0, gidx, batch["fg_img"].float())
+    elif fg.shape[0] == n_groups:
         if mesh.rank == 0:
             fg_part = fg.clone()
     elif fg.shape[0] * mesh.n_data == n_groups:
@@ -267,9 +274,11 @@ def mesh_losses(cfg, out, teacher_probs, batch, n_groups: int, mesh: Mesh,
 
     def global_normalizers(_, pow_img):
         sums = torch.stack([fg_part, torch.zeros_like(fg_part).index_add_(0, gidx, pow_img)])
-        found["fg_num"], found["powsum"] = all_reduce_sum(sums)
+        found["fg_num"], found["powsum"] = all_reduce_counts(sums)
         return found["fg_num"][gidx], found["powsum"][gidx]
 
+    # the rank's partial counts stand in for fg_num; normalizers replaces them
+    batch = {**{k: v for k, v in batch.items() if k != "fg_img"}, "fg_num": fg_part}
     if teacher_probs is None:
         fg_img, _ = global_normalizers(None, torch.zeros(b_loc, device=dev))
         total, metrics = retinanet_losses(cfg, out, {**batch, "fg_num": fg_img}, b_loc, n_groups)
@@ -376,6 +385,12 @@ class TrainStep:
         metrics["retnet_fg_num"] = batch["fg_num"].sum()
         return total, metrics
 
+    @property
+    def global_metrics(self) -> bool:
+        """A step on a mesh returns the batch's metrics (``mesh_losses``);
+        over ``world`` ranks each rank's are its share."""
+        return self.mesh is not None
+
     def grads(self, total: torch.Tensor):
         if self.mesh is None:
             return torch.autograd.grad(total, self.params)
@@ -384,8 +399,9 @@ class TrainStep:
         return [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
 
     def reduce(self, grads):
-        """The gradients summed over the ranks (none to sum over at world 1)."""
-        return all_reduce_grads(grads) if self.world > 1 else grads
+        """The gradients summed over the ranks (none to sum over at world
+        1), in two levels on a multislice mesh."""
+        return all_reduce_grads(grads, self.mesh) if self.world > 1 else grads
 
     def apply(self, state: TrainState, grads, lr: float) -> None:
         solver = self.cfg.SOLVER

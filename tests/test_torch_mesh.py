@@ -26,8 +26,9 @@ against sad_tpu's jitted step on its own 2-D mesh.
   are the data shard's batch, array for array, fg_num over whole images.
 - ``mesh.shard_batch_tree``: bands, the replicated fg_num, and the
   refusal of a misshaped batch; ``check_group_layout`` accepts groups that
-  span ranks for the RetinaNet and SAD steps and refuses them for the R-CNN
-  step (ROADMAP.md item 7b), as RankShard refuses R-CNN bands.
+  span ranks for every step, the R-CNN step's too, and refuses a batch
+  whose images do not divide over the ranks; RankShard refuses R-CNN bands
+  (ROADMAP.md "Not ported").
 
 Each world is spawned once a module and runs all its jobs (a mesh each); the
 cases read their results.
@@ -317,9 +318,10 @@ def test_group_layouts_that_span_ranks():
         check_group_layout(cfg, 4)
     rcnn = t_merge(cfg, {"MODEL": {"TYPE": "generalized_rcnn"}})
     check_group_layout(rcnn, 3)
-    with pytest.raises(ValueError, match="item 7b"):
-        check_group_layout(rcnn, 2)
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    check_group_layout(rcnn, 2)  # 6 images over 2 ranks: a group split
+    with pytest.raises(ValueError, match="must divide its 6 images"):
+        check_group_layout(rcnn, 4)
+    with pytest.raises(NotImplementedError, match="Not ported"):
         RankShard(RCNNMinibatchBuilder(t_merge(tcfg.Config(), {
             "MODEL": {"TYPE": "generalized_rcnn", "FASTER_RCNN": True, "NUM_CLASSES": 9},
             "FPN": {"FPN_ON": True, "MULTILEVEL_RPN": True, "RPN_MIN_LEVEL": 2,
