@@ -2589,31 +2589,41 @@ SMOKE_SPLITS = {"smoke_lab": ("lab", True, 0, 48), "smoke_unl": ("unl", False, 1
 
 def _smoke_coco(root, seed, names=("smoke_lab", "smoke_unl")):
     """The synthetic COCO splits ``names`` under ``root``, each written by the
-    first phase that asks (its time is that phase's) and registered in the
+    first phase that asks (its time is that phase's; the splits it lacks in
+    threads side by side, each from its own seed) and registered in the
     port's catalog: 48 labeled images as smoke_lab, 48 unlabeled ones as
     smoke_unl, 32 labeled ones as smoke_val; sides 480-800. The shapes are
     of the generator's 8 categories; the jsons list 80, as COCO does, so
     that the 81-class models' detections map to categories. Returns the
     image directory of the last."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sad_tpu_torch.config import register_dataset
     from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
 
-    for name in names:
+    def write(name):
         split, labeled, k, n = SMOKE_SPLITS[name]
-        js = os.path.join(root, f"{'instances' if labeled else 'image_info'}_{split}.json")
-        img_dir = os.path.join(root, f"images_{split}")
-        if not os.path.exists(js):
-            img_dir, js = generate_synthetic_coco(root, split, n, seed=seed + k,
-                                                  size_range=(480, 800), labeled=labeled)
-            with open(js) as f:
-                doc = json.load(f)
-            names_by_id = {c["id"]: c["name"] for c in doc["categories"]}
-            doc["categories"] = [{"id": i, "name": names_by_id.get(i, f"category{i}")}
-                                 for i in range(1, 81)]
-            with open(js, "w") as f:
-                json.dump(doc, f)
-        register_dataset(name, img_dir, js, allow_override=True)
-    return img_dir
+        img_dir, js = generate_synthetic_coco(root, split, n, seed=seed + k,
+                                              size_range=(480, 800), labeled=labeled)
+        with open(js) as f:
+            doc = json.load(f)
+        names_by_id = {c["id"]: c["name"] for c in doc["categories"]}
+        doc["categories"] = [{"id": i, "name": names_by_id.get(i, f"category{i}")}
+                             for i in range(1, 81)]
+        with open(js, "w") as f:
+            json.dump(doc, f)
+
+    def paths(name):
+        split, labeled, _, _ = SMOKE_SPLITS[name]
+        return (os.path.join(root, f"images_{split}"),
+                os.path.join(root, f"{'instances' if labeled else 'image_info'}_{split}.json"))
+
+    missing = [name for name in names if not os.path.exists(paths(name)[1])]
+    with ThreadPoolExecutor(max(len(missing), 1)) as pool:
+        list(pool.map(write, missing))  # numpy and PIL's PNG encoder leave the GIL
+    for name in names:
+        register_dataset(name, *paths(name), allow_override=True)
+    return paths(names[-1])[0]
 
 
 def phase_sad_train_loop(torch, seed, iters, warmup, data_root):
@@ -2639,7 +2649,8 @@ def _sad_train_loop(torch, seed, iters, warmup, data_root, tmp):
     from sad_tpu_torch.tools.profile_train import BENCH_LR, BENCH_OPTS, seeded_train_step
 
     t0 = time.perf_counter()
-    unl_dir = _smoke_coco(data_root, 0)
+    # smoke_val too, which later phases read: the three splits written side by side
+    unl_dir = _smoke_coco(data_root, 0, ("smoke_val", "smoke_lab", "smoke_unl"))
 
     # the teacher's pseudo-labels: a first pass at threshold 0 finds the
     # threshold at which every image keeps at least one box (its lowest
@@ -4233,6 +4244,9 @@ def phase_voc_test_net(torch, seed, data_root, iters, warmup):
 
 
 CS_IMAGES = 8  # the Cityscapes val tree: one batch of 2048x1024 images
+# test_net's range of it: a PNG, a full-image RLE and a segm match a detection (100 an
+# image) cost ~11 s of the host an image; the kernels still take the batch of all 8
+CS_TEST_IMAGES = 2
 
 
 def phase_cityscapes_test_net(torch, seed, data_root, iters, warmup):
@@ -4273,7 +4287,8 @@ def phase_cityscapes_test_net(torch, seed, data_root, iters, warmup):
         # the plain twins are held on the served batch below: a second test_net
         # run would spend a minute more on the host (RLE, PNGs, segm) for the same
         # bytes
-        r = _test_net_run(torch, "cityscapes", CS_CFG, model, tmp, dataset=name, twin=False)
+        r = _test_net_run(torch, "cityscapes", CS_CFG, model, tmp, dataset=name, twin=False,
+                          im_range=(0, CS_TEST_IMAGES))
         res, t = r["results"], r["timing"]
         keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100", "ARs",
                 "ARm", "ARl")
@@ -4288,7 +4303,7 @@ def phase_cityscapes_test_net(torch, seed, data_root, iters, warmup):
         txts = sorted(f for f in os.listdir(got_dir) if f.endswith("pred.txt"))
         lines = [ln.split() for f in txts for ln in open(os.path.join(got_dir, f))]
         pngs = os.listdir(os.path.join(got_dir, "results"))
-        if len(txts) != CS_IMAGES or len(lines) != r["n_dets"] or len(pngs) != r["n_dets"] or any(
+        if len(txts) != CS_TEST_IMAGES or len(lines) != r["n_dets"] or len(pngs) != r["n_dets"] or any(
                 not os.path.exists(os.path.join(got_dir, p)) for p, _, _ in lines):
             raise AssertionError(f"cityscapes_test_net: {len(txts)} pred.txt, {len(lines)} lines, "
                                  f"{len(pngs)} PNGs for {r['n_dets']} detections")
@@ -4311,7 +4326,8 @@ def phase_cityscapes_test_net(torch, seed, data_root, iters, warmup):
            f"({CS_IMAGES} PNGs 2048x1024, {len(doc['annotations'])} instances after the "
            f"converter dropped crowd, non-instance and degenerate polygons): the ground truth as "
            f"detections bbox AP {gt_box:.1f}, segm AP {gt_segm:.1f}; seeded spread weights "
-           f"through --weights on the 1024x2048 canvas: {r['n_dets']} detections, one pred.txt "
+           f"through --weights on the 1024x2048 canvas, --range 0 {CS_TEST_IMAGES}: "
+           f"{r['n_dets']} detections, one pred.txt "
            f"an image and one PNG a detection (label ids {labels}), the served batch's boxes, "
            f"scores, classes, valid and mask_prob equal to the plain-twin run's, the 24 bbox "
            f"and segm metrics "
@@ -5308,6 +5324,322 @@ def phase_ddp_train_loop(torch, data_root, state, gpu):
     return {"launches": [(r["launches"]["cls_fwd"], r["launches"]["cls_bwd"]) for r in whole]}
 
 
+# --------------------------------------------------------------------------- #
+# REMAT_BACKBONE and TRAIN.CHECKPOINT_BACKEND 'orbax'
+# --------------------------------------------------------------------------- #
+
+REMAT_GROUPS = (4, 16)  # the joint step at bs 8 and bs 32
+REMAT_ITERS, REMAT_WARMUP = 3, 2  # timed steps of each reading, two readings a step shape
+# train_net iterations of [async_checkpoint], and its snapshot period: longer than a
+# write (~0.9 s beside the loop), so that a save does not wait on the one before
+ASYNC_ITERS, ASYNC_PERIOD = 36, 12
+ASYNC_THREADS = 4  # DATA_LOADER.NUM_THREADS of its runs
+
+
+def _set_body(model, **switches):
+    """Every ResNetBody of ``model`` with its arch's switches replaced
+    (remat): the same weights in another phrasing."""
+    import dataclasses
+
+    from sad_tpu_torch.models.resnet import ResNetBody
+
+    bodies = [m for m in model.modules() if isinstance(m, ResNetBody)]
+    if not bodies:
+        raise AssertionError(f"{type(model).__name__} holds no ResNetBody")
+    for b in bodies:
+        b.arch = dataclasses.replace(b.arch, **switches)
+
+
+def _ms_and_peak(torch, fn, iters, warmup):
+    """(median step ms, peak GiB over the steps, GiB held before them)."""
+    from sad_tpu_torch.tools.profile_infer import wall_seconds
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    ms = 1e3 * statistics.median(wall_seconds(fn, iters, warmup))
+    return ms, torch.cuda.max_memory_allocated() / 2**30, held
+
+
+def _off_on(torch, run_fn, set_fn, iters, warmup, main):
+    """The switch off, then on: each reading's median ms, peak and the GiB
+    held before; ``main`` takes the 'on' reading (the counts' check) and is
+    handed its result."""
+    got = {}
+    set_fn(False)
+    got[False] = _ms_and_peak(torch, run_fn, iters, warmup)
+    set_fn(True)
+    out = []
+    main(lambda: _ms_and_peak(torch, run_fn, iters, warmup), out)
+    got[True] = out[0]
+    return got
+
+
+def _tree_diff(torch, a, b):
+    """(names of the tensors that differ, the largest difference)."""
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    return bad, max((float((a[k] - b[k]).abs().max()) for k in bad), default=0.0)
+
+
+def phase_remat_joint_step(torch, seed, iters, warmup, gpu):
+    """REMAT_BACKBONE on the R-50 <- R-101 joint step at bs 8 and 32 (bf16,
+    cuDNN) off, then on: step ms and peak memory; two float32 steps
+    each way (TF32 off, deterministic cuDNN) bit-equal; the Mask R-CNN
+    R-50-FPN step at bs 8 off and on."""
+    from sad_tpu_torch.ops import cls_loss_kernel
+    from sad_tpu_torch.tools.profile_train import (
+        BENCH_LR, seeded_rcnn_train_step, seeded_train_step,
+    )
+
+    t0 = time.perf_counter()
+    student, teacher = os.path.join(REPO, STUDENT_CFG), os.path.join(REPO, TEACHER_CFG)
+    rows, launches = {}, {}
+    for groups in REMAT_GROUPS:
+        run = seeded_train_step(student, teacher, seed=seed, n_groups=groups, device="cuda")
+
+        def main(measure, out, n_steps=iters + warmup):
+            # the main path: the counts set to 0 just before, read just after
+            _reset_counts()
+            out.append(measure())
+            torch.cuda.synchronize()
+            launches[groups] = (cls_loss_kernel.fwd_launches, cls_loss_kernel.bwd_launches)
+            if launches[groups] != (5 * n_steps, 5 * n_steps):
+                raise AssertionError(f"remat_joint_step: cls-loss launches {launches[groups]} in "
+                                     f"{n_steps} steps with REMAT_BACKBONE, want 5 + 5 a step")
+
+        rows[groups] = _off_on(torch, lambda: run.step(run.state, run.batch, BENCH_LR),
+                                 lambda on: _set_body(run.student, remat=on), iters, warmup, main)
+        if not rows[groups][True][1] < rows[groups][False][1]:
+            raise AssertionError(f"remat_joint_step: peak {rows[groups][True][1]:.3f} GiB with "
+                                 f"REMAT_BACKBONE at G={groups}, {rows[groups][False][1]:.3f} "
+                                 "without")
+        del run
+        torch.cuda.empty_cache()
+
+    # parity: two float32 steps each way from one state, TF32 off, deterministic cuDNN
+    run = seeded_train_step(student, teacher, seed=seed, n_groups=4, device="cuda",
+                            opts=["COMPUTE_DTYPE", "float32"])
+    params = dict(run.student.named_parameters())
+    snap = {n: p.detach().clone() for n, p in params.items()}
+    ends = {}
+    with _deterministic(torch):
+        for on in (False, True):
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(snap[n])
+                for v in run.state.velocity.values():
+                    v.zero_()
+            _set_body(run.student, remat=on)
+            metrics = [run.step(run.state, run.batch, BENCH_LR) for _ in range(2)]
+            ends[on] = ({f"{k}@{i}": v.detach().clone() for i, m in enumerate(metrics)
+                         for k, v in m.items()},
+                        {n: p.detach().clone() for n, p in params.items()},
+                        {n: v.clone() for n, v in run.state.velocity.items()})
+    diffs = [_tree_diff(torch, a, b) for a, b in zip(ends[False], ends[True])]
+    del run, ends, snap, params
+    torch.cuda.empty_cache()
+    if any(bad for bad, _ in diffs):
+        raise AssertionError("remat_joint_step: REMAT_BACKBONE off vs on at float32 differ: "
+                             + "; ".join(f"{what} {len(bad)} (max {mx:.3e}, e.g. {bad[:2]})"
+                                         for what, (bad, mx) in zip(
+                                             ("metrics", "params", "velocity"), diffs)))
+
+    # the Mask R-CNN step at bs 8
+    rrun = seeded_rcnn_train_step(os.path.join(REPO, MASK_CFG), seed=seed + 31, n_groups=4,
+                                  device="cuda")
+    rcnn_launches = []
+
+    def rcnn_main(measure, out, n_steps=iters + warmup):
+        _reset_counts()
+        out.append(measure())
+        torch.cuda.synchronize()
+        rcnn_launches.extend(_kernel_counts())
+        if tuple(rcnn_launches) != (n_steps, 3 * n_steps, 2 * n_steps):
+            raise AssertionError(f"remat_joint_step: Mask R-CNN launches (NMS, RoIAlign fwd, "
+                                 f"bwd) {rcnn_launches} in {n_steps} steps, want 1, 3, 2 a step")
+
+    rcnn = _off_on(torch, lambda: rrun.step(rrun.state, rrun.batch, BENCH_LR),
+                     lambda on: _set_body(rrun.model, remat=on), iters, warmup, rcnn_main)
+    del rrun
+    torch.cuda.empty_cache()
+
+    def said(r, n):
+        (off_ms, off_pk, held), (on_ms, on_pk, _) = r[False], r[True]
+        return (f"off {off_ms:.2f} ms ({n / off_ms * 1e3:.2f} imgs/s), peak {off_pk:.3f} GiB; "
+                f"on {on_ms:.2f} ms ({n / on_ms * 1e3:.2f} imgs/s, {on_ms / off_ms:.3f}x), peak "
+                f"{on_pk:.3f} GiB ({off_pk - on_pk:.3f} GiB less; {held:.3f} GiB held before "
+                f"the steps)")
+
+    _phase("remat_joint_step", f"REMAT_BACKBONE off, then on (the "
+           f"median of {iters} steps after {warmup} each, bf16, cuDNN): R-50 <- R-101 joint step "
+           + "; ".join(f"bs {2 * g} (G={g}): {said(rows[g], 2 * g)}, cls-loss launches with it on "
+           f"{launches[g]}" for g in REMAT_GROUPS)
+           + f"; two float32 steps off and on from one state (TF32 off, deterministic cuDNN): "
+           f"losses, parameters and momenta bit-equal; Mask R-CNN R-50-FPN step bs 8 (G=4, "
+           f"800x1344): {said(rcnn, 8)}, launches (NMS, RoIAlign fwd, bwd) with it on "
+           f"{tuple(rcnn_launches)}; {gpu}", time.perf_counter() - t0)
+    return {"launches": launches, "rcnn_launches": tuple(rcnn_launches),
+            "rows": rows, "rcnn": rcnn}
+
+
+def phase_async_checkpoint(torch, seed, data_root, gpu):
+    """train_net with the SAD YAMLs over smoke_lab with each checkpoint
+    backend; runs in a temporary directory under ``data_root``, removed
+    after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="async_checkpoint_", dir=data_root) as tmp:
+        return _async_checkpoint(torch, seed, data_root, tmp, gpu)
+
+
+def _async_checkpoint(torch, seed, data_root, tmp, gpu):
+    import threading
+
+    from sad_tpu_torch.config import load_cfg
+    from sad_tpu_torch.config.config import cfg_to_yaml
+    from sad_tpu_torch.models import create_model
+    from sad_tpu_torch.tools import test_net, train_net
+    from sad_tpu_torch.tools.profile_train import BENCH_OPTS
+    from sad_tpu_torch.train.async_checkpoint import PAYLOAD
+    from sad_tpu_torch.train.checkpoint import load_reference_or_native, save_checkpoint
+
+    t0 = time.perf_counter()
+    _smoke_coco(data_root, 0, names=("smoke_lab", "smoke_val"))
+    teacher_yaml = os.path.join(tmp, "teacher.yaml")
+    with open(teacher_yaml, "w") as f:
+        f.write(cfg_to_yaml(load_cfg(os.path.join(REPO, TEACHER_CFG), BENCH_OPTS)))
+    student = os.path.join(REPO, STUDENT_CFG)
+    period = ASYNC_PERIOD  # TRAIN.SNAPSHOT_ITERS / NUM_GPUS 4
+
+    def argv(out_dir, n_iter, backend):
+        # the threaded loader: no loader processes to start for each of the three runs
+        return ["--cfg", student, "--teacher_cfg", teacher_yaml, "--skip-test"] + _loop_opts(
+            out_dir, "SOLVER.MAX_ITER", str(n_iter), "TRAIN.CHECKPOINT_BACKEND", backend,
+            "TRAIN.SNAPSHOT_ITERS", str(4 * period), "DATA_LOADER.NUM_PROCESSES", "0",
+            "DATA_LOADER.NUM_THREADS", str(ASYNC_THREADS))
+
+    def writers():
+        return [t.name for t in threading.enumerate() if t.name.startswith("async-checkpoint")]
+
+    snap_its = [it for it in range(ASYNC_ITERS) if (it + 1) % period == 0 and
+                it + 1 < ASYNC_ITERS]
+    after = [it + 1 for it in snap_its]
+    runs = {}
+    for backend in ("pickle", "orbax"):
+        out = os.path.join(tmp, backend)
+        # the main path: the counts set to 0 just before, read just after; deterministic
+        # cuDNN, so that a run resumed from a step can be held to this one bit for bit
+        _reset_counts()
+        with _deterministic(torch):
+            res = train_net.main(argv(out, ASYNC_ITERS, backend))
+        launches = _all_counts()
+        if launches != (0, 0, 0, 5 * ASYNC_ITERS, 5 * ASYNC_ITERS):
+            raise AssertionError(f"async_checkpoint {backend}: launches {launches}")
+        if writers():
+            raise AssertionError(f"async_checkpoint: writer threads left {writers()}")
+        run_dir = _run_dir(out)
+        ms = [1e3 * s for s in res.iter_seconds]
+        others = [m for i, m in enumerate(ms) if i >= LOOP_WARMUP and i not in snap_its + after]
+        if backend == "pickle":
+            files = sorted(os.listdir(run_dir))
+            want = sorted(["cfg.yaml", "model_final.pkl", "stats.jsonl"]
+                          + [f"model_iter{i}.pkl" for i in snap_its])
+            if files != want:
+                raise AssertionError(f"async_checkpoint pickle: files {files}, want {want}")
+            size = os.path.getsize(os.path.join(run_dir, f"model_iter{snap_its[0]}.pkl"))
+            # the loop's stall: the call that wrote each snapshot, timed alone on the final state
+            ts = time.perf_counter()
+            save_checkpoint(os.path.join(tmp, "timed.pkl"), res.model, res.state.velocity,
+                            ASYNC_ITERS)
+            stall_s = [time.perf_counter() - ts]
+            write_s = stall_s
+        else:
+            ckdir = os.path.join(run_dir, "checkpoints")
+            steps = sorted(int(n) for n in os.listdir(ckdir))
+            kept = [it + 1 for it in snap_its][-4:] + [ASYNC_ITERS]
+            if steps != kept or os.path.exists(os.path.join(run_dir, "model_final.pkl")):
+                raise AssertionError(f"async_checkpoint orbax: steps {steps}, want {kept}, and "
+                                     "no model_final.pkl")
+            size = os.path.getsize(os.path.join(ckdir, str(steps[0]), PAYLOAD))
+            st = res.checkpointer.stats
+            stall_s, write_s, wait_s = st["save_seconds"], st["write_seconds"], st["wait_seconds"]
+            if len(stall_s) != len(snap_its) + 1:
+                raise AssertionError(f"async_checkpoint orbax: {len(stall_s)} saves")
+            final_model, final_velocity = res.model, res.state.velocity
+        runs[backend] = {"ms_snap": [ms[i] for i in snap_its], "ms_after": [ms[i] for i in after],
+                         "ms_others": statistics.median(others), "bytes": size,
+                         "stall_ms": [1e3 * s for s in stall_s],
+                         "write_ms": [1e3 * s for s in write_s], "launches": launches}
+        if backend == "orbax":
+            runs[backend]["wait_ms"] = [1e3 * s for s in wait_s]
+        if backend == "pickle":
+            del res
+    # test_net's loader on the orbax run: the latest step, bit-equal to the final model
+    run_dir = _run_dir(os.path.join(tmp, "orbax"))
+    cfg = load_cfg(student, BENCH_OPTS)
+    fresh = create_model(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed + 99))
+    load_reference_or_native(run_dir, fresh, cfg)
+    bad, mx = _tree_diff(torch, fresh.state_dict(), final_model.state_dict())
+    if bad:
+        raise AssertionError(f"async_checkpoint: the run directory's latest step differs from "
+                             f"the final model in {len(bad)} tensors (max {mx:.3e})")
+    del fresh, res
+    # test_net from the run directory (the weights it loads are the ones just checked)
+    out = os.path.join(tmp, "eval")
+    _reset_counts()
+    test_net.main(["--cfg", student, "--weights", run_dir, "--range", "0", "8",
+                   "TEST.DATASETS", "('smoke_val',)", *BENCH_OPTS, "OUTPUT_DIR", out])
+    eval_nms = _all_counts()[0]
+    with open(os.path.join(out, "test", "smoke_val", "bbox_results.json")) as f:
+        n_dets = len(json.load(f))
+    if not n_dets or eval_nms < 1:
+        raise AssertionError(f"async_checkpoint: test_net from the run directory found {n_dets} "
+                             f"detections with {eval_nms} NMS launches")
+    # resume: a run in a fresh directory holding only the orbax run's step before
+    # its last, under deterministic cuDNN, ends as that run ended
+    resume_at = kept[-2]
+    resumed_dir = os.path.join(tmp, "resumed")
+    dst = os.path.join(_run_dir(resumed_dir), "checkpoints", str(resume_at))
+    os.makedirs(dst)
+    os.link(os.path.join(run_dir, "checkpoints", str(resume_at), PAYLOAD),
+            os.path.join(dst, PAYLOAD))
+    with _deterministic(torch):
+        resumed = train_net.main(argv(resumed_dir, ASYNC_ITERS, "orbax"))
+    if resumed.start_iter != resume_at or len(resumed.iter_seconds) != ASYNC_ITERS - resume_at:
+        raise AssertionError(f"async_checkpoint: the resumed run started at {resumed.start_iter}")
+    bad = _tree_diff(torch, final_model.state_dict(), resumed.model.state_dict())[0]
+    bad += _tree_diff(torch, final_velocity, resumed.state.velocity)[0]
+    if bad:
+        raise AssertionError(f"async_checkpoint: resumed != uninterrupted in {len(bad)} tensors")
+    del resumed, final_model, final_velocity
+    torch.cuda.empty_cache()
+    left = [p for p in _descendants() if p[1] != "Z" and "resource_tracker" not in p[2]]
+    if writers() or left:
+        raise AssertionError(f"async_checkpoint: threads {writers()} or processes {left} left")
+
+    def said(r):
+        waited = (f" (of which waiting for the save before {_fmt(r['wait_ms'], 1)})"
+                  if "wait_ms" in r else "")
+        return (f"iteration ms at the {len(r['ms_snap'])} snapshot iterations "
+                f"{_fmt(r['ms_snap'], 1)}, at the next ones {_fmt(r['ms_after'], 1)}, the other "
+                f"iterations' median {r['ms_others']:.1f}; the save call {_fmt(r['stall_ms'], 1)} "
+                f"ms{waited}, written in {_fmt(r['write_ms'], 1)} ms; {r['bytes']} bytes a "
+                f"snapshot")
+
+    _phase("async_checkpoint", f"train_net {os.path.basename(STUDENT_CFG)} + R-101 teacher, bs 8 "
+           f"(G=4), smoke_lab, {ASYNC_ITERS} iterations, a snapshot every {period} "
+           f"({ASYNC_THREADS} loader threads, deterministic cuDNN). "
+           f"TRAIN.CHECKPOINT_BACKEND pickle: {said(runs['pickle'])} (the save call timed alone "
+           f"on the final state). 'orbax' (train/async_checkpoint.py): {said(runs['orbax'])}; "
+           f"steps {kept} on disk, no model_final.pkl; the run directory's latest step "
+           f"bit-equal to the final model; test_net --range 0 8 from the run directory: "
+           f"{n_dets} detections, {eval_nms} NMS launches; a run resumed in a fresh directory "
+           f"from its step {resume_at} ends bit-identical to it; no writer thread or process "
+           f"left; cls-loss launches {runs['orbax']['launches'][3:]} a run; {gpu}",
+           time.perf_counter() - t0)
+    return runs
+
+
 PARTIAL = {
     "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
     "cls_loss_kernels": lambda torch, a, rng: phase_cls_losses(torch, a.seed, a.batch, a.groups,
@@ -5398,6 +5730,10 @@ PARTIAL = {
         torch, a.seed + 30, a.iters, a.warmup, a.gpu),
     "span_train_loop": lambda torch, a, rng: phase_span_train_loop(
         torch, a.loop_data, a.iters, a.warmup, a.gpu),
+    "remat_joint_step": lambda torch, a, rng: phase_remat_joint_step(
+        torch, a.seed + 32, REMAT_ITERS, REMAT_WARMUP, a.gpu),
+    "async_checkpoint": lambda torch, a, rng: phase_async_checkpoint(torch, a.seed + 34,
+                                                                     a.loop_data, a.gpu),
 }
 # the RoIAlign forward's calls at the main paths' shapes, filled by the phases
 # above and timed on the device by phase_roi_align_device after the main paths
@@ -5624,6 +5960,10 @@ def _main(torch, args) -> int:
     ms_step = phase_multislice_joint_step(torch, args.seed + 30, args.iters, args.warmup,
                                           args.gpu, one=sp_step["one"])
     span = PARTIAL["span_train_loop"](torch, args, rng)
+    # REMAT_BACKBONE and the 'orbax' checkpoint backend: each main path's
+    # counts set to 0 just before it and read just after, inside
+    remat = PARTIAL["remat_joint_step"](torch, args, rng)
+    ckpt = PARTIAL["async_checkpoint"](torch, args, rng)
 
     nms_entry = {
         "route": "cuda",
@@ -5744,6 +6084,7 @@ def _main(torch, args) -> int:
         "train_loop_launches": mask_loop["launches"][0],
         "keypoint_train_loop_launches": kps_loop[0],
         "ddp_launches": [la["nms"] for la in ddp_rows],
+        "remat_launches": remat["rcnn_launches"][0],
         **nms_stats["rpn_train"], **nms_entry,
     }, {
         "name": "roi_align_fwd@box_train",
@@ -5753,6 +6094,7 @@ def _main(torch, args) -> int:
         "train_loop_launches": mask_loop["launches"][1] // 3,
         "keypoint_train_loop_launches": kps_loop[1] // 2,
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
+        "remat_launches": remat["rcnn_launches"][1] // 3,
         **roi_bwd_stats["fwd_box"], **roi_entry,
     }, {
         "name": "roi_align_fwd@mask_train", "launches": mask_t["steps"] + kps_t["steps"],
@@ -5760,11 +6102,13 @@ def _main(torch, args) -> int:
         "train_loop_launches": mask_loop["launches"][1] // 3,
         "keypoint_train_loop_launches": kps_loop[1] // 2,
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
+        "remat_launches": remat["rcnn_launches"][1] // 3,
         **roi_bwd_stats["fwd_mask"], **roi_entry,
     }, {
         "name": "roi_align_fwd@mask_targets", "launches": mask_t["steps"],
         "train_loop_launches": mask_loop["launches"][1] // 3,
         "ddp_launches": [la["roi_align_fwd"] // 3 for la in ddp_rows],
+        "remat_launches": remat["rcnn_launches"][1] // 3,
         **mask_t["target_stats"], **roi_entry,
     }, {
         "name": "roi_align_bwd_gather@box", "launches": train_steps + kps_t["steps"],
@@ -5772,6 +6116,7 @@ def _main(torch, args) -> int:
         "train_loop_launches": mask_loop["launches"][2] // 2,
         "keypoint_train_loop_launches": kps_loop[2] // 2,
         "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
+        "remat_launches": remat["rcnn_launches"][2] // 2,
         **roi_bwd_stats["box"], **roi_bwd_entry,
     }, {
         "name": "roi_align_bwd_gather@mask", "launches": mask_t["steps"] + kps_t["steps"],
@@ -5779,6 +6124,7 @@ def _main(torch, args) -> int:
         "train_loop_launches": mask_loop["launches"][2] // 2,
         "keypoint_train_loop_launches": kps_loop[2] // 2,
         "ddp_launches": [la["roi_align_bwd"] // 2 for la in ddp_rows],
+        "remat_launches": remat["rcnn_launches"][2] // 2,
         **roi_bwd_stats["mask"], **roi_bwd_entry,
     }, {
         # the single-scale family. C4 serving's RPN: 8 x 6000 -> 1000 (sorted), one
@@ -5860,6 +6206,10 @@ def _main(torch, args) -> int:
         "launches": cls_launches[0], "train_loop_launches": sad_loop["launches"][3],
         "ddp_launches": [la["cls_fwd"] for la in ddp_joint["launches"]],
         "ddp_train_loop_launches": [f for f, _ in ddp_loop["launches"]],
+        # the joint step's with REMAT_BACKBONE on (bs 8, then bs 32), train_net's with
+        # each checkpoint backend (pickle, orbax)
+        "remat_launches": [remat["launches"][g][0] for g in REMAT_GROUPS],
+        "async_checkpoint_launches": [ckpt[b]["launches"][3] for b in ("pickle", "orbax")],
         **fwd_stats, "library_ms": None,
     }, {
         "name": "cls_losses_bwd",
@@ -5869,6 +6219,8 @@ def _main(torch, args) -> int:
         "launches": cls_launches[1], "train_loop_launches": sad_loop["launches"][4],
         "ddp_launches": [la["cls_bwd"] for la in ddp_joint["launches"]],
         "ddp_train_loop_launches": [b for _, b in ddp_loop["launches"]],
+        "remat_launches": [remat["launches"][g][1] for g in REMAT_GROUPS],
+        "async_checkpoint_launches": [ckpt[b]["launches"][4] for b in ("pickle", "orbax")],
         **bwd_stats, "library_ms": None,
     }, {
         # height-sharded serving (n_model = 2): the first rank's decode of the gathered

@@ -48,9 +48,10 @@ class TrainConfig:
     AUTO_RESUME: bool = True
     # Checkpoint backend (framework-only key). 'pickle' = reference-format
     # flat pickles (net.py:149-182 analogue, the default); 'orbax' = async
-    # orbax.checkpoint manager (saves overlap training, retention policy,
-    # multi-host-safe) storing {params, velocity} per step under
-    # OUTPUT_DIR/checkpoints. AUTO_RESUME works with both.
+    # saves that overlap training, the newest 5 kept, {params, velocity}
+    # per step under OUTPUT_DIR/checkpoints (sad_tpu: an orbax.checkpoint
+    # manager; the port: train/async_checkpoint.py). AUTO_RESUME works with
+    # both.
     CHECKPOINT_BACKEND: str = "pickle"
     ASPECT_GROUPING: bool = True
     RPN_STRADDLE_THRESH: float = 0.0
@@ -479,14 +480,17 @@ class Config:
     # compute dtype for backbone/head matmuls ('bfloat16' or 'float32');
     # losses always accumulate in float32.
     COMPUTE_DTYPE: str = "bfloat16"
-    # Rematerialize backbone activations in backward (jax.checkpoint) —
-    # the TPU analogue of the reference's memonger gradient-blob sharing
-    # (train_net.py:247-258, python/memonger.py): trade FLOPs for HBM.
+    # Rematerialize backbone activations in backward (jax.checkpoint in
+    # sad_tpu, torch.utils.checkpoint in the port) — the analogue of the
+    # reference's memonger gradient-blob sharing (train_net.py:247-258,
+    # python/memonger.py): trade FLOPs for device memory.
     REMAT_BACKBONE: bool = False
     # Space-to-depth conv1 (MLPerf-style): compute the 7x7/s2 stem as a
     # weight-equivalent 4x4/s1 conv over 2x2-blocked 12-channel input.
     # Same outputs, same checkpoint layout (param stays (7,7,3,64)); only
-    # the on-device compute layout changes. See models/resnet.py Conv1S2D.
+    # the on-device compute layout changes. See sad_tpu's models/resnet.py
+    # Conv1S2D; the port runs the 7x7 stem (faster on the H100) and refuses
+    # an odd canvas as sad_tpu does (models/resnet.py).
     S2D_STEM: bool = False
     # Fold each AffineChannel's frozen scale into the preceding conv's
     # weights at trace time (y = conv(x, W*s) + b) — the XLA-level analogue

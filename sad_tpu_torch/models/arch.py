@@ -2,9 +2,8 @@
 
 A copy of sad_tpu/models/arch.py (which sits behind a package that imports
 flax); tests/test_torch_models.py holds the two equal field for field.
-REMAT and S2D_STEM are carried so the structs stay equal; the port's
-modules ignore them. FOLD_AFFINE folds the AffineChannels into the convs
-(models/resnet.py).
+REMAT_BACKBONE (``remat``), S2D_STEM (``s2d_stem``) and FOLD_AFFINE are
+read by models/resnet.py's ResNetBody.
 """
 
 from __future__ import annotations

@@ -29,10 +29,30 @@ conv, as sad_tpu adds b to the conv's output). At float32 it equals the
 unfolded form up to rounding; at bf16 the product W*s is rounded once more
 (chip_smoke.py ``[fold_affine]`` states the tolerance).
 
-Not ported, loadable and ignored: S2D_STEM (the same outputs; a TPU phrasing
-of conv1), REMAT_BACKBONE (activation rematerialisation), and the
-grouped-conv phrasings of sad_tpu/ops/grouped_conv.py (native ``groups=``
-here).
+S2D_STEM (sad_tpu resnet.py:156-207, ``Conv1S2D``): sad_tpu computes conv1
+as a 4x4/s1 convolution over the canvas blocked 2x2 into 12 channels, a TPU
+phrasing with the same outputs and the same parameter. On the H100 that
+phrasing, through cuDNN, was slower than cuDNN's 7x7 stem in every reading
+(PERF.md section 6's S2D_STEM readings: the stem alone, serving and the
+joint step), so
+with S2D_STEM the port runs the 7x7 stem. It keeps sad_tpu's refusal of an
+odd canvas height or width (its reshape's).
+
+REMAT_BACKBONE (sad_tpu resnet.py:336, ``nn.remat(Bottleneck)``; the
+reference's memonger): with grad enabled every Bottleneck runs under
+``torch.utils.checkpoint`` (non-reentrant: the steps take ``torch.autograd.
+grad``, which the reentrant form refuses), so its activations are not kept
+but computed again in the backward, by the same ops in the same dtype (the
+per-layer casts and FOLD_AFFINE's W*s sit inside the block). FREEZE_AT's
+detach stays after the stage. Inference is unchanged.
+
+A caller that runs the body on row bands of the canvas (parallel/spatial.py)
+sets two attributes for its call: ``remat_context_fn``, checkpoint's
+context_fn, so that a block's recompute runs on the bands again, and
+``whole_rows`` False, since a band's height is not the canvas's.
+
+Not ported: the grouped-conv phrasings of sad_tpu/ops/grouped_conv.py
+(native ``groups=`` here).
 """
 
 from __future__ import annotations
@@ -42,6 +62,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from .arch import ModelArch
 
@@ -132,6 +153,10 @@ class ResNetBody(nn.Module):
     """conv1..res5 trunk returning the stage outputs keyed by the reference's
     blob names ('res{stage}_{last}_sum')."""
 
+    # set for a call on row bands (module docstring)
+    remat_context_fn = staticmethod(noop_context_fn)
+    whole_rows = True
+
     def __init__(self, arch: ModelArch):
         super().__init__()
         a = arch
@@ -163,12 +188,24 @@ class ResNetBody(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(getattr(torch, self.arch.compute_dtype))
+        h, w = x.shape[2:]
+        if self.arch.s2d_stem and (w % 2 or self.whole_rows and h % 2):
+            raise ValueError(f"S2D_STEM: a {h}x{w} canvas; sad_tpu's space-to-depth stem blocks "
+                             "it 2x2 and needs an even height and width")
         p = F.relu(conv_affine(self.conv1, self.res_conv1_bn, x, self.arch.fold_affine))
         p = F.max_pool2d(p, 3, stride=2, padding=1)
+        remat = self.arch.remat and torch.is_grad_enabled()
         outputs = {}
         for stage_idx, names in enumerate(self.stages, start=2):
             for name in names:
-                p = getattr(self, name)(p)
+                block = getattr(self, name)
+                if remat:
+                    # the whole block again (no early stop): on a mesh every rank then
+                    # takes every halo of the block's recompute
+                    p = checkpoint(block, p, use_reentrant=False, preserve_rng_state=False,
+                                   early_stop=False, context_fn=self.remat_context_fn)
+                else:
+                    p = block(p)
             if self.arch.freeze_at == stage_idx:
                 p = p.detach()
             outputs[f"res{stage_idx}_{len(names) - 1}_sum"] = p

@@ -26,7 +26,33 @@ sad_tpu/ops/detectron_ops.py; detectron's caffe2 ops they transcribe).
   argsort, as sad_tpu's ``jnp.argsort`` (stable) gives them, so ties keep the
   lower index.
 
-Layouts are NHWC features and (R, 5) rois [batch, x1, y1, x2, y2].
+These three take NHWC features, as the port's R-CNN heads hold them, and
+(R, 5) rois [batch, x1, y1, x2, y2].
+
+The rest of the library (sad_tpu/ops/detectron_ops.py:191-257, :338-345,
+:430-512) takes NCHW maps, Caffe2's layout and PyTorch's, where sad_tpu's
+take NHWC: no path of sad_tpu or the port calls them (ROI_XFORM_METHOD stays
+RoIAlign), they are the op library for users of Detectron's ops. Plain
+PyTorch with autograd, as sad_tpu's are plain JAX:
+
+- ``roi_pool``: RoIPoolF max pooling (roi_pool_f_op.cu:36-95): roi corners
+  times the scale rounded half to even, extents + 1 (at least 1), bin edges
+  floor(p * bin) and ceil((p + 1) * bin) from the roi's corner, clipped to
+  the map, an empty bin 0; the bin size is the extent times float32(1 /
+  res), as XLA compiles sad_tpu's division. The gradient goes to each
+  bin's maximum, the first in row-major order among equal ones (the
+  reference's argmax; JAX splits a tie's gradient).
+- ``group_spatial_softmax`` (group_spatial_softmax_op.cu): a softmax over
+  each anchor's C classes of the A * C channels.
+- ``sigmoid_cross_entropy_loss`` (sigmoid_cross_entropy_loss_op.cu:29-66):
+  the stable BCE summed over the targets that are not -1, over their count
+  clamped to 1.
+- ``batch_permutation``, ``sample_as`` (the static form: the first
+  ``max_out`` rows with a label > 0 in order, and their valid mask),
+  ``spatial_narrow_as``, ``spatial_l2_loss`` (0.5 * scale * the mean
+  squared difference), ``spatial_sigmoid``, ``affine_channel`` (no gradient
+  to the scale and bias, as affine_channel_op.cc:70-80), ``upsample_nearest``
+  and ``zero_even`` (the reference's tutorial op).
 """
 
 from __future__ import annotations
@@ -39,7 +65,7 @@ import torch
 from .roi_align import multilevel_roi_align
 
 FLT_MIN = 1.1754944e-38
-# gathered values of one chunk of ps_roi_pool: 64 Mi elements, 256 MiB in float32
+# gathered values of one chunk of ps_roi_pool or roi_pool: 64 Mi elements, 256 MiB in float32
 _PS_CHUNK_ELEMS = 1 << 26
 
 
@@ -165,3 +191,125 @@ def box_annotator_ohem(cls_loss: torch.Tensor, bbox_loss: torch.Tensor, labels: 
     del labels
     total = cls_loss + bbox_loss
     return ohem_keep(total, min(roi_per_img, total.shape[0]))
+
+
+# --------------------------------------------------------------------------- #
+# The rest of the op library, NCHW
+# --------------------------------------------------------------------------- #
+
+
+def _roi_pool_chunk(features, rois, scale, res, mbh, mbw):
+    """roi_pool of one chunk of rois: (rc, C, res, res)."""
+    b, c, h, w = features.shape
+    dev = rois.device
+    bi = rois[:, 0].long()
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * scale).long() for i in range(1, 5))
+    inv = torch.tensor(1.0 / res, dtype=torch.float32, device=dev)
+    bin_w = torch.clamp_min(x2 - x1 + 1, 1).float() * inv
+    bin_h = torch.clamp_min(y2 - y1 + 1, 1).float() * inv
+    p = torch.arange(res, dtype=torch.float32, device=dev)[None, :]
+
+    def edges(start, bin_sz, n):
+        lo = torch.floor(p * bin_sz[:, None]).long() + start[:, None]
+        hi = torch.ceil((p + 1.0) * bin_sz[:, None]).long() + start[:, None]
+        return lo.clamp(0, n), hi.clamp(0, n)
+
+    hstart, hend = edges(y1, bin_h, h)
+    wstart, wend = edges(x1, bin_w, w)
+    hs = hstart[:, :, None] + torch.arange(mbh, device=dev)  # (rc, res, mbh)
+    ws = wstart[:, :, None] + torch.arange(mbw, device=dev)  # (rc, res, mbw)
+    hvalid, wvalid = hs < hend[:, :, None], ws < wend[:, :, None]
+    hs, ws = hs.clamp(0, h - 1), ws.clamp(0, w - 1)
+    # (rc, res, mbh, res, mbw, C): the advanced indices first, C last
+    vals = features[bi[:, None, None, None, None], :, hs[:, :, :, None, None],
+                    ws[:, None, None, :, :]]
+    m = hvalid[:, :, :, None, None] & wvalid[:, None, None, :, :]
+    vals = torch.where(m[..., None], vals, float("-inf"))
+    # each bin's window in row-major order: max takes the first of equal maxima
+    win = vals.permute(0, 5, 1, 3, 2, 4).reshape(rois.shape[0], c, res, res, mbh * mbw)
+    out = win.max(dim=-1).values
+    return torch.where(torch.isfinite(out), out, 0.0)
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
+             resolution: int) -> torch.Tensor:
+    """RoIPoolF max pooling of every (R, 5) roi from a (B, C, H, W) map:
+    (R, C, res, res) in the map's dtype, differentiable with respect to the
+    map."""
+    b, c, h, w = features.shape
+    res = int(resolution)
+    mbh, mbw = -(-h // res) + 1, -(-w // res) + 1
+    rois = rois.detach().float()
+    rc = max(1, _PS_CHUNK_ELEMS // (res * res * mbh * mbw * (c + 2)))
+    outs = [_roi_pool_chunk(features, rois[i:i + rc], float(spatial_scale), res, mbh, mbw)
+            for i in range(0, rois.shape[0], rc)]
+    return torch.cat(outs) if outs else features.new_zeros((0, c, res, res))
+
+
+def group_spatial_softmax(logits: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Softmax over each anchor's classes of (N, A * C, H, W) logits."""
+    n, ac = logits.shape[:2]
+    grouped = logits.reshape(n, ac // num_classes, num_classes, *logits.shape[2:])
+    return torch.softmax(grouped, dim=2).reshape(logits.shape)
+
+
+def sigmoid_cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                               scale: float = 1.0) -> torch.Tensor:
+    """Mean stable BCE over the elements whose target is not -1 (the count
+    clamped to 1), times ``scale``, in float32."""
+    x, t = logits.float(), targets.float()
+    valid = (targets != -1).float()
+    ge = (x >= 0).float()
+    losses = (-x * (t - ge) + torch.log(1.0 + torch.exp(x - 2.0 * x * ge))) * valid
+    return scale * losses.sum() / torch.clamp_min(valid.sum(), 1.0)
+
+
+def batch_permutation(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """x reordered along dim 0 (FPN's roi unshuffle)."""
+    return x[indices.long()]
+
+
+def sample_as(x: torch.Tensor, labels: torch.Tensor, max_out: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of x whose label is > 0, in order, in a static shape:
+    (x_selected (min(max_out, N), ...), valid); rows past the count are 0
+    and invalid."""
+    fg = labels > 0
+    idx = torch.argsort((~fg).to(torch.uint8), stable=True)[:max_out]
+    valid = fg[idx]
+    out = torch.where(valid.view((-1,) + (1,) * (x.dim() - 1)), x[idx], 0)
+    return out, valid
+
+
+def spatial_narrow_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """x's height and width cut to ``like``'s (NCHW)."""
+    return x[:, :, :like.shape[2], :like.shape[3]]
+
+
+def spatial_l2_loss(x: torch.Tensor, y: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """0.5 * scale * the mean squared difference, in float32."""
+    d = x.float() - y.float()
+    return scale * 0.5 * (d * d).mean()
+
+
+def spatial_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def affine_channel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x * s + b per channel of an (N, C, ...) map; s and b take no gradient."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return x * scale.detach().view(shape) + bias.detach().view(shape)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of an (N, C, H, W) map by an integer factor."""
+    n, c, h, w = x.shape
+    x = x[:, :, :, None, :, None].expand(n, c, h, scale, w, scale)
+    return x.reshape(n, c, h * scale, w * scale)
+
+
+def zero_even(x: torch.Tensor) -> torch.Tensor:
+    """x with its even-indexed entries along dim 0 set to 0."""
+    even = torch.arange(x.shape[0], device=x.device) % 2 == 0
+    return torch.where(even.view((-1,) + (1,) * (x.dim() - 1)), 0, x)

@@ -29,6 +29,16 @@ rows outside the image; horizontal padding stays the op's own. A rank whose
 output band is empty runs no op and returns a band of height 0, still tied
 to the graph, so that its backward sends the gradients of the rows it lent.
 
+REMAT_BACKBONE: a Bottleneck under ``torch.utils.checkpoint`` runs its ops
+again in the backward, after the run has ended. For the banded call each
+ResNetBody takes ``recompute_context`` as checkpoint's context_fn
+(``_on_bands``): it notes which routed ops the block's forward took and
+routes the recompute through the same ones, checked to end where the
+forward ended; its halos exchange the same rows again. Every rank starts a
+block's recompute at the block's last ReLU, whose saved output an empty band
+keeps too, so the ranks' exchanges come in the same order. S2D_STEM is the
+7x7 stem in the port (models/resnet.py); a band's height may be odd.
+
 The level heights come from a record run: the model's forward on a strip of
 the whole canvas height, one image of 2^max_level columns, with every routed
 op counted in call order and its input and output heights kept, once per
@@ -43,6 +53,8 @@ ported"). With n_model = 1 ``spatialize`` returns the model.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -101,8 +113,8 @@ class _Record:
 
 
 class _Banded:
-    def __init__(self, ops: Sequence[Op], mesh: Mesh):
-        self.ops, self.mesh, self.i = ops, mesh, 0
+    def __init__(self, ops: Sequence[Op], mesh: Mesh, start: int = 0):
+        self.ops, self.mesh, self.i = ops, mesh, start
 
     def next(self, kind: str, window) -> Op:
         if self.i >= len(self.ops):
@@ -200,6 +212,48 @@ class _Routed(TorchFunctionMode):
         return route(self.run, func, *args, **(kwargs or {}))
 
 
+def recompute_context(run: _Banded):
+    """``torch.utils.checkpoint``'s context_fn for a block of the model
+    (REMAT_BACKBONE) in the banded ``run``: a forward context that notes the
+    routed ops the block takes, and a recompute context that routes the
+    block's ops again through those."""
+    span = [run.i, None]
+
+    @contextlib.contextmanager
+    def forward():
+        yield
+        span[1] = run.i
+
+    @contextlib.contextmanager
+    def recompute():
+        again = _Banded(run.ops, run.mesh, span[0])
+        with _Routed(again):
+            yield
+        if again.i != span[1]:
+            raise RuntimeError(f"a recompute routed ops {span[0]}..{again.i}, its forward "
+                               f"{span[0]}..{span[1]}")
+
+    return forward(), recompute()
+
+
+@contextlib.contextmanager
+def _on_bands(model, run: _Banded):
+    """For a call on ``run``'s bands, each ResNetBody of ``model`` recomputes
+    a block through the run (REMAT_BACKBONE) and reads its input's height as
+    a band's, not the canvas's (S2D_STEM's check)."""
+    from ..models.resnet import ResNetBody
+
+    bodies = [m for m in model.modules() if isinstance(m, ResNetBody)]
+    for body in bodies:
+        body.remat_context_fn = functools.partial(recompute_context, run)
+        body.whole_rows = False
+    try:
+        yield
+    finally:
+        for body in bodies:
+            del body.remat_context_fn, body.whole_rows
+
+
 def band_modules():
     """The module types that run on bands: the RetinaNet path's."""
     from ..models.fpn import FPNRetinaNetBackbone
@@ -270,7 +324,7 @@ class SpatialModel:
                              f"{self.mesh.model_index} holds rows [{r0}, {r1}) of {height}")
         ops, _ = self.plan(height, outputs, images.dtype, images.device)
         run = _Banded(ops, self.mesh)
-        with _Routed(run):
+        with _Routed(run), _on_bands(self.module, run):
             out = self.module(images, outputs=outputs)
         if run.i != len(ops):
             raise RuntimeError(f"the banded run routed {run.i} ops, the record run {len(ops)}")

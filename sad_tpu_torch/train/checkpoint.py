@@ -9,7 +9,9 @@ sad_tpu. The port's parameters and its momentum (``TrainState.velocity``,
 keyed by parameter name) are written through
 ``convert.state_dict_to_params`` and read back through
 ``convert.params_to_state_dict``. AUTO_RESUME scans for model_iter{N}.pkl /
-model_final.pkl as train_net.py:208-233 does.
+model_final.pkl as train_net.py:208-233 does. The same payload is what
+train/async_checkpoint.py (TRAIN.CHECKPOINT_BACKEND 'orbax') writes into
+each step's directory.
 
 A reference checkpoint is a flat {'blobs': {unscoped_name: ndarray}, 'cfg':
 yaml} (lib/utils/net.py:149-182). Caffe2 keeps convolutions OIHW, transposed
@@ -54,6 +56,28 @@ class _NoJaxUnpickler(pickle.Unpickler):
 # --------------------------------------------------------------------------- #
 
 
+def checkpoint_payload(state_dict: Dict[str, torch.Tensor],
+                       velocity: Optional[Dict[str, torch.Tensor]] = None,
+                       iteration: int = 0, cfg_yaml: str = "") -> Dict[str, Any]:
+    """The dict a checkpoint holds, from a state_dict and a velocity."""
+    return {
+        "params": state_dict_to_params(state_dict),
+        "velocity": state_dict_to_params(velocity) if velocity is not None else None,
+        "iter": int(iteration),
+        "cfg_yaml": cfg_yaml,
+    }
+
+
+def write_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """Pickle ``payload`` to ``path``; atomic: a crash never leaves a torn
+    checkpoint."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
 def save_checkpoint(
     path: str,
     model: nn.Module,
@@ -63,17 +87,7 @@ def save_checkpoint(
 ) -> None:
     """Write ``model``'s parameters and ``velocity`` in sad_tpu's native
     layout; atomic: a crash never leaves a torn checkpoint."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {
-        "params": state_dict_to_params(model.state_dict()),
-        "velocity": state_dict_to_params(velocity) if velocity is not None else None,
-        "iter": int(iteration),
-        "cfg_yaml": cfg_yaml,
-    }
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(tmp, path)
+    write_checkpoint(path, checkpoint_payload(model.state_dict(), velocity, iteration, cfg_yaml))
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -231,12 +245,26 @@ def load_reference_or_native(path: str, model: nn.Module, cfg=None) -> nn.Module
     native checkpoint (a dict with 'params') or a reference Caffe2 blob
     pickle ({'blobs': {...}} or a flat dict of blobs, py2 or py3 pickled,
     net.py:50-146). Pass cfg so the flattening FCs get their column
-    permutation. A directory is an orbax run in sad_tpu, which the port
-    does not read."""
+    permutation. A directory is a run of TRAIN.CHECKPOINT_BACKEND 'orbax'
+    (its OUTPUT_DIR or the checkpoints/ in it, as sad_tpu's loader takes
+    either), whose latest step is loaded, so test_net evaluates straight from
+    a run; a directory with no step the port wrote (sad_tpu's orbax format,
+    which only a JAX library reads) raises."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: sad_tpu's orbax checkpoints (TRAIN.CHECKPOINT_BACKEND "
-            "'orbax') wrap a JAX library and are not ported to sad_tpu_torch")
+        from .async_checkpoint import AsyncCheckpointer
+
+        sub = os.path.join(path, "checkpoints")
+        ckpt_dir = sub if os.path.isdir(sub) else path
+        ck = AsyncCheckpointer(ckpt_dir, create=False)
+        step = ck.latest_step()
+        if step is None:
+            raise NotImplementedError(
+                f"{ckpt_dir} holds no checkpoint step written by sad_tpu_torch's 'orbax' "
+                "backend: sad_tpu's orbax checkpoints wrap a JAX library and are not read here "
+                "(ROADMAP.md \"Not ported\")")
+        load_params(model, ck.restore(step)["params"])
+        logger.info("Loaded step %d from %s", step, ckpt_dir)
+        return model
     with open(path, "rb") as f:
         data = _NoJaxUnpickler(f, encoding="latin1").load()
     if isinstance(data, dict) and "params" in data:

@@ -33,8 +33,16 @@ are broadcast from rank 0 after the resume scan and TRAIN.WEIGHTS; rank 0
 alone writes stats.jsonl,
 cfg.yaml, the snapshots, model_final.pkl, model_nan_abort.pkl and the
 profiler's trace. Without torchrun there is one process on
-``device.get_device``'s device and no collective. TRAIN.CHECKPOINT_BACKEND
-'orbax' wraps a JAX library and raises.
+``device.get_device``'s device and no collective.
+
+TRAIN.CHECKPOINT_BACKEND 'orbax' (sad_tpu train_loop.py:90-120, 383-408)
+snapshots through train/async_checkpoint.AsyncCheckpointer under
+OUTPUT_DIR/checkpoints/<step>/ instead of model_iter{N}.pkl: the copies are
+queued behind the step and a thread writes them while training goes on; the
+newest 5 steps are kept, the last at MAX_ITER, and no model_final.pkl is
+written. AUTO_RESUME restores the latest step on every rank; the step is the
+resume iteration, and MAX_ITER's makes the call a no-op. The writer is waited
+for and closed on the way out, error or not.
 
 Nothing in the loop waits for the card but the metrics: each step's metrics
 are packed on the device into one float32 vector, copied with
@@ -74,6 +82,7 @@ from .checkpoint import (
     find_latest_checkpoint, load_checkpoint, load_reference_or_native, restore_checkpoint,
     save_checkpoint,
 )
+from .async_checkpoint import AsyncCheckpointer
 from .lr_policy import get_lr_at_iter, lr_change_correction
 from .optimizer import rescale_momentum
 from .rcnn_train import make_rcnn_train_step
@@ -101,6 +110,8 @@ class TrainResult:
     # the first step's per-group normalizer counts, by name (the R-CNN step's
     # ``counts``, a mesh step's fg_num / PowSum), on the device
     first_counts: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # TRAIN.CHECKPOINT_BACKEND 'orbax': the closed checkpointer (its ``stats``)
+    checkpointer: Optional[AsyncCheckpointer] = None
 
     def feed_summary(self, first: int = 0, last: Optional[int] = None) -> Dict[str, Any]:
         """The host feed over this run's iterations first..last-1 (counted
@@ -274,14 +285,13 @@ def train_model(
         with open(os.path.join(output_dir, "cfg.yaml"), "w") as f:
             f.write(cfg_yaml)
 
-    if cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
-        raise NotImplementedError(
-            "TRAIN.CHECKPOINT_BACKEND 'orbax' wraps a JAX library (sad_tpu/train/"
-            "orbax_checkpoint.py) and is not ported to sad_tpu_torch; use 'pickle'")
-    if cfg.TRAIN.CHECKPOINT_BACKEND != "pickle":
+    if cfg.TRAIN.CHECKPOINT_BACKEND not in ("pickle", "orbax"):
         raise ValueError(
             "TRAIN.CHECKPOINT_BACKEND must be 'pickle' or 'orbax'; got "
             f"{cfg.TRAIN.CHECKPOINT_BACKEND!r}")
+    ckptr = None
+    if cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
+        ckptr = AsyncCheckpointer(os.path.join(output_dir, "checkpoints"))
     if is_rcnn and cfg.TRAIN.PROPOSAL_FILES and not cfg.MODEL.FASTER_RCNN and (
             len(cfg.TRAIN.PROPOSAL_FILES) != len(cfg.TRAIN.DATASETS)):
         raise ValueError(
@@ -303,7 +313,14 @@ def train_model(
 
     # ----- resume / init weights (train_net.py:208-233, net.py:50)
     start_iter = 0
-    if cfg.TRAIN.AUTO_RESUME:
+    if cfg.TRAIN.AUTO_RESUME and ckptr is not None:
+        step_ = ckptr.latest_step()
+        if step_ is not None:
+            restore_checkpoint(ckptr.restore(step_), student, state.velocity)
+            # the step is the resume iteration; MAX_ITER means a finished run
+            start_iter = step_
+            logger.info("Auto-resumed from %s at iter %d", ckptr.step_dir(step_), start_iter)
+    elif cfg.TRAIN.AUTO_RESUME:
         ckpt_path, start_iter_ = find_latest_checkpoint(output_dir)
         if ckpt_path:
             ck = load_checkpoint(ckpt_path)
@@ -322,7 +339,7 @@ def train_model(
         barrier()
         broadcast_module(student)
         broadcast_tensors(state.velocity.values())
-    result = TrainResult(student, state, start_iter, max_iters)
+    result = TrainResult(student, state, start_iter, max_iters, checkpointer=ckptr)
     if start_iter >= max_iters:
         logger.info("Training already complete at iter %d: nothing to do", start_iter)
         return result
@@ -449,12 +466,18 @@ def train_model(
                     profiler = None
 
             if main and (it + 1) % snapshot_period == 0 and it + 1 < max_iters:
-                save_checkpoint(os.path.join(output_dir, f"model_iter{it}.pkl"), student,
-                                state.velocity, it + 1, cfg_yaml=cfg_yaml)
+                if ckptr is not None:  # the write overlaps the next steps
+                    ckptr.save(it + 1, student, state.velocity, cfg_yaml=cfg_yaml)
+                else:
+                    save_checkpoint(os.path.join(output_dir, f"model_iter{it}.pkl"), student,
+                                    state.velocity, it + 1, cfg_yaml=cfg_yaml)
         if pending is not None:
             _consume_metrics(*pending)
         marks.append((time.perf_counter(), time.thread_time(), time.process_time()))
-        if main:
+        if main and ckptr is not None:  # written before the ranks go on
+            ckptr.save(max_iters, student, state.velocity, cfg_yaml=cfg_yaml)
+            ckptr.wait()
+        elif main:
             save_checkpoint(os.path.join(output_dir, "model_final.pkl"), student,
                             state.velocity, max_iters, cfg_yaml=cfg_yaml)
         barrier()
@@ -462,6 +485,8 @@ def train_model(
         if profiler is not None:
             profiler.prof.stop()
         feed.shutdown()
+        if ckptr is not None:
+            ckptr.close()
     steps = np.diff(np.asarray(marks, np.float64), axis=0) if len(marks) > 1 else np.zeros((0, 3))
     result.iter_seconds, result.iter_thread_cpu, result.iter_process_cpu = (
         [float(x) for x in steps[:, k]] for k in range(3))

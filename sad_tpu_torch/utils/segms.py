@@ -1,13 +1,13 @@
 """Segmentation masks on the host: polygon rasters, uncompressed and
 compressed COCO RLE, horizontal flips (ref: detectron/lib/utils/segms.py).
 
-A copy of what the R-CNN training batches, the dataset's flip, the mask
-results of inference and the COCO evaluator need from sad_tpu/utils/segms.py:
-``polys_to_mask``, ``flip_polys``, ``flip_segm``, ``mask_to_bbox``,
-``paste_mask_into_image``, ``mask_to_rle``, ``rle_to_mask``,
-``rle_string_to_counts`` and ``polygon_area``. numpy, PIL and (when it
-imports) cv2; no pycocotools. The cv2-exact resize is the port's one copy in
-data/minibatch.py.
+A copy of sad_tpu/utils/segms.py: ``polys_to_mask``,
+``polys_to_mask_wrt_box`` (the reference's mask-target transform; no path of
+the port calls it, its mask targets are RoIAlign crops), ``flip_polys``,
+``flip_segm``, ``mask_to_bbox``, ``paste_mask_into_image``, ``mask_to_rle``,
+``rle_to_mask``, ``rle_string_to_counts`` and ``polygon_area``. numpy, PIL
+and (when it imports) cv2; no pycocotools. The cv2-exact resize is the
+port's one copy in data/minibatch.py.
 """
 
 from __future__ import annotations
@@ -29,6 +29,22 @@ def polys_to_mask(polygons: Sequence[Sequence[float]], height: int, width: int) 
         if len(pts) >= 3:
             draw.polygon(pts, outline=1, fill=1)
     return np.asarray(img, dtype=np.uint8)
+
+
+def polys_to_mask_wrt_box(
+    polygons: Sequence[Sequence[float]], box: np.ndarray, resolution: int
+) -> np.ndarray:
+    """Rasterize polygons in the frame of `box` at resolution^2
+    (ref: segms.py polys_to_mask_wrt_box — the mask-target transform)."""
+    w = max(box[2] - box[0], 1.0)
+    h = max(box[3] - box[1], 1.0)
+    scaled = []
+    for poly in polygons:
+        p = np.asarray(poly, np.float64).copy()
+        p[0::2] = (p[0::2] - box[0]) * resolution / w
+        p[1::2] = (p[1::2] - box[1]) * resolution / h
+        scaled.append(p.tolist())
+    return polys_to_mask(scaled, resolution, resolution)
 
 
 def flip_polys(polygons: Sequence[Sequence[float]], width: int) -> List[List[float]]:
