@@ -19,16 +19,18 @@ line each (name, what was checked, time):
 
   env            card name and power limit (nvidia-smi), torch / CUDA
                  versions, TF32 switches, kernel build time
-  nms_kernel     csrc/nms.cu (sort, IoU bitmask, sweep; the argmax loop for
-                 problems over the sort's cap) against ops.nms.nms_multi_plain
-                 on the card: idx and valid exactly equal on every case (ties,
-                 -0.0 / +0.0 ties, invalid tails, K = max_out, every problem
-                 over the cap, one of three over it); median times of both at
-                 the RetinaNet decode shape (N=8, K=5000, max_out=100), the RPN
-                 shape (N=40, K=1000, max_out=1000, thr 0.7), the training RPN
-                 shape (N=40, K=2000, max_out=2000, thr 0.7), the R-CNN decode
-                 shape (N=8, K=80000, max_out=100) and over the cap, each beside
-                 the argmax loop's earlier time
+  nms_kernel     csrc/nms.cu (sort, IoU bitmask, sweep; past the sort's cap
+                 run sort, merge and the kept-list sweep) against
+                 ops.nms.nms_multi_plain on the card: idx and valid exactly
+                 equal on every case (ties, -0.0 / +0.0 ties, invalid tails,
+                 K = max_out, every problem over the cap, one of three over it,
+                 the C4 / VGG16 training RPN 8 x 12,000 -> 2000, 2 x 160,000
+                 -> 100 with ~20,000 valid over 40 runs); median times of both
+                 at the RetinaNet decode shape (N=8, K=5000, max_out=100), the
+                 RPN shape (N=40, K=1000, max_out=1000, thr 0.7), the training
+                 RPN shape (N=40, K=2000, max_out=2000, thr 0.7), the R-CNN
+                 decode shape (N=8, K=80000, max_out=100) and the three
+                 over-cap shapes, each beside the earlier kernel's time
   roi_align_kernel
                  csrc/roi_align.cu's forward against the plain twin of
                  ops/roi_align.py on the card, float32 and bfloat16: every
@@ -222,7 +224,8 @@ line each (name, what was checked, time):
                  the RoIAlign forward at R = 16,000 res 7 bit-equal to the plain
                  twin; the detection NMS at 8 x 160,000 -> 100 on the batch's
                  own candidates exactly equal to the plain NMS, with its path
-                 (sorted, or the argmax loop over 8192 valid) and valid counts;
+                 (sorted, or past the sort's 8192 cap for some problems) and
+                 valid counts;
                  1 NMS and 1 RoIAlign launch a batch; imgs/s, stage ms
                  (backbone, RoI levels, RoIAlign, box head, decode, NMS) and
                  the device's idle share
@@ -272,8 +275,9 @@ line each (name, what was checked, time):
                  plain-twin step from one state and one set of sampler
                  uniforms (metrics within 1e-5 relative), the training RPN NMS
                  at 8 x 12,000 -> 2000 on the step's own candidates (every
-                 problem over the sort's 8192 cap: the argmax loop; its path
-                 printed), the RoIAlign backward's trunk gradients within
+                 problem over the sort's 8192 cap: run sort, merge, kept-list
+                 sweep; its path printed beside the argmax loop's earlier
+                 time), the RoIAlign backward's trunk gradients within
                  1e-5 * max + one bf16 ulp of the plain backward's and two
                  runs bit-equal, the backward and forward on the step's rois
                  (R = 4096, res 14, C = 1024) and the mask target crop timed;
@@ -286,7 +290,7 @@ line each (name, what was checked, time):
                  608x1024: serving with the checks of c4_rcnn_infer (RPN 8 x
                  6000 -> 300, decode 8 x 24,000 -> 100, RoIAlign R = 2400, res
                  7, C = 512) and one training step with those of c4_rcnn_train
-                 (the argmax loop at 8 x 12,000 -> 2000); the RoIAlign forward
+                 (the over-cap path at 8 x 12,000 -> 2000); the RoIAlign forward
                  at VGG_CNN_M_1024's shape (C = 1024, res 7) on a seeded map
   rfcn_ohem      (rfcn_ohem_infer, rfcn_ohem_train) R-FCN R-101 with OHEM on
                  608x1024: serving (PSRoIPool in plain PyTorch, no RoIAlign
@@ -504,15 +508,13 @@ TEACHER_500_CFG = "sad_tpu_torch/configs/retinanet_X-101-64x4d-FPN_teacher_500.y
 FASTER_CFG = "sad_tpu_torch/configs/e2e_faster_rcnn_R-50-FPN.yaml"
 MASK_CFG = "sad_tpu_torch/configs/e2e_mask_rcnn_R-50-FPN.yaml"
 KEYPOINT_CFG = "sad_tpu_torch/configs/e2e_keypoint_rcnn_R-50-FPN.yaml"
-# N problems, K candidates, max_out, threshold
-DECODE_SHAPE = (8, 5000, 100, 0.5)  # RetinaNet decode: 8 images, 5 levels x 1000
-RPN_SHAPE = (40, 1000, 1000, 0.7)  # R-CNN proposals: 5 levels x 8 images
-RCNN_DECODE_SHAPE = (8, 80000, 100, 0.5)  # R-CNN decode: 1000 rois x 80 classes
-RPN_TRAIN_SHAPE = (40, 2000, 2000, 0.7)  # R-CNN training proposals: 5 levels x 8 images
 RCNN_CANVAS = (800, 1344)
 # the card times of the kernels before their redesign (PERF.md section 6, rows #2
-# and #8; NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new medians
-NMS_EARLIER_MS = {"decode": 0.3069, "rpn": 1.2370, "rpn_train": 3.2288, "rcnn_decode": 3.4746}
+# and #8; NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new medians; the
+# over-cap shapes' are the argmax loop's in its last run (over_cap at 2 x 20,000
+# -> 100, ss_rpn_train on the C4 step's own candidates)
+NMS_EARLIER_MS = {"decode": 0.3069, "rpn": 1.2370, "rpn_train": 3.2288, "rcnn_decode": 3.4746,
+                  "over_cap": 0.8514, "ss_rpn_train": 8.6183}
 ROI_BWD_EARLIER_MS = {"box": 3.0123, "mask": 2.9818}
 # device ms of the RoIAlign forward before its redesign (a block a roi's bin
 # row) on the rois of sad_tpu_torch/tools/profile_roi_align.py at the same
@@ -620,66 +622,44 @@ def _median_ms(torch, fn, iters: int, warmup: int, before=None) -> float:
     return statistics.median(times)
 
 
-def _nms_case(torch, rng, n, k, clusters=60, invalid_from=None, tie_step=None,
-              all_invalid_rows=(), invalid_tail_rows=None, valid_share=None, signed_zeros=False):
-    """Clustered boxes on a 1024x640 canvas so real suppression happens."""
-    centers = rng.uniform(0, [1024, 640], (n, clusters, 2))
-    which = rng.randint(0, clusters, (n, k))
-    xy = np.take_along_axis(centers, which[..., None], axis=1) + rng.uniform(-12, 12, (n, k, 2))
-    wh = rng.uniform(8, 120, (n, k, 2))
-    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
-    scores = rng.uniform(0.0, 1.0, (n, k)).astype(np.float32)
-    if tie_step:
-        scores = (np.round(scores / tie_step) * tie_step).astype(np.float32)
-    if invalid_from is not None:
-        scores[:, invalid_from:] = np.float32(-1e30)
-    for r in all_invalid_rows:
-        scores[r] = np.float32(-1e30)
-    if invalid_tail_rows is not None:
-        rows, start = invalid_tail_rows
-        scores[list(rows), start:] = np.float32(-1e30)
-    if valid_share is not None:
-        scores[rng.uniform(size=(n, k)) > valid_share] = np.float32(-1e30)
-    if signed_zeros:  # exact +0.0 and -0.0 among negative and positive scores
-        scores -= np.float32(0.5)
-        pick = rng.uniform(size=(n, k))
-        scores[pick < 0.25] = np.float32(0.0)
-        scores[pick > 0.75] = np.float32(-0.0)
-    dev = "cuda"
-    return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+def _nms_case(torch, rng, n, k, **kw):
+    """``profile_nms.seeded_case`` (clustered boxes, so real suppression
+    happens) on the card."""
+    from sad_tpu_torch.tools.profile_nms import seeded_case
+
+    boxes, scores = seeded_case(rng, n, k, **kw)
+    return torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
 
 
-def _nms_bound(n, k, max_out, valid):
-    """NMS on this run's data: each problem takes one step per kept box (and
-    one more that finds nothing live, unless max_out came first), each step
-    an IoU (~15 operations) per candidate; bytes: boxes and scores read once,
-    idx and valid written once."""
-    steps = int(valid.sum()) + int((~valid.all(dim=1)).sum())
-    return bound(n * k * 20 + n * max_out * 5, 15 * k * steps)
+def _nms_bound(scores, idx, valid, max_out):
+    """The bound of NMS on this run's data (``profile_nms.nms_work``): boxes
+    and scores read once, idx and valid written once; an IoU test (~15
+    operations) for each valid candidate up to the max_out-th keep against
+    each kept box before it in the greedy order."""
+    from sad_tpu_torch.tools.profile_nms import nms_work
+
+    return bound(*nms_work(scores.float().cpu().numpy(), idx.cpu().numpy(),
+                           valid.cpu().numpy(), max_out))
 
 
-def phase_nms(torch, rng, iters, warmup):
+def phase_nms(torch, rng, iters, warmup, seed):
     from sad_tpu_torch.ops import nms, nms_kernel
+    from sad_tpu_torch.tools.profile_nms import SHAPES
 
     t0 = time.perf_counter()
-    n, k, max_out, thr = DECODE_SHAPE
-    rn, rk, rmax, rthr = RPN_SHAPE
-    dn, dk, dmax, dthr = RCNN_DECODE_SHAPE
-    tn, tk, tmax, tthr = RPN_TRAIN_SHAPE
+
+    def shape_case(key, r):
+        n, k, m, t, kw = SHAPES[key]
+        return _nms_case(torch, r, n, k, **kw), t, m
+
+    max_out = SHAPES["decode"][2]
+    over = np.random.RandomState(seed + 40)  # the over-cap shapes' own draws
     cases = {
-        "decode N=8 K=5000 thr=0.5": (_nms_case(torch, rng, n, k, invalid_from=4600), thr, max_out),
-        # a level's 1000 candidates of one image; the last 8 problems are the
-        # coarsest level's, 819 anchors padded to K with NEG_INF
-        "rpn N=40 K=1000 max_out=1000 thr=0.7": (
-            _nms_case(torch, rng, rn, rk, clusters=200,
-                      invalid_tail_rows=(range(32, 40), 819)), rthr, rmax),
+        "decode N=8 K=5000 thr=0.5": shape_case("decode", rng),
+        "rpn N=40 K=1000 max_out=1000 thr=0.7": shape_case("rpn", rng),
         # the training step's proposals: 2000 candidates a level and image
-        "rpn train N=40 K=2000 max_out=2000 thr=0.7": (
-            _nms_case(torch, rng, tn, tk, clusters=400,
-                      invalid_tail_rows=(range(32, 40), 819)), tthr, tmax),
-        # 1000 rois x 80 classes, class-offset boxes, ~3 % over SCORE_THRESH
-        "rcnn decode N=8 K=80000 thr=0.5": (
-            _nms_case(torch, rng, dn, dk, clusters=400, valid_share=0.03), dthr, dmax),
+        "rpn train N=40 K=2000 max_out=2000 thr=0.7": shape_case("rpn_train", rng),
+        "rcnn decode N=8 K=80000 thr=0.5": shape_case("rcnn_decode", rng),
         "N=1 (nms_fixed)": (_nms_case(torch, rng, 1, 3000), 0.5, max_out),
         "K=1500 not a multiple of 1024, thr=0.3": (_nms_case(torch, rng, 3, 1500), 0.3, max_out),
         "invalid tail from 2000, thr=0.7": (_nms_case(torch, rng, 4, 5000, invalid_from=2000), 0.7, max_out),
@@ -688,12 +668,18 @@ def phase_nms(torch, rng, iters, warmup):
         "exact score ties": (_nms_case(torch, rng, 8, 5000, tie_step=0.05), 0.5, max_out),
         "-0.0 / +0.0 ties": (_nms_case(torch, rng, 4, 3000, signed_zeros=True), 0.5, 300),
         "K = max_out = 1500, thr 0.7": (_nms_case(torch, rng, 6, 1500, clusters=150), 0.7, 1500),
-        # more valid candidates than the order stage sorts: the argmax loop
-        "K=20000, all valid: every problem over the sort's cap": (
-            _nms_case(torch, rng, 2, 20000, clusters=300), 0.5, max_out),
+        # more valid candidates than the order stage sorts: run sort, merge and
+        # the kept-list sweep
+        "K=20000, all valid: every problem over the sort's cap": shape_case("over_cap", rng),
         "one problem over the cap, two under": (
             _nms_case(torch, rng, 3, 10000, clusters=300, invalid_tail_rows=((1, 2), 3000)),
             0.5, max_out),
+        # the C4 / VGG16 training RPN's shape, all valid, seeded boxes
+        "ss rpn train N=8 K=12000 max_out=2000 thr=0.7, over the cap": shape_case(
+            "ss_rpn_train", over),
+        # a Fast R-CNN decode's K with ~20,000 valid: 40 runs and their merge
+        "N=2 K=160000 max_out=100, ~20,000 valid: runs and a merge": shape_case(
+            "merge_160000", over),
     }
     max_err = 0.0
     for name, ((boxes, scores), t, m) in cases.items():
@@ -716,18 +702,24 @@ def phase_nms(torch, rng, iters, warmup):
                                    ("rpn_train", "rpn train N=40 K=2000 max_out=2000 thr=0.7", 2),
                                    ("rcnn_decode", "rcnn decode N=8 K=80000 thr=0.5", iters),
                                    ("over_cap", "K=20000, all valid: every problem over the "
-                                    "sort's cap", 1)):
+                                    "sort's cap", 1),
+                                   ("ss_rpn_train", "ss rpn train N=8 K=12000 max_out=2000 "
+                                    "thr=0.7, over the cap", 1),
+                                   ("merge_160000", "N=2 K=160000 max_out=100, ~20,000 valid: "
+                                    "runs and a merge", 1)):
         (boxes, scores), t, m = cases[name]
         ms = _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, t, m), iters * 5, warmup)
         plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, t, m),
                               plain_iters, 1)
-        _, valid = nms_kernel.nms_cuda(boxes, scores, t, m)
-        b = _nms_bound(*scores.shape, m, valid)
+        idx, valid = nms_kernel.nms_cuda(boxes, scores, t, m)
+        b = _nms_bound(scores, idx, valid, m)
         stats[key] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
-        earlier = f" (argmax loop of PERF.md row #2: {NMS_EARLIER_MS[key]} ms)" if (
+        path, counts = _nms_path(torch, scores)
+        earlier = f" (earlier kernel, PERF.md row #2: {NMS_EARLIER_MS[key]} ms)" if (
             key in NMS_EARLIER_MS) else ""
         said.append(f"{name}: kernel {ms:.4f} ms{earlier}, plain {plain_ms:.4f} ms, bound "
-                    f"{b['bound_ms']:.4f} ms by {b['bound_by']}, {int(valid.sum())} kept")
+                    f"{b['bound_ms']:.4f} ms by {b['bound_by']}, {int(valid.sum())} kept, "
+                    f"{path}, valid {min(counts)}..{max(counts)} a problem")
     _phase("nms_kernel", f"{len(cases)} cases, idx and valid exactly equal to the plain "
            f"version; medians: " + "; ".join(said), time.perf_counter() - t0)
     return stats
@@ -1708,7 +1700,7 @@ def _keypoint_serving(torch, cfg, model, args, iters, warmup):
                     iters * 5, warmup)
     plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr, max_out),
                           iters, 1)
-    b = _nms_bound(*scores.shape, max_out, vk)
+    b = _nms_bound(scores, ik, vk, max_out)
     n_cand = int((scores > -1e29).sum())
     stage_ms = {n: statistics.median(v) for n, v in per.items() if n != "count"}
     said = (f"stage device ms (CUDA events, median of {iters}): "
@@ -3149,19 +3141,23 @@ KPS_AUG_OPTS = ("TEST.KPS_AUG.ENABLED", "True", "TEST.KPS_AUG.HEUR", "HM_AVG",
 
 def _nms_path(torch, scores):
     """Which path of csrc/nms.cu takes these problems, and their valid
-    counts: sorted while every problem has at most ORDER_CAP valid
-    candidates, else the argmax loop for those over it."""
+    counts: every problem is sorted and swept; one with at most ORDER_CAP
+    valid candidates by the order, mask and sweep stages, one over it by the
+    run sort, merge and kept-list sweep."""
     from sad_tpu_torch.ops.nms_kernel import ORDER_CAP
 
     counts = (scores > -1e29).sum(dim=1).tolist()
     over = sum(c > ORDER_CAP for c in counts)
-    return ("sorted" if not over else f"argmax loop for {over} of {len(counts)}"), counts
+    return ("sorted" if not over else
+            f"sorted; run sort, merge, kept-list sweep for {over} of {len(counts)} over "
+            f"the cap"), counts
 
 
 def _nms_at(torch, name, boxes, scores, thr, max_out, iters, warmup):
     """The NMS kernel on these problems against the plain NMS, idx and valid
     exactly equal; both timed (CUDA events), the bound of this data."""
     from sad_tpu_torch.ops import nms, nms_kernel
+    from sad_tpu_torch.tools.profile_nms import SHAPES
 
     boxes, scores = boxes.float().contiguous(), scores.float().contiguous()
     ik, vk = nms_kernel.nms_cuda(boxes, scores, thr, max_out)
@@ -3175,11 +3171,13 @@ def _nms_at(torch, name, boxes, scores, thr, max_out, iters, warmup):
     plain_ms = _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr, max_out),
                           max(iters // 5, 1), 1)
     path, counts = _nms_path(torch, scores)
-    b = _nms_bound(*scores.shape, max_out, vk)
+    b = _nms_bound(scores, ik, vk, max_out)
+    earlier = (f" (the argmax loop before: {NMS_EARLIER_MS['ss_rpn_train']} ms)"
+               if (*scores.shape, max_out) == SHAPES["ss_rpn_train"][:3] else "")
     said = (f"NMS N={scores.shape[0]} K={scores.shape[1]} -> {max_out} ({path}; valid an "
-            f"problem {min(counts)}..{max(counts)}, {sum(counts)} in all): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
-            f"{int(vk.sum())} kept, idx and valid equal to the plain NMS")
+            f"problem {min(counts)}..{max(counts)}, {sum(counts)} in all): kernel {ms:.4f} ms"
+            f"{earlier}, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}, {int(vk.sum())} kept, idx and valid equal to the plain NMS")
     return {"max_abs_err": float((ik - ip).abs().max()), "ms": ms, "plain_ms": plain_ms, **b,
             "path": path}, vk, said
 
@@ -4882,7 +4880,7 @@ def _span_kernel_rows(torch, cap, iters, warmup):
     if not torch.equal(ik, ip) or not torch.equal(vk, vp):
         raise AssertionError(f"span_train_loop: NMS kernel != plain on the rank's RPN "
                              f"({int((ik != ip).sum())} idx differ)")
-    nms_row = {"max_abs_err": float((ik - ip).abs().max()), **_nms_bound(*scores.shape, max_out, vk),
+    nms_row = {"max_abs_err": float((ik - ip).abs().max()), **_nms_bound(scores, ik, vk, max_out),
                "ms": _median_ms(torch, lambda: nms_kernel.nms_cuda(boxes, scores, thr, max_out),
                                 iters * 5, warmup, flush),
                "plain_ms": _median_ms(torch, lambda: nms.nms_multi_plain(boxes, scores, thr,
@@ -5641,7 +5639,7 @@ def _async_checkpoint(torch, seed, data_root, tmp, gpu):
 
 
 PARTIAL = {
-    "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup),
+    "nms_kernel": lambda torch, a, rng: phase_nms(torch, rng, a.iters, a.warmup, a.seed),
     "cls_loss_kernels": lambda torch, a, rng: phase_cls_losses(torch, a.seed, a.batch, a.groups,
                                                                a.iters, a.warmup),
     "joint_step": lambda torch, a, rng: phase_joint_step(torch, a.seed, a.groups, a.iters,
@@ -5814,7 +5812,7 @@ def _main(torch, args) -> int:
             phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
         print("partial run: no result")
         return 0
-    nms_stats = phase_nms(torch, rng, args.iters, args.warmup)
+    nms_stats = phase_nms(torch, rng, args.iters, args.warmup, args.seed)
     roi_stats = PARTIAL["roi_align_kernel"](torch, args, rng)
     roi_bwd_stats = PARTIAL["roi_align_bwd_kernel"](torch, args, rng)
     fwd_stats, bwd_stats = PARTIAL["cls_loss_kernels"](torch, args, rng)
@@ -6138,9 +6136,10 @@ def _main(torch, args) -> int:
         "launches": (c4["faster"]["nms_launches"] + c4["mask"]["nms_launches"]) // 2,
         "test_net_launches": c4_eval["launches"][0] // 2,
     }, {
-        # the C4 and VGG16 training RPN: 8 x 12,000 -> 2000, over the sort's 8192 cap: the
-        # argmax loop; one a step (C4 v0upshare steps, the v0up step, the VGG16 step)
-        "name": "greedy_nms_argmax@ss_rpn_train", **c4_t["rpn"], **nms_entry,
+        # the C4 and VGG16 training RPN: 8 x 12,000 -> 2000, over the sort's 8192 cap: run
+        # sort, merge, kept-list sweep; one a step (C4 v0upshare steps, the v0up step, the
+        # VGG16 step)
+        "name": "greedy_nms_over_cap@ss_rpn_train", **c4_t["rpn"], **nms_entry,
         "launches": c4_t["launches"][0] + c4_t["v0up"]["launches"][0]
         + vgg["train"]["launches"][0],
         "v0up_launches": c4_t["v0up"]["launches"][0],

@@ -1,6 +1,7 @@
 """ctypes wrapper of the greedy-NMS CUDA kernels (sad_tpu_torch/csrc/nms.cu):
-order (compact and sort), IoU bitmask, sweep, and the argmax loop for the
-problems with more valid candidates than the order stage holds.
+order (compact and sort), IoU bitmask and sweep; and, for the problems with
+more valid candidates than the order stage holds, run sort, merge and a
+sweep against the kept boxes.
 
 Replaces the Pallas kernels ``_nms_kernel`` and ``_nms_kernel_batched`` of
 sad_tpu/ops/pallas_nms.py. Callers go through sad_tpu_torch/ops/nms.py,
@@ -13,7 +14,7 @@ that a run can show that its main path went through them.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -21,10 +22,12 @@ from . import _build
 
 launches = 0
 
-# kOrderCap in the source, the valid candidates a problem the sort holds; the
-# launch refuses a scratch sized from another cap
+# kOrderCap in the source, the valid candidates a problem the order stage
+# sorts; the launch refuses a scratch sized from another cap
 ORDER_CAP = 8192
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# kRun in the source: the input slots a block of the over-cap run sort takes
+RUN = 4096
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _fn():
@@ -34,6 +37,27 @@ def _fn():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def scratch_plan(n: int, k: int) -> Tuple[List[Tuple[str, int, int]], int]:
+    """The kernels' scratch in one allocation: ([(name, offset, bytes)], total
+    bytes), each part 16-byte aligned. The sorted path's parts are sized from
+    cap = min(K, ORDER_CAP); the over-cap stages' parts exist only where K >
+    ORDER_CAP (only then can a problem hold more valid candidates than the
+    sort) and grow linearly in K."""
+    cap = min(k, ORDER_CAP)
+    words = -(-cap // 64)
+    sizes = [("sorted_idx", n * cap * 4), ("sorted_box", n * cap * 16),
+             ("mask", n * cap * words * 8), ("removed", n * ORDER_CAP // 8),
+             ("state", 3 * n * 4)]  # (count, keeps, done)
+    if k > ORDER_CAP:
+        sizes += [("run_keys", n * k * 8), ("run_count", n * -(-k // RUN) * 4),
+                  ("over_idx", n * k * 4), ("over_box", n * k * 16)]
+    plan, at = [], 0
+    for name, size in sizes:
+        plan.append((name, at, size))
+        at += -(-size // 16) * 16
+    return plan, at
 
 
 def nms_cuda(
@@ -65,26 +89,18 @@ def nms_cuda(
                 torch.zeros((n, max_out), dtype=torch.bool, device=boxes.device))
     fn = _fn()
     dev = boxes.device
-    cap = min(k, ORDER_CAP)
-    words = -(-cap // 64)
-    # scratch, in one allocation, sized from min(K, ORDER_CAP) on the host: the
-    # argmax loop's live scores, the order stage's sorted indices and boxes,
-    # the mask, the sweep's removed words and its (count, keeps, done) state
-    parts = [n * k * 4, n * cap * 4, n * cap * 16, n * cap * words * 8, n * ORDER_CAP // 8,
-             3 * n * 4]
-    starts = [0]
-    for size in parts[:-1]:
-        starts.append(starts[-1] + -(-size // 16) * 16)
+    plan, total = scratch_plan(n, k)
     with torch.cuda.device(dev):
         idx = torch.empty((n, max_out), dtype=torch.int32, device=dev)
         valid = torch.empty((n, max_out), dtype=torch.bool, device=dev)
-        scratch = torch.empty(starts[-1] + parts[-1], dtype=torch.uint8, device=dev)
-        base = scratch.data_ptr()
-        live, sorted_idx, sorted_box, mask, removed, state = (base + o for o in starts)
+        scratch = torch.empty(total, dtype=torch.uint8, device=dev)
+        at = {name: scratch.data_ptr() + offset for name, offset, _ in plan}
+        over = [at.get(name, 0) for name in ("run_keys", "run_count", "over_idx", "over_box")]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(boxes.data_ptr(), scores.data_ptr(), live, sorted_idx, sorted_box, mask, removed,
-                 state, idx.data_ptr(), valid.data_ptr(), n, k, cap, max_out,
-                 float(iou_threshold), stream)
+        err = fn(boxes.data_ptr(), scores.data_ptr(), at["sorted_idx"], at["sorted_box"],
+                 at["mask"], at["removed"], at["state"], *over, idx.data_ptr(),
+                 valid.data_ptr(), n, k, min(k, ORDER_CAP), max_out, float(iou_threshold),
+                 stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -74,7 +74,7 @@ logger = logging.getLogger(__name__)
 
 _CATEGORIES = (
     ("nms_kernel", ("nms_order_kernel", "nms_mask_kernel", "nms_sweep_kernel",
-                    "nms_argmax_kernel")),
+                    "nms_run_sort_kernel", "nms_merge_kernel", "nms_kept_sweep_kernel")),
     ("roi_align_kernel", ("roi_align_fwd_kernel",)),
     # cuDNN's convolutions are implicit GEMMs: name them before the dense layers' GEMMs
     ("conv", ("conv", "fprop", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw")),

@@ -88,7 +88,7 @@ _CATEGORIES = (
     ("roi_align_bwd_kernel", ("roi_align_bwd_gather_kernel", "roi_bwd_")),
     ("roi_align_fwd_kernel", ("roi_align_fwd_kernel",)),
     ("nms_kernel", ("nms_order_kernel", "nms_mask_kernel", "nms_sweep_kernel",
-                    "nms_argmax_kernel")),
+                    "nms_run_sort_kernel", "nms_merge_kernel", "nms_kept_sweep_kernel")),
     ("optimizer", ("multi_tensor_apply", "foreach")),
     ("conv", ("conv", "xmma", "cutlass", "implicit_gemm", "cudnn", "nchwToNhwc", "nhwcToNchw",
               "wgrad", "dgrad", "sm90_", "gemm")),

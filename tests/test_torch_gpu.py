@@ -331,18 +331,27 @@ def test_nms_kernel_equals_plain_at_the_rcnn_shapes(cuda, n, k, max_out, thr):
 
 
 @pytest.mark.parametrize("case", ["all over the cap", "one over the cap", "signed zeros",
-                                  "K = max_out"])
-def test_nms_kernel_sorted_and_argmax_paths_equal_plain(cuda, case):
+                                  "K = max_out", "training RPN over the cap",
+                                  "many runs and a merge", "kept list past shared memory"])
+def test_nms_kernel_sorted_and_over_cap_paths_equal_plain(cuda, case):
     """Problems over the sort's cap (nms_kernel.ORDER_CAP valid candidates)
-    take the argmax loop, the others sort, mask and sweep; -0.0 and +0.0
-    tie; K = max_out runs the sweep to the end of every list."""
+    take the run sort, merge and kept-list sweep, the others sort, mask and
+    sweep; -0.0 and +0.0 tie; K = max_out runs the sweep to the end of every
+    list; 160,000 candidates with ~20,000 valid fill 40 runs; more than 8192
+    kept boxes spill the kept list out of shared memory."""
     n, k, max_out, thr = {"all over the cap": (2, 9000, 100, 0.5),
                           "one over the cap": (3, 9000, 100, 0.5),
                           "signed zeros": (4, 3000, 300, 0.5),
-                          "K = max_out": (6, 1500, 1500, 0.7)}[case]
-    boxes, scores = _boxes(k + n, n, k, clusters=200)
+                          "K = max_out": (6, 1500, 1500, 0.7),
+                          "training RPN over the cap": (8, 12000, 2000, 0.7),
+                          "many runs and a merge": (2, 160000, 100, 0.5),
+                          "kept list past shared memory": (1, 9000, 9000, 0.95)}[case]
+    clusters = 4000 if case == "kept list past shared memory" else 200
+    boxes, scores = _boxes(k + n, n, k, clusters=clusters)
     if case == "one over the cap":
         scores[1:, 3000:] = np.float32(-1e30)
+    if case == "many runs and a merge":
+        scores[np.random.RandomState(k).uniform(size=scores.shape) > 0.125] = np.float32(-1e30)
     if case == "signed zeros":
         scores -= np.float32(0.5)
         pick = np.random.RandomState(k).uniform(size=scores.shape)
@@ -352,6 +361,8 @@ def test_nms_kernel_sorted_and_argmax_paths_equal_plain(cuda, case):
     idx, valid = nms.nms_multi(b, s, thr, max_out)
     ref = nms.nms_multi_plain(b, s, thr, max_out)
     assert torch.equal(idx, ref[0]) and torch.equal(valid, ref[1])
+    if case == "kept list past shared memory":
+        assert int(valid.sum()) > 8192
 
 
 def test_roi_align_bwd_kernel_many_tiles_one_cell_and_two_runs(cuda):
