@@ -479,8 +479,10 @@ R-CNN's share as keypoint_launches, keypoint_test_net_launches and
 keypoint_train_loop_launches, and each
 rank's launches in the data-parallel phases as ddp_launches,
 ddp_train_loop_launches and ddp_test_net_launches), the
-card's name and power limit, and as the last
-line {"ok": true, "device": {...}}. Any failure
+card's name and power limit, the clock (each phase's seconds in the order
+run, the time the phases took and the script's wall time; a partial run
+prints it too),
+and as the last line {"ok": true, "device": {...}}. Any failure
 raises and the exit code is not 0; without a CUDA card the script exits 2
 and prints no result.
 """
@@ -522,14 +524,33 @@ ROI_BWD_EARLIER_MS = {"box": 3.0123, "mask": 2.9818}
 ROI_FWD_EARLIER_MS = {"box": 0.4639, "mask": 0.1383, "box_train": 0.2470, "mask_train": 0.1745}
 
 
+# each phase's (name, seconds, end on the perf_counter clock) in the order run, for the clock line
+PHASE_SECONDS: list = []
+T_START = time.perf_counter()
+
+
 def _phase(name: str, checked: str, seconds: float) -> None:
     print(f"[{name}] {checked} ({seconds:.3f} s)", flush=True)
+    PHASE_SECONDS.append((name, seconds, time.perf_counter()))
     # a phase ends every process it started (multiprocessing's resource tracker
     # lives to the end of the run); one left is named here and ended at the end
     left = [p for p in _descendants() if p[1] != "Z" and "resource_tracker" not in p[2]]
     if left:
         print(f"chip_smoke: after [{name}] {len(left)} processes still run: {left}",
               file=sys.stderr, flush=True)
+
+
+def _clock_line() -> str:
+    """Each phase's seconds in the order run, and the time the phases took
+    (a phase inside another, as [vgg16_rcnn_infer] is inside [vgg16_rcnn],
+    counted once) beside the script's wall time."""
+    phases = ", ".join(f"{name} {s:.1f}" for name, s, _ in PHASE_SECONDS)
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted((end - s, end) for _, s, end in PHASE_SECONDS):
+        total += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return (f"[clock] {total:.1f} s of phases, {time.perf_counter() - T_START:.1f} s of wall "
+            f"since the script began; each phase's seconds: {phases}")
 
 
 def _adopt_orphans() -> bool:
@@ -5810,6 +5831,7 @@ def _main(torch, args) -> int:
                              outs["cls_loss_kernels_500"], LEVEL_HW_500, "cls_loss_levels_500")
         if ROI_TIMERS:
             phase_roi_align_device(torch, ROI_TIMERS, args.iters, args.warmup)
+        print(_clock_line())
         print("partial run: no result")
         return 0
     nms_stats = phase_nms(torch, rng, args.iters, args.warmup, args.seed)
@@ -6291,6 +6313,7 @@ def _main(torch, args) -> int:
         "launches": cls500_launches[1], **bwd500, "library_ms": None,
     }]}))
     print(nvidia_smi_line())
+    print(_clock_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,7 +32,7 @@ from sad_tpu_torch.convert import state_dict_to_params
 from sad_tpu_torch.train import checkpoint as tck
 from sad_tpu_torch.train import train_loop as tloop
 from sad_tpu_torch.train.async_checkpoint import PAYLOAD, AsyncCheckpointer
-from test_torch_models import one_torch_thread  # noqa: F401
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_train_loop import TEACHER, _assert_bit_identical, data, t_cfg, train_dir  # noqa: F401
 
 ORBAX = {"TRAIN": {"CHECKPOINT_BACKEND": "orbax"}}

@@ -22,7 +22,7 @@ from sad_tpu_torch.convert import params_to_state_dict, state_dict_to_params
 from sad_tpu_torch.models import create_model
 from sad_tpu_torch.train import checkpoint as tck
 from sad_tpu_torch.train import TrainState
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 TINY_MASK = {
     "MODEL": {"TYPE": "generalized_rcnn", "FASTER_RCNN": True, "MASK_ON": True,

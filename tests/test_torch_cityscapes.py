@@ -30,7 +30,7 @@ from sad_tpu_torch.data.synth_devkits import write_cityscapes_tree
 from sad_tpu_torch.eval import cityscapes_eval
 from sad_tpu_torch.tools import convert_cityscapes_to_coco
 from sad_tpu_torch.utils.segms import mask_to_rle, polys_to_mask
-from test_torch_models import one_torch_thread  # noqa: F401
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import rcnn_params
 from test_torch_test_net import BBOX_KEYS, MASK, _matched, _read, _register, _run_pair
 

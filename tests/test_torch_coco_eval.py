@@ -36,6 +36,7 @@ from sad_tpu_torch.eval import task_evaluation as t_task
 from sad_tpu_torch.eval.coco_eval import COCOEvaluator, evaluate_boxes
 from sad_tpu_torch.utils import segms as t_segms
 from test_coco_eval_oracle import _random_scenario
+from test_torch_models import sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 BBOX_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl",
              "AR1", "AR10", "AR100", "ARs", "ARm", "ARl")

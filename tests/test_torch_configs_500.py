@@ -36,7 +36,7 @@ from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
 from sad_tpu_torch.data.synthetic import random_train_entries
 from sad_tpu_torch.models import RetinaNet, arch as tarch
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_train_step
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_train_step import G, LR, _batch, _check_tree
 
 REPO = Path(__file__).resolve().parent.parent

@@ -46,7 +46,7 @@ from sad_tpu_torch.models import create_model
 from sad_tpu_torch.parallel.launch import spawn
 from sad_tpu_torch.tools import profile_ddp, test_net, train_net
 from sad_tpu_torch.train import checkpoint as tck
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_train_loop import BASE, TEACHER, _over
 
 W = 2

@@ -39,7 +39,7 @@ from sad_tpu_torch.eval.inference import make_inference_fn
 from sad_tpu_torch.models import RetinaNet
 from sad_tpu_torch.models.arch import ModelArch
 from test_torch_inference import CFG, _assert_same_detections, canvases
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = ("boxes", "scores", "classes", "valid")

@@ -56,7 +56,7 @@ from sad_tpu_torch.tools import profile_ddp, profile_train, train_net
 from sad_tpu_torch.parallel.launch import spawn
 from test_torch_distributed import CONFIGS, G, LR, RCNN_OPTS, STEPS, TIMEOUT_S, W, _check_against_one
 from test_torch_inference import _kept, canvases
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import TINY, rcnn_params
 from test_torch_rcnn_train import TINY as TRAIN_TINY
 from test_torch_rpn_minibatch import OVER as MB_OVER

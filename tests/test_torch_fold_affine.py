@@ -25,7 +25,9 @@ from sad_tpu.models.resnet import ResNetBody as JaxResNetBody
 from sad_tpu_torch.convert import load_params, params_to_state_dict
 from sad_tpu_torch.models import RetinaNet
 from sad_tpu_torch.models.resnet import ResNetBody
-from test_torch_models import _close, _port_arch, one_torch_thread, random_params  # noqa: F401
+from test_torch_models import (  # noqa: F401
+    _close, _port_arch, one_torch_thread, random_params, sad_tpu_native_loaded,
+)
 
 BF16_TOL = 0.05  # of max|unfolded output|, bf16 fold vs unfold (see the docstring)
 

@@ -61,7 +61,7 @@ from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step
 from sad_tpu_torch.train import checkpoint as tck
 from sad_tpu_torch.train import mask_keypoint as tmk
 from test_torch_inference import _kept, canvases
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import TINY, _close, random_tree, rcnn_params
 from test_torch_rcnn_train import HW, LR, _tree_items, jax_uniforms, make_batch
 from test_torch_rcnn_train import TINY as TRAIN_TINY

@@ -22,7 +22,7 @@ from sad_tpu.config.config import merge_cfg_from_dict as jmerge
 from sad_tpu.data import rpn_minibatch as jrm
 from sad_tpu_torch.config.config import merge_cfg_from_dict as tmerge
 from sad_tpu_torch.data import rpn_minibatch as trm
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 CANVAS = (640, 1024)  # the flagship configs' landscape canvas
 LEVELS = (3, 4, 5, 6, 7)

@@ -69,7 +69,7 @@ from sad_tpu_torch.parallel.mesh import Mesh, shard_batch_tree
 from sad_tpu_torch.tools import profile_ddp, profile_spatial, profile_train
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_train_step
 from test_torch_distributed import LOADER_CFG
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_train_step import CFG as STEP_CFG
 from test_torch_train_step import TEACHER as STEP_TEACHER
 

@@ -27,7 +27,7 @@ from sad_tpu_torch.config.config import merge_cfg_from_dict as tmerge
 from sad_tpu_torch.data import dataset as tdataset
 from sad_tpu_torch.data.dataset import CocoDataset as TDataset
 from sad_tpu_torch.utils.vis import vis_one_image
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 CFG = {
     "MODEL": {"TYPE": "distillation", "NUM_CLASSES": 81},

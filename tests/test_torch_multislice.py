@@ -92,7 +92,7 @@ from sad_tpu_torch.tools import profile_ddp, profile_spatial, profile_train, tra
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_train_step
 from test_torch_distributed import LOADER_CFG
 from test_torch_mesh import _batch
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_train_loop import BASE, TEACHER, _over
 from test_torch_train_step import CFG as STEP_CFG
 from test_torch_train_step import TEACHER as STEP_TEACHER

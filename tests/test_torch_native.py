@@ -2,10 +2,13 @@
 (sad_tpu/native), and against their numpy float32 twins (native/plain.py):
 the IoU matrix, the fused assignment pass, greedy NMS and soft-NMS are
 bit-equal on seeded boxes; the build raises where g++ is missing or fails,
-and processes that load at once share one build."""
+and processes that load at once share one build. The guard that every such
+test module of the port takes (``sad_tpu_native_loaded``) recovers a test
+process that lost sad_tpu's in-tree build race, or fails by name."""
 
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -15,7 +18,10 @@ import sad_tpu.data.anchors as janchors
 import sad_tpu.native as jnative
 import sad_tpu_torch.native as tnative
 from sad_tpu_torch.native.plain import assign_overlaps_plain, bbox_overlaps_plain
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import (  # noqa: F401  (autouse)
+    load_sad_tpu_native, one_torch_thread, sad_tpu_native_loaded,
+)
+from test_torch_tta import _dets
 
 REPO = Path(__file__).resolve().parent.parent
 GRID = janchors.all_field_anchors((3, 4, 5, 6, 7), 4.0, (1.0, 2.0, 0.5), 3, 256, 384)
@@ -154,3 +160,38 @@ def test_concurrent_processes_share_one_build(tmp_path):
     assert len({o for o, _ in outs}) == 1
     assert [p.name for p in tmp_path.glob("*.so")] == [outs[0][0].split()[0]]
     assert not list(tmp_path.glob("*.tmp"))
+
+
+def _tta_boxes():
+    """40 boxes against every fourth, as test_torch_tta's box-voting cases
+    draw them: their IoU is the weight IOU_AVG votes by."""
+    dets = _dets(np.random.RandomState(1), 40)
+    return dets[:, :4], dets[::4, :4]
+
+
+def _lose_the_build(monkeypatch):
+    """The state of a test process whose sad_tpu build lost the race."""
+    monkeypatch.setattr(jnative, "_build_failed", True)
+    monkeypatch.setattr(jnative, "_lib", None)
+
+
+def test_sad_tpu_native_guard_recovers_a_lost_build(monkeypatch):
+    boxes, query = _tta_boxes()
+    _lose_the_build(monkeypatch)
+    assert jnative.assign_overlaps(boxes, query) is None
+    # the float64 fallback rounds other IoUs than the float32 pass
+    assert not np.array_equal(jnative.bbox_overlaps(boxes, query),
+                              tnative.bbox_overlaps(boxes, query))
+    load_sad_tpu_native(wait_s=2.0)
+    assert jnative._get_lib() is not None and not jnative._build_failed
+    same(jnative.bbox_overlaps(boxes, query), tnative.bbox_overlaps(boxes, query))
+
+
+def test_sad_tpu_native_guard_fails_when_no_build_lands(monkeypatch):
+    _lose_the_build(monkeypatch)
+    monkeypatch.setattr(jnative, "_build", lambda: None)
+    t0 = time.monotonic()
+    with pytest.raises(pytest.fail.Exception,
+                       match=r"did not load within 1\.5 s\. sad_tpu/native/__init__\.py:28-35"):
+        load_sad_tpu_native(wait_s=1.5)
+    assert time.monotonic() - t0 >= 1.5

@@ -30,7 +30,7 @@ from sad_tpu_torch.convert import load_params, params_to_state_dict, state_dict_
 from sad_tpu_torch.models import RetinaNet, bias_mask, trainable_mask
 from sad_tpu_torch.models.arch import ModelArch
 from sad_tpu_torch.train.optimizer import momentum_sgd_update, rescale_momentum
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FLAGSHIP = sorted(str(p) for p in (REPO / "sad_tpu_torch" / "configs").glob("*.yaml"))

@@ -19,7 +19,7 @@ from sad_tpu_torch.data.anchors import rpn_cell_anchors
 from sad_tpu_torch.models.rcnn import rpn_anchor_field_on
 from sad_tpu_torch.ops import proposals as tp
 from sad_tpu_torch.ops.box_transforms import clip_boxes
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 ARS = (0.5, 1.0, 2.0)
 

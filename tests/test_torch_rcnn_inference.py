@@ -46,7 +46,7 @@ from sad_tpu_torch.eval.rcnn_inference import decode_rcnn_detections, make_rcnn_
 from sad_tpu_torch.models import GeneralizedRCNN
 from test_torch_inference import _kept, canvases
 from test_torch_rcnn import TINY, cfg_pair, rcnn_params
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 KEYS = ("boxes", "scores", "classes", "valid")
 

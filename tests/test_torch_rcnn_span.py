@@ -63,7 +63,7 @@ from sad_tpu_torch.tools import profile_ddp, profile_spatial, train_net
 from sad_tpu_torch.tools.profile_train import SeededRCNNTrainStep
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step
 from test_torch_keypoint_rcnn import KRCNN
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import rcnn_params
 from test_torch_rcnn_train import TINY, _tree_items, jax_uniforms, make_batch
 from test_torch_single_scale import ss_over

@@ -36,7 +36,7 @@ from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step
 from sad_tpu_torch.train import rcnn_train
 from sad_tpu_torch.data.synthetic import random_proposals
 from test_torch_rcnn import rcnn_params
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 HW = (64, 64)
 LR = 1e-2

@@ -38,7 +38,7 @@ from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
 from sad_tpu_torch.eval import rpn_generator as trg
 from sad_tpu_torch.models import GeneralizedRCNN, create_model
 from sad_tpu_torch.tools import test_net
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import TINY, rcnn_params
 
 RPN_VAL = "torch_rpn_val"

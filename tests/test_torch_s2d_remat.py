@@ -55,7 +55,9 @@ from sad_tpu_torch.parallel.mesh import Mesh
 from sad_tpu_torch.tools import profile_ddp, profile_spatial, profile_train
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step, make_train_step
 from test_torch_mesh import _cfgs as mesh_cfgs
-from test_torch_models import _port_arch, one_torch_thread, random_params  # noqa: F401
+from test_torch_models import (  # noqa: F401
+    _port_arch, one_torch_thread, random_params, sad_tpu_native_loaded,
+)
 from test_torch_rcnn import rcnn_params
 from test_torch_rcnn_train import HW as RCNN_HW
 from test_torch_rcnn_train import cfg_pair, make_batch

@@ -39,7 +39,7 @@ from sad_tpu_torch.data import rpn_minibatch as trm
 from sad_tpu_torch.models import SingleScaleRCNN, bias_mask, create_model, trainable_mask
 from sad_tpu_torch.models.vgg import VGG16Body, VGGCNNM1024Body
 from sad_tpu_torch.ops import detectron_ops as tops
-from test_torch_models import one_torch_thread, random_params  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_rcnn import rcnn_params
 
 C4_BODY = "ResNet.add_ResNet50_conv4_body"

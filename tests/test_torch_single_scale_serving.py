@@ -32,7 +32,7 @@ from sad_tpu_torch.data.synthetic import random_proposals
 from sad_tpu_torch.eval import rcnn_inference
 from sad_tpu_torch.models import SingleScaleRCNN
 from test_torch_inference import _kept, canvases
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import rcnn_params
 from test_torch_single_scale import MODELS, V0UP, ss_over
 from test_torch_test_net import MASK_VAL, _matched, _read, _run_pair, splits  # noqa: F401

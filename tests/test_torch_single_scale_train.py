@@ -39,7 +39,7 @@ from sad_tpu_torch.ops.detectron_ops import ohem_keep
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_rcnn_train_step
 from sad_tpu_torch.tools import train_net
 from sad_tpu_torch.train import rcnn_train as trt
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import rcnn_params
 from test_torch_rcnn_train import TINY, jax_uniforms, make_batch, _tree_items
 from test_torch_single_scale import MODELS, V0UP, ss_over

@@ -35,7 +35,7 @@ from sad_tpu_torch.models.arch import ModelArch
 from sad_tpu_torch.ops.losses import softmax_focal_loss
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_train_step
 from test_torch_losses import _close, _grad
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_train_step import CFG, G, LR, _batch, _check_tree
 
 C = 81  # background + 80 classes

@@ -68,7 +68,7 @@ from sad_tpu_torch.parallel.spatial import (
 from sad_tpu_torch.tools import profile_ddp, profile_spatial
 from test_torch_inference import CFG as SERVE_CFG
 from test_torch_inference import _assert_same_detections, canvases
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 
 TIMEOUT_S = 110.0  # the module's worlds together
 CONFIGS = "sad_tpu_torch/configs"

@@ -13,6 +13,7 @@ from PIL import Image
 from sad_tpu.data.synth_coco import generate_synthetic_coco as j_generate
 from sad_tpu_torch.data import synth_coco
 from sad_tpu_torch.data.synth_coco import generate_synthetic_coco as t_generate
+from test_torch_models import sad_tpu_native_loaded  # noqa: F401  (autouse)
 
 CASES = {
     "labeled": {},

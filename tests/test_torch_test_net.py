@@ -47,7 +47,7 @@ from sad_tpu_torch.data.synthetic import random_proposals
 from sad_tpu_torch.eval import test_engine
 from sad_tpu_torch.eval.task_evaluation import ExpectedResultsError
 from sad_tpu_torch.tools import test_net
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_rcnn import TINY, rcnn_params
 
 RETINA_VAL, MASK_VAL = "torch_tn_retina_val", "torch_tn_mask_val"

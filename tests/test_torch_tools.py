@@ -48,7 +48,7 @@ from sad_tpu_torch.train import checkpoint
 from sad_tpu_torch.utils import collections_util, env
 from sad_tpu_torch.utils import io as t_io
 from test_caffe_convert import _blob, _ld, _layer, _write_caffemodel
-from test_torch_models import one_torch_thread  # noqa: F401
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import TINY
 
 SPLIT = "torch_tools_val"

@@ -46,7 +46,7 @@ from sad_tpu_torch.data.synth_coco import generate_synthetic_coco
 from sad_tpu_torch.eval.task_evaluation import ExpectedResultsError
 from sad_tpu_torch.train import checkpoint as tck
 from sad_tpu_torch.train import train_loop as tloop
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 
 LAB, PL = "torch_loop_lab", "torch_loop_pl"
 

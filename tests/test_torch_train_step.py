@@ -37,7 +37,7 @@ from sad_tpu_torch.models import RetinaNet
 from sad_tpu_torch.models.arch import ModelArch
 from sad_tpu_torch.ops import cls_loss_kernel
 from sad_tpu_torch.train import TrainState, batch_to_torch, make_train_step
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 
 G, B, H, W = 2, 4, 128, 128
 LR = 1e-4

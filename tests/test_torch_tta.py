@@ -57,7 +57,7 @@ from sad_tpu_torch.eval import test_engine
 from sad_tpu_torch.models import GeneralizedRCNN
 from sad_tpu_torch.utils import keypoints as tkp
 from test_torch_keypoint_rcnn import KRCNN
-from test_torch_models import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_models import one_torch_thread, sad_tpu_native_loaded  # noqa: F401  (autouse)
 from test_torch_rcnn import TINY, rcnn_params
 
 TTA_VAL = "torch_tta_val"

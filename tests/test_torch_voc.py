@@ -27,7 +27,7 @@ from sad_tpu_torch.data import voc_dataset
 from sad_tpu_torch.data.synth_devkits import write_voc_devkit
 from sad_tpu_torch.eval import voc_eval
 from sad_tpu_torch.tools import test_net
-from test_torch_models import one_torch_thread, random_params  # noqa: F401
+from test_torch_models import one_torch_thread, random_params, sad_tpu_native_loaded  # noqa: F401
 from test_torch_test_net import BBOX_KEYS, RETINA, _matched, _read, _register, _run_pair, _yaml
 
 VOC_NAME = "voc_2007_torchvoc"
